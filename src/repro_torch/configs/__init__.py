@@ -1,0 +1,18 @@
+"""Config registry: arch ids map to ArchConfig instances. This slice
+ports the dense llama entry only; the other architectures come with the
+slices that port their layers."""
+from __future__ import annotations
+
+from repro_torch.configs import llama3_2_1b
+from repro_torch.configs.base import ArchConfig, smoke_config
+
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (llama3_2_1b,)}
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+__all__ = ["ArchConfig", "ARCHS", "get_arch", "smoke_config"]

@@ -1,0 +1,302 @@
+"""Batched FMMU translation engine: port of ``repro/core/fmmu/batch.py``
+(the unsharded single-probe path and its serving wrapper).
+
+``translate_batch`` services a mixed batch of LOOKUP / UPDATE /
+COND_UPDATE lanes with exactly ONE CMT probe (one ``ops.fmmu_translate``
+launch: probe + backing fallback + ref-bit touch) and ONE insert pass
+(one sort on a packed int32 key). All lanes read the pre-batch
+mapping; the writes apply together afterwards. Duplicate write dlpns in
+one batch are a caller contract violation; duplicate cache blocks are
+merged into one fill (the paper's MSHR merge).
+
+Every leaf keeps the reference's dtype (int32 map lanes, bool flags) and
+is compared with it bit for bit. Three torch/jnp gaps are closed here:
+  * jnp scatters with ``mode="drop"`` mark a lane "no write" with an
+    out-of-range index; here the masked lanes write into one spare slot
+    past the end of a copy that is then cut back (``_set_where``), which
+    needs no host sync and no device assert;
+  * jnp gathers clamp out-of-range indices; here they are clamped
+    explicitly;
+  * torch's integer sums and cumsums return int64; results are cast
+    back to int32 where the reference keeps int32.
+Nothing here reads a value back to the host: a map commit is a chain of
+device ops behind one kernel launch.
+
+States are NamedTuples of tensors. Transitions return new states; the
+tensors they replace are not modified in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.counters import COUNTERS
+from repro_torch.core.fmmu.types import (COND_UPDATE, HOST_BASE,
+                                         FMMUGeometry, LOOKUP, NIL, UPDATE)
+from repro_torch.kernels import ops
+
+I = torch.int32
+BIG = torch.iinfo(torch.int32).max
+
+# bumped once per CMT probe / insert pass executed
+PROBE_CALLS = COUNTERS.cell("fmmu.probe_calls")
+INSERT_CALLS = COUNTERS.cell("fmmu.insert_calls")
+
+
+class BatchFMMUState(NamedTuple):
+    tags: torch.Tensor      # [S,W] block id or NIL
+    valid: torch.Tensor     # [S,W] bool
+    ref: torch.Tensor       # [S,W] bool (second-chance approximation)
+    clock: torch.Tensor     # [S]
+    data: torch.Tensor      # [S,W,E]
+    backing: torch.Tensor   # [n_tvpns * entries_per_tp] full map table
+    stats: torch.Tensor     # [4] hits, misses, unique_fills, updates
+
+
+def init_batch_state(g: FMMUGeometry,
+                     device: torch.device) -> BatchFMMUState:
+    s, w = g.cmt_sets, g.cmt_ways
+    return BatchFMMUState(
+        tags=torch.full((s, w), NIL, dtype=I, device=device),
+        valid=torch.zeros((s, w), dtype=torch.bool, device=device),
+        ref=torch.zeros((s, w), dtype=torch.bool, device=device),
+        clock=torch.zeros((s,), dtype=I, device=device),
+        data=torch.full((s, w, g.cmt_entries), NIL, dtype=I, device=device),
+        backing=torch.full((g.n_tvpns * g.entries_per_tp,), NIL, dtype=I,
+                           device=device),
+        stats=torch.zeros((4,), dtype=I, device=device),
+    )
+
+
+def _n_blocks(g: FMMUGeometry) -> int:
+    return g.n_tvpns * g.entries_per_tp // g.cmt_entries
+
+
+def _set_where(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """``buf`` with rows ``idx[mask]`` set to ``vals[mask]`` (the jnp
+    ``.at[where(mask, idx, OOB)].set(vals, mode="drop")``), computed on
+    a copy with one spare row: unmasked lanes write the spare row, which
+    is cut off again. Masked indices must be unique and in range, or
+    out of range to be dropped."""
+    n = buf.shape[0]
+    ext = torch.cat([buf, buf.new_empty((1,) + tuple(buf.shape[1:]))])
+    keep = mask & (idx >= 0) & (idx < n)
+    ext[torch.where(keep, idx, n).long()] = vals.to(buf.dtype)
+    return ext[:n]
+
+
+def _insert_blocks(g: FMMUGeometry, st: BatchFMMUState, miss_bids, prio):
+    """Insert up to W distinct missing blocks per set (vectorized).
+
+    miss_bids [Bq] block ids (BIG = no miss); prio [Bq] insert-order
+    class (LOOKUP=0, UPDATE=1, COND_UPDATE=2). One sort on the packed
+    key (set*4 + prio) * ceil(NB/S) + bid//S orders the misses by set,
+    priority and block id; equal keys are exactly the duplicate block
+    ids, so the sort needs no stability. Set segments give each block
+    its insertion rank; ranks >= W overflow and stay uncached."""
+    INSERT_CALLS[0] += 1
+    dev = miss_bids.device
+    s_cnt, w_cnt, e = g.cmt_sets, g.cmt_ways, g.cmt_entries
+    nb = _n_blocks(g)
+    q_cap = -(-nb // s_cnt)
+    assert 4 * q_cap * (s_cnt + 1) < BIG, "packed insert key overflows"
+    is_miss = miss_bids != BIG
+    safe_bid = torch.where(is_miss, miss_bids, 0)
+    # collapse priority per block id (scatter-min): duplicates of one
+    # block carry one key and sort adjacently. A spare slot at nb takes
+    # the dropped lanes (bid >= nb); reads clamp like a jnp gather.
+    pbuf = torch.full((nb + 1,), 3, dtype=I, device=dev)
+    pidx = torch.where(is_miss & (safe_bid < nb), safe_bid, nb).long()
+    pbuf.scatter_reduce_(0, pidx, torch.where(is_miss, prio, 3).to(I),
+                         reduce="amin", include_self=True)
+    prio_eff = pbuf[safe_bid.clamp(0, nb - 1).long()]
+    key = ((torch.remainder(safe_bid, s_cnt) * 4 + prio_eff) * q_cap
+           + torch.div(safe_bid, s_cnt, rounding_mode="floor"))
+    gkey = torch.sort(torch.where(is_miss, key, BIG)).values
+    real = gkey != BIG
+    gsets = torch.where(real, torch.div(gkey, 4 * q_cap,
+                                        rounding_mode="floor"), s_cnt).to(I)
+    gbids = torch.where(real, torch.remainder(gkey, q_cap) * s_cnt + gsets,
+                        BIG).to(I)
+    first = torch.ones_like(real)
+    first[1:] = gkey[1:] != gkey[:-1]
+    kept = first & (gsets < s_cnt)
+    # rank within the set segment, counting kept (unique) entries only
+    kept_i = kept.to(I)
+    cf = torch.cumsum(kept_i, 0, dtype=I) - kept_i        # exclusive prefix
+    counts = torch.zeros(s_cnt + 1, dtype=I, device=dev).index_add_(
+        0, gsets.long(), torch.ones_like(gsets))
+    offs = torch.cumsum(counts, 0, dtype=I) - counts      # segment starts
+    seg_start = offs[gsets.clamp(0, s_cnt).long()].clamp(
+        0, gsets.shape[0] - 1)
+    rank = cf - cf[seg_start.long()]
+    keep = kept & (rank < w_cnt)
+    way = torch.remainder(st.clock[gsets.clamp(0, s_cnt - 1).long()] + rank,
+                          w_cnt).to(I)
+    # gather fresh block contents from backing
+    base = torch.where(keep, gbids, 0) * e
+    idx = base[:, None] + torch.arange(e, dtype=I, device=dev)[None, :]
+    fresh = st.backing[idx.clamp(0, st.backing.shape[0] - 1).long()]
+    flat = gsets * w_cnt + way
+    sw = s_cnt * w_cnt
+    tags = _set_where(st.tags.reshape(-1), flat,
+                      torch.where(keep, gbids, 0), keep).reshape(s_cnt, w_cnt)
+    ones = torch.ones_like(keep)
+    valid = _set_where(st.valid.reshape(-1), flat, ones, keep).reshape(
+        s_cnt, w_cnt)
+    ref = _set_where(st.ref.reshape(-1), flat, ones, keep).reshape(
+        s_cnt, w_cnt)
+    data = _set_where(st.data.reshape(sw, e), flat, fresh, keep).reshape(
+        s_cnt, w_cnt, e)
+    ins_per_set = torch.zeros(s_cnt + 1, dtype=I, device=dev).index_add_(
+        0, torch.where(keep, gsets, s_cnt).long(), torch.ones_like(gsets))
+    clock = torch.remainder(st.clock + ins_per_set[:s_cnt], w_cnt).to(I)
+    n_fill = keep.sum(dtype=I)
+    stats = st.stats.clone()
+    stats[2] += n_fill
+    return st._replace(tags=tags, valid=valid, ref=ref, data=data,
+                       clock=clock, stats=stats), n_fill
+
+
+def translate_batch(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
+                    dppns, old_dppns, impl=None
+                    ) -> Tuple[BatchFMMUState, torch.Tensor, torch.Tensor]:
+    """Fused mixed-op translate: ONE CMT probe, ONE insert pass.
+
+    opcodes [Bq] in {LOOKUP, UPDATE, COND_UPDATE}; dlpns [Bq] (-1 =
+    inactive lane); dppns [Bq] new mapping for write lanes; old_dppns
+    [Bq] compare value for COND_UPDATE lanes. Returns (state, out, ok):
+    out is the pre-batch mapping (NIL when unmapped/inactive); ok says
+    whether a COND_UPDATE lane's guarded write applied, ``active`` for
+    other lanes."""
+    st, out, ok, _ = _translate_core(g, st, opcodes, dlpns, dppns,
+                                     old_dppns, impl=impl)
+    return st, out, ok
+
+
+def _translate_core(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
+                    dppns, old_dppns, impl=None):
+    """translate_batch body; also returns the commit mask ``write``
+    (lanes whose dppn entered the map)."""
+    PROBE_CALLS[0] += 1
+    e = g.cmt_entries
+    active = dlpns >= 0
+    is_l = opcodes == LOOKUP
+    is_u = opcodes == UPDATE
+    is_c = opcodes == COND_UPDATE
+    # probed lanes (LOOKUP + COND) count hit/miss stats AND touch the
+    # ref bit on a hit
+    probed = active & (is_l | is_c)
+    hit, cur, set_idx, way, refbits = ops.fmmu_translate(
+        st.tags, st.valid, st.ref, st.data, st.backing, dlpns, probed,
+        entries_per_block=e, impl=impl)
+    ok = torch.where(is_c, active & (cur == old_dppns), active)
+    write = (is_u & active) | (is_c & ok)
+    # write-through to the backing table
+    backing = _set_where(st.backing, dlpns, dppns, write)
+    # update cached copies where the block is resident
+    off = torch.remainder(torch.where(active, dlpns, 0), e)
+    flat = (set_idx * g.cmt_ways + way) * e + off
+    data = _set_where(st.data.reshape(-1), flat, dppns,
+                      write & hit).reshape(st.data.shape)
+    stats = st.stats + torch.stack([(probed & hit).sum(dtype=I),
+                                    (probed & ~hit).sum(dtype=I),
+                                    torch.zeros((), dtype=I,
+                                                device=dlpns.device),
+                                    write.sum(dtype=I)])
+    st = st._replace(backing=backing, data=data, ref=refbits, stats=stats)
+    # single insert pass for every miss, MSHR-merged; write-allocate for
+    # UPDATE/COND lanes pulls post-write backing contents
+    miss_bids = torch.where(active & ~hit,
+                            torch.div(dlpns, e, rounding_mode="floor"),
+                            BIG).to(I)
+    prio = torch.where(is_l, 0, torch.where(is_u, 1, 2)).to(I)
+    st, _ = _insert_blocks(g, st, miss_bids, prio)
+    return st, torch.where(active, cur, NIL).to(I), ok, write
+
+
+# ------------------------------------------------------ serving wrapper
+class ServingMapState(NamedTuple):
+    """FMMU state + the device-resident serving block table + allocator
+    lanes, as in the reference. ``table`` holds the current dlpn->dppn
+    mapping (NIL when unmapped), maintained by ``translate_serving`` in
+    the same commit that writes the map. ``free_stack[:free_n]`` mirror
+    the host pool's free list (index i == list index i). ``live`` and
+    ``refcnt`` (GC and prefix sharing) are not ported and stay None."""
+    fmmu: BatchFMMUState
+    table: torch.Tensor
+    free_stack: torch.Tensor   # [n_device] int32 free device block ids
+    free_n: torch.Tensor       # [] int32 live stack depth
+    host_stack: torch.Tensor   # [n_host] int32 free host block ids
+    host_n: torch.Tensor       # [] int32
+    oob: torch.Tensor          # [] bool, sticky OutOfBlocks flag
+    swap_pending: torch.Tensor  # [n_lanes] bool host-tier residency lane
+    commit_seq: torch.Tensor   # [] int32 committed write lanes
+    live: Optional[torch.Tensor] = None
+    refcnt: Optional[torch.Tensor] = None
+
+
+def init_serving_state(g: FMMUGeometry, n_device_blocks: int = 0,
+                       n_lanes: int = 0, *,
+                       device: torch.device) -> ServingMapState:
+    """Stack order mirrors BlockPool: index i holds block n-1-i, so the
+    first pop yields block 0. No host tier in this slice."""
+    return ServingMapState(
+        fmmu=init_batch_state(g, device),
+        table=torch.full((g.n_tvpns * g.entries_per_tp,), NIL, dtype=I,
+                         device=device),
+        free_stack=torch.arange(n_device_blocks - 1, -1, -1, dtype=I,
+                                device=device),
+        free_n=torch.tensor(n_device_blocks, dtype=I, device=device),
+        host_stack=torch.arange(HOST_BASE - 1, HOST_BASE - 1, -1, dtype=I,
+                                device=device),
+        host_n=torch.tensor(0, dtype=I, device=device),
+        oob=torch.tensor(False, device=device),
+        swap_pending=torch.zeros((n_lanes,), dtype=torch.bool,
+                                 device=device),
+        commit_seq=torch.tensor(0, dtype=I, device=device))
+
+
+def translate_serving(g: FMMUGeometry, ms: ServingMapState, opcodes,
+                      dlpns, dppns, old_dppns, impl=None
+                      ) -> Tuple[ServingMapState, torch.Tensor, torch.Tensor]:
+    """``translate_batch`` + incremental block-table maintenance: the
+    lanes whose write committed (the core's ``write`` mask) scatter
+    their new dppn into ``ms.table``, and ``commit_seq`` counts them.
+    No extra probe, no extra sort."""
+    st, out, ok, write = _translate_core(g, ms.fmmu, opcodes, dlpns,
+                                         dppns, old_dppns, impl=impl)
+    table = _set_where(ms.table, dlpns, dppns, write)
+    return ms._replace(fmmu=st, table=table,
+                       commit_seq=ms.commit_seq + write.sum(dtype=I)), out, ok
+
+
+# ------------------------------------------------------------ wrappers
+def lookup_batch(g: FMMUGeometry, st: BatchFMMUState, dlpns, impl=None
+                 ) -> Tuple[BatchFMMUState, torch.Tensor]:
+    """Translate a batch of DLPNs (-1 = inactive). Misses are served
+    from backing in the same step and filled into the cache."""
+    z = torch.zeros_like(dlpns)
+    st, out, _ = translate_batch(g, st, torch.full_like(dlpns, LOOKUP),
+                                 dlpns, z, z, impl=impl)
+    return st, out
+
+
+def update_batch(g: FMMUGeometry, st: BatchFMMUState, dlpns, dppns,
+                 impl=None) -> BatchFMMUState:
+    """Write-through batched Update."""
+    st, _, _ = translate_batch(g, st, torch.full_like(dlpns, UPDATE),
+                               dlpns, dppns, torch.zeros_like(dlpns),
+                               impl=impl)
+    return st
+
+
+def cond_update_batch(g: FMMUGeometry, st: BatchFMMUState, dlpns, dppns,
+                      old_dppns, impl=None):
+    """Batched CondUpdate: apply only where the current mapping still
+    equals old_dppn. Returns (state, applied mask)."""
+    st, _, ok = translate_batch(g, st, torch.full_like(dlpns, COND_UPDATE),
+                                dlpns, dppns, old_dppns, impl=impl)
+    return st, ok

@@ -1,0 +1,63 @@
+"""Dispatch for the compute hot spots, mirroring ``repro/kernels/ops.py``.
+
+``impl`` selects the lowering, as ``Runtime.kernel_impl`` does in the
+reference:
+  None  — the kernel wrapper: the hand-written CUDA kernel for a CUDA
+          tensor, the plain torch version for a CPU tensor. The choice
+          follows the device of the tensors; a CUDA tensor never falls
+          back to the plain version.
+  "ref" — the plain torch version on any device (the card's greedy
+          parity check runs the engine both ways).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fmmu_translate as ft
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref
+
+IMPLS = (None, "ref")
+
+
+def _use_ref(impl: Optional[str]) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"kernel impl {impl!r}: expected one of {IMPLS}")
+    return impl == "ref"
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    segment_ids=None, bidirectional=False, impl=None):
+    if segment_ids is not None:
+        raise NotImplementedError("segment_ids is not ported")
+    if _use_ref(impl):
+        return ref.attention_naive(q, k, v, causal=causal, window=window,
+                                   softcap=softcap,
+                                   bidirectional=bidirectional)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, bidirectional=bidirectional)
+
+
+def paged_attention(q, k_pool, v_pool, block_table, ctx_lens, *,
+                    softcap=0.0, window=0, return_stats=False, impl=None):
+    if _use_ref(impl):
+        return ref.paged_attention_naive(
+            q, k_pool, v_pool, block_table, ctx_lens, softcap=softcap,
+            window=window, return_stats=return_stats)
+    return pa.paged_attention(q, k_pool, v_pool, block_table, ctx_lens,
+                              softcap=softcap, window=window,
+                              return_stats=return_stats)
+
+
+def fmmu_translate(tags, valid, refbits, data, backing, dlpns, touch, *,
+                   entries_per_block, impl=None):
+    """Fused translate probe (probe + backing fallback + ref touch) —
+    the single kernel launch behind core/fmmu/batch.translate_batch.
+    Returns (hit, out_dppn, set_idx, way, refbits')."""
+    if _use_ref(impl):
+        return ref.fmmu_translate_ref(tags, valid, refbits, data, backing,
+                                      dlpns, touch,
+                                      entries_per_block=entries_per_block)
+    return ft.fmmu_translate(tags, valid, refbits, data, backing, dlpns,
+                             touch, entries_per_block=entries_per_block)

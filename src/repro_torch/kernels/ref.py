@@ -1,0 +1,146 @@
+"""Plain torch versions of the kernels on the ported path: the port's
+counterparts of ``attention_naive``, ``paged_attention_naive`` and
+``fmmu_translate_ref`` in ``repro/kernels/ref.py``.
+
+They run on any device. The kernel wrappers use them for CPU tensors,
+``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
+smoke run holds each CUDA kernel against them on the same inputs.
+
+Conventions as in the reference: activations [B, S, H, D]; KV may have
+fewer heads (GQA), grouped as kv head = h // (H // KV); softmax
+statistics in float32.
+
+One documented divergence from the jnp oracles: a query row with no
+valid key (a decode lane with ``ctx_lens == 0``) returns 0 with stats
+m = -1e30, l = 0 — what the Pallas kernels return, since they skip every
+masked page — where the jnp oracles return the mean of the masked
+values. The serving engine never passes such a row.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return cap * torch.tanh(x / cap)
+    return x
+
+
+def _masked_softmax_weights(logits: torch.Tensor, mask: torch.Tensor):
+    """exp(logits - max) with masked entries exactly 0 -> (p, m, l)."""
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)
+    p = torch.where(mask, torch.exp(logits - m[..., None]),
+                    torch.zeros_like(logits))
+    return p, m, p.sum(dim=-1)
+
+
+# ======================================================================
+def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    bidirectional=False):
+    """q [B,Sq,H,D]; k,v [B,Skv,KV,D] -> [B,Sq,H,D]. fp32 math;
+    causal masking is right-aligned (query i sits at i + Skv - Sq)."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // kv, dim=2)
+    vf = v.float().repeat_interleave(h // kv, dim=2)
+    qf = q.float() * (1.0 / math.sqrt(d))
+    logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kf), softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal and not bidirectional:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    p, _, l = _masked_softmax_weights(logits, mask[None, None])
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    out = out / l.clamp_min(1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+# ======================================================================
+def paged_attention_naive(q, k_pool, v_pool, block_table, ctx_lens, *,
+                          softcap=0.0, window=0, return_stats=False):
+    """One-token decode attention over a paged KV pool.
+
+    q           [B, H, D]
+    k/v_pool    [NB, P, KV, D]   physical blocks (pages of P tokens)
+    block_table [B, MAXP] int32  logical page i of seq b -> physical block
+    ctx_lens    [B] int32        tokens of context
+    returns     [B, H, D]  (+ (m, l) fp32 [B, H] if return_stats)
+
+    Table entries are clamped into [0, NB) like a jnp gather; the engine
+    masks NIL and host-tier ids to its scratch block before the call.
+    """
+    b, h, d = q.shape
+    nb, p, kv, _ = k_pool.shape
+    maxp = block_table.shape[1]
+    table = block_table.long().clamp(0, nb - 1)
+    kseq = k_pool[table].float().reshape(b, maxp * p, kv, d)
+    vseq = v_pool[table].float().reshape(b, maxp * p, kv, d)
+    kseq = kseq.repeat_interleave(h // kv, dim=2)
+    vseq = vseq.repeat_interleave(h // kv, dim=2)
+    qf = q.float() * (1.0 / math.sqrt(d))
+    logits = _softcap(torch.einsum("bhd,bkhd->bhk", qf, kseq), softcap)
+    pos = torch.arange(maxp * p, device=q.device)[None, :]
+    ctx = ctx_lens.long()[:, None]
+    mask = pos < ctx
+    if window and window > 0:
+        mask &= pos >= ctx - window
+    pexp, m, l = _masked_softmax_weights(logits, mask[:, None, :])
+    out = torch.einsum("bhk,bkhd->bhd", pexp, vseq) / \
+        l.clamp_min(1e-30)[..., None]
+    if return_stats:
+        return out.to(q.dtype), (m, l)
+    return out.to(q.dtype)
+
+
+# ======================================================================
+def fmmu_translate_ref(tags, valid, refbits, data, backing, dlpns, touch, *,
+                       entries_per_block):
+    """Fused translate probe: CMT probe + backing-table fallback +
+    ref-bit touch (the single-probe pipeline of core/fmmu/batch).
+
+    tags    [S, W] int32   block id (dlpn // entries_per_block) per way
+    valid   [S, W] bool
+    refbits [S, W] bool    second-chance reference bits
+    data    [S, W, E] int32 DPPN entries
+    backing [NP] int32     full flat map table
+    dlpns   [Bq] int32     query DLPNs (-1 = inactive slot)
+    touch   [Bq] bool      lanes whose hit should set the ref bit
+    returns (hit [Bq] bool, out [Bq] int32, set_idx, way [Bq] int32,
+             refbits' [S, W] bool)
+
+    ``//`` and ``mod`` follow Python's floor rules, as jnp's do: an
+    inactive lane with dlpn -1 reports set S-1. ``way`` is the FIRST
+    matching way (argmax), 0 when nothing matches.
+    """
+    n_sets, n_ways = tags.shape
+    e = entries_per_block
+    dl = dlpns.long()
+    block_id = torch.div(dl, e, rounding_mode="floor")
+    offset = torch.remainder(dl, e)
+    set_idx = torch.remainder(block_id, n_sets)
+    active = dl >= 0
+    match = (tags[set_idx].long() == block_id[:, None]) & valid[set_idx]
+    hit = match.any(dim=1) & active
+    way = match.to(torch.int32).argmax(dim=1)
+    cached = data[set_idx, way, offset]
+    backing_val = backing[dl.clamp(0, backing.shape[0] - 1)]
+    nil = torch.full_like(backing_val, -1)
+    out = torch.where(hit, cached, torch.where(active, backing_val, nil))
+    # OR of the touching hit lanes into their (set, way) bit: a count
+    # per bit, so duplicate lanes need no write ordering
+    touched = torch.zeros(n_sets * n_ways, dtype=torch.int32,
+                          device=tags.device)
+    touched.index_add_(0, set_idx * n_ways + way,
+                       (hit & touch.bool()).to(torch.int32))
+    new_ref = refbits | (touched > 0).reshape(refbits.shape)
+    return (hit, out.to(torch.int32), set_idx.to(torch.int32),
+            way.to(torch.int32), new_ref)

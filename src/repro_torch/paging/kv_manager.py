@@ -1,0 +1,180 @@
+"""KV page manager: the FMMU as the serving page-table engine. Port of
+the single-channel path of ``repro/paging/kv_manager.py``.
+
+Logical address: DLPN = slot * max_pages + logical_page. Physical: a
+block id in the KV pool. The mapping lives in the batched FMMU
+(core/fmmu/batch); every map operation funnels through ONE fused entry
+point (``_xlate`` -> ``translate_serving``): one CMT probe, one insert
+pass and the incremental block-table scatter per call.
+
+The block table is a member of the device-resident map state, kept
+coherent by the same call that commits each map write, so
+``block_tables()`` is a view — no translation, no state change — and
+decode performs zero full-map retranslations. ``retranslate_tables()``
+keeps the from-scratch path as the test oracle.
+
+Not ported yet (later slices): the host tier and swaps, channel
+sharding, GC, prefix sharing, the journal and the fault plane.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.counters import COUNTERS
+from repro_torch.core.fmmu import batch as fb
+from repro_torch.core.fmmu.types import FMMUGeometry, NIL, UPDATE
+from repro_torch.device import resolve_device
+from repro_torch.paging.pool import BlockPool
+
+# one bump per fused map call / full-map retranslation
+XLATE_CALLS = COUNTERS.cell("kvm.xlate_calls")
+FULL_TABLE_CALLS = COUNTERS.cell("kvm.full_table_calls")
+
+
+@dataclasses.dataclass
+class MapStats:
+    """Typed ``KVPageManager.hit_stats()`` result: the reference's map
+    and write counters that this slice maintains."""
+    hits: int = 0
+    misses: int = 0
+    fills: int = 0
+    updates: int = 0
+    host_writes: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def __getitem__(self, key: str):
+        if not any(f.name == key for f in dataclasses.fields(self)):
+            raise KeyError(key)
+        return getattr(self, key)
+
+
+def _geometry(n_slots: int, max_pages: int) -> FMMUGeometry:
+    """Map geometry sized for the serving grid (the reference's
+    ``_geometry`` at one channel)."""
+    n_dlpns = n_slots * max_pages
+    ept = max(64, min(4096, max_pages))
+    return FMMUGeometry(
+        cmt_sets=max(8, min(512, n_dlpns // 64)),
+        cmt_ways=4,
+        cmt_entries=8,
+        ctp_sets=8, ctp_ways=4,
+        entries_per_tp=ept,
+        n_tvpns=-(-n_dlpns // ept),
+        queue_cap=64,
+    )
+
+
+class KVPageManager:
+    """Host-driven control plane; device-resident map state."""
+
+    def __init__(self, n_slots: int, max_pages: int, n_device_blocks: int,
+                 *, device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.n_slots = n_slots
+        self.max_pages = max_pages
+        self.geom = _geometry(n_slots, max_pages)
+        self.state = fb.init_serving_state(self.geom, n_device_blocks,
+                                           n_lanes=n_slots,
+                                           device=self.device)
+        self.pool = BlockPool(n_device_blocks)
+        self.seq_pages: Dict[int, List[int]] = {}   # slot -> block ids
+        self.host_writes = 0
+
+    # ----------------------------------------------------------- helpers
+    def _dlpns(self, slot: int, n: int) -> np.ndarray:
+        return np.arange(slot * self.max_pages, slot * self.max_pages + n,
+                         dtype=np.int32)
+
+    def _xlate(self, kind: int, dlpns, dppns):
+        """Single fused map entry: one translate call services the whole
+        op batch. Lanes go host->device; nothing comes back."""
+        XLATE_CALLS[0] += 1
+        dev = self.device
+        dl = torch.as_tensor(np.asarray(dlpns, np.int32), device=dev)
+        dp = torch.as_tensor(np.asarray(dppns, np.int32), device=dev)
+        self.state, out, ok = fb.translate_serving(
+            self.geom, self.state, torch.full_like(dl, kind), dl, dp,
+            torch.zeros_like(dl))
+        return out, ok
+
+    # ----------------------------------------------------------- API
+    def new_seq(self, slot: int, n_pages: int) -> List[int]:
+        """Admit a sequence into `slot` with `n_pages` logical pages."""
+        assert slot not in self.seq_pages, f"slot {slot} busy"
+        dl = self._dlpns(slot, n_pages)
+        blocks = self.pool.alloc(n_pages)
+        self.host_writes += len(blocks)
+        self._xlate(UPDATE, dl, blocks)
+        self.seq_pages[slot] = list(blocks)
+        return list(blocks)
+
+    def extend_seq(self, slot: int, n_new: int) -> List[int]:
+        return self.extend_seqs({slot: n_new}).get(slot, [])
+
+    def extend_seqs(self, wants: Dict[int, int]) -> Dict[int, List[int]]:
+        """Grow several sequences at once: ONE pool allocation and ONE
+        fused map call for the whole step (the decode hot path). Raises
+        OutOfBlocks before any state changes if the pool can't cover
+        the full batch."""
+        wants = {s: n for s, n in wants.items() if n > 0}
+        if not wants:
+            return {}
+        dl: List[int] = []
+        for slot, n in wants.items():           # validate BEFORE alloc
+            have = len(self.seq_pages[slot])
+            dl.extend(slot * self.max_pages + p
+                      for p in range(have, have + n))
+        blocks = self.pool.alloc(len(dl))
+        self.host_writes += len(blocks)
+        got: Dict[int, List[int]] = {}
+        i = 0
+        for slot, n in wants.items():
+            got[slot] = blocks[i:i + n]
+            i += n
+            self.seq_pages[slot].extend(got[slot])
+        self._xlate(UPDATE, dl, blocks)
+        return got
+
+    def free_seq(self, slot: int):
+        blocks = self.seq_pages.pop(slot)
+        dl = self._dlpns(slot, len(blocks))
+        self._xlate(UPDATE, dl, np.full(len(blocks), NIL, np.int32))
+        self.pool.free(blocks)
+
+    def is_resident(self, slot: int) -> bool:
+        """True when no page of `slot` lives in the host tier — always,
+        as this slice has no host tier."""
+        return True
+
+    def block_tables(self) -> torch.Tensor:
+        """[n_slots, max_pages] int32 device view of the incremental
+        table: no translation, no state change. NIL for unmapped. The
+        view is replaced (not updated) by the next map op; re-fetch."""
+        n = self.n_slots * self.max_pages    # table is geometry-padded
+        return self.state.table[:n].reshape(self.n_slots, self.max_pages)
+
+    def retranslate_tables(self) -> torch.Tensor:
+        """From-scratch full-map retranslation: every DLPN through
+        ``lookup_batch``. The churn-equivalence test oracle only."""
+        FULL_TABLE_CALLS[0] += 1
+        dl = torch.arange(self.n_slots * self.max_pages, dtype=torch.int32,
+                          device=self.device)
+        fmmu, out = fb.lookup_batch(self.geom, self.state.fmmu, dl)
+        self.state = self.state._replace(fmmu=fmmu)
+        return out.reshape(self.n_slots, self.max_pages)
+
+    def hit_stats(self) -> MapStats:
+        """Map counters (a device->host read: diagnostics, not the hot
+        path)."""
+        s = self.state.fmmu.stats.cpu().tolist()
+        return MapStats(hits=s[0], misses=s[1], fills=s[2], updates=s[3],
+                        host_writes=self.host_writes)
+
+
+__all__ = ["KVPageManager", "MapStats", "XLATE_CALLS", "FULL_TABLE_CALLS"]

@@ -1,0 +1,49 @@
+"""Typed serving-engine configuration: port of ``ServeConfig`` in
+``repro/serving/config.py``.
+
+The field names are the reference's. Every setting whose machinery is
+not ported yet raises ``NotImplementedError`` at construction — it is
+never ignored: the K-step macro path (``macro_k >= 2``), channel
+sharding (``channels > 1``), the host tier (``n_host_blocks > 0``), GC
+(``gc``), prefix sharing (``prefix``) and journaling
+(``journal_path``). The fault plane is a ``ServeEngine`` argument and
+is rejected there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    n_slots: int
+    max_ctx: int
+    n_device_blocks: Optional[int] = None
+    n_host_blocks: int = 0
+    eos_id: int = -1
+    macro_k: int = 0
+    admit_tokens: Optional[int] = None
+    channels: int = 1
+    gc: Optional[Any] = None
+    prefix: Optional[Any] = None
+    journal_path: Optional[str] = None
+
+    def __post_init__(self):
+        unported = {
+            "macro_k >= 2 (K-step macro decode)": self.macro_k >= 2,
+            "channels > 1 (channel-sharded map)": self.channels > 1,
+            "n_host_blocks > 0 (host tier / swap)": self.n_host_blocks > 0,
+            "gc (GC/CTP plane)": self.gc is not None,
+            "prefix (prefix sharing)": self.prefix is not None,
+            "journal_path (crash-consistency journal)":
+                self.journal_path is not None,
+        }
+        bad = [name for name, on in unported.items() if on]
+        if bad:
+            raise NotImplementedError(
+                "not ported to repro_torch yet: " + ", ".join(bad))
+        if self.admit_tokens is not None and self.admit_tokens <= 0:
+            raise ValueError(
+                f"admit_tokens={self.admit_tokens}: a non-positive budget "
+                "would never admit anything (pass None for unlimited)")

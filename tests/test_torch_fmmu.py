@@ -1,0 +1,218 @@
+"""The port's batched FMMU map path against the JAX reference: every
+``ServingMapState``/``BatchFMMUState`` leaf bit-identical to JAX
+``translate_serving`` after each random mixed-op batch (duplicate
+blocks, set overflow, host-tier ids, inactive and out-of-contract
+lanes), and the port's ``KVPageManager`` bit-identical to the JAX
+manager under random new/extend/free interleavings. Inputs come from a
+seeded numpy generator and go into both packages."""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.fmmu import batch as JB  # noqa: E402
+from repro.core.fmmu.types import small_geometry as j_small  # noqa: E402
+from repro.paging.kv_manager import KVPageManager as JKVM  # noqa: E402
+from repro.paging.pool import OutOfBlocks as JOOB  # noqa: E402
+from repro_torch.core.fmmu import batch as TB  # noqa: E402
+from repro_torch.core.fmmu.types import (COND_UPDATE, HOST_BASE, LOOKUP,  # noqa: E402
+                                         NIL, UPDATE, small_geometry)
+from repro_torch.paging import kv_manager as TKM  # noqa: E402
+from repro_torch.paging.kv_manager import KVPageManager as TKVM  # noqa: E402
+from repro_torch.paging.pool import OutOfBlocks as TOOB  # noqa: E402
+
+CPU = torch.device("cpu")
+BQ = 48      # lanes per batch, padded with inactive lanes
+
+
+def _assert_state_equal(t_state, j_state, tag):
+    """Every leaf: same values AND same dtype (int32 lanes, bool flags)."""
+    for name in t_state._fields:
+        tv, jv = getattr(t_state, name), getattr(j_state, name)
+        if name == "fmmu":
+            _assert_state_equal(tv, jv, f"{tag}.fmmu")
+            continue
+        if tv is None or jv is None:
+            assert tv is None and jv is None, f"{tag}.{name}"
+            continue
+        jn = np.asarray(jv)
+        tn = tv.numpy()
+        assert tn.dtype == jn.dtype, f"{tag}.{name}: {tn.dtype} vs {jn.dtype}"
+        np.testing.assert_array_equal(tn, jn, err_msg=f"{tag}.{name}")
+
+
+def _gen_batch(rng, g, shadow, overflow):
+    """One mixed-op batch. Write dlpns are unique (the caller contract);
+    lookups may repeat; several lanes share cache blocks (MSHR merge);
+    with ``overflow`` more than W new blocks land in one set and a few
+    lookups address past the map (the clipped read)."""
+    n_pages = g.n_tvpns * g.entries_per_tp
+    e = g.cmt_entries
+    n_blocks = n_pages // e
+    blocks = rng.choice(n_blocks, size=int(rng.integers(1, 9 if overflow
+                                                        else 4)),
+                        replace=False)
+    dl = []
+    for b in blocks:
+        dl += [int(b) * e + int(x) for x in
+               rng.choice(e, size=int(rng.integers(1, 4)), replace=False)]
+    lanes = []
+    for d in dl:
+        op = int(rng.choice([LOOKUP, UPDATE, UPDATE, COND_UPDATE]))
+        if rng.random() < 0.1:
+            dp = NIL                          # unmap (a free)
+        elif rng.random() < 0.3:
+            dp = HOST_BASE + int(rng.integers(0, 1 << 20))   # host tier
+        else:
+            dp = int(rng.integers(0, 4096))
+        cur = shadow.get(d, NIL)
+        old = cur if rng.random() < 0.6 else int(rng.integers(-1, 4096))
+        lanes.append((op, d, dp, old))
+    for d in rng.choice(dl, size=int(rng.integers(0, 4))):   # dup reads
+        lanes.append((LOOKUP, int(d), 0, 0))
+    for _ in range(int(rng.integers(0, 3))):                 # inactive
+        lanes.append((int(rng.integers(0, 3)), -1, 5, 5))
+    if overflow and rng.random() < 0.5:
+        lanes.append((LOOKUP, n_pages + int(rng.integers(0, 9)), 0, 0))
+    order = rng.permutation(len(lanes))
+    # pad to one lane count (inactive lanes change nothing) so the JAX
+    # side compiles once
+    arr = np.asarray([lanes[i] for i in order]
+                     + [(LOOKUP, -1, 0, 0)] * (BQ - len(lanes)), np.int32)
+    return arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
+
+
+@pytest.mark.parametrize("seed,geom_kw,overflow", [
+    (0, {}, False), (1, {}, True), (2, dict(cmt_sets=8, cmt_ways=4), True),
+    (3, dict(cmt_sets=2, cmt_ways=1), True)])
+def test_translate_serving_bit_identical_to_jax(seed, geom_kw, overflow):
+    g = small_geometry(**geom_kw)
+    jg = j_small(**geom_kw)
+    rng = np.random.default_rng(seed)
+    n_dev, n_lanes = 12, 3
+    ts = TB.init_serving_state(g, n_dev, n_lanes, device=CPU)
+    js = JB.init_serving_state(jg, n_dev, 0, n_lanes)
+    _assert_state_equal(ts, js, "init")
+    shadow = {}
+    n_pages = g.n_tvpns * g.entries_per_tp
+    jfn = jax.jit(functools.partial(JB.translate_serving, jg))
+    for it in range(40):
+        opc, dl, dp, old = _gen_batch(rng, g, shadow, overflow)
+        js, jout, jok = jfn(
+            js, jnp.asarray(opc), jnp.asarray(dl), jnp.asarray(dp),
+            jnp.asarray(old))
+        ts, tout, tok = TB.translate_serving(
+            g, ts, *(torch.from_numpy(a.copy()) for a in (opc, dl, dp, old)))
+        _assert_state_equal(ts, js, f"batch {it}")
+        np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        assert tout.dtype == torch.int32 and tok.dtype == torch.bool
+        # the shadow map (pre-batch reads, writes applied together)
+        for o, d, p, od in zip(opc, dl, dp, old):
+            if 0 <= d < n_pages:
+                cur = shadow.get(int(d), NIL)
+                if o == UPDATE or (o == COND_UPDATE and cur == od):
+                    shadow[int(d)] = int(p)
+    # table == shadow, host-tier ids exact
+    table = ts.table.numpy()
+    for d, p in shadow.items():
+        assert table[d] == p
+    assert (table >= HOST_BASE).any()
+    assert int(ts.fmmu.stats[2]) > 0                  # fills happened
+
+
+def test_batch_wrappers_bit_identical_to_jax():
+    g, jg = small_geometry(), j_small()
+    ts, js = TB.init_batch_state(g, CPU), JB.init_batch_state(jg)
+    rng = np.random.default_rng(9)
+    for _ in range(10):
+        dl = rng.choice(g.n_tvpns * g.entries_per_tp, 6,
+                        replace=False).astype(np.int32)
+        dp = rng.integers(0, 1 << 25, 6).astype(np.int32)
+        t = [torch.from_numpy(a.copy()) for a in (dl, dp)]
+        ts = TB.update_batch(g, ts, *t)
+        js = JB.update_batch(jg, js, jnp.asarray(dl), jnp.asarray(dp))
+        ts, tout = TB.lookup_batch(g, ts, t[0])
+        js, jout = JB.lookup_batch(jg, js, jnp.asarray(dl))
+        np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+        old = np.where(rng.random(6) < 0.5, dp, dp + 1).astype(np.int32)
+        ts, tok = TB.cond_update_batch(g, ts, t[0], t[1] + 7,
+                                       torch.from_numpy(old))
+        js, jok = JB.cond_update_batch(jg, js, jnp.asarray(dl),
+                                       jnp.asarray(dp + 7), jnp.asarray(old))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        _assert_state_equal(ts, js, "wrappers")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kv_manager_bit_identical_to_jax(seed):
+    """Random new/extend/free interleavings: map state, block tables,
+    page lists and the pool's free list match the JAX manager, and the
+    incremental table equals the from-scratch retranslation."""
+    rng = np.random.default_rng(seed)
+    n_slots, max_pages, n_dev = 4, 8, 20
+    jk = JKVM(n_slots, max_pages, n_dev)
+    tk = TKVM(n_slots, max_pages, n_dev, device="cpu")
+    assert tk.geom.cmt_sets == jk.geom.cmt_sets
+    live = set()
+    for step in range(60):
+        ops_ = (["new"] if len(live) < n_slots else []) + \
+            (["extend", "extend_multi", "free"] if live else [])
+        op = ops_[int(rng.integers(len(ops_)))]
+        outcome = []
+        for k, OOB in ((jk, JOOB), (tk, TOOB)):
+            r = np.random.default_rng(seed * 1000 + step)
+            try:
+                if op == "new":
+                    slot = sorted(set(range(n_slots)) - live)[
+                        int(r.integers(n_slots - len(live)))]
+                    k.new_seq(slot, int(r.integers(1, 4)))
+                elif op == "extend":
+                    slot = sorted(live)[int(r.integers(len(live)))]
+                    k.extend_seq(slot, int(r.integers(0, 3)))
+                elif op == "extend_multi":
+                    k.extend_seqs({s: int(r.integers(0, 3))
+                                   for s in sorted(live)})
+                else:
+                    slot = sorted(live)[int(r.integers(len(live)))]
+                    k.free_seq(slot)
+                outcome.append("ok")
+            except OOB:
+                outcome.append("oob")
+        assert outcome[0] == outcome[1], (step, op, outcome)
+        live = set(tk.seq_pages)
+        assert live == set(jk.seq_pages)
+        assert tk.seq_pages == {s: list(map(int, p))
+                                for s, p in jk.seq_pages.items()}
+        assert tk.pool._free_dev == jk.pool._free_dev
+        _assert_state_equal(tk.state, jk.state, f"step {step} {op}")
+        np.testing.assert_array_equal(tk.block_tables().numpy(),
+                                      np.asarray(jk.block_tables()))
+    x0, f0 = TKM.XLATE_CALLS[0], TKM.FULL_TABLE_CALLS[0]
+    inc = tk.block_tables().numpy().copy()
+    assert TKM.XLATE_CALLS[0] == x0           # a view: no map call
+    np.testing.assert_array_equal(inc, tk.retranslate_tables().numpy())
+    assert TKM.FULL_TABLE_CALLS[0] - f0 == 1
+    np.testing.assert_array_equal(inc, np.asarray(jk.retranslate_tables()))
+    _assert_state_equal(tk.state, jk.state, "after retranslation")
+    js_, ts_ = jk.hit_stats(), tk.hit_stats()
+    for key in ("hits", "misses", "fills", "updates", "host_writes"):
+        assert ts_[key] == js_[key], key
+
+
+def test_extend_seqs_one_map_call_and_atomic_on_exhaustion():
+    kvm = TKVM(n_slots=4, max_pages=8, n_device_blocks=32, device="cpu")
+    for s in range(3):
+        kvm.new_seq(s, 2)
+    x0 = TKM.XLATE_CALLS[0]
+    got = kvm.extend_seqs({0: 1, 1: 2, 2: 1})
+    assert TKM.XLATE_CALLS[0] - x0 == 1
+    assert sorted(got) == [0, 1, 2] and len(got[1]) == 2
+    with pytest.raises(TOOB):
+        kvm.extend_seqs({0: 20, 1: 20})
+    assert len(kvm.seq_pages[0]) == 3 and len(kvm.seq_pages[1]) == 4
+    assert kvm.extend_seqs({0: 0, 1: 0}) == {}

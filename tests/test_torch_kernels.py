@@ -1,0 +1,248 @@
+"""The port's plain kernel versions against the JAX Pallas kernels run
+in interpret mode on the CPU, on the small shapes of
+tests/test_kernels_pallas.py. The same numpy inputs (from a seed) go
+into both packages. Attention is held within TOL (f32 2e-5, bf16 2e-2);
+the fused translate probe is held bit-exact on every output."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro.kernels import fmmu_translate as jft  # noqa: E402
+from repro.kernels import paged_attention as jpa  # noqa: E402
+from repro_torch.core.counters import COUNTERS  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.fmmu_translate import fmmu_translate  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _both(a, dtype="float32"):
+    """One numpy array -> (jax array, torch tensor) of the same values
+    (bf16 rounding from f32 is round-to-nearest-even on both sides)."""
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+        return jnp.asarray(a).astype(JDT[dtype]), \
+            torch.from_numpy(a).to(TDT[dtype])
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy() if x.is_floating_point() else x.numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32) if
+                      jnp.issubdtype(x.dtype, jnp.floating) else x)
+
+
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("sq,skv,h,kv,d", [
+    (128, 128, 4, 4, 32),
+    (128, 128, 4, 2, 64),     # GQA
+    (64, 192, 2, 1, 32),      # cross-length (right-aligned causal)
+    (256, 256, 2, 2, 128),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ref_vs_pallas(sq, skv, h, kv, d, dtype):
+    rng = np.random.default_rng(0)
+    q, tq = _both(rng.standard_normal((2, sq, h, d)), dtype)
+    k, tk = _both(rng.standard_normal((2, skv, kv, d)), dtype)
+    v, tv = _both(rng.standard_normal((2, skv, kv, d)), dtype)
+    want = jfa.flash_attention(q, k, v, causal=True, q_block=64,
+                               kv_block=64, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == TDT[dtype] and got.shape == (2, sq, h, d)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(window=64), dict(softcap=30.0), dict(window=96, softcap=20.0),
+    dict(causal=False, bidirectional=True),
+])
+def test_flash_attention_ref_variants_vs_pallas(kwargs):
+    rng = np.random.default_rng(1)
+    q, tq = _both(rng.standard_normal((1, 256, 4, 64)))
+    k, tk = _both(rng.standard_normal((1, 256, 2, 64)))
+    v, tv = _both(rng.standard_normal((1, 256, 2, 64)))
+    kwargs.setdefault("causal", True)
+    want = jfa.flash_attention(q, k, v, q_block=64, kv_block=64,
+                               interpret=True, **kwargs)
+    got = flash_attention(tq, tk, tv, **kwargs)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+def test_flash_attention_ref_unaligned_seq_vs_pallas():
+    rng = np.random.default_rng(2)
+    q, tq = _both(rng.standard_normal((1, 100, 2, 32)))
+    k, tk = _both(rng.standard_normal((1, 100, 2, 32)))
+    v, tv = _both(rng.standard_normal((1, 100, 2, 32)))
+    want = jfa.flash_attention(q, k, v, q_block=64, kv_block=64,
+                               interpret=True)
+    got = flash_attention(tq, tk, tv)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+def test_flash_attention_segment_ids_raise():
+    t = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(NotImplementedError):
+        flash_attention(t, t, t, segment_ids=(t, t))
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(t, t, t, segment_ids=(t, t))
+
+
+# ----------------------------------------------------------------------
+def _paged_inputs(rng, b, h, kv, d, page, maxp, dtype, ctx=None):
+    nb = b * maxp + 4
+    q = _both(rng.standard_normal((b, h, d)), dtype)
+    kp = _both(rng.standard_normal((nb, page, kv, d)), dtype)
+    vp = _both(rng.standard_normal((nb, page, kv, d)), dtype)
+    table = _both(rng.permutation(nb)[:b * maxp].reshape(b, maxp)
+                  .astype(np.int32))
+    if ctx is None:
+        ctx = [(maxp * page * (i + 1)) // (b + 1) + 1 for i in range(b)]
+    ctx = _both(np.asarray(ctx, np.int32))
+    return q, kp, vp, table, ctx
+
+
+@pytest.mark.parametrize("b,h,kv,d,page,maxp", [
+    (2, 4, 4, 32, 16, 8),
+    (3, 8, 2, 64, 8, 6),      # GQA
+    (1, 4, 1, 128, 32, 4),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_ref_vs_pallas(b, h, kv, d, page, maxp, dtype):
+    rng = np.random.default_rng(3)
+    args = _paged_inputs(rng, b, h, kv, d, page, maxp, dtype)
+    want, (wm, wl) = jpa.paged_attention(*[a[0] for a in args],
+                                         return_stats=True, interpret=True)
+    got, (m, l) = paged_attention(*[a[1] for a in args], return_stats=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    np.testing.assert_allclose(_np(m), _np(wm), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(l), _np(wl), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kwargs", [dict(softcap=25.0), dict(window=13),
+                                    dict(window=5, softcap=10.0)])
+def test_paged_attention_ref_variants_vs_pallas(kwargs):
+    rng = np.random.default_rng(4)
+    args = _paged_inputs(rng, 2, 4, 2, 32, 8, 4, "float32", ctx=[17, 30])
+    want = jpa.paged_attention(*[a[0] for a in args], interpret=True,
+                               **kwargs)
+    got = paged_attention(*[a[1] for a in args], **kwargs)
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
+
+
+def test_paged_attention_ctx0_lane_returns_zero_like_pallas():
+    """A ctx=0 lane skips every page in the Pallas kernel and returns 0
+    (m=-1e30, l=0); the port's plain version returns the same (the jnp
+    oracles return the mean of the masked values instead)."""
+    rng = np.random.default_rng(5)
+    args = _paged_inputs(rng, 3, 4, 2, 16, 8, 4, "float32", ctx=[0, 9, 0])
+    want, (wm, wl) = jpa.paged_attention(*[a[0] for a in args],
+                                         return_stats=True, interpret=True)
+    got, (m, l) = paged_attention(*[a[1] for a in args], return_stats=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    assert (_np(got)[[0, 2]] == 0).all()
+    np.testing.assert_array_equal(_np(m)[[0, 2]], _np(wm)[[0, 2]])
+    np.testing.assert_array_equal(_np(l)[[0, 2]], 0.0)
+
+
+# ----------------------------------------------------------------------
+def _translate_inputs(seed, n_sets, n_ways, e, bq, np_sz, dup_tags=False):
+    rng = np.random.default_rng(seed)
+    tags = rng.integers(0, 64, (n_sets, n_ways)) * n_sets \
+        + np.arange(n_sets)[:, None]
+    if dup_tags:                      # degenerate: a block in two ways
+        tags[:, -1] = tags[:, 0]
+    valid = rng.random((n_sets, n_ways)) < 0.7
+    if dup_tags:
+        valid[:, 0] = valid[:, -1] = True
+    refb = rng.random((n_sets, n_ways)) < 0.3
+    # values cross 1<<24: host-tier ids must come out exact
+    data = rng.integers(-1, 1 << 26, (n_sets, n_ways, e))
+    backing = rng.integers(-1, 1 << 26, (np_sz,))
+    # dlpns below 0 (inactive) and beyond NP (clipped read)
+    dlpns = rng.integers(-2, np_sz + 3, (bq,))
+    dlpns[-5:] = [np_sz, np_sz + 2, -1, -2, -1]
+    if dup_tags:                      # make sure duplicated blocks are hit
+        dlpns[: n_sets] = tags[:, 0] * e + 1
+    touch = rng.random((bq,)) < 0.6
+    return [tags.astype(np.int32), valid, refb, data.astype(np.int32),
+            backing.astype(np.int32), dlpns.astype(np.int32), touch]
+
+
+@pytest.mark.parametrize("n_sets,n_ways,e,bq,np_sz,dup", [
+    (8, 2, 4, 64, 256, False), (16, 4, 8, 300, 5000, False),
+    (4, 1, 4, 33, 100, False), (8, 4, 8, 64, 512, True),
+    (16, 4, 8, 1024, 1024, False)])
+def test_fmmu_translate_ref_bit_exact_vs_pallas(n_sets, n_ways, e, bq, np_sz,
+                                                dup):
+    arrs = _translate_inputs(7, n_sets, n_ways, e, bq, np_sz, dup)
+    want = jft.fmmu_translate(*[jnp.asarray(a) for a in arrs],
+                              entries_per_block=e, block_size=32,
+                              backing_chunk=96, interpret=True)
+    got = fmmu_translate(*[torch.from_numpy(a.copy()) for a in arrs],
+                         entries_per_block=e)
+    for name, g, w in zip(["hit", "dppn", "set", "way", "ref"], got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w), err_msg=name)
+    assert got[1].dtype == torch.int32 and got[4].dtype == torch.bool
+    assert (_np(got[1]) >= 1 << 24).any()       # ids past f32's range
+    inactive = arrs[5] < 0
+    assert inactive.any()
+    assert (_np(got[1])[inactive] == -1).all()
+    # floor semantics: dlpn -1 reports set S-1, as jnp does
+    m1 = arrs[5] == -1
+    if m1.any():
+        assert (_np(got[2])[m1] == n_sets - 1).all()
+
+
+def test_dispatch_follows_tensor_device_and_impl():
+    arrs = [torch.from_numpy(a.copy()) for a in
+            _translate_inputs(3, 8, 2, 4, 40, 128)]
+    before = COUNTERS.launches()
+    a = ops.fmmu_translate(*arrs, entries_per_block=4)
+    b = ops.fmmu_translate(*arrs, entries_per_block=4, impl="ref")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    # CPU tensors take the plain version: no kernel launch is counted
+    assert COUNTERS.launches() == before
+    with pytest.raises(ValueError):
+        ops.fmmu_translate(*arrs, entries_per_block=4, impl="pallas")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module of repro_torch imports with jax and repro blocked."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20
