@@ -5,32 +5,53 @@ card: the quickest proof that the port still starts on the GPU.
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
-  1. build   — nvcc builds every kernel of the serving path from
+  1. build   — nvcc builds every kernel of the ported paths from
                src/repro_torch/csrc (one process per source, all started
                together); prints the card's name and power limit.
   2. kernels — each CUDA kernel against its plain torch version on the
-               card, on the shapes the serving path gives it: the fused
-               translate probe bit-exact, the two attention kernels
-               within the bf16 tolerance 2e-2 (f32 variants within
-               1e-4). Times the kernel, the plain version, the bound and
-               the PyTorch library call where one exists.
+               card, on the shapes its path gives it: the fused
+               translate probe and the probe-only lookup bit-exact (ids
+               past 1<<24), the two attention kernels within the bf16
+               tolerance 2e-2 (f32 variants within 1e-4), the Mamba2
+               scan within the Pallas tests' 8e-2 bf16 / 5e-3 f32
+               (S 1024 and ragged 1000, with and without an initial
+               state). Times the kernel, the plain version, the bound
+               and the PyTorch library call where one exists.
   3. serve   — llama3.2-1b at its published widths (bf16, page 16,
                8 slots x 2048 ctx, random weights from a seed) serves
                8 requests of 64..1024 prompt tokens for 32 new tokens
-               each; every kernel's launch counter must be > 0 in that
+               each; every kernel of that path must be launched in that
                run. Then a 2-layer full-width f32 engine must emit the
                same greedy tokens with the kernels as with
                kernel_impl="ref".
+  4. map     — a seeded stream of mixed lookup / update / cond-update
+               batches at the paper's CMT geometry goes through the
+               fused translate_batch and through the three unfused
+               calls (the fmmu_lookup probe): final state and every
+               output bit-identical; both paths' times are printed
+               (the paper's FMMU-vs-software comparison, not a claim).
+  5. serve (SSM) — mamba2-1.3b at its published widths (48 layers,
+               d 2048, bf16, page 16, 8 slots x 2048 ctx) serves 8
+               requests of 64..1024 prompt tokens (chunk multiples and
+               ragged lengths) for 32 new tokens each; mamba_chunk_scan
+               (48 per prefill) and fmmu_translate must be launched.
+               Then a 2-layer f32 mamba2 engine must emit the same
+               greedy tokens with the kernels as with kernel_impl="ref".
+Launch counts are zeroed just before each path's run and read just
+after it; each kernel reports the count of the path that carries it.
 
 Output: the ptxas resource lines on stderr; on stdout, before the last
-line, the card's name and power limit, one JSON line {"kernels": [...]}
-and one JSON line {"serve": {...}}; the last line is
+line, the card's name and power limit, one JSON line {"kernels": [...]},
+one {"serve": {...}} (llama), one {"map": {...}} and one
+{"serve_ssm": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import random
 import statistics
 import subprocess
 import sys
@@ -46,6 +67,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
             "int32": 67e12}          # dense peaks, H100 SXM data sheet
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
+SCAN_TOL = {torch.float32: 5e-3, torch.bfloat16: 8e-2}   # Pallas tests'
+
 SEED = 0
 
 
@@ -88,6 +111,20 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str):
     t_ops = n_ops / PEAK_OPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def probe_bytes(dlpns, hit, set_idx, n_ways, fallback):
+    """Bytes a CMT probe of these lanes must move: the tags and valid
+    bits of each distinct set the lanes probe (the `way` output of every
+    lane, inactive ones included, is its set's first matching way), one
+    data word per hit lane, one backing word per active miss when
+    ``fallback``, each lane's dlpn in and its hit/dppn/set/way out."""
+    bq = dlpns.numel()
+    n_probed = int(torch.unique(set_idx).numel())
+    n_hit = int(hit.sum())
+    n_miss = int(((dlpns >= 0) & ~hit).sum()) if fallback else 0
+    return (n_probed * n_ways * (4 + 1) + 4 * n_hit + 4 * n_miss
+            + bq * 4 + bq * (1 + 4 + 4 + 4))
 
 
 def _max_err(got, want) -> float:
@@ -136,13 +173,13 @@ def check_fmmu_translate(timer, rng):
                 fail(f"fmmu_translate {name} differs at S={s} Bq={bq}")
     # the serving path's commit: one decode step's page growth, 8 lanes
     # against the _geometry(8, 128) map (16 sets x 4 ways x 8 entries)
-    args, e = inputs(16, 4, 8, 1024, 8, False)
-    hit = fmmu_translate_ref(*args, entries_per_block=e)[0]
-    active = args[5] >= 0
-    n_miss = int((active & ~hit).sum())
     s, w = 16, 4
-    n_bytes = (s * w * (4 + 1 + 1) + s * w * e * 4 + 4 * n_miss
-               + 8 * (4 + 1) + 8 * (1 + 4 + 4 + 4) + s * w)
+    args, e = inputs(s, w, 8, 1024, 8, False)
+    hit, _, set_idx, _, _ = fmmu_translate_ref(*args, entries_per_block=e)
+    # the probe, each lane's touch flag in, and the ref bits, which the
+    # function returns as a new [S, W] array: read once, written once
+    n_bytes = (probe_bytes(args[5], hit, set_idx, w, fallback=True)
+               + 8 * 1 + 2 * s * w)
     b_ms, b_by = bound_ms(n_bytes, 8 * (w + 4), "int32")
     return {
         "name": "fmmu_translate", "route": "cuda",
@@ -268,6 +305,254 @@ def check_flash_attention(timer):
     }
 
 
+def check_mamba_chunk_scan(timer):
+    from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
+                                                mamba_chunk_scan_ref)
+    h, p, n, chunk = 64, 64, 128, 256       # mamba2-1.3b's scan widths
+
+    def inputs(s, dtype, init):
+        """Values in the model's ranges (models/ssm.py init_ssm): dt =
+        softplus(projection + dt_bias) around a per-head rate drawn
+        log-uniform in [0.001, 0.1], A = -[1, 16] per head, D per head."""
+        def u(shape, lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, device="cuda")
+        dt0 = torch.exp(u((h,), math.log(1e-3), math.log(0.1)))
+        bias = dt0 + torch.log(-torch.expm1(-dt0))      # softplus^-1(dt0)
+        dt = torch.nn.functional.softplus(
+            0.5 * torch.randn((1, s, h), device="cuda") + bias)
+        a = -u((h,), 1.0, 16.0)
+        d = 1.0 + 0.1 * torch.randn((h,), device="cuda")
+        x = torch.randn((1, s, h, p), device="cuda").to(dtype)
+        b = torch.randn((1, s, n), device="cuda").to(dtype)
+        c = torch.randn((1, s, n), device="cuda").to(dtype)
+        s0 = torch.randn((1, h, p, n), device="cuda") if init else None
+        return (x, dt, a, b, c, d), s0
+
+    worst = 0.0
+    for s in (1024, 1000):
+        for dtype in (torch.bfloat16, torch.float32):
+            for init in (False, True):
+                args, s0 = inputs(s, dtype, init)
+                y, fin = mamba_chunk_scan(*args, chunk=chunk,
+                                          initial_state=s0)
+                yw, fw = mamba_chunk_scan_ref(*args, chunk=chunk,
+                                              initial_state=s0)
+                tol = SCAN_TOL[dtype]
+                for got, want in ((y, yw), (fin, fw)):
+                    if not torch.allclose(got.float(), want.float(),
+                                          atol=tol, rtol=tol):
+                        fail(f"mamba_chunk_scan S={s} {dtype} init={init}: "
+                             f"max err {_max_err(got, want)}")
+                worst = max(worst, _max_err(y, yw), _max_err(fin, fw))
+    # the serving path's shape: one prefill of a 1024-token prompt
+    s = 1024
+    args, _ = inputs(s, torch.bfloat16, False)
+    n_bytes = 2 * (2 * s * h * p) + 2 * (2 * s * n) + 4 * s * h \
+        + 2 * 4 * h + 4 * h * p * n
+    b_ms, b_by = bound_ms(n_bytes, 5 * s * h * p * n, "bfloat16")
+    return {
+        "name": "mamba_chunk_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:73",
+        "max_abs_err": worst,
+        "ms": timer.ms(lambda: mamba_chunk_scan(*args, chunk=chunk)),
+        "plain_ms": timer.ms(lambda: mamba_chunk_scan_ref(*args,
+                                                          chunk=chunk),
+                             iters=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": "Bt=1 S=1024 H=64 P=64 N=128 bf16",
+    }
+
+
+def _paper_cmt(rng, e=8):
+    """A CMT at the paper geometry (512 sets x 4 ways x 8 entries) whose
+    block ids and values lie past 1<<24, and query dlpns: hits, misses
+    in a valid set, random lanes and inactive lanes."""
+    s, w = 512, 4
+    tags = (rng.integers(0, 64, (s, w)) + (1 << 24) // s + 1) * s \
+        + np.arange(s)[:, None]
+    tags[:, -1] = tags[:, 0]                       # duplicate-tag ways
+    valid = rng.random((s, w)) < 0.7
+    valid[:, 0] = True
+    data = rng.integers(-1, 1 << 30, (s, w, e))
+
+    def dlpns(bq):
+        dl = rng.integers(-2, 1 << 30, (bq,))
+        k = min(bq // 3, s)
+        dl[:k] = tags[:k, 0] * e + np.arange(k) % e
+        dl[k:2 * k] = (tags[:k].max(axis=1) + s) * e + 1
+        dl[-3:] = [-1, -2, -e - 1]
+        return torch.from_numpy(dl.astype(np.int32)).cuda()
+    cmt = [torch.from_numpy(a).cuda() for a in
+           (tags.astype(np.int32), valid, data.astype(np.int32))]
+    return cmt, dlpns, (s, w, e)
+
+
+def check_fmmu_lookup(timer, rng):
+    from repro_torch.kernels.fmmu_lookup import fmmu_lookup, fmmu_lookup_ref
+    cmt, dlpns, (s, w, e) = _paper_cmt(rng)
+    for bq in (4096, 128, 33):
+        dl = dlpns(bq)
+        got = fmmu_lookup(*cmt, dl, entries_per_block=e)
+        want = fmmu_lookup_ref(*cmt, dl, entries_per_block=e)
+        torch.cuda.synchronize()
+        for name, g, x in zip(("hit", "dppn", "set", "way"), got, want):
+            if g.dtype != x.dtype or not torch.equal(g, x):
+                fail(f"fmmu_lookup {name} differs at Bq={bq}")
+        if not bool(got[0].any()) or bool(got[0].all()):
+            fail(f"fmmu_lookup Bq={bq}: expected hits and misses")
+    bq = 128                                # one call of the map phase
+    dl = dlpns(bq)
+    hit, _, set_idx, _ = fmmu_lookup_ref(*cmt, dl, entries_per_block=e)
+    n_bytes = probe_bytes(dl, hit, set_idx, w, fallback=False)
+    b_ms, b_by = bound_ms(n_bytes, bq * (w + 4), "int32")
+    return {
+        "name": "fmmu_lookup", "route": "cuda",
+        "source": "src/repro_torch/csrc/fmmu_lookup.cu",
+        "replaces": "src/repro/kernels/fmmu_lookup.py:82",
+        "max_abs_err": 0.0,
+        "ms": timer.ms(lambda: fmmu_lookup(*cmt, dl, entries_per_block=e)),
+        "plain_ms": timer.ms(
+            lambda: fmmu_lookup_ref(*cmt, dl, entries_per_block=e)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": "S=512 W=4 E=8, 128 lanes, ids >= 1<<24",
+    }
+
+
+# ------------------------------------------------------------------- map
+def _split_order_sensitive(g, tags, valid, batch):
+    """True where splitting a mixed batch into the three unfused calls
+    may legally differ from the fused pass (tests/fmmu_lockstep.py):
+    more than W new blocks in one set, or a cached block probed by a
+    later call in a set that an earlier call inserts into."""
+    from repro_torch.core.fmmu.types import COND_UPDATE, LOOKUP, UPDATE
+    e, s_cnt = g.cmt_entries, g.cmt_sets
+    cached = set(tags[valid].tolist())
+    new = {LOOKUP: set(), UPDATE: set(), COND_UPDATE: set()}
+    for k, d in batch:
+        if d // e not in cached:
+            new[k].add(d // e)
+    per_set = {}
+    for b in set().union(*new.values()):
+        per_set.setdefault(b % s_cnt, set()).add(b)
+    if any(len(v) > g.cmt_ways for v in per_set.values()):
+        return True
+    ins_l = {b % s_cnt for b in new[LOOKUP]}
+    ins_all = ins_l | {b % s_cnt for b in new[UPDATE] | new[COND_UPDATE]}
+    for k, d in batch:
+        b = d // e
+        if b in cached and ((k == UPDATE and b % s_cnt in ins_l) or
+                            (k == COND_UPDATE and b % s_cnt in ins_all)):
+            return True
+    return False
+
+
+def map_phase(n_batches=64, max_blocks=16):
+    """The unfused map path against the fused one on the card. Returns
+    the map line; fails unless the final states and every output are
+    bit-identical."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import (COND_UPDATE, LOOKUP, NIL,
+                                             UPDATE, FMMUGeometry)
+    g = FMMUGeometry()                     # 512 x 4 x 8, 1M-entry backing
+    dev = torch.device("cuda")
+    rng, nprng = random.Random(SEED), np.random.RandomState(SEED)
+    n_blocks = g.n_tvpns * g.entries_per_tp // g.cmt_entries
+    lo = np.arange(0, 2 * n_blocks // 3)
+    hi = np.arange(2 * n_blocks // 3, n_blocks)
+
+    def lanes(pool, kind):
+        blks = nprng.choice(pool, rng.randint(1, max_blocks), replace=False)
+        dl = [int(b) * g.cmt_entries + rng.randrange(g.cmt_entries)
+              for b in blks for _ in range(rng.randint(1, 3))]
+        return [(kind, d) for d in dict.fromkeys(dl)]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    # generation pass (fused, untimed): draw order-insensitive batches
+    st = fb.init_batch_state(g, dev)
+    shadow, batches = {}, []
+    while len(batches) < n_batches:
+        batch = (lanes(lo, LOOKUP) + lanes(lo, UPDATE)
+                 + lanes(hi, COND_UPDATE))
+        rng.shuffle(batch)
+        if _split_order_sensitive(g, st.tags.cpu().numpy(),
+                                  st.valid.cpu().numpy(), batch):
+            continue
+        k = np.array([x for x, _ in batch], np.int32)
+        d = np.array([x for _, x in batch], np.int32)
+        p = nprng.randint(0, 10 ** 6, len(batch)).astype(np.int32)
+        o = np.array([shadow.get(int(x), NIL) if rng.random() < .6
+                      else rng.randrange(10 ** 6) for x in d], np.int32)
+        st, out, ok = fb.translate_batch(g, st, t(k), t(d), t(p), t(o))
+        ok_h = ok.cpu().numpy()
+        for i, (kind, x) in enumerate(batch):
+            if kind == UPDATE or (kind == COND_UPDATE and ok_h[i]):
+                shadow[x] = int(p[i])
+        ml, mu, mc = k == LOOKUP, k == UPDATE, k == COND_UPDATE
+        batches.append({
+            "fused": (t(k), t(d), t(p), t(o)),
+            "lookup": t(d[ml]), "update": (t(d[mu]), t(p[mu])),
+            "cond": (t(d[mc]), t(p[mc]), t(o[mc])),
+            "masks": (ml, mc)})
+
+    def run_fused():
+        s_, outs = fb.init_batch_state(g, dev), []
+        for b in batches:
+            s_, out, ok = fb.translate_batch(g, s_, *b["fused"])
+            outs.append((out, ok))
+        return s_, outs
+
+    def run_unfused():
+        s_, outs = fb.init_batch_state(g, dev), []
+        for b in batches:
+            s_, ou = fb.lookup_batch_unfused(g, s_, b["lookup"])
+            s_ = fb.update_batch_unfused(g, s_, *b["update"])
+            s_, oku = fb.cond_update_batch_unfused(g, s_, *b["cond"])
+            outs.append((ou, oku))
+        return s_, outs
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    run_fused()                                   # warm-up
+    run_unfused()
+    COUNTERS.reset()                     # every count to 0 just before
+    times = {"fused": [], "unfused": []}
+    for name, fn in (("fused", run_fused), ("unfused", run_unfused),
+                     ("unfused", run_unfused), ("fused", run_fused)):
+        (res, ms_) = timed(fn)
+        times[name].append(ms_)
+        if name == "fused":
+            st_f, outs_f = res
+        else:
+            st_u, outs_u = res
+    launches = COUNTERS.launches()       # ... and read just after
+    for f in st_f._fields:
+        if not torch.equal(getattr(st_f, f), getattr(st_u, f)):
+            fail(f"map phase: state field {f} fused != unfused")
+    for i, (b, (out, ok), (ou, oku)) in enumerate(
+            zip(batches, outs_f, outs_u)):
+        ml, mc = (torch.from_numpy(m).to(dev) for m in b["masks"])
+        if not (torch.equal(out[ml], ou) and torch.equal(ok[mc], oku)):
+            fail(f"map phase: batch {i} outputs fused != unfused")
+    n_lanes = sum(int(b["fused"][0].numel()) for b in batches)
+    return {"geometry": "S=512 W=4 E=8, backing 1048576",
+            "batches": n_batches, "lanes": n_lanes,
+            "fused_ms": times["fused"], "unfused_ms": times["unfused"],
+            "fused_ms_per_batch": statistics.median(times["fused"])
+            / n_batches,
+            "unfused_ms_per_batch": statistics.median(times["unfused"])
+            / n_batches,
+            "launches": launches, "bit_identical": True}
+
+
 # ----------------------------------------------------------------- serve
 def build_engine(cfg, rt):
     from repro_torch.models import build_model
@@ -322,6 +607,75 @@ def profile_decode_step(eng, prompts):
             "top_kernels_ms": {k[:70]: v for k, v in top}}
 
 
+def serve_phase(cfg, lens, kernels):
+    """Serve 8 requests of ``lens`` prompt tokens x 32 new tokens at the
+    config's published widths (bf16, page 16, 8 slots x 2048 ctx), with
+    every launch count zeroed just before and read just after; fails
+    unless each request returns 32 tokens and each of ``kernels`` was
+    launched. Then a 2-layer f32 engine must give the same greedy
+    tokens with the kernels as with kernel_impl="ref". Returns the
+    serve line (with the run's launch counts)."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.models import Runtime
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt)
+    prng = np.random.default_rng(SEED + 1)
+    prompts = [[int(t) for t in prng.integers(0, cfg.vocab_size, n)]
+               for n in lens]
+    run_requests(eng, [prompts[0][:16]], 2)        # warm-up
+    eng.metrics = {k: 0 for k in eng.metrics}
+    COUNTERS.reset()                     # every count to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    out, reqs, wall = run_requests(eng, prompts, 32)
+    launches = COUNTERS.launches()       # ... and read just after
+    counts = COUNTERS.snapshot()
+    for r in reqs:
+        toks_r = out[r.rid]
+        if len(toks_r) != 32 or not all(0 <= t < cfg.vocab_size
+                                        for t in toks_r):
+            fail(f"{cfg.name}: request {r.rid} returned {len(toks_r)} "
+                 "tokens")
+    for name in kernels:
+        if launches.get(name, 0) <= 0:
+            fail(f"{name} was not launched on the {cfg.name} serving path")
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+    decode_toks = sum(len(out[r.rid]) - 1 for r in reqs)
+    steps = eng.metrics["decode_steps"]
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "wall_s": wall, "ttft_ms_median": statistics.median(ttft),
+        "ttft_ms_max": ttft[-1], "decode_tok_s": decode_toks / decode_s,
+        "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
+        "decode_steps": steps, "prefills": eng.metrics["prefills"],
+        "xlate_calls": counts.get("kvm.xlate_calls", 0),
+        "host_syncs": counts.get("engine.host_syncs", 0),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches}
+    line["profiled_decode_step"] = profile_decode_step(eng, prompts)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the kernels against their plain versions end to end: 2 layers, f32
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    short = [p[:n // 4] for p, n in zip(prompts, lens)]
+    toks = {}
+    for impl in (None, "ref"):
+        rt32 = Runtime(compute_dtype=torch.float32,
+                       param_dtype=torch.float32, page_size=16,
+                       kernel_impl=impl)
+        e2 = build_engine(cfg2, rt32)
+        toks[impl], _, _ = run_requests(e2, short, 16)
+        del e2
+        torch.cuda.empty_cache()
+    if list(toks[None].values()) != list(toks["ref"].values()):
+        fail(f"2-layer f32 {cfg.name}: kernel tokens differ from ref tokens")
+    line["ref_parity_tokens"] = sum(len(v) for v in toks["ref"].values())
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -336,9 +690,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_arch
-    from repro_torch.core.counters import COUNTERS
     from repro_torch.kernels import _build
-    from repro_torch.models import Runtime
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -358,78 +710,55 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     torch.manual_seed(SEED)
     timer = Timer()
-    rows = [check_fmmu_translate(timer, rng),
-            check_paged_attention(timer, rng),
-            check_flash_attention(timer)]
+    rows = {r["name"]: r for r in (
+        check_fmmu_translate(timer, rng), check_paged_attention(timer, rng),
+        check_flash_attention(timer), check_fmmu_lookup(timer, rng),
+        check_mamba_chunk_scan(timer))}
     print("kernels: all match their plain versions", file=sys.stderr)
 
-    # 3. the serving run at full width -----------------------------------
-    cfg = get_arch("llama3.2-1b")
-    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
-                 page_size=16)
-    eng = build_engine(cfg, rt)
-    prng = np.random.default_rng(SEED + 1)
-    lens = [64, 128, 256, 384, 512, 640, 768, 1024]
-    prompts = [[int(t) for t in prng.integers(0, cfg.vocab_size, n)]
-               for n in lens]
-    run_requests(eng, [prompts[0][:16]], 2)        # warm-up
-    eng.metrics = {k: 0 for k in eng.metrics}
-    COUNTERS.reset()                     # every count to 0 just before
-    torch.cuda.reset_peak_memory_stats()
-    out, reqs, wall = run_requests(eng, prompts, 32)
-    launches = COUNTERS.launches()       # ... and read just after
-    counts = COUNTERS.snapshot()
-    for r in reqs:
-        toks_r = out[r.rid]
-        if len(toks_r) != 32 or not all(0 <= t < cfg.vocab_size
-                                        for t in toks_r):
-            fail(f"request {r.rid} returned {len(toks_r)} tokens")
-    for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
-        if row["launches"] <= 0:
-            fail(f"{row['name']} was not launched on the serving path")
-    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
-    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
-    decode_toks = sum(len(out[r.rid]) - 1 for r in reqs)
-    steps = eng.metrics["decode_steps"]
-    serve_line = {
-        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
-        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
-        "wall_s": wall, "ttft_ms_median": statistics.median(ttft),
-        "ttft_ms_max": ttft[-1], "decode_tok_s": decode_toks / decode_s,
-        "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
-        "decode_steps": steps, "prefills": eng.metrics["prefills"],
-        "xlate_calls": counts.get("kvm.xlate_calls", 0),
-        "host_syncs": counts.get("engine.host_syncs", 0),
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "build_s": build_s}
-    serve_line["profiled_decode_step"] = profile_decode_step(eng, prompts)
-    del eng
-    torch.cuda.empty_cache()
+    # 3. llama3.2-1b serving (fmmu_translate, paged and flash attention)
+    t0 = time.perf_counter()
+    dense = ("fmmu_translate", "paged_attention", "flash_attention")
+    serve = serve_phase(get_arch("llama3.2-1b"),
+                        [64, 128, 256, 384, 512, 640, 768, 1024], dense)
+    serve["build_s"] = build_s
+    for name in dense:
+        rows[name]["launches"] = serve["launches"][name]
+    print(f"serve llama3.2-1b: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
 
-    # 4. kernels vs plain versions end to end: 2 layers, f32 -------------
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    short = [p[:n // 4] for p, n in zip(prompts, lens)]
-    toks = {}
-    for impl in (None, "ref"):
-        rt32 = Runtime(compute_dtype=torch.float32,
-                       param_dtype=torch.float32, page_size=16,
-                       kernel_impl=impl)
-        e2 = build_engine(cfg2, rt32)
-        toks[impl], _, _ = run_requests(e2, short, 16)
-        del e2
-        torch.cuda.empty_cache()
-    if list(toks[None].values()) != list(toks["ref"].values()):
-        fail("2-layer f32 engine: kernel tokens differ from ref tokens")
-    serve_line["ref_parity_tokens"] = sum(len(v) for v in toks["ref"].values())
+    # 4. the unfused map path (fmmu_lookup) against the fused one ------
+    t0 = time.perf_counter()
+    map_line = map_phase()
+    rows["fmmu_lookup"]["launches"] = map_line["launches"].get(
+        "fmmu_lookup", 0)
+    if rows["fmmu_lookup"]["launches"] <= 0:
+        fail("fmmu_lookup was not launched on the unfused map path")
+    print(f"map: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
+    # 5. mamba2-1.3b serving (mamba_chunk_scan, fmmu_translate) ----------
+    t0 = time.perf_counter()
+    cfg = get_arch("mamba2-1.3b")
+    serve_ssm = serve_phase(cfg, [64, 200, 256, 384, 512, 700, 768, 1024],
+                            ("mamba_chunk_scan", "fmmu_translate"))
+    n_scan = serve_ssm["launches"]["mamba_chunk_scan"]
+    if n_scan != cfg.n_layers * serve_ssm["prefills"]:
+        fail(f"mamba_chunk_scan launched {n_scan} times, expected "
+             f"{cfg.n_layers} per prefill")
+    rows["mamba_chunk_scan"]["launches"] = n_scan
+    print(f"serve mamba2-1.3b: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
 
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
-    print(json.dumps({"serve": serve_line}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in rows.values()]}))
+    print(json.dumps({"serve": serve}))
+    print(json.dumps({"map": map_line}))
+    print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,19 +1,37 @@
 """Architecture configuration: the port's own copy of the dense-decoder
-part of ``repro/configs/base.py`` (``ArchConfig``, ``smoke_config``).
+and pure-SSM parts of ``repro/configs/base.py`` (``SSMConfig``,
+``ArchConfig``, ``smoke_config``).
 
-Only what the dense paged-serving path reads is kept; MoE, SSM,
-encoder and frontend fields come with the slices that port them.
+Only what the ported serving paths read is kept; MoE, hybrid, encoder
+and frontend fields come with the slices that port them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk: int = 256
+    conv_dim: int = 4            # depthwise causal conv width
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense only in this slice
+    family: str                  # dense | ssm in the port so far
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,10 +50,11 @@ class ArchConfig:
     norm_eps: float = 1e-5
     post_norms: bool = False
     act: str = "silu"            # 'silu' (SwiGLU) | 'gelu' (GeGLU)
+    ssm: Optional[SSMConfig] = None
     source: str = ""
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"{self.name}: family {self.family!r} is not ported yet")
         if self.head_dim == 0:
@@ -49,6 +68,10 @@ class ArchConfig:
         """Length of the repeating layer super-block."""
         return len(self.layer_pattern) if self.layer_pattern else 1
 
+    def layer_kind(self, i: int) -> str:
+        """'attn' | 'mamba' for the mixer at layer i."""
+        return "mamba" if self.family == "ssm" else "attn"
+
     def attn_kind(self, i: int) -> str:
         """'global' | 'local' attention flavour at layer i."""
         if self.layer_pattern:
@@ -58,8 +81,11 @@ class ArchConfig:
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family config for CPU tests: the reference's
-    ``smoke_config`` restricted to the dense fields."""
+    ``smoke_config`` restricted to the dense and SSM fields."""
     period = cfg.period
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=32)
     n_layers = period * (2 if period <= 4 else 1)
     n_heads = 4
     n_kv = min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else n_heads
@@ -74,4 +100,5 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=512,
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window else 0,
+        ssm=ssm,
     )

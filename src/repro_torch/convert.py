@@ -2,10 +2,11 @@
 
 ``params_from_jax`` takes the pytree of ``repro.models.Model.init``
 already converted to numpy (``jax.tree.map(np.asarray, params)``) and
-returns the port's parameter dict. The layouts are kept as they are:
-``wq`` [d,H,hd], ``wo`` [H,hd,d], stack leaves [n_periods, ...] per
-intra-period index j. This module needs numpy only; the caller owns the
-JAX side.
+returns the port's parameter dict. The layouts and dtypes are kept as
+they are: ``wq`` [d,H,hd], ``wo`` [H,hd,d], a Mamba2 mixer's
+projections, conv and its float32 ``A_log``/``D``/``dt_bias``, stack
+leaves [n_periods, ...] per intra-period index j. This module needs
+numpy only; the caller owns the JAX side.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Batched FMMU translation engine: port of ``repro/core/fmmu/batch.py``
-(the unsharded single-probe path and its serving wrapper).
+(the unsharded single-probe path, its serving wrapper, and the unfused
+three-call reference path).
 
 ``translate_batch`` services a mixed batch of LOOKUP / UPDATE /
 COND_UPDATE lanes with exactly ONE CMT probe (one ``ops.fmmu_translate``
@@ -300,3 +301,116 @@ def cond_update_batch(g: FMMUGeometry, st: BatchFMMUState, dlpns, dppns,
     st, _, ok = translate_batch(g, st, torch.full_like(dlpns, COND_UPDATE),
                                 dlpns, dppns, old_dppns, impl=impl)
     return st, ok
+
+
+# ----------------------------------------------------------------------
+# Unfused reference path: the pre-fusion implementation (one probe per
+# op kind, CondUpdate = lookup + update = 2 probes + 2 insert passes,
+# each insert paying a full sort and a stable argsort). The software-
+# style baseline of the fused path; a mixed batch split into the three
+# calls leaves the state bit-identical to ``translate_batch`` on the
+# batches where the split is order-insensitive (tests/
+# test_torch_fmmu.py). New callers use translate_batch.
+# ----------------------------------------------------------------------
+def _probe_unfused(g: FMMUGeometry, st: BatchFMMUState, dlpns, impl=None):
+    PROBE_CALLS[0] += 1
+    return ops.fmmu_lookup(st.tags, st.valid, st.data, dlpns,
+                           entries_per_block=g.cmt_entries, impl=impl)
+
+
+def _insert_blocks_unfused(g: FMMUGeometry, st: BatchFMMUState, miss_bids):
+    """Pre-fusion insert: dedup via a full sort, then a stable argsort
+    by set; ranks >= W overflow and stay uncached."""
+    INSERT_CALLS[0] += 1
+    dev = miss_bids.device
+    s_cnt, w_cnt, e = g.cmt_sets, g.cmt_ways, g.cmt_entries
+    sorted_b = torch.sort(miss_bids).values
+    first = torch.ones_like(sorted_b, dtype=torch.bool)
+    first[1:] = sorted_b[1:] != sorted_b[:-1]
+    uniq = torch.where(first & (sorted_b != BIG), sorted_b, BIG)
+    usets = torch.where(uniq != BIG, torch.remainder(uniq, s_cnt),
+                        s_cnt).to(I)
+    order = torch.sort(usets, stable=True).indices
+    gsets = usets[order]
+    gbids = uniq[order]
+    counts = torch.zeros(s_cnt + 1, dtype=I, device=dev).index_add_(
+        0, gsets.long(), torch.ones_like(gsets))
+    offs = torch.cumsum(counts, 0, dtype=I) - counts
+    rank = torch.arange(gsets.shape[0], dtype=I, device=dev) - \
+        offs[gsets.long()]
+    keep = (gsets < s_cnt) & (rank < w_cnt)
+    way = torch.remainder(st.clock[gsets.clamp(0, s_cnt - 1).long()] + rank,
+                          w_cnt).to(I)
+    base = torch.where(keep, gbids, 0) * e
+    idx = base[:, None] + torch.arange(e, dtype=I, device=dev)[None, :]
+    fresh = st.backing[idx.clamp(0, st.backing.shape[0] - 1).long()]
+    flat = torch.where(keep, gsets, s_cnt - 1) * w_cnt + \
+        torch.where(keep, way, 0)
+    sw = s_cnt * w_cnt
+    tags = _set_where(st.tags.reshape(-1), flat, gbids, keep).reshape(
+        s_cnt, w_cnt)
+    ones = torch.ones_like(keep)
+    valid = _set_where(st.valid.reshape(-1), flat, ones, keep).reshape(
+        s_cnt, w_cnt)
+    ref = _set_where(st.ref.reshape(-1), flat, ones, keep).reshape(
+        s_cnt, w_cnt)
+    data = _set_where(st.data.reshape(sw, e), flat, fresh, keep).reshape(
+        s_cnt, w_cnt, e)
+    ins_per_set = torch.zeros(s_cnt + 1, dtype=I, device=dev).index_add_(
+        0, torch.where(keep, gsets, s_cnt).long(), torch.ones_like(gsets))
+    clock = torch.remainder(st.clock + ins_per_set[:s_cnt], w_cnt).to(I)
+    n_fill = keep.sum(dtype=I)
+    stats = st.stats.clone()
+    stats[2] += n_fill
+    return st._replace(tags=tags, valid=valid, ref=ref, data=data,
+                       clock=clock, stats=stats), n_fill
+
+
+def lookup_batch_unfused(g: FMMUGeometry, st: BatchFMMUState, dlpns,
+                         impl=None) -> Tuple[BatchFMMUState, torch.Tensor]:
+    hit, dppn, set_idx, way = _probe_unfused(g, st, dlpns, impl=impl)
+    active = dlpns >= 0
+    miss = active & ~hit
+    backing_val = st.backing[dlpns.clamp(0, st.backing.shape[0] - 1).long()]
+    out = torch.where(hit, dppn, torch.where(active, backing_val, NIL))
+    ref = _set_where(st.ref.reshape(-1), set_idx * g.cmt_ways + way,
+                     torch.ones_like(hit), hit).reshape(st.ref.shape)
+    stats = st.stats + torch.stack([
+        hit.sum(dtype=I), miss.sum(dtype=I),
+        torch.zeros((), dtype=I, device=dlpns.device),
+        torch.zeros((), dtype=I, device=dlpns.device)])
+    st = st._replace(ref=ref, stats=stats)
+    miss_bids = torch.where(
+        miss, torch.div(dlpns, g.cmt_entries, rounding_mode="floor"),
+        BIG).to(I)
+    st, _ = _insert_blocks_unfused(g, st, miss_bids)
+    return st, out.to(I)
+
+
+def update_batch_unfused(g: FMMUGeometry, st: BatchFMMUState, dlpns, dppns,
+                         impl=None) -> BatchFMMUState:
+    active = dlpns >= 0
+    stats = st.stats.clone()
+    stats[3] += active.sum(dtype=I)
+    st = st._replace(backing=_set_where(st.backing, dlpns, dppns, active),
+                     stats=stats)
+    hit, _, set_idx, way = _probe_unfused(g, st, dlpns, impl=impl)
+    off = torch.remainder(torch.where(active, dlpns, 0), g.cmt_entries)
+    flat = (set_idx * g.cmt_ways + way) * g.cmt_entries + off
+    data = _set_where(st.data.reshape(-1), flat, dppns, hit).reshape(
+        st.data.shape)
+    st = st._replace(data=data)
+    miss_bids = torch.where(
+        active & ~hit, torch.div(dlpns, g.cmt_entries, rounding_mode="floor"),
+        BIG).to(I)
+    st, _ = _insert_blocks_unfused(g, st, miss_bids)
+    return st
+
+
+def cond_update_batch_unfused(g: FMMUGeometry, st: BatchFMMUState, dlpns,
+                              dppns, old_dppns, impl=None):
+    st2, cur = lookup_batch_unfused(g, st, dlpns, impl=impl)
+    ok = (cur == old_dppns) & (dlpns >= 0)
+    eff = torch.where(ok, dlpns, -1).to(I)
+    st3 = update_batch_unfused(g, st2, eff, dppns, impl=impl)
+    return st3, ok

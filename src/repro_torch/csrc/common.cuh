@@ -37,6 +37,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Python's floor // and mod (as jnp's) for a divisor b > 0
+__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floor_mod(int a, int b) {  // b > 0
+  int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -7,16 +7,17 @@
 // inactive lane, and the ref-bit touch of the hit way.
 //
 // What bounds it here: nothing but launch latency. A serving commit
-// carries a few to a few hundred lanes against a CMT of at most 512
-// sets x 4 ways x 8 entries (74 KB with tags and valid bits), so the
-// kernel moves kilobytes; its floor is the ~2-4 us of one launch.
+// carries a few to a few hundred lanes; each lane needs the W tags and
+// valid bits of one set and one data or backing word, so the kernel
+// moves kilobytes; its floor is the ~2-4 us of one launch.
 //
 // What the design does about it: one launch does the whole probe side
 // of a commit (the reference's single-probe invariant), one thread per
-// lane. Each block stages the whole CMT (tags, valid, data) in shared
-// memory with coalesced loads, so a lane's W tag compares and its data
-// read hit shared memory; only misses read `backing`, straight from
-// global memory. Values are plain int32 loads: the TPU kernel's
+// lane, reading only what its lane needs straight from global memory
+// (lanes of one set share the lines in L1/L2). Nothing is staged in
+// shared memory: a stage of the whole CMT would make every block read
+// all 74 KB of a paper-sized CMT (512 sets x 4 ways x 8 entries) to
+// probe a few sets. Values are plain int32 loads: the TPU kernel's
 // 16-bit-half gather (fmmu_lookup.gather16) worked around an f32-only
 // matrix unit and has no reason to exist here, so host-tier ids at
 // 1<<24 and above come out exact. `//` and `mod` follow Python's floor
@@ -27,16 +28,6 @@
 // store the same value.
 #include "common.cuh"
 
-__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
-  int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int floor_mod(int a, int b) {  // b > 0
-  int r = a % b;
-  return r < 0 ? r + b : r;
-}
-
 __global__ void fmmu_translate_kernel(
     const int* __restrict__ tags, const uint8_t* __restrict__ valid,
     const int* __restrict__ data, const int* __restrict__ backing,
@@ -45,19 +36,6 @@ __global__ void fmmu_translate_kernel(
     int* __restrict__ set_out, int* __restrict__ way_out,
     uint8_t* __restrict__ ref_out, int n_sets, int n_ways, int n_entries,
     int n_backing, int n_lanes) {
-  extern __shared__ int smem[];
-  const int sw = n_sets * n_ways;
-  int* s_tags = smem;                                   // [S*W]
-  int* s_data = s_tags + sw;                            // [S*W*E]
-  uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_data + sw * n_entries);
-  for (int i = threadIdx.x; i < sw; i += blockDim.x) {
-    s_tags[i] = tags[i];
-    s_valid[i] = valid[i];
-  }
-  for (int i = threadIdx.x; i < sw * n_entries; i += blockDim.x)
-    s_data[i] = data[i];
-  __syncthreads();
-
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   const int d = dlpns[lane];
@@ -68,13 +46,13 @@ __global__ void fmmu_translate_kernel(
   int way = -1;
   for (int w = 0; w < n_ways; ++w) {
     const int i = set * n_ways + w;
-    if (s_valid[i] && s_tags[i] == block_id) { way = w; break; }
+    if (valid[i] && tags[i] == block_id) { way = w; break; }
   }
   const bool hit = active && way >= 0;
   if (way < 0) way = 0;
   int out;
   if (hit) {
-    out = s_data[(set * n_ways + way) * n_entries + offset];
+    out = data[(set * n_ways + way) * n_entries + offset];
   } else if (active) {
     out = backing[min(d, n_backing - 1)];
   } else {
@@ -92,15 +70,9 @@ extern "C" int fmmu_translate_launch(
     const void* backing, const void* dlpns, const void* touch, void* hit,
     void* dppn, void* set, void* way, void* ref_out, int n_sets,
     int n_ways, int n_entries, int n_backing, int n_lanes, void* stream) {
-  const int sw = n_sets * n_ways;
-  const size_t smem = sizeof(int) * (size_t)sw * (1 + n_entries) + sw;
-  cudaError_t err = cudaFuncSetAttribute(
-      fmmu_translate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
+  const int threads = 128;
   const int blocks = (n_lanes + threads - 1) / threads;
-  fmmu_translate_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  fmmu_translate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)tags, (const uint8_t*)valid, (const int*)data,
       (const int*)backing, (const int*)dlpns, (const uint8_t*)touch,
       (uint8_t*)hit, (int*)dppn, (int*)set, (int*)way, (uint8_t*)ref_out,

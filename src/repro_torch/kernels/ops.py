@@ -14,7 +14,9 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fmmu_lookup as fl
 from repro_torch.kernels import fmmu_translate as ft
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -50,6 +52,26 @@ def paged_attention(q, k_pool, v_pool, block_table, ctx_lens, *,
                               return_stats=return_stats)
 
 
+def mamba_chunk_scan(x, dt, A, B, C, D, *, chunk=256, initial_state=None,
+                     impl=None):
+    """Mamba2 SSD scan -> (y, final_state)."""
+    if _use_ref(impl):
+        return ref.mamba_chunk_scan_naive(x, dt, A, B, C, D, chunk=chunk,
+                                          initial_state=initial_state)
+    return ms.mamba_chunk_scan(x, dt, A, B, C, D, chunk=chunk,
+                               initial_state=initial_state)
+
+
+def fmmu_lookup(tags, valid, data, dlpns, *, entries_per_block, impl=None):
+    """Probe-only CMT lookup (the unfused map path's probe) ->
+    (hit, dppn, set_idx, way)."""
+    if _use_ref(impl):
+        return ref.fmmu_lookup_ref(tags, valid, data, dlpns,
+                                   entries_per_block=entries_per_block)
+    return fl.fmmu_lookup(tags, valid, data, dlpns,
+                          entries_per_block=entries_per_block)
+
+
 def fmmu_translate(tags, valid, refbits, data, backing, dlpns, touch, *,
                    entries_per_block, impl=None):
     """Fused translate probe (probe + backing fallback + ref touch) —
@@ -61,3 +83,6 @@ def fmmu_translate(tags, valid, refbits, data, backing, dlpns, touch, *,
                                       entries_per_block=entries_per_block)
     return ft.fmmu_translate(tags, valid, refbits, data, backing, dlpns,
                              touch, entries_per_block=entries_per_block)
+
+
+mamba_decode_step = ref.mamba_decode_step

@@ -1,6 +1,7 @@
-"""Plain torch versions of the kernels on the ported path: the port's
-counterparts of ``attention_naive``, ``paged_attention_naive`` and
-``fmmu_translate_ref`` in ``repro/kernels/ref.py``.
+"""Plain torch versions of the kernels on the ported paths: the port's
+counterparts of ``attention_naive``, ``paged_attention_naive``,
+``mamba_chunk_scan_naive``, ``mamba_decode_step``, ``fmmu_lookup_ref``
+and ``fmmu_translate_ref`` in ``repro/kernels/ref.py``.
 
 They run on any device. The kernel wrappers use them for CPU tensors,
 ``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
@@ -144,3 +145,77 @@ def fmmu_translate_ref(tags, valid, refbits, data, backing, dlpns, touch, *,
     new_ref = refbits | (touched > 0).reshape(refbits.shape)
     return (hit, out.to(torch.int32), set_idx.to(torch.int32),
             way.to(torch.int32), new_ref)
+
+
+# ======================================================================
+def mamba_chunk_scan_naive(x, dt, A, B, C, D, *, chunk, initial_state=None):
+    """Sequential-scan oracle for the Mamba2 SSD op (float32 math).
+
+    x  [Bt, S, H, P]   (P = head dim)
+    dt [Bt, S, H]      (already softplus'd, >= 0)
+    A  [H]             (negative; decay = exp(dt * A))
+    B  [Bt, S, N]      (single group, shared across heads)
+    C  [Bt, S, N]
+    D  [H]             skip
+    returns y [Bt, S, H, P] in x's dtype, final_state [Bt, H, P, N] f32
+
+    ``chunk`` is the blocking of the chunked lowerings; the sequential
+    recurrence does not depend on it."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Af = A.float()
+    state = (initial_state.float().clone() if initial_state is not None
+             else torch.zeros((bt, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t] * Af[None, :])                 # [Bt,H]
+        state = state * da[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bt, 0, h, p))
+    y = y + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def mamba_decode_step(state, x, dt, A, B, C, D):
+    """Single-token SSD recurrence. state [Bt,H,P,N] f32; x [Bt,H,P];
+    dt [Bt,H]; B,C [Bt,N]. Returns (y [Bt,H,P] in x's dtype,
+    new_state f32)."""
+    da = torch.exp(dt.float() * A.float()[None, :])
+    xf = x.float()
+    state = state * da[..., None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt.float(), xf, B.float())
+    y = torch.einsum("bhpn,bn->bhp", state, C.float())
+    y = y + xf * D.float()[None, :, None]
+    return y.to(x.dtype), state
+
+
+# ======================================================================
+def fmmu_lookup_ref(tags, valid, data, dlpns, *, entries_per_block):
+    """Probe-only CMT lookup (no side effects).
+
+    tags  [S, W] int32   block id (dlpn // entries_per_block) per way
+    valid [S, W] bool
+    data  [S, W, E] int32 DPPN entries
+    dlpns [Bq] int32     query DLPNs (-1 = inactive slot)
+    returns (hit [Bq] bool, dppn [Bq] int32 (-1 on a miss), set_idx,
+             way [Bq] int32)
+
+    Floor ``//`` and ``mod`` as jnp's; ``way`` is the FIRST matching way
+    (argmax), 0 when nothing matches. Tags compare as integers, so block
+    ids at and above 1<<24 are exact."""
+    n_sets, _ = tags.shape
+    e = entries_per_block
+    dl = dlpns.long()
+    block_id = torch.div(dl, e, rounding_mode="floor")
+    offset = torch.remainder(dl, e)
+    set_idx = torch.remainder(block_id, n_sets)
+    match = (tags[set_idx].long() == block_id[:, None]) & valid[set_idx]
+    hit = match.any(dim=1) & (dl >= 0)
+    way = match.to(torch.int32).argmax(dim=1)
+    dppn = torch.where(hit, data[set_idx, way, offset],
+                       torch.full_like(dlpns, -1))
+    return (hit, dppn.to(torch.int32), set_idx.to(torch.int32),
+            way.to(torch.int32))

@@ -19,6 +19,13 @@ class Runtime:
     page_size: int = 256                # tokens per KV page
 
 
+def init_dense(gen: torch.Generator, shape, d_in: int, dtype, device):
+    """N(0, 1/d_in) weights from ``gen``, drawn in float32 then cast
+    (the reference's ``init_dense`` scale)."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * (1.0 / d_in ** 0.5)).to(dtype)
+
+
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if x.dtype == dtype else x.to(dtype)
 

@@ -1,6 +1,6 @@
-"""Top-level Model for the dense paged-serving path: port of
-``repro/models/model.py`` (``init``, ``_embed``, ``_logits``,
-``prefill``, ``decode_step``, ``build_model``).
+"""Top-level Model for the paged-serving path (dense and pure-SSM
+decoders): port of ``repro/models/model.py`` (``init``, ``_embed``,
+``_logits``, ``prefill``, ``decode_step``, ``build_model``).
 
 Parameters are a plain dict of tensors in the reference's pytree
 layout (``embed`` [V,d], ``stack`` = list over j of dicts with
@@ -17,14 +17,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, transformer
+from repro_torch.models import common, ssm, transformer
 from repro_torch.models.common import Runtime
-
-
-def _dense(gen, shape, d_in: int, dtype, device):
-    """N(0, 1/d_in) weights, drawn in float32 then cast."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * (1.0 / d_in ** 0.5)).to(dtype)
 
 
 @dataclasses.dataclass
@@ -42,34 +36,37 @@ class Model:
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         n_p = cfg.n_layers // cfg.period
         stack = []
-        for _ in range(cfg.period):
+        for j in range(cfg.period):
             layer: Dict[str, Any] = {
-                "ln1": torch.zeros((n_p, d), dtype=dt, device=dev),
-                "mixer": {
-                    "wq": _dense(g, (n_p, d, h * hd), d, dt, dev).reshape(
+                "ln1": torch.zeros((n_p, d), dtype=dt, device=dev)}
+            if cfg.layer_kind(j) == "mamba":
+                layer["mixer"] = ssm.init_ssm(g, cfg, n_p, dt, dev)
+            else:
+                dense = common.init_dense
+                layer["mixer"] = {
+                    "wq": dense(g, (n_p, d, h * hd), d, dt, dev).reshape(
                         n_p, d, h, hd),
-                    "wk": _dense(g, (n_p, d, kv * hd), d, dt, dev).reshape(
+                    "wk": dense(g, (n_p, d, kv * hd), d, dt, dev).reshape(
                         n_p, d, kv, hd),
-                    "wv": _dense(g, (n_p, d, kv * hd), d, dt, dev).reshape(
+                    "wv": dense(g, (n_p, d, kv * hd), d, dt, dev).reshape(
                         n_p, d, kv, hd),
-                    "wo": _dense(g, (n_p, h * hd, d), h * hd, dt,
-                                 dev).reshape(n_p, h, hd, d),
-                },
-            }
-            if cfg.qkv_bias:
-                layer["mixer"].update(
-                    bq=torch.zeros((n_p, h, hd), dtype=dt, device=dev),
-                    bk=torch.zeros((n_p, kv, hd), dtype=dt, device=dev),
-                    bv=torch.zeros((n_p, kv, hd), dtype=dt, device=dev))
+                    "wo": dense(g, (n_p, h * hd, d), h * hd, dt,
+                                dev).reshape(n_p, h, hd, d),
+                }
+                if cfg.qkv_bias:
+                    layer["mixer"].update(
+                        bq=torch.zeros((n_p, h, hd), dtype=dt, device=dev),
+                        bk=torch.zeros((n_p, kv, hd), dtype=dt, device=dev),
+                        bv=torch.zeros((n_p, kv, hd), dtype=dt, device=dev))
             if cfg.post_norms:
                 layer["post1"] = torch.zeros((n_p, d), dtype=dt, device=dev)
             if cfg.d_ff:
                 ff = cfg.d_ff
                 layer["ln2"] = torch.zeros((n_p, d), dtype=dt, device=dev)
                 layer["ffn"] = {"dense": {
-                    "wg": _dense(g, (n_p, d, ff), d, dt, dev),
-                    "wu": _dense(g, (n_p, d, ff), d, dt, dev),
-                    "wd": _dense(g, (n_p, ff, d), ff, dt, dev)}}
+                    "wg": common.init_dense(g, (n_p, d, ff), d, dt, dev),
+                    "wu": common.init_dense(g, (n_p, d, ff), d, dt, dev),
+                    "wd": common.init_dense(g, (n_p, ff, d), ff, dt, dev)}}
                 if cfg.post_norms:
                     layer["post2"] = torch.zeros((n_p, d), dtype=dt,
                                                  device=dev)
@@ -82,7 +79,8 @@ class Model:
             "final_norm": torch.zeros((d,), dtype=dt, device=dev),
         }
         if not cfg.tie_embeddings:
-            params["head"] = _dense(g, (d, cfg.vocab_size), d, dt, dev)
+            params["head"] = common.init_dense(g, (d, cfg.vocab_size), d,
+                                               dt, dev)
         return params
 
     # ------------------------------------------------------------------

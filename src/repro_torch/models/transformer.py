@@ -1,10 +1,17 @@
-"""Decoder stack for the dense paged-serving path: port of
-``repro/models/transformer.py`` (``stack_forward`` with cache
-collection, ``init_decode_caches``, ``stack_decode``).
+"""Decoder stack for the paged-serving path (dense attention and Mamba2
+layers): port of ``repro/models/transformer.py`` (``stack_forward``
+with cache collection, ``init_decode_caches``, ``stack_decode``).
 
 Parameters keep the reference's stacked layout: ``params`` is a list
 over the intra-period index j of dicts whose leaves carry a leading
 [n_periods] axis. Layers run as a Python loop over (period, j).
+
+Decode caches are indexed as the reference indexes them: the paged KV
+pools [n_periods, len(attn_js), NB, P, KV, hd] (absent without an
+attention layer), and per-slot SSM state, conv [n_periods,
+len(ssm_js), n_slots, K-1, di+2N] in the compute dtype and ssm
+[n_periods, len(ssm_js), n_slots, nh, hd, N] in float32. ``a_of`` and
+``s_of`` map j to its index among the attention / mamba layers.
 """
 from __future__ import annotations
 
@@ -12,7 +19,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.common import Runtime
 
 
@@ -26,33 +33,53 @@ def layer_params(params: List[Dict[str, Any]], j: int, p: int):
     return pick(params[j])
 
 
+def kind_index(cfg):
+    """({j: index among attention layers}, {j: index among mamba
+    layers}) over one period."""
+    attn_js = [j for j in range(cfg.period) if cfg.layer_kind(j) == "attn"]
+    ssm_js = [j for j in range(cfg.period) if cfg.layer_kind(j) == "mamba"]
+    return ({j: i for i, j in enumerate(attn_js)},
+            {j: i for i, j in enumerate(ssm_js)})
+
+
+def _ffn(lp, x, cfg, rt: Runtime):
+    """The layer's FFN residual branch, when it has one."""
+    if "ffn" not in lp:
+        return x
+    h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y = mlp.apply_mlp(lp["ffn"]["dense"], h, cfg, rt)
+    if cfg.post_norms:
+        y = common.rms_norm(y, lp["post2"], cfg.norm_eps)
+    return x + y
+
+
 def _apply_layer_full(lp, x, cfg, rt: Runtime, j: int, *, positions,
                       collect):
     """One layer over the full sequence. Returns (x, collected)."""
     col: Dict[str, Any] = {}
     h = common.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, (k, v) = attention.attn_forward(
-        lp["mixer"], h, cfg, rt, positions=positions,
-        kind=cfg.attn_kind(j), return_kv=True)
-    if collect:
-        col["kv"] = (k, v)
+    if cfg.layer_kind(j) == "attn":
+        y, (k, v) = attention.attn_forward(
+            lp["mixer"], h, cfg, rt, positions=positions,
+            kind=cfg.attn_kind(j), return_kv=True)
+        if collect:
+            col["kv"] = (k, v)
+    else:
+        y, state = ssm.ssm_forward(lp["mixer"], h, cfg, rt,
+                                   return_state=True)
+        if collect:
+            col["ssm"] = state
     if cfg.post_norms:
         y = common.rms_norm(y, lp["post1"], cfg.norm_eps)
-    x = x + y
-    if "ffn" in lp:
-        h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y = mlp.apply_mlp(lp["ffn"]["dense"], h, cfg, rt)
-        if cfg.post_norms:
-            y = common.rms_norm(y, lp["post2"], cfg.norm_eps)
-        x = x + y
-    return x, col
+    return _ffn(lp, x + y, cfg, rt), col
 
 
 def stack_forward(params, x, cfg, rt: Runtime, *, positions,
                   collect_caches=False):
     """Full stack. Returns (x, caches or None); caches is a list over j
-    of {"kv": (k, v)} with leaves [n_periods, B, S, KV, hd], the
-    reference's collected layout."""
+    of {"kv": (k, v)} with leaves [n_periods, B, S, KV, hd] or
+    {"ssm": (conv_state, ssm_state)} with leaves [n_periods, B, K-1, C]
+    and [n_periods, B, nh, hd, N], the reference's collected layout."""
     period = cfg.period
     n_periods = cfg.n_layers // period
     cols: List[List[Dict[str, Any]]] = [[] for _ in range(period)]
@@ -64,43 +91,64 @@ def stack_forward(params, x, cfg, rt: Runtime, *, positions,
             cols[j].append(col)
     if not collect_caches:
         return x, None
-    stacked = [{"kv": (torch.stack([c["kv"][0] for c in cj]),
-                       torch.stack([c["kv"][1] for c in cj]))}
+    stacked = [{key: tuple(torch.stack([c[key][i] for c in cj])
+                           for i in range(2))
+                for key in cj[0]}
                for cj in cols]
     return x, stacked
 
 
-def init_decode_caches(cfg, rt: Runtime, n_blocks: int, dtype, *,
-                       device: torch.device):
-    """Paged KV pools, stacked [n_periods, period, NB, P, KV, hd]."""
-    shape = (cfg.n_layers // cfg.period, cfg.period, n_blocks,
-             rt.page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
-            "pool_v": torch.zeros(shape, dtype=dtype, device=device)}
+def init_decode_caches(cfg, rt: Runtime, batch: int, n_blocks: int, dtype,
+                       *, device: torch.device):
+    """Paged KV pools and per-slot SSM states, stacked [n_periods,
+    L_kind, ...]."""
+    a_of, s_of = kind_index(cfg)
+    n_periods = cfg.n_layers // cfg.period
+    caches: Dict[str, torch.Tensor] = {}
+    if a_of:
+        shape = (n_periods, len(a_of), n_blocks, rt.page_size,
+                 cfg.n_kv_heads, cfg.head_dim)
+        caches["pool_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        caches["pool_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if s_of:
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        nh = s.n_heads(cfg.d_model)
+        caches["conv"] = torch.zeros(
+            (n_periods, len(s_of), batch, s.conv_dim - 1,
+             di + 2 * s.d_state), dtype=dtype, device=device)
+        caches["ssm"] = torch.zeros(
+            (n_periods, len(s_of), batch, nh, s.head_dim, s.d_state),
+            dtype=torch.float32, device=device)
+    return caches
 
 
 def stack_decode(params, x, caches, cfg, rt: Runtime, *, ctx_lens,
                  block_table):
     """One decode step through the stack. x [B,d]; block_table [B,MAXP]
-    shared across layers; the pools in ``caches`` update in place."""
-    period = cfg.period
-    for p in range(cfg.n_layers // period):
-        for j in range(period):
+    shared across layers; the pools and SSM states in ``caches`` update
+    in place."""
+    a_of, s_of = kind_index(cfg)
+    for p in range(cfg.n_layers // cfg.period):
+        for j in range(cfg.period):
             lp = layer_params(params, j, p)
             h = common.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            y, _, _ = attention.attn_decode_paged(
-                lp["mixer"], h, cfg, rt,
-                pool_k=caches["pool_k"][p, j], pool_v=caches["pool_v"][p, j],
-                block_table=block_table, ctx_lens=ctx_lens,
-                kind=cfg.attn_kind(j))
+            if cfg.layer_kind(j) == "attn":
+                ai = a_of[j]
+                y, _, _ = attention.attn_decode_paged(
+                    lp["mixer"], h, cfg, rt,
+                    pool_k=caches["pool_k"][p, ai],
+                    pool_v=caches["pool_v"][p, ai],
+                    block_table=block_table, ctx_lens=ctx_lens,
+                    kind=cfg.attn_kind(j))
+            else:
+                si = s_of[j]
+                y, (cs, ss) = ssm.ssm_decode(
+                    lp["mixer"], h,
+                    (caches["conv"][p, si], caches["ssm"][p, si]), cfg, rt)
+                caches["conv"][p, si] = cs
+                caches["ssm"][p, si] = ss
             if cfg.post_norms:
                 y = common.rms_norm(y, lp["post1"], cfg.norm_eps)
-            x = x + y
-            if "ffn" in lp:
-                h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
-                y2 = mlp.apply_mlp(lp["ffn"]["dense"], h[:, None, :], cfg,
-                                   rt)[:, 0]
-                if cfg.post_norms:
-                    y2 = common.rms_norm(y2, lp["post2"], cfg.norm_eps)
-                x = x + y2
+            x = _ffn(lp, x + y, cfg, rt)
     return x, caches

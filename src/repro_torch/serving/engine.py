@@ -1,11 +1,15 @@
 """Serving engine: continuous batching over a fixed slot grid, with the
 FMMU page manager owning logical->physical KV translation. Port of the
-single-step path of ``repro/serving/engine.py``.
+single-step path of ``repro/serving/engine.py``, for dense and pure-SSM
+models.
 
-Prefill (the flash-attention kernel) writes each request's KV into the
-pool blocks named by the FMMU block table; decode steps run the whole
-slot batch through ``Model.decode_step`` (the paged-attention kernel)
-against the device-resident incremental block table. Page growth for
+Prefill (the flash-attention kernel, or the mamba_chunk_scan kernel
+for an SSM layer) writes each request's KV into the pool blocks named
+by the FMMU block table and its conv/SSM states into its slot; decode
+steps run the whole slot batch through ``Model.decode_step`` (the
+paged-attention kernel, or the one-token SSD recurrence) against the
+device-resident incremental block table. An attention-free model still
+grows its pages through the map, as in the reference. Page growth for
 every slot crossing a page boundary is one allocation + ONE fused map
 commit (the fmmu_translate kernel), and dead-lane masking happens on
 the device, so the only per-step host sync is the next-token readback
@@ -15,7 +19,10 @@ Not ported yet (later slices; ``ServeConfig`` rejects them): K-step
 macro decode, the host tier and swaps, channel sharding, GC, prefix
 sharing, journaling and the fault plane. Without a host tier there is
 no preemption victim, so a slot whose page growth fails PAUSES until
-blocks free up, as in the reference.
+blocks free up, as in the reference. As in the reference, every slot
+runs through each decode step (token 0 on a paused or dead lane): its
+KV write is masked to the scratch block, but a mamba layer's state of
+a paused slot advances all the same (ROADMAP, reference divergences).
 """
 from __future__ import annotations
 
@@ -82,9 +89,16 @@ class ServeEngine:
         # +1 scratch block: unmapped table entries (dead lanes) write
         # their garbage KV there instead of corrupting block 0
         self.scratch_block = n_dev
+        # prefix sharing only applies to pure paged-attention state: a
+        # mamba layer's recurrent state is per-slot and
+        # position-dependent, so a skipped prefill cannot be rebuilt
+        # from shared KV pages (ServeConfig rejects sharing for now)
+        self._share_model_ok = not any(
+            self.cfg.layer_kind(j) == "mamba"
+            for j in range(self.cfg.period))
         self.caches = transformer.init_decode_caches(
-            self.cfg, self.rt, n_dev + 1, self.rt.compute_dtype,
-            device=self.device)
+            self.cfg, self.rt, self.n_slots, n_dev + 1,
+            self.rt.compute_dtype, device=self.device)
         self.ctx_lens = np.zeros(self.n_slots, np.int32)
         self.active: Dict[int, Request] = {}
         self.eos_id = config.eos_id
@@ -173,7 +187,7 @@ class ServeEngine:
         row = self.kvm.block_tables()[req.slot]   # device slice, no sync
         logits, cols = self.m.prefill(self.params, toks)
         _scatter_prefill(self.cfg, self.rt, self.caches, cols, row,
-                         self.scratch_block)
+                         req.slot, self.scratch_block)
         self.ctx_lens[req.slot] = n_chunk
         if n_chunk < len(req.tokens):
             req.pending_prompt = list(req.tokens[n_chunk:])
@@ -306,26 +320,38 @@ class ServeEngine:
 
 
 # ----------------------------------------------------------------------
-def _scatter_prefill(cfg, rt, caches, cols, table_row, scratch_block: int):
-    """Write one request's prefill KV (B=1) into its pool blocks, in
-    place. cols: per-period-index list of {"kv": (k, v)} with leaves
-    [n_periods, 1, S, KV, hd]. The reference's scatter drops rows
+def _scatter_prefill(cfg, rt, caches, cols, table_row, slot: int,
+                     scratch_block: int):
+    """Write one request's prefill caches (B=1) in place: KV into its
+    pool blocks, conv/SSM states into its slot. cols: per-period-index
+    list of {"kv": (k, v)} with leaves [n_periods, 1, S, KV, hd] or
+    {"ssm": (conv, state)} with leaves [n_periods, 1, K-1, C] and
+    [n_periods, 1, nh, hd, N]. The reference's KV scatter drops rows
     outside the pool (``mode="drop"``); here such rows (NIL, never
     produced at admission) are routed to the scratch block instead,
     which holds garbage by design."""
+    a_of, s_of = transformer.kind_index(cfg)
     page = rt.page_size
     for j in range(cfg.period):
-        k, v = cols[j]["kv"]
-        n_p, _, s, kvh, hd = k.shape
-        npages = -(-s // page)
-        pad = npages * page - s
-        kp = F.pad(k[:, 0], (0, 0, 0, 0, 0, pad)).reshape(
-            n_p, npages, page, kvh, hd)
-        vp = F.pad(v[:, 0], (0, 0, 0, 0, 0, pad)).reshape(
-            n_p, npages, page, kvh, hd)
-        rows = table_row[:npages].long()
-        rows = torch.where((rows < 0) | (rows >= scratch_block),
-                           scratch_block, rows)
-        caches["pool_k"][:, j, rows] = kp.to(caches["pool_k"].dtype)
-        caches["pool_v"][:, j, rows] = vp.to(caches["pool_v"].dtype)
+        col = cols[j]
+        if "kv" in col:
+            k, v = col["kv"]
+            n_p, _, s, kvh, hd = k.shape
+            npages = -(-s // page)
+            pad = npages * page - s
+            kp = F.pad(k[:, 0], (0, 0, 0, 0, 0, pad)).reshape(
+                n_p, npages, page, kvh, hd)
+            vp = F.pad(v[:, 0], (0, 0, 0, 0, 0, pad)).reshape(
+                n_p, npages, page, kvh, hd)
+            rows = table_row[:npages].long()
+            rows = torch.where((rows < 0) | (rows >= scratch_block),
+                               scratch_block, rows)
+            ai = a_of[j]
+            caches["pool_k"][:, ai, rows] = kp.to(caches["pool_k"].dtype)
+            caches["pool_v"][:, ai, rows] = vp.to(caches["pool_v"].dtype)
+        if "ssm" in col:
+            conv, state = col["ssm"]
+            si = s_of[j]
+            caches["conv"][:, si, slot] = conv[:, 0].to(caches["conv"].dtype)
+            caches["ssm"][:, si, slot] = state[:, 0]
     return caches

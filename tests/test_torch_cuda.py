@@ -12,13 +12,19 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.counters import COUNTERS  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.fmmu_lookup import (  # noqa: E402
+    fmmu_lookup, fmmu_lookup_ref)
 from repro_torch.kernels.fmmu_translate import (  # noqa: E402
     fmmu_translate, fmmu_translate_ref)
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_chunk_scan, mamba_chunk_scan_ref)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 5e-3, torch.bfloat16: 8e-2}   # the Pallas tests'
+
 
 
 @pytest.fixture
@@ -94,6 +100,63 @@ def test_fmmu_translate_kernel_bit_exact(cuda, s, w, e, n_backing, bq):
         assert gt.dtype == wt.dtype and torch.equal(gt, wt)
 
 
+@pytest.mark.parametrize("bt,s,h,p,n", [
+    (1, 1, 2, 16, 16), (2, 3, 2, 16, 16), (1, 31, 4, 64, 128),
+    (1, 100, 4, 64, 128), (2, 33, 3, 40, 16), (1, 256, 2, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+def test_mamba_chunk_scan_kernel(cuda, bt, s, h, p, n, dtype, init):
+    """Ragged and short S, P not a multiple of the 32-row slice, every
+    d_state the kernel takes, with and without an initial state."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((bt, s, h, p), generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bt, s, h), generator=g, device=cuda))
+    a = -torch.exp(torch.randn((h,), generator=g, device=cuda))
+    b = torch.randn((bt, s, n), generator=g, device=cuda).to(dtype)
+    c = torch.randn((bt, s, n), generator=g, device=cuda).to(dtype)
+    d = 1.0 + 0.1 * torch.randn((h,), generator=g, device=cuda)
+    s0 = (torch.randn((bt, h, p, n), generator=g, device=cuda) if init
+          else None)
+    n0 = COUNTERS.launches().get("mamba_chunk_scan", 0)
+    y, fin = mamba_chunk_scan(x, dt, a, b, c, d, chunk=32, initial_state=s0)
+    yw, fw = mamba_chunk_scan_ref(x, dt, a, b, c, d, chunk=32,
+                                  initial_state=s0)
+    assert COUNTERS.launches()["mamba_chunk_scan"] - n0 == 1
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), yw.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fin, fw, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("s,w,e,bq", [
+    (512, 4, 8, 4096), (16, 4, 8, 100), (4, 1, 4, 33)])
+def test_fmmu_lookup_kernel_bit_exact(cuda, s, w, e, bq):
+    """Tags and data past 1<<24 (integer compare, exact values),
+    duplicate-tag ways (first match), inactive lanes."""
+    rng = np.random.default_rng(4)
+    # block ids >= 1<<24 whose dlpns (id * e) stay inside int32
+    tags = (rng.integers(0, 64, (s, w)) + (1 << 24) // s + 1) * s + \
+        np.arange(s)[:, None]
+    tags[:, -1] = tags[:, 0]
+    valid = rng.random((s, w)) < 0.7
+    valid[:, 0] = True
+    dl = rng.integers(-2, 1 << 30, (bq,))
+    k = min(bq - 3, s)
+    dl[:k] = tags[:k, 0] * e + np.arange(k) % e
+    dl[k:2 * k] = (tags[:k].max(axis=1) + s) * e + 1   # in no way: miss
+    dl[-3:] = [-1, -2, -e - 1]
+    arrs = [tags.astype(np.int32), valid,
+            rng.integers(-1, 1 << 30, (s, w, e)).astype(np.int32),
+            dl.astype(np.int32)]
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    got = fmmu_lookup(*args, entries_per_block=e)
+    want = fmmu_lookup_ref(*args, entries_per_block=e)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and torch.equal(gt, wt)
+    assert got[0][:k].all() and not got[0][k:2 * k].any()
+
+
 def test_wrappers_reject_bad_arguments(cuda):
     q = torch.zeros((1, 8, 4, 16), device=cuda)
     with pytest.raises(ValueError):
@@ -105,3 +168,17 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError):
         fmmu_translate(t, t.bool(), t.bool(), t[..., None], t[:, 0],
                        t[:, 0], t[:, 0].bool(), entries_per_block=1)
+    with pytest.raises(ValueError):
+        fmmu_lookup(t, t.bool(), t[..., None], t[:, 0], entries_per_block=1)
+    x = torch.zeros((1, 8, 2, 16), device=cuda)
+    bc = torch.zeros((1, 8, 24), device=cuda)                # d_state 24
+    dt = torch.zeros((1, 8, 2), device=cuda)
+    hv = torch.zeros((2,), device=cuda)
+    with pytest.raises(ValueError):
+        mamba_chunk_scan(x, dt, hv, bc, bc, hv)
+    with pytest.raises(ValueError):                          # dt not f32
+        mamba_chunk_scan(x, dt.bfloat16(), hv, bc[..., :16], bc[..., :16],
+                         hv)
+    with pytest.raises(ValueError):                          # f16
+        mamba_chunk_scan(x.half(), dt, hv, bc[..., :16].half(),
+                         bc[..., :16].half(), hv)

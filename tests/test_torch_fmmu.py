@@ -2,10 +2,14 @@
 ``ServingMapState``/``BatchFMMUState`` leaf bit-identical to JAX
 ``translate_serving`` after each random mixed-op batch (duplicate
 blocks, set overflow, host-tier ids, inactive and out-of-contract
-lanes), and the port's ``KVPageManager`` bit-identical to the JAX
-manager under random new/extend/free interleavings. Inputs come from a
-seeded numpy generator and go into both packages."""
+lanes), the port's unfused three-call path (``*_unfused``, the
+``fmmu_lookup`` probe) bit-identical to JAX's and to the port's own
+fused path on order-insensitive batches, and the port's
+``KVPageManager`` bit-identical to the JAX manager under random
+new/extend/free interleavings. Inputs come from a seeded numpy
+generator and go into both packages."""
 import functools
+import random
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from fmmu_lockstep import _split_order_sensitive  # noqa: E402
 from repro.core.fmmu import batch as JB  # noqa: E402
 from repro.core.fmmu.types import small_geometry as j_small  # noqa: E402
 from repro.paging.kv_manager import KVPageManager as JKVM  # noqa: E402
@@ -146,6 +151,119 @@ def test_batch_wrappers_bit_identical_to_jax():
                                        jnp.asarray(dp + 7), jnp.asarray(old))
         np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
         _assert_state_equal(ts, js, "wrappers")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
+@pytest.mark.parametrize("seed,geom_kw", [
+    (0, {}), (1, dict(cmt_sets=8, cmt_ways=4)),
+    (2, dict(cmt_sets=2, cmt_ways=1))])
+def test_unfused_calls_bit_identical_to_jax(seed, geom_kw):
+    """lookup/update/cond_update_batch_unfused on random batches (set
+    overflow, duplicate blocks and reads, host-tier ids, inactive and
+    out-of-contract lanes): every state leaf and output equal to JAX's
+    unfused calls, which probe through fmmu_lookup."""
+    g, jg = small_geometry(**geom_kw), j_small(**geom_kw)
+    ts, js = TB.init_batch_state(g, CPU), JB.init_batch_state(jg)
+    jlook, jupd, jcond = (jax.jit(functools.partial(f, jg)) for f in (
+        JB.lookup_batch_unfused, JB.update_batch_unfused,
+        JB.cond_update_batch_unfused))
+    rng = np.random.default_rng(seed)
+    shadow = {}
+    p0 = TB.PROBE_CALLS[0]
+    for it in range(25):
+        opc, dl, dp, old = _gen_batch(rng, g, shadow, overflow=True)
+
+        def lanes(mask, *cols):
+            # each call's lanes padded with inactive ones (a no-op) to
+            # BQ, so the JAX side compiles once per call
+            n = BQ - int(mask.sum())
+            return [np.concatenate([c[mask], np.full(n, f, np.int32)])
+                    for c, f in zip(cols, (-1, 0, 0))]
+        dl_l, = lanes(opc == LOOKUP, dl)
+        dl_u, dp_u = lanes(opc == UPDATE, dl, dp)
+        dl_c, dp_c, old_c = lanes(opc == COND_UPDATE, dl, dp, old)
+        ts, tout = TB.lookup_batch_unfused(g, ts, _t(dl_l))
+        js, jout = jlook(js, jnp.asarray(dl_l))
+        np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+        assert tout.dtype == torch.int32
+        _assert_state_equal(ts, js, f"batch {it} lookup")
+        ts = TB.update_batch_unfused(g, ts, _t(dl_u), _t(dp_u))
+        js = jupd(js, jnp.asarray(dl_u), jnp.asarray(dp_u))
+        _assert_state_equal(ts, js, f"batch {it} update")
+        ts, tok = TB.cond_update_batch_unfused(g, ts, _t(dl_c), _t(dp_c),
+                                               _t(old_c))
+        js, jok = jcond(js, jnp.asarray(dl_c), jnp.asarray(dp_c),
+                        jnp.asarray(old_c))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        _assert_state_equal(ts, js, f"batch {it} cond")
+        for o, d, p_ in zip(opc, dl, dp):
+            if o == UPDATE and d >= 0:
+                shadow[int(d)] = int(p_)
+    assert TB.PROBE_CALLS[0] - p0 == 25 * 4       # lookup 1, update 1, cond 2
+    assert (ts.data.numpy() >= HOST_BASE).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_lockstep_vs_unfused_and_shadow(seed):
+    """The port of tests/test_fmmu_batch.py's lockstep (constrained
+    mode of tests/fmmu_lockstep.batch_lockstep): random mixed batches
+    through the fused translate_batch and through the three unfused
+    calls; on every batch where the split is order-insensitive the two
+    states are bit-identical, and both follow dict semantics."""
+    g = small_geometry(cmt_sets=8, cmt_ways=4)
+    rng, nprng = random.Random(seed), np.random.RandomState(seed)
+    n_blocks = g.n_tvpns * g.entries_per_tp // g.cmt_entries
+    stf, stu = TB.init_batch_state(g, CPU), TB.init_batch_state(g, CPU)
+    shadow, compared = {}, 0
+
+    def gen_lanes(pool, kind):
+        blks = nprng.choice(pool, rng.randint(1, 3), replace=False)
+        dl = [int(b) * g.cmt_entries + rng.randrange(g.cmt_entries)
+              for b in blks for _ in range(rng.randint(1, 3))]
+        return [(kind, d) for d in dict.fromkeys(dl)]
+
+    for it in range(40):
+        lo = np.arange(0, 2 * n_blocks // 3)
+        hi = np.arange(2 * n_blocks // 3, n_blocks)
+        batch = (gen_lanes(lo, LOOKUP) + gen_lanes(lo, UPDATE)
+                 + gen_lanes(hi, COND_UPDATE))
+        rng.shuffle(batch)
+        if _split_order_sensitive(g, stf, batch):
+            continue
+        kinds = np.array([k for k, _ in batch], np.int32)
+        dls = np.array([d for _, d in batch], np.int32)
+        dps = nprng.randint(0, 10 ** 6, len(batch)).astype(np.int32)
+        olds = np.array([shadow.get(int(d), NIL) if rng.random() < .6
+                         else rng.randrange(10 ** 6) for d in dls], np.int32)
+        stf, out, ok = TB.translate_batch(g, stf, _t(kinds), _t(dls),
+                                          _t(dps), _t(olds))
+        out, ok = out.numpy(), ok.numpy()
+        for i, (k, d) in enumerate(batch):
+            assert out[i] == shadow.get(d, NIL), (it, i)
+            if k == COND_UPDATE:
+                assert bool(ok[i]) == (shadow.get(d, NIL) == olds[i])
+        for i, (k, d) in enumerate(batch):
+            if k == UPDATE or (k == COND_UPDATE and ok[i]):
+                shadow[d] = int(dps[i])
+        ml, mu, mc = kinds == LOOKUP, kinds == UPDATE, kinds == COND_UPDATE
+        if ml.any():
+            stu, ou = TB.lookup_batch_unfused(g, stu, _t(dls[ml]))
+            np.testing.assert_array_equal(ou.numpy(), out[ml])
+        if mu.any():
+            stu = TB.update_batch_unfused(g, stu, _t(dls[mu]), _t(dps[mu]))
+        if mc.any():
+            stu, oku = TB.cond_update_batch_unfused(
+                g, stu, _t(dls[mc]), _t(dps[mc]), _t(olds[mc]))
+            np.testing.assert_array_equal(oku.numpy(), ok[mc])
+        for f in stf._fields:
+            np.testing.assert_array_equal(getattr(stf, f).numpy(),
+                                          getattr(stu, f).numpy(),
+                                          err_msg=f"batch {it}: {f}")
+        compared += 1
+    assert compared >= 20
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -2,7 +2,8 @@
 in interpret mode on the CPU, on the small shapes of
 tests/test_kernels_pallas.py. The same numpy inputs (from a seed) go
 into both packages. Attention is held within TOL (f32 2e-5, bf16 2e-2);
-the fused translate probe is held bit-exact on every output."""
+the fused translate probe and the probe-only lookup are held bit-exact
+on every output. (The Mamba2 scan is in tests/test_torch_ssm.py.)"""
 import os
 import subprocess
 import sys
@@ -15,12 +16,15 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro.kernels import fmmu_lookup as jfl  # noqa: E402
 from repro.kernels import fmmu_translate as jft  # noqa: E402
 from repro.kernels import paged_attention as jpa  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core.counters import COUNTERS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.fmmu_lookup import fmmu_lookup  # noqa: E402
 from repro_torch.kernels.fmmu_translate import fmmu_translate  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 
@@ -213,6 +217,64 @@ def test_fmmu_translate_ref_bit_exact_vs_pallas(n_sets, n_ways, e, bq, np_sz,
         assert (_np(got[2])[m1] == n_sets - 1).all()
 
 
+@pytest.mark.parametrize("n_sets,n_ways,e,bq,np_sz,dup", [
+    (8, 2, 4, 64, 256, False), (16, 4, 8, 300, 5000, True),
+    (4, 1, 4, 33, 100, False), (512, 4, 8, 1024, 16384, False)])
+def test_fmmu_lookup_ref_bit_exact_vs_pallas(n_sets, n_ways, e, bq, np_sz,
+                                             dup):
+    """Data values past 1<<24 come out exact on both sides (the Pallas
+    kernel moves them as 16-bit halves); inactive lanes miss with -1."""
+    tags, valid, _, data, _, dlpns, _ = _translate_inputs(
+        11, n_sets, n_ways, e, bq, np_sz, dup)
+    k = min(n_sets, bq - 5)                 # a hit in each of k sets
+    valid[:k, 0] = True
+    dlpns[:k] = tags[:k, 0] * e + np.arange(k) % e
+    arrs = [tags, valid, data, dlpns]
+    want = jfl.fmmu_lookup(*[jnp.asarray(a) for a in arrs],
+                           entries_per_block=e, block_size=32,
+                           interpret=True)
+    want_ref = jref.fmmu_lookup_ref(*[jnp.asarray(a) for a in arrs],
+                                    entries_per_block=e)
+    got = fmmu_lookup(*[torch.from_numpy(a.copy()) for a in arrs],
+                      entries_per_block=e)
+    for name, g, w, r in zip(["hit", "dppn", "set", "way"], got, want,
+                             want_ref):
+        np.testing.assert_array_equal(_np(g), np.asarray(w), err_msg=name)
+        np.testing.assert_array_equal(_np(g), np.asarray(r), err_msg=name)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert _np(got[0]).any() and (_np(got[1]) >= 1 << 24).any()
+    assert (_np(got[1])[dlpns < 0] == -1).all()
+    assert (_np(got[2])[dlpns == -1] == n_sets - 1).all()
+
+
+def test_fmmu_lookup_ref_exact_on_block_ids_past_f32_range():
+    """Block ids at and above 1<<24 compare as integers: a query one
+    block id off a cached tag misses (the TPU kernel's f32 compare
+    would alias the two), the exact id hits."""
+    n_sets, n_ways, e = 4, 2, 4
+    base = (1 << 24) * n_sets                      # block id, set 0
+    tags = np.asarray([[base, base + 4 * n_sets]] + [[-1, -1]] * 3,
+                      np.int32)
+    valid = np.zeros((n_sets, n_ways), bool)
+    valid[0] = True
+    data = np.arange(n_sets * n_ways * e, dtype=np.int32).reshape(
+        n_sets, n_ways, e) + (1 << 25)
+    # same set 0 in both: base and base + n_sets (one set-stride away,
+    # equal to base in f32)
+    dl = np.asarray([base * e + 1, (base + n_sets) * e + 1,
+                     (base + 4 * n_sets) * e + 3], np.int32)
+    assert np.float32(base) == np.float32(base + n_sets)
+    args = [torch.from_numpy(a) for a in (tags, valid, data, dl)]
+    hit, dppn, set_idx, way = fmmu_lookup(*args, entries_per_block=e)
+    want = jref.fmmu_lookup_ref(*[jnp.asarray(a) for a in
+                                  (tags, valid, data, dl)],
+                                entries_per_block=e)
+    for g, w in zip((hit, dppn, set_idx, way), want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+    assert hit.tolist() == [True, False, True]
+    assert dppn.tolist() == [int(data[0, 0, 1]), -1, int(data[0, 1, 3])]
+
+
 def test_dispatch_follows_tensor_device_and_impl():
     arrs = [torch.from_numpy(a.copy()) for a in
             _translate_inputs(3, 8, 2, 4, 40, 128)]
@@ -225,6 +287,11 @@ def test_dispatch_follows_tensor_device_and_impl():
     assert COUNTERS.launches() == before
     with pytest.raises(ValueError):
         ops.fmmu_translate(*arrs, entries_per_block=4, impl="pallas")
+    look = [arrs[i] for i in (0, 1, 3, 5)]
+    for x, y in zip(ops.fmmu_lookup(*look, entries_per_block=4),
+                    ops.fmmu_lookup(*look, entries_per_block=4, impl="ref")):
+        assert torch.equal(x, y)
+    assert COUNTERS.launches() == before
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -245,4 +312,4 @@ def test_port_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    assert int(res.stdout.strip()) >= 24

@@ -92,7 +92,7 @@ def test_decode_step_logits_and_pools_match_jax(pair):
                                      jnp.float32)
     pools = {k: rng.standard_normal(v.shape).astype(np.float32)
              for k, v in jcaches.items()}
-    tcaches = ttr.init_decode_caches(cfg, tm.rt, nb, torch.float32,
+    tcaches = ttr.init_decode_caches(cfg, tm.rt, b, nb, torch.float32,
                                      device=torch.device("cpu"))
     assert {k: tuple(v.shape) for k, v in tcaches.items()} == \
         {k: v.shape for k, v in jcaches.items()}
