@@ -12,7 +12,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                card, on the shapes its path gives it: the fused
                translate probe and the probe-only lookup bit-exact (ids
                past 1<<24), the two attention kernels within the bf16
-               tolerance 2e-2 (f32 variants within 1e-4), the Mamba2
+               tolerance 2e-2 (f16 1e-2, f32 variants 1e-4; paged also
+               at ctx 1024 and a ragged mix at 128 pages, its (m, l)
+               within 1e-3 and repeated calls bit-identical), the Mamba2
                scan within the Pallas tests' 8e-2 bf16 / 5e-3 f32
                (S 1024 and ragged 1000, with and without an initial
                state). Times the kernel, the plain version, the bound
@@ -41,7 +43,10 @@ Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it.
 
 Output: the ptxas resource lines on stderr; on stdout, before the last
-line, the card's name and power limit, one JSON line {"kernels": [...]},
+line, one JSON line {"ptxas": [...]} (registers, spills and static
+shared memory of each attention instantiation, with the paged kernel's
+launch plan at the serving shape), the card's name and power limit, one
+JSON line {"kernels": [...]},
 one {"serve": {...}} (llama), one {"map": {...}} and one
 {"serve_ssm": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -51,7 +56,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
             "int32": 67e12}          # dense peaks, H100 SXM data sheet
 BF16_TOL = 2e-2
+F16_TOL = 1e-2
 F32_TOL = 1e-4
 SCAN_TOL = {torch.float32: 5e-3, torch.bfloat16: 8e-2}   # Pallas tests'
 
@@ -125,6 +133,65 @@ def probe_bytes(dlpns, hit, set_idx, n_ways, fallback):
     n_miss = int(((dlpns >= 0) & ~hit).sum()) if fallback else 0
     return (n_probed * n_ways * (4 + 1) + 4 * n_hit + 4 * n_miss
             + bq * 4 + bq * (1 + 4 + 4 + 4))
+
+
+def _demangle(names):
+    """C++ names of mangled kernel symbols (cu++filt from the toolkit,
+    else c++filt), shortened to the kernel and its template arguments;
+    the mangled names where neither tool is found."""
+    cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    tools = [str(cuda / "bin" / "cu++filt"), "c++filt"]
+    for tool in tools:
+        try:
+            res = subprocess.run([tool], input="\n".join(names),
+                                 capture_output=True, text=True, check=True)
+        except (OSError, subprocess.CalledProcessError):
+            continue
+        out = []
+        for line in res.stdout.splitlines():
+            for junk in ("(anonymous namespace)::", "<unnamed>::", "(int)",
+                         "void "):
+                line = line.replace(junk, "")
+            depth, end = 0, len(line)     # cut after the template list
+            for i, ch in enumerate(line):
+                depth += {"<": 1, ">": -1}.get(ch, 0)
+                if ch == ">" and depth == 0:
+                    end = i + 1
+                    break
+            out.append(line[:end])
+        if len(out) == len(names):
+            return out
+    return list(names)
+
+
+def ptxas_resources(logs, kernels=("paged_attention", "flash_attention")):
+    """Registers, spills and static shared memory of every instantiation
+    of the named kernels, from nvcc's -Xptxas -v output."""
+    entries, cur = [], None
+    for kernel in kernels:
+        for line in logs.get(kernel, "").splitlines():
+            mt = re.search(r"Compiling entry function '(\w+)'", line)
+            if mt:
+                cur = {"mangled": mt.group(1)}
+                entries.append(cur)
+                continue
+            if cur is None:
+                continue
+            mt = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", line)
+            if mt:
+                cur.update(stack_bytes=int(mt.group(1)),
+                           spill_store_bytes=int(mt.group(2)),
+                           spill_load_bytes=int(mt.group(3)))
+            mt = re.search(r"Used (\d+) registers", line)
+            if mt:
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur.update(registers=int(mt.group(1)),
+                           smem_static_bytes=int(sm.group(1)) if sm else 0)
+    for e, name in zip(entries, _demangle([e["mangled"] for e in entries])):
+        e["kernel"] = name
+        del e["mangled"]
+    return entries
 
 
 def _max_err(got, want) -> float:
@@ -205,6 +272,7 @@ def _sdpa(q, k, v, **kw):
 
 
 def check_paged_attention(timer, rng):
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     b, h, kv, d, page = 8, 32, 8, 64, 16
@@ -221,23 +289,39 @@ def check_paged_attention(timer, rng):
         return q, kp, vp, table, torch.tensor(np.asarray(ctx, np.int32),
                                               device="cuda")
 
+    def held(name, args, tol, **kw):
+        """Kernel vs plain version (out, m, l), then two more calls that
+        must repeat the first bit for bit (the split-order combine)."""
+        got, (m, l) = paged_attention(*args, return_stats=True, **kw)
+        want, (wm, wl) = paged_attention_ref(*args, return_stats=True, **kw)
+        err = _max_err(got, want)
+        if err > tol or _max_err(m, wm) > 1e-3 or \
+                float(((l - wl).abs() / wl.clamp_min(1e-6)).max()) > 1e-3:
+            fail(f"paged_attention {name}: max err {err}")
+        for _ in range(2):
+            again, (m2, l2) = paged_attention(*args, return_stats=True, **kw)
+            if not (torch.equal(got, again) and torch.equal(m, m2)
+                    and torch.equal(l, l2)):
+                fail(f"paged_attention {name}: repeated call differs")
+        return err
+
     worst = 0.0
     for maxp in (4, 8, 16, 32, 64, 128):
-        args = inputs(maxp, torch.bfloat16)
-        got, (m, l) = paged_attention(*args, return_stats=True)
-        want, (wm, wl) = paged_attention_ref(*args, return_stats=True)
-        err = _max_err(got, want)
-        worst = max(worst, err)
-        if err > BF16_TOL or _max_err(m, wm) > 1e-3 or \
-                float(((l - wl).abs() / wl.clamp_min(1e-6)).max()) > 1e-3:
-            fail(f"paged_attention bucket {maxp}: max err {err}")
+        worst = max(worst, held(f"bucket {maxp}",
+                                inputs(maxp, torch.bfloat16), BF16_TOL))
+    # the serving shape (8 slots at ctx 1024) and a ragged mix at maxp 128
+    # whose contexts sit on, just past and far from the split edges
+    ragged = [0, 1, 239, 240, 241, 1000, 1500, 2048]
+    for name, maxp, ctx in (("ctx 1024", 64, [1024] * b),
+                            ("ragged maxp 128", 128, ragged)):
+        worst = max(worst, held(f"bf16 {name}",
+                                inputs(maxp, torch.bfloat16, ctx), BF16_TOL))
+        held(f"f16 {name}", inputs(maxp, torch.float16, ctx), F16_TOL)
     for kw in (dict(softcap=30.0), dict(window=100),
                dict(window=40, softcap=20.0)):
-        args = inputs(32, torch.float32)
-        err = _max_err(paged_attention(*args, **kw),
-                       paged_attention_ref(*args, **kw))
-        if err > F32_TOL:
-            fail(f"paged_attention f32 {kw}: max err {err}")
+        held(f"f32 {kw}", inputs(32, torch.float32), F32_TOL, **kw)
+    held("f32 window over splits", inputs(128, torch.float32, ragged),
+         F32_TOL, window=300, softcap=30.0)
     # the serving path's shape: 8 slots at ctx 1024 (bucket 64 pages)
     ctx = 1024
     args = inputs(64, torch.bfloat16, ctx=[ctx] * b)
@@ -248,6 +332,7 @@ def check_paged_attention(timer, rng):
     kg = kp[table.long()].reshape(b, 64 * page, kv, d).transpose(1, 2)
     vg = vp[table.long()].reshape(b, 64 * page, kv, d).transpose(1, 2)
     kg, vg, q4 = kg.contiguous(), vg.contiguous(), q[:, :, None, :]
+    plan = pa.plan(b, h, kv, 64, page, pa._sm_count(q.device.index))
     return {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -258,6 +343,7 @@ def check_paged_attention(timer, rng):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: _sdpa(q4, kg, vg)),
         "shape": "B=8 H=32 KV=8 D=64 P=16 ctx=1024 bf16",
+        "plan": plan._asdict(),
     }
 
 
@@ -270,21 +356,26 @@ def check_flash_attention(timer):
         return [torch.randn((1, s, n, d), device="cuda").to(dtype)
                 for n in (h, kv, kv)]
 
-    worst = 0.0
-    for s in (100, 512, 1000):
-        args = inputs(s, torch.bfloat16)
-        err = _max_err(flash_attention(*args),
-                       flash_attention_ref(*args))
-        worst = max(worst, err)
-        if err > BF16_TOL:
-            fail(f"flash_attention S={s}: max err {err}")
-    for kw in (dict(window=64), dict(softcap=30.0),
-               dict(causal=False, bidirectional=True)):
-        args = inputs(300, torch.float32)
+    def held(name, args, tol, **kw):
         err = _max_err(flash_attention(*args, **kw),
                        flash_attention_ref(*args, **kw))
-        if err > F32_TOL:
-            fail(f"flash_attention f32 {kw}: max err {err}")
+        if err > tol:
+            fail(f"flash_attention {name} {kw}: max err {err}")
+        return err
+
+    worst = 0.0
+    for s in (100, 512, 1000):          # the tensor-core body (bf16, f16)
+        worst = max(worst, held(f"bf16 S={s}", inputs(s, torch.bfloat16),
+                                BF16_TOL))
+        held(f"f16 S={s}", inputs(s, torch.float16), F16_TOL)
+    for kw in (dict(window=256), dict(softcap=30.0),
+               dict(window=200, softcap=20.0),
+               dict(causal=False, bidirectional=True)):
+        worst = max(worst, held("bf16 S=1000", inputs(1000, torch.bfloat16),
+                                BF16_TOL, **kw))
+    for kw in (dict(window=64), dict(softcap=30.0),
+               dict(causal=False, bidirectional=True)):
+        held("f32 S=300", inputs(300, torch.float32), F32_TOL, **kw)
     s = 1000
     args = inputs(s, torch.bfloat16)
     pairs = s * (s + 1) // 2                       # causal (q, k) pairs
@@ -301,7 +392,7 @@ def check_flash_attention(timer):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(
             lambda: _sdpa(qt, kt, vt, is_causal=True)),
-        "shape": "B=1 S=1000 H=32 KV=8 D=64 causal bf16",
+        "shape": "B=1 S=1000 H=32 KV=8 D=64 causal bf16 (tensor-core body)",
     }
 
 
@@ -753,6 +844,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
+    print(json.dumps({"ptxas": ptxas_resources(logs),
+                      "paged_attention_plan_at_serving_shape":
+                      rows["paged_attention"]["plan"]}))
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in rows.values()]}))

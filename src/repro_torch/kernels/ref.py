@@ -1,7 +1,8 @@
 """Plain torch versions of the kernels on the ported paths: the port's
 counterparts of ``attention_naive``, ``paged_attention_naive``,
-``mamba_chunk_scan_naive``, ``mamba_decode_step``, ``fmmu_lookup_ref``
-and ``fmmu_translate_ref`` in ``repro/kernels/ref.py``.
+``combine_partial_attention``, ``mamba_chunk_scan_naive``,
+``mamba_decode_step``, ``fmmu_lookup_ref`` and ``fmmu_translate_ref`` in
+``repro/kernels/ref.py``.
 
 They run on any device. The kernel wrappers use them for CPU tensors,
 ``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
@@ -100,6 +101,24 @@ def paged_attention_naive(q, k_pool, v_pool, block_table, ctx_lens, *,
     if return_stats:
         return out.to(q.dtype), (m, l)
     return out.to(q.dtype)
+
+
+def combine_partial_attention(outs, ms, ls, *, return_stats=False):
+    """Combine flash-decoding partials along a leading split axis: the
+    plain version of the paged kernel's in-launch reduction.
+
+    outs [K,B,H,D] (each l-normalised over its own split), ms/ls [K,B,H]
+    float32 -> out [B,H,D] float32 (+ (m, l) [B,H] if return_stats).
+    An empty split (m = -1e30, l = 0) weighs nothing; all splits empty
+    give 0 with m = -1e30, l = 0."""
+    m = ms.amax(dim=0)
+    w = torch.exp(ms - m[None]) * ls                  # effective weights
+    denom = w.sum(dim=0)
+    out = (outs * w[..., None]).sum(dim=0) / \
+        denom.clamp_min(1e-30)[..., None]
+    if return_stats:
+        return out, (m, denom)
+    return out
 
 
 # ======================================================================

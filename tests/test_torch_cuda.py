@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.counters import COUNTERS  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.fmmu_lookup import (  # noqa: E402
@@ -22,7 +23,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_ref)
 
 pytestmark = pytest.mark.gpu
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 SCAN_TOL = {torch.float32: 5e-3, torch.bfloat16: 8e-2}   # the Pallas tests'
 
 
@@ -77,6 +78,104 @@ def test_paged_attention_kernel(cuda, b, h, kv, d, page, maxp, dtype):
         torch.testing.assert_close(m, wm, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(l, wl, atol=1e-3, rtol=1e-3)
     assert (got[0] == 0).all()             # the ctx=0 lane
+
+
+def _paged_inputs(cuda, b, h, kv, d, page, maxp, dtype, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    nb = b * maxp + 4
+    q = torch.randn((b, h, d), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((nb, page, kv, d), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((nb, page, kv, d), generator=g, device=cuda).to(dtype)
+    table = torch.randperm(nb, generator=g, device=cuda)[:b * maxp].reshape(
+        b, maxp).to(torch.int32)
+    return q, kp, vp, table
+
+
+def _check_paged(args, ctx, dtype, **kw):
+    got, (m, l) = paged_attention(*args, ctx, return_stats=True, **kw)
+    want, (wm, wl) = paged_attention_ref(*args, ctx, return_stats=True, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(m, wm, atol=1e-3, rtol=0)
+    torch.testing.assert_close(l, wl, atol=0, rtol=1e-3)
+    return got, m, l
+
+
+@pytest.mark.parametrize("maxp", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_paged_attention_split_boundaries(cuda, maxp, dtype):
+    """Contexts of 1, exactly at a split boundary and one past it, a
+    ctx = 0 lane, a full table, and a window spanning two splits, with
+    (m, l) held against the plain version."""
+    b, h, kv, d, page = 6, 8, 2, 64, 16
+    pl = pa.plan(b, h, kv, maxp, page, pa._sm_count(cuda.index or 0))
+    assert pl.n_split > 2
+    edge = pl.pages_per_split * page
+    args = _paged_inputs(cuda, b, h, kv, d, page, maxp, dtype)
+    ctx = torch.tensor([1, edge, edge + 1, 0, maxp * page, 2 * edge + 5],
+                       dtype=torch.int32, device=cuda)
+    got, m, l = _check_paged(args, ctx, dtype)
+    assert (got[3] == 0).all() and (l[3] == 0).all()
+    assert (m[3] == -1e30).all()
+    got, m, l = _check_paged(args, ctx, dtype, window=edge + 10)
+    _check_paged(args, ctx, dtype, window=7, softcap=30.0)
+
+
+def test_paged_attention_repeats_bit_identical_counters_zero(cuda):
+    """The combine runs in split-index order, so two calls agree bit for
+    bit; every call leaves the ticket counters at zero."""
+    b, h, kv, d, page, maxp = 8, 32, 8, 64, 16, 64
+    args = _paged_inputs(cuda, b, h, kv, d, page, maxp, torch.bfloat16)
+    ctx = torch.tensor([1024, 1000, 3, 0, 777, 512, 513, 64],
+                       dtype=torch.int32, device=cuda)
+    first = paged_attention(*args, ctx, return_stats=True)
+    for _ in range(3):
+        again = paged_attention(*args, ctx, return_stats=True)
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1][0], again[1][0])
+        assert torch.equal(first[1][1], again[1][1])
+    torch.cuda.synchronize()
+    assert pa.plan(b, h, kv, maxp, page, 132).n_split > 1
+    assert int(pa._COUNTER_BUFS[args[0].device].abs().sum()) == 0
+
+
+def test_paged_attention_one_launch_per_call(cuda):
+    """One kernel on the device per call, split combine included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _paged_inputs(cuda, 8, 32, 8, 64, 16, 64, torch.bfloat16)
+    ctx = torch.full((8,), 1024, dtype=torch.int32, device=cuda)
+    paged_attention(*args, ctx)                # counters allocated once
+    torch.cuda.synchronize()
+    n0 = COUNTERS.launches()["paged_attention"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        paged_attention(*args, ctx)
+        torch.cuda.synchronize()
+    assert COUNTERS.launches()["paged_attention"] - n0 == 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "paged_attention" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("sq,skv", [(100, 100), (37, 200), (130, 130),
+                                    (64, 64)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_tensor_core_body(cuda, sq, skv, d, dtype):
+    """The bf16/f16 body: Sq < Skv (right-aligned causal), S not a
+    multiple of 16 or 64, every head_dim, with window and softcap."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((2, sq, 4, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, skv, 2, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((2, skv, 2, d), generator=g, device=cuda).to(dtype)
+    for kw in (dict(), dict(window=40), dict(softcap=15.0),
+               dict(window=70, softcap=25.0),
+               dict(causal=False, bidirectional=True)):
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
 
 
 @pytest.mark.parametrize("s,w,e,n_backing,bq", [

@@ -168,6 +168,111 @@ def test_paged_attention_ctx0_lane_returns_zero_like_pallas():
     np.testing.assert_array_equal(_np(l)[[0, 2]], 0.0)
 
 
+def test_combine_partial_attention_vs_reference():
+    """The port's combine (the plain version of the paged kernel's
+    in-launch reduction) against the reference's on the same numpy
+    partials, empty splits (m = -1e30, l = 0) and an all-empty lane
+    included."""
+    rng = np.random.default_rng(6)
+    k, b, h, d = 5, 3, 4, 16
+    outs = rng.standard_normal((k, b, h, d)).astype(np.float32)
+    ms = (3 * rng.standard_normal((k, b, h))).astype(np.float32)
+    ls = rng.uniform(0.5, 40.0, (k, b, h)).astype(np.float32)
+    empty = rng.random((k, b, h)) < 0.3
+    empty[:, 2, 1] = True                       # a lane with no key at all
+    ms[empty], ls[empty], outs[empty] = -1e30, 0.0, 0.0
+    want = jref.combine_partial_attention(
+        jnp.asarray(outs), jnp.asarray(ms), jnp.asarray(ls))
+    got, (m, l) = tref.combine_partial_attention(
+        torch.from_numpy(outs), torch.from_numpy(ms), torch.from_numpy(ls),
+        return_stats=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
+    np.testing.assert_array_equal(_np(got)[2, 1], 0.0)
+    np.testing.assert_array_equal(_np(m), ms.max(axis=0))
+    assert _np(l)[2, 1] == 0.0 and _np(m)[2, 1] == np.float32(-1e30)
+
+
+def _split_partials(args, page, pps, window):
+    """paged_attention_naive over each range of ``pps`` pages, lane by
+    lane, with the lane's context and window moved into the range."""
+    q, kp, vp, table, ctx = args
+    b, maxp = table.shape
+    outs, ms, ls = [], [], []
+    for p0 in range(0, maxp, pps):
+        pn = min(pps, maxp - p0)
+        o_k, m_k, l_k = [], [], []
+        for i in range(b):
+            c = int(ctx[i])
+            ck = min(max(c - p0 * page, 0), pn * page)
+            wk = 0
+            if window:
+                lo = max(c - window, 0) - p0 * page   # first live row, local
+                if lo > 0:
+                    wk = ck - lo
+                    if wk <= 0:                       # wholly below window
+                        ck, wk = 0, 0
+            o, (m, l) = tref.paged_attention_naive(
+                q[i:i + 1], kp, vp, table[i:i + 1, p0:p0 + pn],
+                torch.tensor([ck], dtype=torch.int32), window=wk,
+                return_stats=True)
+            o_k.append(o.float())
+            m_k.append(m)
+            l_k.append(l)
+        outs.append(torch.cat(o_k))
+        ms.append(torch.cat(m_k))
+        ls.append(torch.cat(l_k))
+    return torch.stack(outs), torch.stack(ms), torch.stack(ls)
+
+
+@pytest.mark.parametrize("page,maxp,pps", [(16, 8, 2), (8, 12, 5), (4, 9, 1)])
+@pytest.mark.parametrize("window", [0, 21])
+def test_paged_split_partials_combine_to_whole(page, maxp, pps, window):
+    """Split-context flash-decoding in plain torch: the partials of page
+    ranges, combined, equal one pass over the whole table (f32, 1e-5),
+    with a ctx = 0 lane, a ctx at a split boundary and one past it."""
+    rng = np.random.default_rng(7)
+    edge = pps * page
+    ctx = [0, 1, edge, edge + 1, maxp * page, maxp * page // 2 + 3]
+    args = [a[1] for a in _paged_inputs(rng, len(ctx), 8, 2, 16, page,
+                                        maxp, "float32", ctx=ctx)]
+    outs, ms, ls = _split_partials(args, page, pps, window)
+    got, (m, l) = tref.combine_partial_attention(outs, ms, ls,
+                                                 return_stats=True)
+    want, (wm, wl) = tref.paged_attention_naive(*args, window=window,
+                                                return_stats=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(m), _np(wm), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(l), _np(wl), atol=1e-5, rtol=1e-5)
+    assert (_np(got)[0] == 0).all() and (_np(l)[0] == 0).all()
+
+
+@pytest.mark.parametrize("b,h,kv,maxp,page", [
+    (8, 32, 8, 64, 16), (8, 32, 8, 128, 16), (1, 32, 8, 4, 16),
+    (3, 8, 2, 6, 8), (2, 8, 2, 2, 256), (64, 32, 8, 128, 16),
+    (2, 24, 2, 33, 16), (4, 4, 4, 0, 16), (1, 4, 1, 512, 16)])
+def test_paged_plan_covers_every_page_from_shapes(b, h, kv, maxp, page):
+    """The paged kernel's launch plan: whole pages per split, every page
+    in exactly one split, no split past the table, no split under one
+    64-row tile unless the table is, at most MAX_SPLITS splits; at the
+    llama serving shape (8 slots, ctx 1024, 132 SMs) at least 2 blocks
+    per SM."""
+    from repro_torch.kernels import paged_attention as pa
+    pl = pa.plan(b, h, kv, maxp, page, 132)
+    g = h // kv
+    assert pl.heads_per_block in (1, 4, 8)
+    assert pl.head_chunks * pl.heads_per_block >= g
+    assert (pl.head_chunks - 1) * pl.heads_per_block < g
+    assert 1 <= pl.n_split <= pa.MAX_SPLITS and pl.pages_per_split >= 1
+    if maxp:
+        assert (pl.n_split - 1) * pl.pages_per_split < maxp
+        assert pl.n_split * pl.pages_per_split >= maxp
+        if pl.n_split > 1:
+            assert pl.pages_per_split * page >= pa.MIN_SPLIT_TOKENS
+    if (b, maxp) == (8, 64):
+        assert b * kv * pl.head_chunks * pl.n_split >= 2 * 132
+        assert 128 <= pl.pages_per_split * page <= 256
+
+
 # ----------------------------------------------------------------------
 def _translate_inputs(seed, n_sets, n_ways, e, bq, np_sz, dup_tags=False):
     rng = np.random.default_rng(seed)
