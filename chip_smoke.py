@@ -16,9 +16,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                at ctx 1024 and a ragged mix at 128 pages, its (m, l)
                within 1e-3 and repeated calls bit-identical), the Mamba2
                scan within the Pallas tests' 8e-2 bf16 / 5e-3 f32
-               (S 1024 and ragged 1000, with and without an initial
-               state). Times the kernel, the plain version, the bound
-               and the PyTorch library call where one exists.
+               (S 1024, ragged 1000, 65 and 1, with and without an
+               initial state, repeats bit-identical). Times the kernel,
+               the plain version, the bound and the PyTorch library call
+               where one exists (for the scan also its blocked plain
+               version, the kernel's arithmetic in many calls).
   3. serve   — llama3.2-1b at its published widths (bf16, page 16,
                8 slots x 2048 ctx, random weights from a seed) serves
                8 requests of 64..1024 prompt tokens for 32 new tokens
@@ -44,11 +46,10 @@ after it; each kernel reports the count of the path that carries it.
 
 Output: the ptxas resource lines on stderr; on stdout, before the last
 line, one JSON line {"ptxas": [...]} (registers, spills and static
-shared memory of each attention instantiation, with the paged kernel's
-launch plan at the serving shape), the card's name and power limit, one
-JSON line {"kernels": [...]},
-one {"serve": {...}} (llama), one {"map": {...}} and one
-{"serve_ssm": {...}}; the last line is
+shared memory of each attention and scan instantiation, with the paged
+kernel's launch plan at the serving shape), the card's name and power
+limit, one JSON line {"kernels": [...]}, one {"serve": {...}} (llama),
+one {"map": {...}} and one {"serve_ssm": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -164,7 +165,8 @@ def _demangle(names):
     return list(names)
 
 
-def ptxas_resources(logs, kernels=("paged_attention", "flash_attention")):
+def ptxas_resources(logs, kernels=("paged_attention", "flash_attention",
+                                   "mamba_scan")):
     """Registers, spills and static shared memory of every instantiation
     of the named kernels, from nvcc's -Xptxas -v output."""
     entries, cur = [], None
@@ -399,6 +401,7 @@ def check_flash_attention(timer):
 def check_mamba_chunk_scan(timer):
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                                 mamba_chunk_scan_ref)
+    from repro_torch.kernels.ref import mamba_chunk_scan_blocked
     h, p, n, chunk = 64, 64, 128, 256       # mamba2-1.3b's scan widths
 
     def inputs(s, dtype, init):
@@ -420,7 +423,7 @@ def check_mamba_chunk_scan(timer):
         return (x, dt, a, b, c, d), s0
 
     worst = 0.0
-    for s in (1024, 1000):
+    for s in (1024, 1000, 65, 1):
         for dtype in (torch.bfloat16, torch.float32):
             for init in (False, True):
                 args, s0 = inputs(s, dtype, init)
@@ -435,6 +438,12 @@ def check_mamba_chunk_scan(timer):
                         fail(f"mamba_chunk_scan S={s} {dtype} init={init}: "
                              f"max err {_max_err(got, want)}")
                 worst = max(worst, _max_err(y, yw), _max_err(fin, fw))
+                for _ in range(2):          # repeats are bit-identical
+                    y2, fin2 = mamba_chunk_scan(*args, chunk=chunk,
+                                                initial_state=s0)
+                    if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+                        fail(f"mamba_chunk_scan S={s} {dtype} init={init}: "
+                             "repeated call differs")
     # the serving path's shape: one prefill of a 1024-token prompt
     s = 1024
     args, _ = inputs(s, torch.bfloat16, False)
@@ -451,7 +460,12 @@ def check_mamba_chunk_scan(timer):
                                                           chunk=chunk),
                              iters=5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": "Bt=1 S=1024 H=64 P=64 N=128 bf16",
+        # the kernel's own arithmetic in plain torch (many calls), printed
+        # beside the kernel as a comparison
+        "plain_blocked_ms": timer.ms(
+            lambda: mamba_chunk_scan_blocked(*args, chunk=64), iters=5,
+            warmup=1),
+        "shape": "Bt=1 S=1024 H=64 P=64 N=128 bf16 (tensor-core body)",
     }
 
 
@@ -848,8 +862,9 @@ def main() -> int:
                       "paged_attention_plan_at_serving_shape":
                       rows["paged_attention"]["plan"]}))
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows.values()]}))
+    extra = ("plain_blocked_ms",)        # comparisons some rows carry
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))

@@ -1,12 +1,25 @@
 """Mamba2 SSD scan (prefill of every SSM layer): the CUDA kernel of
 ``csrc/mamba_scan.cu`` and its plain torch version.
 
-Port of ``repro/kernels/mamba_scan.py``. The kernel runs the SSD
-recurrence itself (the chunked matrix form of the TPU kernel pays off
-only on tensor cores), so any S >= 1 goes through without padding and
-``chunk`` does not change the result. A CPU tensor takes the plain
-version (``mamba_chunk_scan_ref``); a CUDA tensor launches the kernel
-or raises.
+Port of ``repro/kernels/mamba_scan.py``. One launch per call; the C entry
+point routes by dtype to one of two hand-written bodies:
+
+- bf16 (the serving path): the chunked SSD form on the tensor cores
+  (``mma.sync``), chunks of 128 tokens at d_state 128 (64 at 16), one
+  dependent step per chunk, the state in f32 registers across chunks,
+  32 rows of P a block (64 at d_state 16): a plan from shapes alone.
+- f32: the sequential recurrence on the CUDA cores (TF32 operands would
+  miss the f32 tolerance).
+
+What bounds it: bytes (x in and y out once, ~5.9 us at the serving
+shape). The token-by-token chain of the recurrence kept the bf16 path
+at 57x that bound; the chunked form runs 1/128 as many dependent steps,
+and what holds it now is the latency of each chunk's phases (the source
+note says more). Both bodies take any S >= 1 without padding (rows past
+S load as zero with dt = 0), and ``chunk`` does not change the result
+beyond rounding. A CPU tensor takes the plain version
+(``mamba_chunk_scan_ref``, the naive scan); a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 

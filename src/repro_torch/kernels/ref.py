@@ -1,8 +1,8 @@
 """Plain torch versions of the kernels on the ported paths: the port's
 counterparts of ``attention_naive``, ``paged_attention_naive``,
 ``combine_partial_attention``, ``mamba_chunk_scan_naive``,
-``mamba_decode_step``, ``fmmu_lookup_ref`` and ``fmmu_translate_ref`` in
-``repro/kernels/ref.py``.
+``mamba_chunk_scan_blocked``, ``mamba_decode_step``, ``fmmu_lookup_ref``
+and ``fmmu_translate_ref`` in ``repro/kernels/ref.py``.
 
 They run on any device. The kernel wrappers use them for CPU tensors,
 ``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
@@ -195,6 +195,59 @@ def mamba_chunk_scan_naive(x, dt, A, B, C, D, *, chunk, initial_state=None):
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bt, 0, h, p))
     y = y + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def _segsum(a):
+    """a [..., L] log-decays -> [..., L, L] lower-triangular cumulative
+    sums: out[i, j] = sum_{k=j+1..i} a[k] for i >= j, else -inf."""
+    n = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    idx = torch.arange(n, device=a.device)
+    mask = idx[:, None] >= idx[None, :]
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def mamba_chunk_scan_blocked(x, dt, A, B, C, D, *, chunk,
+                             initial_state=None):
+    """Chunked SSD (Dao & Gu 2024, Alg. 1), the arithmetic of the bf16
+    scan kernel in float32: per chunk the intra-chunk product
+    (C B^T * exp(segsum)) (dt x), the state entering the chunk decayed
+    to each row, and the chunk's state update; S not a multiple of
+    ``chunk`` falls back to the naive scan, as in the reference. Used by
+    the tests and the card's timing line, never on the serving path."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        return mamba_chunk_scan_naive(x, dt, A, B, C, D, chunk=chunk,
+                                      initial_state=initial_state)
+    nc = s // chunk
+    xf = x.float().reshape(bt, nc, chunk, h, p)
+    dtf = dt.float().reshape(bt, nc, chunk, h)
+    Bf = B.float().reshape(bt, nc, chunk, n)
+    Cf = C.float().reshape(bt, nc, chunk, n)
+    a = (dtf * A.float()[None, None, None, :]).movedim(-1, 2)  # [bt,nc,h,L]
+    a_cum = torch.cumsum(a, dim=-1)
+    lmat = torch.exp(_segsum(a))                           # [bt,nc,h,L,L]
+    cb = torch.einsum("bcln,bcmn->bclm", Cf, Bf)
+    dtx = dtf[..., None] * xf
+    y_diag = torch.einsum("bclm,bchlm,bcmhp->bclhp", cb, lmat, dtx)
+    decay_to_end = torch.exp(a_cum[..., -1:] - a_cum)      # [bt,nc,h,L]
+    states = torch.einsum("bchl,bcln,bclhp->bchpn", decay_to_end, Bf, dtx)
+    chunk_decay = torch.exp(a_cum[..., -1])                # [bt,nc,h]
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((bt, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    prev = []                                   # state entering chunk c
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                 # [bt,nc,h,p,n]
+    y_off = torch.einsum("bcln,bchl,bchpn->bclhp", Cf, torch.exp(a_cum),
+                         prev_states)
+    y = (y_diag + y_off).reshape(bt, s, h, p)
+    y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), state
 
 

@@ -228,6 +228,89 @@ def test_mamba_chunk_scan_kernel(cuda, bt, s, h, p, n, dtype, init):
     torch.testing.assert_close(fin, fw, atol=tol, rtol=tol)
 
 
+def _scan_model_inputs(dev, bt, s, h, p, n, dtype, init, seed=5):
+    """Scan inputs in mamba2's ranges (models/ssm.py init_ssm, as
+    chip_smoke.py draws them): dt = softplus(projection + dt_bias) around
+    a per-head rate log-uniform in [0.001, 0.1], A = -[1, 16] per head."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+    dt0 = torch.exp(u((h,), np.log(1e-3), np.log(0.1)))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))          # softplus^-1(dt0)
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((bt, s, h), generator=g, device=dev) + bias)
+    a = -u((h,), 1.0, 16.0)
+    d = 1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)
+    x = torch.randn((bt, s, h, p), generator=g, device=dev).to(dtype)
+    b = torch.randn((bt, s, n), generator=g, device=dev).to(dtype)
+    c = torch.randn((bt, s, n), generator=g, device=dev).to(dtype)
+    s0 = (torch.randn((bt, h, p, n), generator=g, device=dev) if init
+          else None)
+    return (x, dt, a, b, c, d), s0
+
+
+def _scan_held(args, s0, dtype):
+    y, fin = mamba_chunk_scan(*args, chunk=256, initial_state=s0)
+    yw, fw = mamba_chunk_scan_ref(*args, chunk=256, initial_state=s0)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), yw.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fin, fw, atol=tol, rtol=tol)
+    return y, fin
+
+
+@pytest.mark.parametrize("s", [1024, 1000])
+@pytest.mark.parametrize("init", [False, True])
+def test_mamba_chunk_scan_serving_shape(cuda, s, init):
+    """mamba2-1.3b's prefill scan (H=64 P=64 N=128, bf16: the
+    tensor-core body) at a chunk multiple and a ragged length."""
+    args, s0 = _scan_model_inputs(cuda, 1, s, 64, 64, 128, torch.bfloat16,
+                                  init)
+    _scan_held(args, s0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 129])
+@pytest.mark.parametrize("bt,h,p,n", [(2, 3, 64, 128), (1, 2, 40, 128),
+                                      (2, 2, 40, 16), (1, 2, 20, 128)])
+def test_mamba_chunk_scan_chunk_edges(cuda, s, bt, h, p, n):
+    """S just under, on and past the 64-token chunk of the bf16 body,
+    Bt > 1, P not a multiple of the block's rows (and P = 20, not a
+    multiple of 8: element loads instead of 16-byte ones), both
+    d_states."""
+    args, s0 = _scan_model_inputs(cuda, bt, s, h, p, n, torch.bfloat16,
+                                  True)
+    _scan_held(args, s0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_chunk_scan_repeats_bit_identical(cuda, dtype):
+    args, s0 = _scan_model_inputs(cuda, 1, 1000, 8, 64, 128, dtype, True)
+    y, fin = _scan_held(args, s0, dtype)
+    for _ in range(2):
+        y2, fin2 = mamba_chunk_scan(*args, chunk=256, initial_state=s0)
+        assert torch.equal(y, y2) and torch.equal(fin, fin2)
+
+
+@pytest.mark.parametrize("dtype,body", [
+    (torch.float32, "mamba_scan_kernel"),
+    (torch.bfloat16, "mamba_scan_tc_kernel")])
+def test_mamba_chunk_scan_routes_by_dtype(cuda, dtype, body):
+    """f32 goes through the CUDA-core recurrence, bf16 through the
+    tensor-core body: one device kernel per call, named for its body."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args, s0 = _scan_model_inputs(cuda, 1, 200, 4, 64, 128, dtype, True)
+    _scan_held(args, s0, dtype)
+    for _ in range(2):        # a first profile after a while warms CUPTI
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mamba_chunk_scan(*args, chunk=256, initial_state=s0)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "mamba" in e.name]
+    assert len(kernels) == 1 and f"{body}<" in kernels[0], kernels
+
+
 @pytest.mark.parametrize("s,w,e,bq", [
     (512, 4, 8, 4096), (16, 4, 8, 100), (4, 1, 4, 33)])
 def test_fmmu_lookup_kernel_bit_exact(cuda, s, w, e, bq):

@@ -1,10 +1,12 @@
 """The port's Mamba2 path against the JAX reference on the CPU: the
 ``mamba_chunk_scan`` plain version against the Pallas kernel in
 interpret mode (S a multiple of the chunk) and against the naive scan
-(ragged S, 1 <= S < chunk included), ``mamba_decode_step``,
-``ssm_forward``/``ssm_decode``, the smoke model's prefill and decode,
-and the ServeEngine on smoke_config(mamba2-1.3b): greedy tokens equal
-to the JAX engine's and the map state bit-identical. The reference's
+(ragged S, 1 <= S < chunk included), the chunked plain version
+``mamba_chunk_scan_blocked`` against the reference's (and, padded with
+x = dt = 0 rows, against the naive scan of a ragged S),
+``mamba_decode_step``, ``ssm_forward``/``ssm_decode``, the smoke model's
+prefill and decode, and the ServeEngine on smoke_config(mamba2-1.3b):
+greedy tokens equal to the JAX engine's and the map state bit-identical. The reference's
 init is loaded through ``convert.params_from_jax``; other inputs come
 from a numpy seed. Tolerances: the scan 5e-3 f32 / 8e-2 bf16 (the
 Pallas tests'), the f32 model paths 1e-4."""
@@ -29,6 +31,7 @@ from repro_torch.configs import ArchConfig, get_arch, smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.counters import COUNTERS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan  # noqa: E402
 from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
@@ -111,6 +114,52 @@ def test_mamba_chunk_scan_ragged_vs_naive(s, dtype):
                                          initial_state=js0)
     y, fin = ops.mamba_chunk_scan(*targs, chunk=32, initial_state=ts0)
     _assert_close(y, yw, SCAN_TOL[dtype])
+    _assert_close(fin, fw, SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("bt,s,h,p,n,chunk", [
+    (2, 64, 2, 16, 16, 32), (1, 128, 4, 32, 32, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("init", [False, True])
+def test_mamba_chunk_scan_blocked_vs_jax(bt, s, h, p, n, chunk, dtype, init):
+    """The port's chunked SSD plain version (the bf16 kernel's
+    arithmetic) against the reference's ``mamba_chunk_scan_blocked``."""
+    jargs, targs, (js0, ts0) = _scan_inputs(7, bt, s, h, p, n, dtype,
+                                            init=init)
+    yw, fw = jref.mamba_chunk_scan_blocked(*jargs, chunk=chunk,
+                                           initial_state=js0)
+    y, fin = tref.mamba_chunk_scan_blocked(*targs, chunk=chunk,
+                                           initial_state=ts0)
+    assert y.dtype == TDT[dtype] and fin.dtype == torch.float32
+    _assert_close(y, yw, SCAN_TOL[dtype])
+    _assert_close(fin, fw, SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("s", [33, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_chunk_scan_padded_ragged_vs_naive(s, dtype):
+    """The bf16 kernel's edge scheme: a ragged S padded up to a chunk
+    multiple with x = 0, dt = 0 (and B = C = 0) rows adds nothing to
+    the state (decay 2^0 = 1, dt x = 0), so the blocked form of the
+    padded input equals the reference's naive scan of the unpadded one
+    on the real rows and on the final state."""
+    chunk = 32
+    jargs, targs, (js0, ts0) = _scan_inputs(11 + s, 2, s, 3, 16, 16, dtype,
+                                            init=True)
+    yw, fw = jref.mamba_chunk_scan_naive(*jargs, chunk=chunk,
+                                         initial_state=js0)
+    x, dt, a, b, c, d = targs
+    pad = -s % chunk
+
+    def padded(t):
+        z = torch.zeros((t.shape[0], pad) + tuple(t.shape[2:]),
+                        dtype=t.dtype)
+        return torch.cat([t, z], dim=1)
+    y, fin = tref.mamba_chunk_scan_blocked(
+        padded(x), padded(dt), a, padded(b), padded(c), d, chunk=chunk,
+        initial_state=ts0)
+    assert y.shape[1] == s + pad and (s + pad) % chunk == 0
+    _assert_close(y[:, :s], yw, SCAN_TOL[dtype])
     _assert_close(fin, fw, SCAN_TOL[dtype])
 
 
