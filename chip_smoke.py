@@ -23,11 +23,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                version, the kernel's arithmetic in many calls).
   3. serve   — llama3.2-1b at its published widths (bf16, page 16,
                8 slots x 2048 ctx, random weights from a seed) serves
-               8 requests of 64..1024 prompt tokens for 32 new tokens
+               8 requests of 64..1020 prompt tokens for 32 new tokens
                each; every kernel of that path must be launched in that
                run. Then a 2-layer full-width f32 engine must emit the
                same greedy tokens with the kernels as with
                kernel_impl="ref".
+  3b. serve (macro) — the same requests through the K-step macro path
+               (macro_k=8: one CUDA graph replay per 8 tokens; the main
+               path). A first pass captures the graphs; the second is
+               counted: its tokens must equal the single-step tokens,
+               it must capture nothing and make one dispatch and one
+               host sync per K tokens with no host-side map work, and
+               the replays must count fmmu_translate (one per step) and
+               paged_attention (one per layer and step). The 1020-token
+               prompt crosses from 64 to 65 pages inside a K-step run,
+               so the token check spans a page-bucket change. Prints the
+               graphs, capture seconds and pool bytes, one profiled
+               steady macro step and one profiled retiring step (the
+               trace's launches of each hand kernel must equal the
+               counted ones, and on the steady step the replayed
+               graph's delta) and the in-graph map commit's cost. Then
+               the 2-layer f32 kernel-vs-ref parity in macro mode.
   4. map     — a seeded stream of mixed lookup / update / cond-update
                batches at the paper's CMT geometry goes through the
                fused translate_batch and through the three unfused
@@ -41,6 +57,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                (48 per prefill) and fmmu_translate must be launched.
                Then a 2-layer f32 mamba2 engine must emit the same
                greedy tokens with the kernels as with kernel_impl="ref".
+  5b. serve (SSM, macro) — as 3b for mamba2-1.3b (fmmu_translate
+               replayed, mamba_chunk_scan at prefill).
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it.
 
@@ -48,8 +66,11 @@ Output: the ptxas resource lines on stderr; on stdout, before the last
 line, one JSON line {"ptxas": [...]} (registers, spills and static
 shared memory of each attention and scan instantiation, with the paged
 kernel's launch plan at the serving shape), the card's name and power
-limit, one JSON line {"kernels": [...]}, one {"serve": {...}} (llama),
-one {"map": {...}} and one {"serve_ssm": {...}}; the last line is
+limit, one JSON line {"kernels": [...]} (launches from the macro
+path's counted pass, launches_single_step from the single-step run),
+one {"serve": {...}} (llama), one {"serve_macro": {...}}, one
+{"map": {...}}, one {"serve_ssm": {...}} and one {"serve_ssm_macro":
+{...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -659,13 +680,20 @@ def map_phase(n_batches=64, max_blocks=16):
 
 
 # ----------------------------------------------------------------- serve
-def build_engine(cfg, rt):
+def build_engine(cfg, rt, macro_k=0):
     from repro_torch.models import build_model
     from repro_torch.serving import ServeConfig, ServeEngine
     m = build_model(cfg, rt, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(SEED))
-    return ServeEngine(m, params, config=ServeConfig(n_slots=8, max_ctx=2048),
-                       device="cuda")
+    return ServeEngine(m, params, config=ServeConfig(
+        n_slots=8, max_ctx=2048, macro_k=macro_k), device="cuda")
+
+
+def serve_prompts(cfg, lens):
+    """The serving phases' prompts: seeded token ids of ``lens``."""
+    prng = np.random.default_rng(SEED + 1)
+    return [[int(t) for t in prng.integers(0, cfg.vocab_size, n)]
+            for n in lens]
 
 
 def run_requests(eng, prompts, max_new):
@@ -725,9 +753,7 @@ def serve_phase(cfg, lens, kernels):
     rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                  page_size=16)
     eng = build_engine(cfg, rt)
-    prng = np.random.default_rng(SEED + 1)
-    prompts = [[int(t) for t in prng.integers(0, cfg.vocab_size, n)]
-               for n in lens]
+    prompts = serve_prompts(cfg, lens)
     run_requests(eng, [prompts[0][:16]], 2)        # warm-up
     eng.metrics = {k: 0 for k in eng.metrics}
     COUNTERS.reset()                     # every count to 0 just before
@@ -778,6 +804,271 @@ def serve_phase(cfg, lens, kernels):
     if list(toks[None].values()) != list(toks["ref"].values()):
         fail(f"2-layer f32 {cfg.name}: kernel tokens differ from ref tokens")
     line["ref_parity_tokens"] = sum(len(v) for v in toks["ref"].values())
+    return line, [out[r.rid] for r in reqs]
+
+
+# ----------------------------------------------------------- serve macro
+MACRO_K = 8
+
+
+def _profile_step(eng, done, replayed):
+    """One ServeEngine.step() under torch.profiler. The trace's launches
+    of each hand kernel in ``replayed`` must equal what the counters
+    add for that step: the replayed graph's delta per dispatch plus
+    eager launches (admissions, frees); with no eager map call they
+    must equal the graph's delta itself. Returns (trace kernels,
+    {kernel: trace launches}, the step's counter delta, wall ms, the
+    replayed graph's key)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.counters import COUNTERS
+    keys = []
+    run = eng._graphs.run
+
+    def spy(ms, buf, *key):
+        keys.append(key)
+        return run(ms, buf, *key)
+    eng._graphs.run = spy
+    base = COUNTERS.snapshot()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step(done)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    delta = COUNTERS.delta(base)
+    eng._graphs.run = run
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    traced = {name: sum(e.count for e in kern if name in e.key)
+              for name in replayed}
+    if len(keys) != 1 or delta.get("engine.macro_dispatches") != 1:
+        fail(f"the profiled step made {len(keys)} macro dispatches")
+    graph_delta = eng._graphs.deltas[keys[0]]
+    for name in replayed:
+        counted = delta.get(f"kernel.{name}", 0)
+        if traced[name] != counted:
+            fail(f"{name}: {traced[name]} launches in the trace of a "
+                 f"macro step, {counted} counted")
+        if (not delta.get("kvm.xlate_calls")
+                and traced[name] != graph_delta.get(f"kernel.{name}", 0)):
+            fail(f"{name}: {traced[name]} launches in the trace of one "
+                 f"replay, the graph's delta is {graph_delta}")
+    return kern, traced, delta, wall_ms, keys[0]
+
+
+def profile_macro_step(eng, prompts, replayed):
+    """One steady K-step macro step (8 resident slots, no admission, no
+    retirement, graphs already captured) under torch.profiler: device
+    busy, idle share (against the profiled step and against the same
+    kind of step unprofiled just before), launches, top kernels and
+    fmmu_translate's share; each hand kernel's launches in the trace
+    held against the replayed graph's counter delta. Then the next step,
+    which retires all 8 requests (8 frees, each one eager map commit),
+    profiled the same way. Then the device time of one replay of the
+    steady step's graph by CUDA events."""
+    for p in prompts:
+        eng.submit(p, max_new=1 + 4 * MACRO_K)   # simple runs only
+    done: dict = {}
+    eng.step(done)               # admission + prefill + first macro step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step(done)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_graphs = len(eng._graphs.graphs)
+    kern, traced, _, wall_ms, key = _profile_step(eng, done, replayed)
+    if len(eng._graphs.graphs) != n_graphs or done:
+        fail("the profiled steady macro step captured a new graph or "
+             "retired a request")
+    kern_ret, traced_ret, delta_ret, _, _ = _profile_step(eng, done,
+                                                          replayed)
+    if len(done) != len(prompts):
+        fail("the last profiled macro step did not retire every request")
+    dev = {e.key: e.self_device_time_total / 1e3 for e in kern}
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    ft = [e for e in kern if "fmmu_translate" in e.key]
+    ft_ms = sum(e.self_device_time_total for e in ft) / 1e3
+    # the steady step's graph replayed alone, timed by events; the
+    # engine is discarded after this, so its state may drift
+    graph = eng._graphs.graphs[key]
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "unprofiled_step_wall_ms": plain_ms,
+            "device_idle_share_unprofiled":
+            1.0 - busy / plain_ms if busy else None,
+            "device_launches": sum(e.count for e in kern),
+            "fmmu_translate_ms": ft_ms,
+            "fmmu_translate_share": ft_ms / busy if busy else None,
+            "traced_launches": traced, "graph": str(key),
+            "retiring_step": {
+                "traced_launches": traced_ret,
+                "xlate_calls": delta_ret.get("kvm.xlate_calls", 0),
+                "device_launches": sum(e.count for e in kern_ret)},
+            "replay_ms_events": statistics.median(times),
+            "top_kernels_ms": {k[:70]: v for k, v in top}}
+
+
+def commit_in_graph(eng):
+    """The per-step map commit the K-step graph runs on every step: one
+    masked ``serving_grow`` (no lane grows) on a copy of the engine's
+    map state, captured alone into a graph; its launches and device
+    time by torch.profiler, and its replay time by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.serving import macro
+    ms = macro._with_tensors(eng.kvm.state, [
+        t.clone() for t in macro._tensors(eng.kvm.state)])
+    grow = torch.zeros(eng.n_slots, dtype=torch.bool, device="cuda")
+    dl = torch.arange(eng.n_slots, dtype=torch.int32, device="cuda")
+
+    def commit():
+        fb.serving_grow(eng.kvm.geom, ms, grow, dl)
+    macro.uncounted(commit)                             # warm-up
+    graph, _ = macro.capture(commit)
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    times = []
+    for _ in range(20):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return {"launches": sum(e.count for e in kern),
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in kern) / 1e3,
+            "replay_ms_events": statistics.median(times)}
+
+
+def macro_phase(cfg, lens, single_tokens, replayed, eager):
+    """Serve the single-step phase's requests through the K-step macro
+    path (macro_k=8: one CUDA graph replay per K tokens). A first pass
+    captures every graph the run needs; the counts are zeroed just
+    before the second pass and read just after it. Fails unless every
+    request returns its 32 tokens, equal to the single-step tokens;
+    the timed pass captures nothing and makes one dispatch and one host
+    sync per K tokens (plus one sync per prefill); each kernel of
+    ``replayed`` shows its launches from the replays (fmmu_translate:
+    one per step, plus one per admission and free) and each of
+    ``eager`` (prefill) was launched. Then a 2-layer f32 macro engine
+    must give the same greedy tokens with the kernels as with
+    kernel_impl="ref". Returns the phase's line and its launch
+    counts."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.models import Runtime
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K)
+    prompts = serve_prompts(cfg, lens)
+    t0 = time.perf_counter()
+    first, _, _ = run_requests(eng, prompts, 32)     # captures the graphs
+    first_s = time.perf_counter() - t0
+    graphs = eng._graphs.stats()
+    eng.metrics = {k: 0 for k in eng.metrics}
+    COUNTERS.reset()                     # every count to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    out, reqs, wall = run_requests(eng, prompts, 32)
+    launches = COUNTERS.launches()       # ... and read just after
+    counts = COUNTERS.snapshot()
+    toks = [out[r.rid] for r in reqs]
+    for r, t in zip(reqs, toks):
+        if len(t) != 32:
+            fail(f"{cfg.name} macro: request {r.rid} returned {len(t)} "
+                 "tokens")
+    if toks != single_tokens or list(first.values()) != single_tokens:
+        fail(f"{cfg.name}: macro tokens differ from single-step tokens")
+    m = eng.metrics
+    n_req = len(prompts)
+    dispatches = counts.get("engine.macro_dispatches", 0)
+    want_dispatches = -(-31 // MACRO_K)        # 31 decode tokens a slot
+    if (m["macro_fallbacks"] or m["macro_steps"] != want_dispatches
+            or dispatches != want_dispatches
+            or counts.get("engine.host_syncs", 0) != n_req + dispatches
+            or counts.get("engine.macro_captures", 0)
+            or counts.get("kvm.full_table_calls", 0)
+            or counts.get("kvm.alloc_syncs", 0) > 1
+            or counts.get("kvm.xlate_calls", 0) != 2 * n_req):
+        fail(f"{cfg.name} macro: more than one dispatch / host sync per "
+             f"K tokens, or host-side map work in steady state: {counts}, "
+             f"{m}")
+    want = {"fmmu_translate": MACRO_K * dispatches + 2 * n_req}
+    if "paged_attention" in replayed:
+        n_attn = sum(cfg.layer_kind(j) == "attn"
+                     for j in range(cfg.n_layers))
+        want["paged_attention"] = MACRO_K * dispatches * n_attn
+    for name in replayed:
+        if launches.get(name, 0) != want[name]:
+            fail(f"{name}: {launches.get(name, 0)} launches counted on the "
+                 f"{cfg.name} macro path, expected {want[name]} (replays)")
+    for name in eager:
+        if launches.get(name, 0) <= 0:
+            fail(f"{name} was not launched on the {cfg.name} macro path")
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+    decode_toks = sum(len(t) - 1 for t in toks)
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "macro_k": MACRO_K, "wall_s": wall,
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+        "decode_tok_s": decode_toks / decode_s,
+        "decode_step_ms": decode_s / max(m["decode_steps"] - 1, 1) * 1e3,
+        "decode_steps": m["decode_steps"], "macro_steps": m["macro_steps"],
+        "dispatches": dispatches,
+        "host_syncs": counts.get("engine.host_syncs", 0),
+        "xlate_calls": counts.get("kvm.xlate_calls", 0),
+        "alloc_syncs": counts.get("kvm.alloc_syncs", 0),
+        "graphs_captured": graphs["graphs"],
+        "capture_s": graphs["capture_s"],
+        "graph_pool_bytes": graphs["pool_bytes"],
+        "first_pass_s": first_s,
+        # hand-kernel launches each graph counts per replay (K tokens)
+        "replay_launches": {str(k): d for k, d in
+                            eng._graphs.deltas.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches}
+    line["profiled_macro_step"] = profile_macro_step(eng, prompts, replayed)
+    line["commit_in_graph"] = commit_in_graph(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the kernels against their plain versions in macro mode: 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    short = [p[:n // 4] for p, n in zip(prompts, lens)]
+    toks2 = {}
+    for impl in (None, "ref"):
+        rt32 = Runtime(compute_dtype=torch.float32,
+                       param_dtype=torch.float32, page_size=16,
+                       kernel_impl=impl)
+        e2 = build_engine(cfg2, rt32, macro_k=MACRO_K)
+        toks2[impl], _, _ = run_requests(e2, short, 16)
+        if e2.metrics["macro_steps"] <= 0:
+            fail(f"2-layer f32 {cfg.name}: no macro step ran")
+        del e2
+        torch.cuda.empty_cache()
+    if list(toks2[None].values()) != list(toks2["ref"].values()):
+        fail(f"2-layer f32 {cfg.name} macro: kernel tokens differ from ref "
+             "tokens")
+    line["ref_parity_tokens"] = sum(len(v) for v in toks2["ref"].values())
     return line
 
 
@@ -824,12 +1115,27 @@ def main() -> int:
     # 3. llama3.2-1b serving (fmmu_translate, paged and flash attention)
     t0 = time.perf_counter()
     dense = ("fmmu_translate", "paged_attention", "flash_attention")
-    serve = serve_phase(get_arch("llama3.2-1b"),
-                        [64, 128, 256, 384, 512, 640, 768, 1024], dense)
+    # the 1020-token prompt reaches 1024 tokens (65 pages) at step 4 of
+    # its first K-step run: that run attends over the 128-page table
+    # throughout, where single steps use 64 pages for 4 steps, so the
+    # macro-vs-single-step check spans a page-bucket change
+    llama, lens = get_arch("llama3.2-1b"), [64, 128, 256, 384, 512, 640,
+                                             768, 1020]
+    serve, single = serve_phase(llama, lens, dense)
     serve["build_s"] = build_s
     for name in dense:
-        rows[name]["launches"] = serve["launches"][name]
+        rows[name]["launches_single_step"] = serve["launches"][name]
     print(f"serve llama3.2-1b: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+
+    # 3b. the same requests through the K-step macro path (the main path)
+    t0 = time.perf_counter()
+    serve_macro = macro_phase(llama, lens, single,
+                              ("fmmu_translate", "paged_attention"),
+                              ("flash_attention",))
+    for name in dense:
+        rows[name]["launches"] = serve_macro["launches"][name]
+    print(f"serve macro llama3.2-1b: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
 
     # 4. the unfused map path (fmmu_lookup) against the fused one ------
@@ -844,20 +1150,33 @@ def main() -> int:
     # 5. mamba2-1.3b serving (mamba_chunk_scan, fmmu_translate) ----------
     t0 = time.perf_counter()
     cfg = get_arch("mamba2-1.3b")
-    serve_ssm = serve_phase(cfg, [64, 200, 256, 384, 512, 700, 768, 1024],
-                            ("mamba_chunk_scan", "fmmu_translate"))
+    lens = [64, 200, 256, 384, 512, 700, 768, 1024]
+    serve_ssm, single = serve_phase(cfg, lens,
+                                    ("mamba_chunk_scan", "fmmu_translate"))
     n_scan = serve_ssm["launches"]["mamba_chunk_scan"]
     if n_scan != cfg.n_layers * serve_ssm["prefills"]:
         fail(f"mamba_chunk_scan launched {n_scan} times, expected "
              f"{cfg.n_layers} per prefill")
-    rows["mamba_chunk_scan"]["launches"] = n_scan
+    rows["mamba_chunk_scan"]["launches_single_step"] = n_scan
     print(f"serve mamba2-1.3b: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+
+    # 5b. mamba2-1.3b through the K-step macro path
+    t0 = time.perf_counter()
+    serve_ssm_macro = macro_phase(cfg, lens, single, ("fmmu_translate",),
+                                  ("mamba_chunk_scan",))
+    n_scan = serve_ssm_macro["launches"]["mamba_chunk_scan"]
+    if n_scan != cfg.n_layers * len(lens):
+        fail(f"mamba_chunk_scan launched {n_scan} times on the macro path, "
+             f"expected {cfg.n_layers} per prefill")
+    rows["mamba_chunk_scan"]["launches"] = n_scan
+    print(f"serve macro mamba2-1.3b: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
 
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "launches_single_step", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"ptxas": ptxas_resources(logs),
                       "paged_attention_plan_at_serving_shape":
                       rows["paged_attention"]["plan"]}))
@@ -866,8 +1185,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve_macro": serve_macro}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
+    print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

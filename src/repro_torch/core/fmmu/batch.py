@@ -274,6 +274,99 @@ def translate_serving(g: FMMUGeometry, ms: ServingMapState, opcodes,
                        commit_seq=ms.commit_seq + write.sum(dtype=I)), out, ok
 
 
+# oob_vec, commit_seq_vec and free_serving have no caller in the port
+# yet: they are held bit-identical to the reference's until the channel
+# and swap slices call them (ROADMAP Queue 1)
+def oob_vec(ms: ServingMapState) -> torch.Tensor:
+    """The sticky OutOfBlocks flag as a [C] vector ([1] here)."""
+    return torch.atleast_1d(ms.oob)
+
+
+def commit_seq_vec(ms: ServingMapState) -> torch.Tensor:
+    """The committed-lane counter as a [C] vector ([1] here)."""
+    return torch.atleast_1d(ms.commit_seq)
+
+
+# ------------------------------------------------- device allocator ops
+# Pure transitions on the allocator lanes, as in the reference. None of
+# them reads a value back to the host, so a K-step decode program that
+# calls them can be captured into one CUDA graph.
+def alloc_serving(ms: ServingMapState, want
+                  ) -> Tuple[ServingMapState, torch.Tensor, torch.Tensor]:
+    """Pop one device block per requesting lane. want [B] bool; the
+    lane of rank r among the requesters gets ``free_stack[free_n-1-r]``
+    (the host ``BlockPool.alloc`` order). Lanes past the stack's depth
+    fail (ok False, block NIL) and raise the sticky ``oob`` flag.
+    Returns (state, blocks [B] int32, ok [B] bool). With no lane
+    requesting, every lane of the state keeps its value."""
+    want = want.bool()
+    wi = want.to(I)
+    rank = torch.cumsum(wi, 0, dtype=I) - wi
+    idx = ms.free_n - 1 - rank
+    ok = want & (idx >= 0)
+    cap = ms.free_stack.shape[0]
+    if cap:
+        picked = ms.free_stack[idx.clamp(0, cap - 1).long()]
+    else:
+        picked = torch.full(want.shape, NIL, dtype=I, device=want.device)
+    blocks = torch.where(ok, picked, NIL).to(I)
+    return ms._replace(free_n=ms.free_n - ok.sum(dtype=I),
+                       oob=ms.oob | (want & ~ok).any()), blocks, ok
+
+
+def free_serving(ms: ServingMapState, blocks) -> ServingMapState:
+    """Push blocks back onto their tier stacks in lane order (the host
+    ``BlockPool.free`` appends). blocks [B] int32, NIL lanes ignored,
+    tier routed by HOST_BASE; pushes past a stack's capacity drop."""
+    valid = blocks >= 0
+    is_host = valid & (blocks >= HOST_BASE)
+    is_dev = valid & ~is_host
+    di, hi = is_dev.to(I), is_host.to(I)
+    drank = torch.cumsum(di, 0, dtype=I) - di
+    hrank = torch.cumsum(hi, 0, dtype=I) - hi
+    return ms._replace(
+        free_stack=_set_where(ms.free_stack, ms.free_n + drank, blocks,
+                              is_dev),
+        free_n=ms.free_n + di.sum(dtype=I),
+        host_stack=_set_where(ms.host_stack, ms.host_n + hrank, blocks,
+                              is_host),
+        host_n=ms.host_n + hi.sum(dtype=I))
+
+
+def set_allocator(ms: ServingMapState, free_stack, free_n, host_stack,
+                  host_n, swap_pending) -> ServingMapState:
+    """Overwrite the allocator tiers and the residency lane
+    (``swap_pending``) from the (authoritative) host pool and clear the
+    OutOfBlocks flag: the macro-step-boundary resync."""
+    dev = ms.free_n.device
+
+    def t(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+    return ms._replace(
+        free_stack=t(free_stack, I), free_n=t(free_n, I),
+        host_stack=t(host_stack, I), host_n=t(host_n, I),
+        oob=torch.tensor(False, device=dev),
+        swap_pending=t(swap_pending, torch.bool))
+
+
+def serving_grow(g: FMMUGeometry, ms: ServingMapState, grow, dlpns,
+                 impl=None
+                 ) -> Tuple[ServingMapState, torch.Tensor, torch.Tensor]:
+    """Device-side page growth: one pop per ``grow`` lane
+    (``alloc_serving``) and one fused map commit of the new dlpn ->
+    block mappings (``translate_serving``). A lane that could not be
+    served commits nothing and raises ``oob``. With every lane masked
+    the state comes back bit-identical (no pop; the commit adds zeros
+    to the stats, ``commit_seq`` and the clock), which is what lets a
+    captured decode program run this on every step in place of the
+    reference's ``lax.cond``. Returns (state, blocks [B], ok [B])."""
+    ms, blocks, ok = alloc_serving(ms, grow)
+    dl = torch.where(ok, dlpns, -1).to(I)
+    ms, _, _ = translate_serving(g, ms, torch.full_like(dl, UPDATE), dl,
+                                 blocks, torch.zeros_like(dl), impl=impl)
+    return ms, blocks, ok
+
+
 # ------------------------------------------------------------ wrappers
 def lookup_batch(g: FMMUGeometry, st: BatchFMMUState, dlpns, impl=None
                  ) -> Tuple[BatchFMMUState, torch.Tensor]:

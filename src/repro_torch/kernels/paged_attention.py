@@ -81,9 +81,16 @@ def _sm_count(index: int) -> int:
 
 def _counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
     """The device's ticket counters (int32, zero between calls), grown
-    to at least ``n`` cells; every launch leaves them at zero."""
+    to at least ``n`` cells; every launch leaves them at zero. Growing
+    them while a CUDA graph is captured raises: the zero-fill would
+    only run at replay, from the graph's private pool, so a capture
+    must be preceded by an eager call of the same split plan."""
     buf = _COUNTER_BUFS.get(dev)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_attention: the ticket buffer must be sized by an "
+                "eager call before a CUDA graph capture")
         size = max(n, 2 * buf.numel() if buf is not None else 1024)
         buf = torch.zeros(size, dtype=torch.int32, device=dev)
         _COUNTER_BUFS[dev] = buf

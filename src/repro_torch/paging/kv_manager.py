@@ -13,6 +13,15 @@ coherent by the same call that commits each map write, so
 decode performs zero full-map retranslations. ``retranslate_tables()``
 keeps the from-scratch path as the test oracle.
 
+Device-allocator mirror (the K-step macro path): the map state's
+``free_stack``/``free_n`` mirror the host pool's free list. The host
+pool is authoritative at macro-step boundaries: every host-side pool
+mutation marks the device stacks stale and ``sync_allocator()``
+re-pushes them before the next macro step. The pops a macro step makes
+on the device are replayed onto the host pool (``reconcile_macro``) in
+the same order, so both sides apply the same delta and steady-state
+decode needs no re-push (``ALLOC_SYNCS``).
+
 Not ported yet (later slices): the host tier and swaps, channel
 sharding, GC, prefix sharing, the journal and the fault plane.
 """
@@ -30,9 +39,11 @@ from repro_torch.core.fmmu.types import FMMUGeometry, NIL, UPDATE
 from repro_torch.device import resolve_device
 from repro_torch.paging.pool import BlockPool
 
-# one bump per fused map call / full-map retranslation
+# one bump per fused map call / full-map retranslation / allocator
+# re-push
 XLATE_CALLS = COUNTERS.cell("kvm.xlate_calls")
 FULL_TABLE_CALLS = COUNTERS.cell("kvm.full_table_calls")
+ALLOC_SYNCS = COUNTERS.cell("kvm.alloc_syncs")
 
 
 @dataclasses.dataclass
@@ -44,6 +55,7 @@ class MapStats:
     fills: int = 0
     updates: int = 0
     host_writes: int = 0
+    pool_exhausted: List[int] = dataclasses.field(default_factory=list)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -85,6 +97,8 @@ class KVPageManager:
         self.pool = BlockPool(n_device_blocks)
         self.seq_pages: Dict[int, List[int]] = {}   # slot -> block ids
         self.host_writes = 0
+        # the device stacks are stale after a host-side pool mutation
+        self._alloc_dirty = False
 
     # ----------------------------------------------------------- helpers
     def _dlpns(self, slot: int, n: int) -> np.ndarray:
@@ -110,6 +124,7 @@ class KVPageManager:
         dl = self._dlpns(slot, n_pages)
         blocks = self.pool.alloc(n_pages)
         self.host_writes += len(blocks)
+        self._alloc_dirty = True
         self._xlate(UPDATE, dl, blocks)
         self.seq_pages[slot] = list(blocks)
         return list(blocks)
@@ -132,6 +147,7 @@ class KVPageManager:
                       for p in range(have, have + n))
         blocks = self.pool.alloc(len(dl))
         self.host_writes += len(blocks)
+        self._alloc_dirty = True
         got: Dict[int, List[int]] = {}
         i = 0
         for slot, n in wants.items():
@@ -146,6 +162,7 @@ class KVPageManager:
         dl = self._dlpns(slot, len(blocks))
         self._xlate(UPDATE, dl, np.full(len(blocks), NIL, np.int32))
         self.pool.free(blocks)
+        self._alloc_dirty = True
 
     def is_resident(self, slot: int) -> bool:
         """True when no page of `slot` lives in the host tier — always,
@@ -169,12 +186,66 @@ class KVPageManager:
         self.state = self.state._replace(fmmu=fmmu)
         return out.reshape(self.n_slots, self.max_pages)
 
+    # ------------------------------------------- device allocator mirror
+    def sync_allocator(self):
+        """Re-push the host free list into the device allocator stacks
+        and clear the OutOfBlocks flag. No-op unless a host-side pool
+        mutation happened since the last sync: steady-state macro decode
+        performs none (``ALLOC_SYNCS``). No host tier: the host stack is
+        empty and no lane is swap-pending."""
+        if not self._alloc_dirty:
+            return
+        ALLOC_SYNCS[0] += 1
+        dev = np.full(self.pool.n_device, NIL, np.int32)
+        dev[:len(self.pool._free_dev)] = self.pool._free_dev
+        self.state = fb.set_allocator(
+            self.state, dev, np.int32(len(self.pool._free_dev)),
+            np.zeros(0, np.int32), np.int32(0),
+            np.zeros(self.n_slots, bool))
+        self._alloc_dirty = False
+
+    def reconcile_macro(self, grow_seq: List[int]) -> Dict[int, List[int]]:
+        """Replay a macro step's device-side pops onto the host pool and
+        page lists. ``grow_seq`` is the slot sequence that popped blocks
+        in device pop order (step-major, slot-ascending within a step);
+        popping the mirrored host free list in the same order yields the
+        same block ids, so no allocation log leaves the device. The pool
+        is not marked dirty: both sides applied the same delta. Returns
+        {slot: [new blocks]} in page order."""
+        got: Dict[int, List[int]] = {}
+        if not grow_seq:
+            return got
+        blocks = self.pool.alloc(len(grow_seq))
+        self.host_writes += len(blocks)
+        for slot, b in zip(grow_seq, blocks):
+            self.seq_pages[slot].append(b)
+            got.setdefault(slot, []).append(b)
+        return got
+
+    def observe_exhaustion(self, flags):
+        """Fold the sticky in-graph OutOfBlocks flags (host values, one
+        per channel: the macro boundary passes the flag its one sync
+        read) into the pool's per-channel exhaustion counts. A set flag
+        marks the allocator dirty, so the next ``sync_allocator``
+        re-push clears it."""
+        for c, hit in enumerate(flags):
+            if hit:
+                self.pool.note_exhausted(c)
+                self._alloc_dirty = True
+
+    def free_device_vec(self) -> np.ndarray:
+        """Free device blocks per channel ([total] at one channel): the
+        engine's growth-reserve check compares per channel."""
+        return np.asarray([self.pool.free_device], np.int64)
+
     def hit_stats(self) -> MapStats:
         """Map counters (a device->host read: diagnostics, not the hot
         path)."""
         s = self.state.fmmu.stats.cpu().tolist()
         return MapStats(hits=s[0], misses=s[1], fills=s[2], updates=s[3],
-                        host_writes=self.host_writes)
+                        host_writes=self.host_writes,
+                        pool_exhausted=list(self.pool.exhausted_ch))
 
 
-__all__ = ["KVPageManager", "MapStats", "XLATE_CALLS", "FULL_TABLE_CALLS"]
+__all__ = ["KVPageManager", "MapStats", "XLATE_CALLS", "FULL_TABLE_CALLS",
+           "ALLOC_SYNCS"]

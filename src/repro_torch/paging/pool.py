@@ -5,7 +5,8 @@ port's own copy of the single-channel device tier of
 The free list order is part of the state: the device-resident map
 mirrors it, and the equivalence tests compare it with the reference
 pool entry by entry. Host tier, channel striping, bad-block retirement
-and GC allocation come with the slices that port them.
+and GC allocation come with the slices that port them; ``exhausted_ch``
+keeps the reference's per-channel layout at one channel.
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ class BlockPool:
         # first pop yields block 0, as in the reference pool
         self._free_dev: List[int] = list(range(n_device))[::-1]
         self.stats = PoolStats()
+        # pool-exhaustion events per channel (the device-side sticky
+        # oob flag folds in via KVPageManager.observe_exhaustion)
+        self.exhausted_ch = [0]
 
     @property
     def free_device(self) -> int:
@@ -45,6 +49,9 @@ class BlockPool:
         self.stats.peak_used = max(self.stats.peak_used,
                                    self.n_device - len(self._free_dev))
         return out
+
+    def note_exhausted(self, channel: int):
+        self.exhausted_ch[channel] += 1
 
     def free(self, blocks: List[int]):
         self._free_dev.extend(blocks)

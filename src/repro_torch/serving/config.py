@@ -3,11 +3,11 @@
 
 The field names are the reference's. Every setting whose machinery is
 not ported yet raises ``NotImplementedError`` at construction — it is
-never ignored: the K-step macro path (``macro_k >= 2``), channel
-sharding (``channels > 1``), the host tier (``n_host_blocks > 0``), GC
-(``gc``), prefix sharing (``prefix``) and journaling
-(``journal_path``). The fault plane is a ``ServeEngine`` argument and
-is rejected there.
+never ignored: channel sharding (``channels > 1``), the host tier
+(``n_host_blocks > 0``), GC (``gc``), prefix sharing (``prefix``) and
+journaling (``journal_path``). The fault plane is a ``ServeEngine``
+argument and is rejected there. ``macro_k >= 2`` selects the K-step
+macro decode path (``serving/macro.py``); 0 or 1 is single-step.
 """
 from __future__ import annotations
 
@@ -31,7 +31,6 @@ class ServeConfig:
 
     def __post_init__(self):
         unported = {
-            "macro_k >= 2 (K-step macro decode)": self.macro_k >= 2,
             "channels > 1 (channel-sharded map)": self.channels > 1,
             "n_host_blocks > 0 (host tier / swap)": self.n_host_blocks > 0,
             "gc (GC/CTP plane)": self.gc is not None,

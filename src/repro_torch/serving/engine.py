@@ -1,7 +1,7 @@
 """Serving engine: continuous batching over a fixed slot grid, with the
 FMMU page manager owning logical->physical KV translation. Port of the
-single-step path of ``repro/serving/engine.py``, for dense and pure-SSM
-models.
+single-step and K-step macro paths of ``repro/serving/engine.py`` (one
+channel, no host tier), for dense and pure-SSM models.
 
 Prefill (the flash-attention kernel, or the mamba_chunk_scan kernel
 for an SSM layer) writes each request's KV into the pool blocks named
@@ -15,8 +15,19 @@ commit (the fmmu_translate kernel), and dead-lane masking happens on
 the device, so the only per-step host sync is the next-token readback
 (``HOST_SYNCS``).
 
-Not ported yet (later slices; ``ServeConfig`` rejects them): K-step
-macro decode, the host tier and swaps, channel sharding, GC, prefix
+With ``macro_k >= 2`` a scheduling round runs K decode steps in one
+dispatch (``serving/macro.py``; on the card one CUDA graph replay):
+page-boundary detection, device-side block pops from the map state's
+free stack, the fused map commit, attention, greedy sampling and
+retirement all happen on the device, and the host makes one sync per K
+tokens. The host pool stays authoritative at the boundaries between
+macro steps: admission, frees and the replay of the device's pops
+(``KVPageManager.reconcile_macro``) happen there. A round falls back to
+one single step (counted in ``macro_fallbacks``) when the free pool
+cannot cover the decoding lanes' worst-case K-step growth.
+
+Not ported yet (later slices; ``ServeConfig`` rejects them): the host
+tier and swaps, channel sharding, GC and the CTP prefetch, prefix
 sharing, journaling and the fault plane. Without a host tier there is
 no preemption victim, so a slot whose page growth fails PAUSES until
 blocks free up, as in the reference. As in the reference, every slot
@@ -41,11 +52,14 @@ from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.paging.kv_manager import KVPageManager
 from repro_torch.paging.pool import OutOfBlocks
+from repro_torch.serving import macro
 from repro_torch.serving.config import ServeConfig
 
 # one bump per blocking device->host readback (prefill's first token,
-# each decode step's next tokens)
+# each decode step's next tokens, each macro step's tokens + oob flag)
+# and one per K-step macro dispatch (a graph replay on the card)
 HOST_SYNCS = COUNTERS.cell("engine.host_syncs")
+MACRO_DISPATCHES = COUNTERS.cell("engine.macro_dispatches")
 
 
 @dataclasses.dataclass
@@ -106,9 +120,14 @@ class ServeEngine:
         self.queue: Deque[Request] = deque()
         self._rid = 0
         self.min_page_bucket = 4
+        self.macro_k = config.macro_k
+        self._macro_on = self.macro_k >= 2
+        self._graphs = (macro.MacroGraphs(self) if self._macro_on
+                        and self.device.type == "cuda" else None)
         self.metrics = {"prefills": 0, "prefill_tokens": 0,
                         "decode_steps": 0, "generated": 0,
-                        "chunked_prefills": 0}
+                        "chunked_prefills": 0, "macro_steps": 0,
+                        "macro_fallbacks": 0}
 
     # ------------------------------------------------------------- API
     def submit(self, tokens: List[int], max_new: int = 16) -> int:
@@ -126,11 +145,17 @@ class ServeEngine:
         return done
 
     def step(self, done: Dict[int, List[int]]) -> bool:
-        """One scheduling round: admissions, then one decode step."""
+        """One scheduling round: admissions, then either one K-step
+        macro step or one single decode step."""
         self._admit()
         if not self.active:
             return bool(self.queue)
-        self._decode_step(done)
+        if self._macro_eligible():
+            self._macro_decode_step(done)
+        else:
+            if self._macro_on:
+                self.metrics["macro_fallbacks"] += 1
+            self._decode_step(done)
         return bool(self.active or self.queue)
 
     def _free_slots(self) -> List[int]:
@@ -223,16 +248,17 @@ class ServeEngine:
         return torch.where((t < 0) | (t >= self.scratch_block),
                            self.scratch_block, t)
 
-    def _decode_fn(self, params, tokens, ctx_lens, table, resident_mask,
-                   pages):
-        """One decode step on the device: the flat table is reshaped and
-        sliced to the live-page bucket, dead slots are masked to the
-        scratch block with zeroed ctx, and greedy tokens come out."""
-        tables = self._mask_tables(self._table_grid(table, pages),
-                                   resident_mask)
-        ctx = torch.where(resident_mask, ctx_lens, 0)
-        logits, self.caches = self.m.decode_step(
-            params, tokens, self.caches, ctx_lens=ctx, block_table=tables)
+    def decode_fn(self, params, caches, tokens, ctx_lens, table, live,
+                  pages):
+        """One decode step on the device, shared by the single-step path
+        and the K-step program: the flat table is reshaped and sliced to
+        the live-page bucket, dead slots are masked to the scratch block
+        with zeroed ctx, ``caches`` update in place, and greedy tokens
+        come out."""
+        tables = self._mask_tables(self._table_grid(table, pages), live)
+        logits, _ = self.m.decode_step(
+            params, tokens, caches, ctx_lens=torch.where(live, ctx_lens, 0),
+            block_table=tables)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     def _grow_pages(self, residents) -> List[Request]:
@@ -286,8 +312,8 @@ class ServeEngine:
         pages = self._page_bucket(max(
             len(self.kvm.seq_pages[r.slot]) for r in residents))
         dev = self.device
-        next_tok = self._decode_fn(
-            self.params, torch.as_tensor(tokens, device=dev),
+        next_tok = self.decode_fn(
+            self.params, self.caches, torch.as_tensor(tokens, device=dev),
             torch.as_tensor(self.ctx_lens, device=dev),
             self.kvm.state.table, torch.as_tensor(resident_mask, device=dev),
             pages)
@@ -307,16 +333,209 @@ class ServeEngine:
                 if r.pending_prompt:
                     continue
             tok = int(next_tok[r.slot])
-            r.out.append(tok)
-            if not r.t_first:
-                r.t_first = time.perf_counter()
-            self.metrics["generated"] += 1
+            self._emit(r, [tok])
             if len(r.out) >= r.max_new or tok == self.eos_id:
-                r.t_done = time.perf_counter()
-                done[r.rid] = r.out[:r.max_new]
-                self.kvm.free_seq(r.slot)
-                self.ctx_lens[r.slot] = 0
-                del self.active[r.rid]
+                self._retire(r, done)
+
+    def _emit(self, r: Request, toks: List[int]):
+        r.out.extend(toks)
+        if toks and not r.t_first:
+            r.t_first = time.perf_counter()
+        self.metrics["generated"] += len(toks)
+
+    def _retire(self, r: Request, done: Dict[int, List[int]]):
+        r.t_done = time.perf_counter()
+        done[r.rid] = r.out[:r.max_new]
+        self.kvm.free_seq(r.slot)
+        self.ctx_lens[r.slot] = 0
+        del self.active[r.rid]
+
+    # ------------------------------------------------------ macro-steps
+    def _growth_need_ch(self, slot: int) -> np.ndarray:
+        """Worst-case device blocks ``slot`` can pop during one K-step
+        run, per owner channel ([total] at one channel): the same
+        page-boundary arithmetic as the program and ``_growth_walk``."""
+        have = len(self.kvm.seq_pages[slot])
+        target = min(self.max_pages,
+                     -(-(int(self.ctx_lens[slot]) + self.macro_k)
+                       // self.page))
+        return np.asarray([max(0, target - have)], np.int64)
+
+    def _macro_eligible(self) -> bool:
+        """A macro step runs only when it provably cannot need the host
+        mid-flight: the free pool covers the worst-case K-step growth of
+        every decoding lane, so the device allocator cannot run dry.
+        Finishing mid-run is fine (handled on the device)."""
+        if not self._macro_on or not self.active:
+            return False
+        need = sum(self._growth_need_ch(r.slot)
+                   for r in self.active.values())
+        return bool((need <= self.kvm.free_device_vec()).all())
+
+    def _macro_lanes(self, residents, k: int):
+        """Lane arrays for one K-step run: tokens/alive/budget/pages
+        plus the forced-lane schedule of chunk-prefilled prompts."""
+        s_n = self.n_slots
+        tokens = np.zeros(s_n, np.int32)
+        alive = np.zeros(s_n, bool)
+        budget = np.zeros(s_n, np.int32)
+        npages = np.zeros(s_n, np.int32)
+        pend = np.zeros(s_n, np.int32)
+        fmask = np.zeros((k, s_n), bool)
+        ftok = np.zeros((k, s_n), np.int32)
+        emit = np.ones((k, s_n), bool)
+        slot2req: Dict[int, Request] = {}
+        for r in residents:
+            s = r.slot
+            tokens[s] = (r.pending_prompt[0] if r.pending_prompt
+                         else r.out[-1] if r.out else r.tokens[-1])
+            alive[s] = True
+            budget[s] = r.max_new - len(r.out)
+            npages[s] = len(self.kvm.seq_pages[s])
+            slot2req[s] = r
+            # forced lanes: steps [0, P) consume known prompt tokens;
+            # predictions before step P-1 are inside the prompt and
+            # neither emit nor spend budget
+            p = len(r.pending_prompt)
+            pend[s] = p
+            if p:
+                chunk = r.pending_prompt[:k]
+                fmask[:len(chunk), s] = True
+                ftok[:len(chunk), s] = chunk
+                emit[:min(p - 1, k), s] = False
+        return (tokens, alive, budget, npages, pend, fmask, ftok, emit,
+                slot2req)
+
+    def _growth_walk(self, live_of_step, npages, ctx):
+        """Which slots pop a block at each of the K steps: the one home
+        of the program's arithmetic (``need = (ctx + page) // page;
+        grow = live & (need > npg) & (npg < max_pages)``), shared by the
+        simple schedule and the full-mode replay, which must pop in the
+        device's order or the allocator mirror breaks.
+        ``live_of_step(k)`` -> [S] bool. Returns (grow [K,S] bool,
+        dl [K,S] int32 — each slot's next unmapped dlpn at that step,
+        npg_end [S])."""
+        k_n, s_n = self.macro_k, self.n_slots
+        grow = np.zeros((k_n, s_n), bool)
+        dl = np.zeros((k_n, s_n), np.int32)
+        base = np.arange(s_n, dtype=np.int32) * self.max_pages
+        npg = npages.copy()
+        ctx = ctx.copy()
+        for k in range(k_n):
+            live = live_of_step(k)
+            need = (ctx + self.page) // self.page
+            grow[k] = live & (need > npg) & (npg < self.max_pages)
+            dl[k] = base + npg
+            npg += grow[k]
+            ctx += live
+        return grow, dl, npg
+
+    def _macro_book_simple(self, residents, toks, pend, k: int,
+                           done: Dict[int, List[int]]):
+        """Boundary bookkeeping of a simple-mode run: every alive lane
+        ran all K steps and none finished mid-run (budget == emitted
+        retires here). A forced lane's outputs start at step P-1."""
+        self.metrics["decode_steps"] += k
+        for r in residents:
+            s = r.slot
+            p = int(pend[s])
+            if p:
+                self.metrics["prefill_tokens"] += min(p, k)
+                del r.pending_prompt[:min(p, k)]
+                outs = [int(t) for t in toks[p - 1:, s]] if p <= k else []
+            else:
+                outs = [int(t) for t in toks[:, s]]
+            self._emit(r, outs)
+            self.ctx_lens[s] += k
+            if len(r.out) >= r.max_new:
+                self._retire(r, done)
+
+    def _macro_book_full(self, valid, toks, slot2req,
+                         done: Dict[int, List[int]]):
+        """Boundary bookkeeping of a full-mode run: replay the emitted
+        tokens step by step (NIL lanes emitted nothing)."""
+        for k in range(valid.shape[0]):
+            if not valid[k].any():
+                break                  # everyone retired: steps k.. idle
+            stepped = [slot2req[s] for s in range(self.n_slots)
+                       if valid[k, s]]
+            self._finish_step(stepped, toks[k], done)
+
+    def _macro_decode_step(self, done: Dict[int, List[int]]):
+        """One K-step run, then the boundary work: ONE host sync (the
+        token matrix + oob flag), the replay of the device's pops onto
+        the host pool, token bookkeeping, frees."""
+        self.kvm.sync_allocator()      # no-op unless the pool mutated
+        residents = list(self.active.values())
+        k = self.macro_k
+        (tokens, alive, budget, npages, pend, fmask, ftok, emit,
+         slot2req) = self._macro_lanes(residents, k)
+        # simple mode applies when no lane can finish mid-run: a forced
+        # lane only emits K - (P-1) tokens, so its budget covers that
+        gen = k - np.maximum(pend - 1, 0)
+        simple = self.eos_id < 0 and bool(
+            (budget[alive] >= gen[alive]).all())
+        lanes = dict(tokens=tokens, ctx=self.ctx_lens, alive=alive,
+                     budget=budget, npages=npages)
+        if simple:
+            # no retirement: the live set is static, so the growth
+            # schedule is a pure function of what the host holds
+            live = np.broadcast_to(alive, (k, self.n_slots))
+        else:
+            # a lane stops after the step that spends its budget (an
+            # EOS stop is not known here: such a lane counts as live,
+            # which only widens later steps' buckets)
+            spent = np.cumsum(emit, axis=0) - emit
+            live = alive[None] & (spent < budget[None])
+        grow_sched, dl, _ = self._growth_walk(lambda s: live[s], npages,
+                                              self.ctx_lens)
+        if simple:
+            lanes.update(grow=grow_sched, dl=dl)
+        # each step's table width is the bucket a single step would use
+        npg = npages[None] + np.cumsum(grow_sched, axis=0)
+        pages, b = [], self.min_page_bucket
+        for s in range(k):
+            if live[s].any():
+                b = self._page_bucket(int(npg[s][live[s]].max()))
+            pages.append(b)
+        pages = tuple(pages)
+        forced = bool(pend.any())
+        if forced:
+            lanes.update(fmask=fmask, ftok=ftok, emit=emit)
+        buf = macro.pack_inputs(k, self.n_slots, **lanes)
+        MACRO_DISPATCHES[0] += 1
+        if self._graphs is not None:
+            st, out = self._graphs.run(self.kvm.state, buf, simple, forced,
+                                       pages)
+        else:
+            st, out = macro.run_eager(self, buf, simple, forced, pages)
+        self.kvm.state = st
+        HOST_SYNCS[0] += 1
+        out = out.cpu().numpy()
+        toks, oob = out[:-1].reshape(k, self.n_slots), bool(out[-1])
+        self.metrics["macro_steps"] += 1
+        if simple:
+            # np.nonzero on [K,S] is row-major == the device's
+            # step-major, slot-ascending pop order
+            grow_seq = [int(s) for s in np.nonzero(grow_sched)[1]]
+        else:
+            # NIL marks lanes that emitted nothing; replay the growth
+            # decisions gated on the run's own live mask to recover
+            # the pop sequence (no allocation log left the device)
+            valid = (toks >= 0) & alive[None, :]
+            grew, _, _ = self._growth_walk(lambda s: valid[s], npages,
+                                           self.ctx_lens)
+            grow_seq = [int(s) for s in np.nonzero(grew)[1]]
+        self.kvm.reconcile_macro(grow_seq)
+        if simple:
+            self._macro_book_simple(residents, toks, pend, k, done)
+        else:
+            self._macro_book_full(valid, toks, slot2req, done)
+        if oob:
+            # unreachable past the eligibility check; fold the flag into
+            # the pool's exhaustion counts and mark the allocator dirty
+            # (the re-sync clears it), single-step mode recovers
+            self.kvm.observe_exhaustion(flags=[oob])
 
 
 # ----------------------------------------------------------------------

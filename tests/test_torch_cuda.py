@@ -364,3 +364,205 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError):                          # f16
         mamba_chunk_scan(x.half(), dt, hv, bc[..., :16].half(),
                          bc[..., :16].half(), hv)
+
+
+# ------------------------------------------------- K-step macro graphs
+MACRO_K = 4
+
+
+def _macro_engine(dev, arch="llama3.2-1b", dtype=torch.float32, page=8,
+                  macro_k=MACRO_K, **cfg):
+    """A 2-layer smoke model (f32, page 8 unless given) behind a macro
+    engine (a single-step one with macro_k=0)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    m = build_model(smoke_config(get_arch(arch)),
+                    Runtime(compute_dtype=dtype, param_dtype=dtype,
+                            page_size=page),
+                    device=dev)
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    cfg.setdefault("max_ctx", 128)
+    return ServeEngine(m, params, config=ServeConfig(
+        n_slots=4, macro_k=macro_k, **cfg), device=dev)
+
+
+def _serve(eng, reqs):
+    """Run (prompt, max_new) requests to completion; their tokens in
+    order, and the (simple, forced, pages) key of every macro run."""
+    keys = []
+    if eng._graphs is not None:
+        run = eng._graphs.run
+
+        def spy(ms, buf, *key):
+            keys.append(key)
+            return run(ms, buf, *key)
+        eng._graphs.run = spy
+    rids = [eng.submit(list(t), max_new=n) for t, n in reqs]
+    done = eng.run()
+    return [done[r] for r in rids], keys
+
+
+# four requests whose runs take all four (simple, forced) variants: the
+# 33- and 20-token prompts are chunk-prefilled (forced lanes), the
+# 5-token one retires mid-run (full variant)
+MACRO_REQS = [(range(1, 34), 6), (range(90, 95), 3), (range(40, 46), 34),
+              (range(60, 80), 10)]
+
+
+def _state_clone(ms):
+    from repro_torch.serving import macro
+    return macro._with_tensors(ms, [t.clone() for t in macro._tensors(ms)])
+
+
+def test_macro_graph_replay_matches_eager_program(cuda):
+    """Every replay against one eager run of the same K-step program on
+    clones of the same map state and caches: tokens, oob, map state and
+    caches bit-identical, and the replay's launch counts equal the eager
+    run's. The runs take the simple, full and forced variants, with the
+    page bucket alternating 4 / 8 between rounds, so graphs of two
+    buckets are replayed in turns."""
+    from repro_torch.serving import macro
+    eng = _macro_engine(cuda, admit_tokens=12)
+    graphs = eng._graphs
+    replay = graphs.run
+    seen = []
+
+    def checked(ms, buf, simple, forced, pages):
+        ms0 = _state_clone(ms)
+        caches0 = {n: c.clone() for n, c in eng.caches.items()}
+        n0 = COUNTERS.launches()
+        st, out = replay(ms, buf, simple, forced, pages)
+        n1 = COUNTERS.launches()
+        args = macro.unpack_inputs(torch.from_numpy(buf).to(cuda), MACRO_K,
+                                   eng.n_slots, simple, forced)
+        ms_e, toks, oob = macro.macro_fn(eng, eng.params, ms0, caches0,
+                                         *args, pages, simple=simple)
+        n2 = COUNTERS.launches()
+        want = torch.cat([toks.reshape(-1), oob.to(torch.int32).reshape(1)])
+        assert torch.equal(out, want)
+        for a, b in zip(macro._tensors(st), macro._tensors(ms_e)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for n, c in eng.caches.items():
+            assert torch.equal(c, caches0[n]), n
+        assert {k: n1[k] - n0.get(k, 0) for k in n1} == \
+            {k: n2[k] - n1.get(k, 0) for k in n2}
+        assert n1["fmmu_translate"] - n0.get("fmmu_translate", 0) == MACRO_K
+        seen.append((simple, forced, pages))
+        return st, out
+
+    graphs.run = checked
+    rids = [eng.submit(list(t), max_new=n) for t, n in MACRO_REQS]
+    done: dict = {}
+    i = 0
+    while eng.step(done):
+        i += 1
+        eng.min_page_bucket = (4, 8)[i % 2]
+    assert {(s, f) for s, f, _ in seen} == {(True, True), (True, False),
+                                            (False, True), (False, False)}
+    pages = [p for _, _, p in seen]
+    assert any(a != b for a, b in zip(pages, pages[1:]))
+    assert graphs.stats()["graphs"] == len(set(seen))
+    assert [len(done[r]) for r in rids] == [n for _, n in MACRO_REQS]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+def test_macro_capture_changes_no_state_and_steady_state_captures_nothing(
+        cuda, arch):
+    """Capturing a new variant leaves the map state, caches and counters
+    as they were (the capture ran no work); once a round's variant is
+    captured, steady rounds capture nothing and each makes one dispatch,
+    one host sync, no host-side map call and no allocator re-sync, with
+    K fmmu_translate launches (and K per attention layer of
+    paged_attention) counted per replay."""
+    from repro_torch.serving import macro
+    eng = _macro_engine(cuda, arch)
+    eng.min_page_bucket = 16          # one bucket for the whole test
+    for t in (range(1, 9), range(20, 31)):
+        eng.submit(list(t), max_new=10 ** 6)
+    done: dict = {}
+    eng.step(done)                    # admission, prefill, first capture
+    ms0 = _state_clone(eng.kvm.state)
+    caches0 = {n: c.clone() for n, c in eng.caches.items()}
+    before = COUNTERS.snapshot()
+    eng._graphs._capture((False, True, (16,) * MACRO_K))  # not yet used
+    torch.cuda.synchronize()
+    d = COUNTERS.delta(before)
+    assert d.pop("engine.macro_captures") == 1
+    assert not any(d.values()), d
+    for a, b in zip(macro._tensors(eng.kvm.state), macro._tensors(ms0)):
+        assert torch.equal(a, b)
+    for n, c in eng.caches.items():
+        assert torch.equal(c, caches0[n]), n
+    n_attn = sum(eng.cfg.layer_kind(j) == "attn"
+                 for j in range(eng.cfg.n_layers))
+    for _ in range(5):
+        before = COUNTERS.snapshot()
+        eng.step(done)
+        d = COUNTERS.delta(before)
+        assert d["engine.macro_captures"] == 0
+        assert d["engine.macro_dispatches"] == 1
+        assert d["engine.host_syncs"] == 1
+        assert d["kvm.xlate_calls"] == d["kvm.alloc_syncs"] == 0
+        assert d["kvm.full_table_calls"] == 0
+        assert d["kernel.fmmu_translate"] == MACRO_K
+        assert d.get("kernel.paged_attention", 0) == MACRO_K * n_attn
+    assert eng.metrics["macro_fallbacks"] == 0
+    torch.testing.assert_close(eng.kvm.block_tables(),
+                               eng.kvm.retranslate_tables(), rtol=0, atol=0)
+
+
+def test_macro_capture_never_grows_the_ticket_buffer(cuda, monkeypatch):
+    """In a fresh process state the first capture is at page bucket 4
+    (paged attention runs one split: no ticket buffer) and the next at
+    bucket 8 (two splits): the buffer is grown by that variant's eager
+    warm-up, never inside a capture, where the zero-fill would only run
+    at replay from the graph pool. The tokens equal single steps'."""
+    pa._COUNTER_BUFS.clear()                     # nothing sized yet
+    grown = []
+    sized = pa._counter_buffer
+
+    def spy(dev, n):
+        before = pa._COUNTER_BUFS.get(dev)
+        buf = sized(dev, n)
+        if buf is not before:
+            grown.append(torch.cuda.is_current_stream_capturing())
+        return buf
+    monkeypatch.setattr(pa, "_counter_buffer", spy)
+    # a 60-token prompt at page 16: ctx 60..63 (4 pages) in the first
+    # run, 64..67 (5 pages, bucket 8) in the second
+    reqs = [(range(1, 61), 12), (range(100, 110), 12)]
+    eng = _macro_engine(cuda, page=16, max_ctx=256)
+    got, keys = _serve(eng, reqs)
+    cfg = eng.cfg
+    splits = {p: pa.plan(eng.n_slots, cfg.n_heads, cfg.n_kv_heads, p, 16,
+                         pa._sm_count(torch.cuda.current_device())).n_split
+              for p in (4, 8)}
+    assert [k[2] for k in keys[:2]] == [(4,) * MACRO_K, (8,) * MACRO_K]
+    assert splits[4] == 1 < splits[8]
+    assert grown == [False]
+    assert eng._graphs.stats()["graphs"] == len(set(keys)) >= 2
+    monkeypatch.undo()
+    want, _ = _serve(_macro_engine(cuda, page=16, max_ctx=256, macro_k=0),
+                     reqs)
+    assert got == want
+
+
+def test_macro_run_crossing_a_page_bucket_matches_single_steps(cuda):
+    """bf16 at page 16: the 62-token prompt reaches 64 tokens (5 pages)
+    at step 2 of the first K-step run. Paged attention's split plan, and
+    so its rounding, follows the table's width, so that run must cut
+    its tables to bucket 4 for steps 0-1 and 8 for steps 2-3, as single
+    steps do: tokens and the KV pools are then bit-identical."""
+    reqs = [(range(1, 63), 13), (range(200, 240), 13), (range(300, 320), 13)]
+    dt = torch.bfloat16
+    eng = _macro_engine(cuda, dtype=dt, page=16, max_ctx=256)
+    got, keys = _serve(eng, reqs)
+    assert keys[0][2] == (4, 4, 8, 8)
+    single = _macro_engine(cuda, dtype=dt, page=16, max_ctx=256, macro_k=0)
+    want, _ = _serve(single, reqs)
+    assert got == want
+    live = eng.scratch_block                     # the last block: scratch
+    for name in ("pool_k", "pool_v"):
+        assert torch.equal(eng.caches[name][:, :, :live],
+                           single.caches[name][:, :, :live]), name

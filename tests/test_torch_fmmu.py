@@ -6,7 +6,10 @@ lanes), the port's unfused three-call path (``*_unfused``, the
 ``fmmu_lookup`` probe) bit-identical to JAX's and to the port's own
 fused path on order-insensitive batches, and the port's
 ``KVPageManager`` bit-identical to the JAX manager under random
-new/extend/free interleavings. Inputs come from a seeded numpy
+new/extend/free interleavings. The device allocator transitions
+(``alloc_serving``, ``free_serving``, ``set_allocator``,
+``serving_grow``) are bit-identical to JAX's, and a grow commit with
+every lane masked changes nothing. Inputs come from a seeded numpy
 generator and go into both packages."""
 import functools
 import random
@@ -151,6 +154,94 @@ def test_batch_wrappers_bit_identical_to_jax():
                                        jnp.asarray(dp + 7), jnp.asarray(old))
         np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
         _assert_state_equal(ts, js, "wrappers")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_allocator_ops_bit_identical_to_jax(seed):
+    """alloc_serving / free_serving / set_allocator / serving_grow on a
+    seeded op stream: every state leaf and every output (blocks, ok)
+    equal to the JAX functions', including pops from a stack that runs
+    dry (oob raised), frees of host-tier ids and NIL lanes, and pushes
+    past the stack's capacity."""
+    g, jg = small_geometry(), j_small()
+    rng = np.random.default_rng(seed)
+    n_dev, b = 10, 6
+    ts = TB.init_serving_state(g, n_dev, b, device=CPU)
+    js = JB.init_serving_state(jg, n_dev, 0, b)
+    jgrow = jax.jit(functools.partial(JB.serving_grow, jg))
+    jalloc, jfree = jax.jit(JB.alloc_serving), jax.jit(JB.free_serving)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    held, dry = [], 0
+    for it in range(40):
+        op = ["alloc", "grow", "grow", "free", "set"][int(rng.integers(5))]
+        want = rng.random(b) < 0.6
+        if op == "alloc":
+            ts, tb, tok = TB.alloc_serving(ts, torch.from_numpy(want))
+            js, jb, jok = jalloc(js, jnp.asarray(want))
+        elif op == "grow":
+            dl = rng.choice(n_pages, b, replace=False).astype(np.int32)
+            ts, tb, tok = TB.serving_grow(g, ts, torch.from_numpy(want),
+                                          torch.from_numpy(dl))
+            js, jb, jok = jgrow(js, jnp.asarray(want), jnp.asarray(dl))
+        if op in ("alloc", "grow"):
+            np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+            np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+            assert tb.dtype == torch.int32 and tok.dtype == torch.bool
+            held += [int(x) for x in tb.numpy()[tok.numpy()]]
+            dry += int((want & ~tok.numpy()).any())
+        elif op == "free":
+            rng.shuffle(held)
+            give = held[:int(rng.integers(0, min(len(held), n_dev) + 1))]
+            held = held[len(give):]
+            # NIL lanes pad to one length (the JAX side compiles once)
+            blocks = np.full(n_dev + 4, NIL, np.int32)
+            extra = [HOST_BASE + it] + [int(rng.integers(0, n_dev))] * (it % 3)
+            blocks[:len(give) + len(extra)] = give + extra
+            ts = TB.free_serving(ts, torch.from_numpy(blocks))
+            js = jfree(js, jnp.asarray(blocks))
+        else:
+            stack = rng.permutation(n_dev).astype(np.int32)
+            n = np.int32(rng.integers(0, n_dev + 1))
+            pend = rng.random(b) < 0.3
+            host = np.zeros(0, np.int32)
+            ts = TB.set_allocator(ts, stack, n, host, np.int32(0), pend)
+            js = JB.set_allocator(js, stack, n, host, np.int32(0), pend)
+            held = [int(x) for x in stack[n:]]
+        _assert_state_equal(ts, js, f"op {it} {op}")
+        for tf, jf in ((TB.oob_vec, JB.oob_vec),
+                       (TB.commit_seq_vec, JB.commit_seq_vec)):
+            np.testing.assert_array_equal(tf(ts).numpy(), np.asarray(jf(js)))
+    assert dry > 0                    # the stack ran dry at least once
+
+
+def test_masked_grow_commit_leaves_state_bit_identical():
+    """A grow commit with every lane masked (what a captured K-step
+    program runs on a step without a page boundary) changes no tensor
+    of the state: no pop, zeros added to the stats, commit_seq and the
+    clock."""
+    g = small_geometry()
+    rng = np.random.default_rng(3)
+    ts = TB.init_serving_state(g, 16, 4, device=CPU)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    for _ in range(6):                # a state with history
+        dl = rng.choice(n_pages, 4, replace=False).astype(np.int32)
+        ts, _, _ = TB.serving_grow(g, ts, torch.from_numpy(rng.random(4) < .7),
+                                   torch.from_numpy(dl))
+    assert int(ts.commit_seq) > 0 and int(ts.fmmu.clock.sum()) > 0
+    dl = torch.from_numpy(rng.choice(n_pages, 4, replace=False)
+                          .astype(np.int32))
+    after, blocks, ok = TB.serving_grow(g, ts, torch.zeros(4, dtype=torch.bool),
+                                        dl)
+    assert not ok.any() and (blocks == NIL).all()
+    flat = [(f, getattr(ts, f), getattr(after, f)) for f in ts._fields
+            if f != "fmmu"]
+    flat += [(f, getattr(ts.fmmu, f), getattr(after.fmmu, f))
+             for f in ts.fmmu._fields]
+    for name, x, y in flat:
+        if x is None:
+            assert y is None, name
+        else:
+            assert x.dtype == y.dtype and torch.equal(x, y), name
 
 
 def _t(a):

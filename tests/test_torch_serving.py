@@ -147,8 +147,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(macro_k=4), dict(channels=2), dict(n_host_blocks=4),
-    dict(gc=object()), dict(prefix=object()), dict(journal_path="j.log")])
+    dict(channels=2), dict(n_host_blocks=4), dict(gc=object()),
+    dict(prefix=object()), dict(journal_path="j.log")])
 def test_serve_config_rejects_unported_features(kw):
     with pytest.raises(NotImplementedError):
         ServeConfig(n_slots=2, max_ctx=32, **kw)
