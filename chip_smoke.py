@@ -9,18 +9,22 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                src/repro_torch/csrc (one process per source, all started
                together); prints the card's name and power limit.
   2. kernels — each CUDA kernel against its plain torch version on the
-               card, on the shapes its path gives it: the fused
-               translate probe and the probe-only lookup bit-exact (ids
-               past 1<<24), the two attention kernels within the bf16
-               tolerance 2e-2 (f16 1e-2, f32 variants 1e-4; paged also
-               at ctx 1024 and a ragged mix at 128 pages, its (m, l)
-               within 1e-3 and repeated calls bit-identical), the Mamba2
-               scan within the Pallas tests' 8e-2 bf16 / 5e-3 f32
-               (S 1024, ragged 1000, 65 and 1, with and without an
-               initial state, repeats bit-identical). Times the kernel,
-               the plain version, the bound and the PyTorch library call
-               where one exists (for the scan also its blocked plain
-               version, the kernel's arithmetic in many calls).
+               card, on the shapes its path gives it: the map commit
+               (fmmu_commit) against its plain chain bit for bit (every
+               state tensor and output, the serving map and the paper
+               geometry, 1..4096 lanes, translate / batch / grow modes,
+               three commits in a row), the translate probe and the
+               probe-only lookup bit-exact (ids past 1<<24), the two
+               attention kernels within the bf16 tolerance 2e-2 (f16
+               1e-2, f32 variants 1e-4; paged also at ctx 1024 and a
+               ragged mix at 128 pages, its (m, l) within 1e-3 and
+               repeated calls bit-identical), the Mamba2 scan within the
+               Pallas tests' 8e-2 bf16 / 5e-3 f32 (S 1024, ragged 1000,
+               65 and 1, with and without an initial state, repeats
+               bit-identical). Times the kernel, the plain version, the
+               bound and the PyTorch library call where one exists (for
+               the scan also its blocked plain version, the kernel's
+               arithmetic in many calls).
   3. serve   — llama3.2-1b at its published widths (bf16, page 16,
                8 slots x 2048 ctx, random weights from a seed) serves
                8 requests of 64..1020 prompt tokens for 32 new tokens
@@ -34,33 +38,41 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                counted: its tokens must equal the single-step tokens,
                it must capture nothing and make one dispatch and one
                host sync per K tokens with no host-side map work, and
-               the replays must count fmmu_translate (one per step) and
+               the replays must count fmmu_commit (one per step) and
                paged_attention (one per layer and step). The 1020-token
                prompt crosses from 64 to 65 pages inside a K-step run,
                so the token check spans a page-bucket change. Prints the
                graphs, capture seconds and pool bytes, one profiled
-               steady macro step and one profiled retiring step (the
-               trace's launches of each hand kernel must equal the
-               counted ones, and on the steady step the replayed
-               graph's delta) and the in-graph map commit's cost. Then
-               the 2-layer f32 kernel-vs-ref parity in macro mode.
+               steady macro step and one profiled retiring step (each
+               hand kernel's counted launches must equal the replayed
+               graph's kernel nodes of its name, read through libcuda,
+               plus one fmmu_commit per eager map commit; the
+               trace gives device time and its own launch counts as
+               readings) and the in-graph map commit's cost, kernel
+               beside plain chain (at most 4 launches, from the graph's
+               nodes). Then the 2-layer f32 kernel-vs-ref parity in
+               macro mode.
   4. map     — a seeded stream of mixed lookup / update / cond-update
                batches at the paper's CMT geometry goes through the
-               fused translate_batch and through the three unfused
-               calls (the fmmu_lookup probe): final state and every
-               output bit-identical; both paths' times are printed
-               (the paper's FMMU-vs-software comparison, not a claim).
+               fused path (the commit kernel), its plain version (the
+               torch chain) and the three unfused calls (the
+               fmmu_lookup probe): final state and
+               every output bit-identical; the three paths' times are
+               printed (the paper's FMMU-vs-software comparison, not a
+               claim).
   5. serve (SSM) — mamba2-1.3b at its published widths (48 layers,
                d 2048, bf16, page 16, 8 slots x 2048 ctx) serves 8
                requests of 64..1024 prompt tokens (chunk multiples and
                ragged lengths) for 32 new tokens each; mamba_chunk_scan
-               (48 per prefill) and fmmu_translate must be launched.
+               (48 per prefill) and fmmu_commit must be launched.
                Then a 2-layer f32 mamba2 engine must emit the same
                greedy tokens with the kernels as with kernel_impl="ref".
-  5b. serve (SSM, macro) — as 3b for mamba2-1.3b (fmmu_translate
+  5b. serve (SSM, macro) — as 3b for mamba2-1.3b (fmmu_commit
                replayed, mamba_chunk_scan at prefill).
 Launch counts are zeroed just before each path's run and read just
-after it; each kernel reports the count of the path that carries it.
+after it; each kernel reports the count of the path that carries it
+(fmmu_lookup: the map phase's; the probe-only fmmu_translate runs on
+no path since fmmu_commit does its probe, and reports 0).
 
 Output: the ptxas resource lines on stderr; on stdout, before the last
 line, one JSON line {"ptxas": [...]} (registers, spills and static
@@ -75,6 +87,7 @@ one {"serve": {...}} (llama), one {"serve_macro": {...}}, one
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -186,8 +199,8 @@ def _demangle(names):
     return list(names)
 
 
-def ptxas_resources(logs, kernels=("paged_attention", "flash_attention",
-                                   "mamba_scan")):
+def ptxas_resources(logs, kernels=("fmmu_commit", "paged_attention",
+                                   "flash_attention", "mamba_scan")):
     """Registers, spills and static shared memory of every instantiation
     of the named kernels, from nvcc's -Xptxas -v output."""
     entries, cur = [], None
@@ -282,6 +295,201 @@ def check_fmmu_translate(timer, rng):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": "S=16 W=4 E=8 NP=1024 lanes=8",
     }
+
+
+def _commit_geometry(name):
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    if name == "serving":    # the serving grid's map: paging._geometry(8, 128)
+        return FMMUGeometry(cmt_sets=16, cmt_ways=4, cmt_entries=8,
+                            entries_per_tp=128, n_tvpns=8)
+    return FMMUGeometry()    # the paper's: 512 x 4 x 8, NP = 1,048,576
+
+
+def _commit_state(rng, g, n_stack=1024):
+    """A map state with history on the card: in-set tags (duplicate-tag
+    ways too), random bits and clocks, values past 1<<24, a random
+    table, a full stack."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import HOST_BASE
+    s, w, e = g.cmt_sets, g.cmt_ways, g.cmt_entries
+    n_pages = g.n_tvpns * g.entries_per_tp
+    tags = rng.integers(0, n_pages // e // s, (s, w)) * s + \
+        np.arange(s)[:, None]
+    tags[::3, -1] = tags[::3, 0]
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.asarray(a)).to("cuda", dtype)
+    vals = (lambda *shape: rng.integers(-1, 2 * HOST_BASE, shape))
+    st = fb.BatchFMMUState(
+        tags=t(tags), valid=t(rng.random((s, w)) < 0.7, torch.bool),
+        ref=t(rng.random((s, w)) < 0.4, torch.bool),
+        clock=t(rng.integers(0, w, s)), data=t(vals(s, w, e)),
+        backing=t(vals(n_pages)), stats=t(rng.integers(0, 1000, 4)))
+    return fb.ServingMapState(
+        fmmu=st, table=t(vals(n_pages)),
+        free_stack=t(rng.permutation(1 << 20)[:n_stack]),
+        free_n=t(np.int32(n_stack)), host_stack=t(np.zeros(0, np.int32)),
+        host_n=t(np.int32(0)), oob=t(False, torch.bool),
+        swap_pending=t(np.zeros(8, bool), torch.bool),
+        commit_seq=t(np.int32(0)))
+
+
+def _commit_lanes(rng, g, bq, unique=False):
+    """A mixed batch of bq lanes: hits and misses (several lanes per
+    block, mixed op kinds, many blocks per set), lanes past the map up to
+    int32's max, duplicate reads (inactive lanes when ``unique``: a grow
+    batch writes every lane), inactive lanes, host-tier dppns; unique
+    write dlpns. Returns (opcodes, dlpns, dppns) on the card."""
+    from repro_torch.core.fmmu.types import HOST_BASE, NIL
+    e, s = g.cmt_entries, g.cmt_sets
+    n_pages = g.n_tvpns * g.entries_per_tp
+    blocks = int(rng.integers(s)) + s * rng.choice(n_pages // e // s,
+                                                   max(1, bq // 6))
+    cand = np.concatenate([[n_pages, n_pages + 3, 1 << 30, (1 << 31) - 1],
+                           (blocks[:, None] * e + np.arange(e)).reshape(-1),
+                           rng.permutation(n_pages)[:bq]])
+    _, first = np.unique(cand, return_index=True)
+    cand = rng.permutation(cand[np.sort(first)])
+    u = min(len(cand), max(1, 3 * bq // 4))
+    n_dup = (bq - u) // 2
+    dups = np.full(n_dup, -1) if unique else rng.choice(cand[:u], n_dup)
+    dl = np.concatenate([cand[:u], dups, np.full(bq - u - n_dup, -1)])
+    op = rng.integers(0, 3, bq)
+    op[u:u + n_dup] = 0                                  # LOOKUP reads
+    dp = rng.choice([NIL, 7, HOST_BASE + 5], bq)
+    dp = np.where(dp == NIL, NIL, dp + rng.integers(0, 1 << 20, bq))
+    order = rng.permutation(bq)
+    return [torch.from_numpy(a[order].astype(np.int32)).cuda()
+            for a in (op, dl, dp)]
+
+
+def commit_bytes(g, ms, lanes, grow):
+    """Bytes one commit must move, from what these lanes touch (the
+    plain chain run on a copy): each lane's inputs and outputs, the tags
+    and valid bits of each probed set, one data or backing word per
+    active lane, a ref byte per touching hit, each committed lane's
+    backing, table and (on a hit) data word, each fill's tag, valid,
+    ref, E data words and the E backing words they come from, the clock
+    of each set that filled, each pop's stack word, and the scalars
+    (stats, commit_seq, free_n, oob) read and written once."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.kernels.ref import fmmu_translate_ref
+    w, e = g.cmt_ways, g.cmt_entries
+    st = ms.fmmu
+    op, dl, dp = lanes
+    after = fb.clone_state(ms)
+    if grow is not None:
+        blocks, ok = fb.serving_grow_(g, after, grow, dl, impl="ref")
+        dl = torch.where(ok, dl, -1)
+        op = torch.ones_like(dl)
+        lane_io = dl.numel() * (4 + 1 + 4 + 1)    # dlpn, grow | blocks, ok
+    else:
+        fb.translate_serving_(g, after, op, dl, dp, dp, impl="ref")
+        lane_io = dl.numel() * (4 * 4 + 4 + 1)           # 4 lanes | out, ok
+    hit, _, set_idx, _, _ = fmmu_translate_ref(
+        st.tags, st.valid, st.ref, st.data, st.backing, dl, dl >= 0,
+        entries_per_block=e)
+    active = dl >= 0
+    probed = torch.unique(set_idx[active]).numel()
+    touch = int((hit & ((op == 0) | (op == 2))).sum())
+    d_stats = (after.fmmu.stats - st.stats).tolist()
+    fills, writes = d_stats[2], d_stats[3]
+    write_hits = min(writes, int((hit & (op != 0)).sum()))
+    fill_sets = int(((after.fmmu.tags != st.tags).any(1)
+                     | (after.fmmu.clock != st.clock)).sum())
+    pops = int(ms.free_n - after.free_n)
+    return (lane_io + probed * w * (4 + 1) + 4 * int(active.sum()) + touch
+            + writes * (4 + 4) + 4 * write_hits
+            + fills * (4 + 1 + 1 + 2 * 4 * e) + fill_sets * 8 + 4 * pops
+            + 2 * (16 + 4 + 4 + 1))
+
+
+def check_fmmu_commit(timer, rng):
+    """The whole map commit against its plain chain (impl="ref") on
+    clones of one state, bit for bit (every state tensor and output), at
+    the serving map and the paper geometry, from 1 to 4096 lanes, in the
+    three modes (translate_serving_, translate_batch_, serving_grow_),
+    three commits in a row. Times the kernel and the chain at the
+    serving commit (8 growing lanes, fresh pages each call; and the
+    all-masked commit the K-step graph runs on most steps) and at the
+    paper geometry (a map-phase batch of 64 mixed lanes)."""
+    from repro_torch.core.fmmu import batch as fb
+    for geom in ("serving", "paper"):
+        g = _commit_geometry(geom)
+        for bq in (1, 8, 64, 1000, 4096):
+            for mode in ("serving", "batch", "grow"):
+                ms = _commit_state(rng, g, n_stack=max(bq // 3, 1))
+                ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+                if mode == "batch":
+                    ker, ref = ker.fmmu, ref.fmmu
+                for it in range(3):
+                    op, dl, dp = _commit_lanes(rng, g, bq,
+                                               unique=mode == "grow")
+                    if mode == "grow":
+                        grow = torch.from_numpy(rng.random(bq) < 0.5).cuda()
+                        got = fb.serving_grow_(g, ker, grow, dl)
+                        want = fb.serving_grow_(g, ref, grow, dl, impl="ref")
+                    else:
+                        fn = getattr(fb, f"translate_{mode}_")
+                        got = fn(g, ker, op, dl, dp, dp)
+                        want = fn(g, ref, op, dl, dp, dp, impl="ref")
+                    torch.cuda.synchronize()
+                    for x, y in zip(list(got) + fb.state_tensors(ker),
+                                    list(want) + fb.state_tensors(ref)):
+                        if x.dtype != y.dtype or not torch.equal(x, y):
+                            fail(f"fmmu_commit differs from its plain chain: "
+                                 f"{geom} Bq={bq} {mode} commit {it}")
+
+    def stream(g, bq, grow_mode, impl, n=64):
+        """A commit per call on one state, fresh lanes each call (a grow
+        commit: bq distinct pages, every lane growing)."""
+        ms = _commit_state(np.random.default_rng(SEED), g, n_stack=1 << 12)
+        lrng = np.random.default_rng(SEED + 1)
+        n_pages = g.n_tvpns * g.entries_per_tp
+        batches = [[None, torch.from_numpy(lrng.permutation(n_pages)[:bq]
+                                           .astype(np.int32)).cuda(), None]
+                   if grow_mode else _commit_lanes(lrng, g, bq)
+                   for _ in range(n)]
+        grow = torch.ones(bq, dtype=torch.bool, device="cuda")
+        calls = iter(range(1 << 30))
+
+        def call():
+            op, dl, dp = batches[next(calls) % n]
+            if grow_mode:
+                fb.serving_grow_(g, ms, grow, dl, impl=impl)
+            else:
+                fb.translate_serving_(g, ms, op, dl, dp, dp, impl=impl)
+        return call, ms, batches[0]
+
+    g = _commit_geometry("serving")
+    out = {}
+    for name, bq, grow_mode, gg in (("", 8, True, g),
+                                    ("_paper", 64, False,
+                                     _commit_geometry("paper"))):
+        call, ms, lanes = stream(gg, bq, grow_mode, None)
+        out["ms" + name] = timer.ms(call)
+        call, _, _ = stream(gg, bq, grow_mode, "ref")
+        out["plain_ms" + name] = timer.ms(call)
+        grow = torch.ones(bq, dtype=torch.bool, device="cuda") \
+            if grow_mode else None
+        b_ms, b_by = bound_ms(commit_bytes(gg, _commit_state(
+            np.random.default_rng(SEED), gg), lanes, grow), 0, "int32")
+        out["bound_ms" + name], out["bound_by" + name] = b_ms, b_by
+    ms = _commit_state(np.random.default_rng(SEED), g)
+    grow = torch.zeros(8, dtype=torch.bool, device="cuda")
+    dl = torch.arange(8, dtype=torch.int32, device="cuda")
+    out["ms_masked"] = timer.ms(lambda: fb.serving_grow_(g, ms, grow, dl))
+    out["plain_ms_masked"] = timer.ms(
+        lambda: fb.serving_grow_(g, ms, grow, dl, impl="ref"))
+    return dict({
+        "name": "fmmu_commit", "route": "cuda",
+        "source": "src/repro_torch/csrc/fmmu_commit.cu",
+        "replaces": "src/repro/kernels/fmmu_translate.py:115",
+        "max_abs_err": 0.0, "library_ms": None,
+        "shape": "S=16 W=4 E=8 NP=1024, 8 growing lanes (serving_grow_); "
+                 "_masked: the same, no lane growing; _paper: S=512 W=4 "
+                 "E=8 NP=1048576, 64 mixed lanes (translate_serving_)"},
+        **out)
 
 
 def _sdpa(q, k, v, **kw):
@@ -574,9 +782,11 @@ def _split_order_sensitive(g, tags, valid, batch):
 
 
 def map_phase(n_batches=64, max_blocks=16):
-    """The unfused map path against the fused one on the card. Returns
-    the map line; fails unless the final states and every output are
-    bit-identical."""
+    """The fused map path (the commit kernel, in place), its plain
+    version (the torch chain, impl="ref") and the unfused path
+    (fmmu_lookup and its chain) on the card, in turns.
+    Returns the map line; fails unless the final states and every output
+    are bit-identical."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.core.fmmu import batch as fb
     from repro_torch.core.fmmu.types import (COND_UPDATE, LOOKUP, NIL,
@@ -624,11 +834,16 @@ def map_phase(n_batches=64, max_blocks=16):
             "cond": (t(d[mc]), t(p[mc]), t(o[mc])),
             "masks": (ml, mc)})
 
-    def run_fused():
+    def run_fused():             # the commit kernel: one launch a batch
         s_, outs = fb.init_batch_state(g, dev), []
         for b in batches:
-            s_, out, ok = fb.translate_batch(g, s_, *b["fused"])
-            outs.append((out, ok))
+            outs.append(fb.translate_batch_(g, s_, *b["fused"]))
+        return s_, outs
+
+    def run_plain():             # the fused commit as the torch chain
+        s_, outs = fb.init_batch_state(g, dev), []
+        for b in batches:
+            outs.append(fb.translate_batch_(g, s_, *b["fused"], impl="ref"))
         return s_, outs
 
     def run_unfused():
@@ -647,36 +862,36 @@ def map_phase(n_batches=64, max_blocks=16):
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t0) * 1e3
 
-    run_fused()                                   # warm-up
-    run_unfused()
+    paths = {"fused": run_fused, "plain": run_plain, "unfused": run_unfused}
+    for fn in paths.values():                     # warm-up
+        fn()
     COUNTERS.reset()                     # every count to 0 just before
-    times = {"fused": [], "unfused": []}
-    for name, fn in (("fused", run_fused), ("unfused", run_unfused),
-                     ("unfused", run_unfused), ("fused", run_fused)):
-        (res, ms_) = timed(fn)
+    times = {name: [] for name in paths}
+    res = {}
+    for name in ("fused", "plain", "unfused", "unfused", "plain", "fused"):
+        res[name], ms_ = timed(paths[name])
         times[name].append(ms_)
-        if name == "fused":
-            st_f, outs_f = res
-        else:
-            st_u, outs_u = res
     launches = COUNTERS.launches()       # ... and read just after
-    for f in st_f._fields:
-        if not torch.equal(getattr(st_f, f), getattr(st_u, f)):
-            fail(f"map phase: state field {f} fused != unfused")
-    for i, (b, (out, ok), (ou, oku)) in enumerate(
-            zip(batches, outs_f, outs_u)):
-        ml, mc = (torch.from_numpy(m).to(dev) for m in b["masks"])
-        if not (torch.equal(out[ml], ou) and torch.equal(ok[mc], oku)):
-            fail(f"map phase: batch {i} outputs fused != unfused")
+    st_u, outs_u = res["unfused"]
+    for name in ("fused", "plain"):
+        st_f, outs_f = res[name]
+        for f in st_f._fields:
+            if not torch.equal(getattr(st_f, f), getattr(st_u, f)):
+                fail(f"map phase: state field {f} {name} != unfused")
+        for i, (b, (out, ok), (ou, oku)) in enumerate(
+                zip(batches, outs_f, outs_u)):
+            ml, mc = (torch.from_numpy(m).to(dev) for m in b["masks"])
+            if not (torch.equal(out[ml], ou) and torch.equal(ok[mc], oku)):
+                fail(f"map phase: batch {i} outputs {name} != unfused")
     n_lanes = sum(int(b["fused"][0].numel()) for b in batches)
-    return {"geometry": "S=512 W=4 E=8, backing 1048576",
+    line = {"geometry": "S=512 W=4 E=8, backing 1048576",
             "batches": n_batches, "lanes": n_lanes,
-            "fused_ms": times["fused"], "unfused_ms": times["unfused"],
-            "fused_ms_per_batch": statistics.median(times["fused"])
-            / n_batches,
-            "unfused_ms_per_batch": statistics.median(times["unfused"])
-            / n_batches,
             "launches": launches, "bit_identical": True}
+    for name in paths:
+        line[f"{name}_ms"] = times[name]
+        line[f"{name}_ms_per_batch"] = statistics.median(times[name]) \
+            / n_batches
+    return line
 
 
 # ----------------------------------------------------------------- serve
@@ -736,7 +951,7 @@ def profile_decode_step(eng, prompts):
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-            "device_launches": sum(e.count for e in kern),
+            "trace_launches": sum(e.count for e in kern),
             "top_kernels_ms": {k[:70]: v for k, v in top}}
 
 
@@ -811,14 +1026,97 @@ def serve_phase(cfg, lens, kernels):
 MACRO_K = 8
 
 
+def events_ms(fn, iters: int) -> float:
+    """Median time of ``fn()`` by CUDA events around it (no flush)."""
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+class _KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
+    _fields_ = [("func", ctypes.c_void_p),
+                ("dims", ctypes.c_uint * 7),     # grid, block, shared bytes
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+def graph_nodes(graph, names=()):
+    """What one replay of a captured CUDA graph launches, read through
+    libcuda's graph calls, independent of any profiler: ({node type: count}
+    over kernel, memcpy, memset and other nodes, {name: kernel nodes
+    whose function name holds it} for each of ``names``). The graph
+    must be kept after instantiation (``macro.capture`` keeps it)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
+    types: dict = {}
+    named = {name: 0 for name in names}
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            fail("cuGraphNodeGetType failed")
+        key = kinds.get(kind.value, "other")
+        types[key] = types.get(key, 0) + 1
+        if key != "kernel" or not names:
+            continue
+        p = _KernelNodeParams()
+        if cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)):
+            fail("cuGraphKernelNodeGetParams failed")
+        fname = ctypes.c_char_p()
+        err = (cuda.cuFuncGetName(ctypes.byref(fname),
+                                  ctypes.c_void_p(p.func)) if p.func else
+               cuda.cuKernelGetName(ctypes.byref(fname),
+                                    ctypes.c_void_p(p.kern)))
+        if err or not fname.value:
+            fail(f"no name for a kernel node of a graph (CUresult {err})")
+        for name in names:
+            named[name] += name in fname.value.decode()
+    return types, named
+
+
+def trace_kernels(fn):
+    """The device kernels of one ``fn()`` under torch.profiler, as
+    key_averages entries: a reading, not a count (on that card the
+    profiler loses records now and then, PERF.md §7). A profile that
+    recorded no device event at all is taken once more; [] if that
+    one is empty too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            return kern
+    return []
+
+
 def _profile_step(eng, done, replayed):
-    """One ServeEngine.step() under torch.profiler. The trace's launches
-    of each hand kernel in ``replayed`` must equal what the counters
-    add for that step: the replayed graph's delta per dispatch plus
-    eager launches (admissions, frees); with no eager map call they
-    must equal the graph's delta itself. Returns (trace kernels,
-    {kernel: trace launches}, the step's counter delta, wall ms, the
-    replayed graph's key)."""
+    """One ServeEngine.step() under torch.profiler. Fails unless it made
+    one macro dispatch and each hand kernel of ``replayed`` was counted
+    as many times as the replayed graph has kernel nodes of that name
+    (libcuda), plus one fmmu_commit for each eager map commit of the
+    step (admissions, frees). Returns (trace kernels, the step's
+    counter delta, wall ms, the replayed graph)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.counters import COUNTERS
@@ -838,35 +1136,47 @@ def _profile_step(eng, done, replayed):
         wall_ms = (time.perf_counter() - t0) * 1e3
     delta = COUNTERS.delta(base)
     eng._graphs.run = run
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    traced = {name: sum(e.count for e in kern if name in e.key)
-              for name in replayed}
     if len(keys) != 1 or delta.get("engine.macro_dispatches") != 1:
         fail(f"the profiled step made {len(keys)} macro dispatches")
-    graph_delta = eng._graphs.deltas[keys[0]]
+    graph = eng._graphs.graphs[keys[0]]
+    _, named = graph_nodes(graph, replayed)
     for name in replayed:
-        counted = delta.get(f"kernel.{name}", 0)
-        if traced[name] != counted:
-            fail(f"{name}: {traced[name]} launches in the trace of a "
-                 f"macro step, {counted} counted")
-        if (not delta.get("kvm.xlate_calls")
-                and traced[name] != graph_delta.get(f"kernel.{name}", 0)):
-            fail(f"{name}: {traced[name]} launches in the trace of one "
-                 f"replay, the graph's delta is {graph_delta}")
-    return kern, traced, delta, wall_ms, keys[0]
+        want = named[name] + (delta.get("kvm.xlate_calls", 0)
+                              if name == "fmmu_commit" else 0)
+        if delta.get(f"kernel.{name}", 0) != want:
+            fail(f"{name}: {delta.get(f'kernel.{name}', 0)} launches "
+                 f"counted in a macro step, {want} in its graph's kernel "
+                 "nodes and eager map commits")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return kern, delta, wall_ms, graph
+
+
+def _step_reading(kern, delta, graph, replayed):
+    """What one profiled step launched: the replayed graph's nodes, the
+    eager map commits, and the trace's launches beside them."""
+    nodes, _ = graph_nodes(graph)
+    traced = {name: sum(e.count for e in kern if name in e.key)
+              for name in replayed}
+    return {"graph_launches": sum(nodes.values()), "graph_nodes": nodes,
+            "eager_commits": delta.get("kvm.xlate_calls", 0),
+            "trace_launches": sum(e.count for e in kern),
+            "trace_kernel_launches": traced,
+            "trace_agrees": all(traced[n] == delta.get(f"kernel.{n}", 0)
+                                for n in replayed)}
 
 
 def profile_macro_step(eng, prompts, replayed):
     """One steady K-step macro step (8 resident slots, no admission, no
-    retirement, graphs already captured) under torch.profiler: device
-    busy, idle share (against the profiled step and against the same
-    kind of step unprofiled just before), launches, top kernels and
-    fmmu_translate's share; each hand kernel's launches in the trace
-    held against the replayed graph's counter delta. Then the next step,
-    which retires all 8 requests (8 frees, each one eager map commit),
-    profiled the same way. Then the device time of one replay of the
-    steady step's graph by CUDA events."""
+    retirement, graphs already captured), then the next, which retires
+    all 8 requests (8 frees, each one eager map commit), each under
+    torch.profiler and held against its graph by ``_profile_step``.
+    What a step launches comes from its graph's nodes; the trace gives
+    the readings: device busy, idle share (against the profiled step and
+    against an unprofiled one of the same kind just before), its own
+    launch counts (``trace_agrees``: its hand-kernel launches equal the
+    counted ones), the top kernels and fmmu_commit's share. Then the
+    steady step's graph replayed alone, timed by CUDA events."""
     for p in prompts:
         eng.submit(p, max_new=1 + 4 * MACRO_K)   # simple runs only
     done: dict = {}
@@ -877,86 +1187,72 @@ def profile_macro_step(eng, prompts, replayed):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     n_graphs = len(eng._graphs.graphs)
-    kern, traced, _, wall_ms, key = _profile_step(eng, done, replayed)
-    if len(eng._graphs.graphs) != n_graphs or done:
-        fail("the profiled steady macro step captured a new graph or "
-             "retired a request")
-    kern_ret, traced_ret, delta_ret, _, _ = _profile_step(eng, done,
-                                                          replayed)
+    kern, delta, wall_ms, graph = _profile_step(eng, done, replayed)
+    if len(eng._graphs.graphs) != n_graphs or done or \
+            delta.get("kvm.xlate_calls"):
+        fail("the profiled steady macro step captured a new graph, "
+             "committed the map eagerly or retired a request")
+    kern_ret, delta_ret, _, graph_ret = _profile_step(eng, done, replayed)
     if len(done) != len(prompts):
         fail("the last profiled macro step did not retire every request")
     dev = {e.key: e.self_device_time_total / 1e3 for e in kern}
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    ft = [e for e in kern if "fmmu_translate" in e.key]
-    ft_ms = sum(e.self_device_time_total for e in ft) / 1e3
-    # the steady step's graph replayed alone, timed by events; the
-    # engine is discarded after this, so its state may drift
-    graph = eng._graphs.graphs[key]
-    times = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+    fc_ms = sum(e.self_device_time_total for e in kern
+                if "fmmu_commit" in e.key) / 1e3
+    line = {"step_wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
             "unprofiled_step_wall_ms": plain_ms,
             "device_idle_share_unprofiled":
             1.0 - busy / plain_ms if busy else None,
-            "device_launches": sum(e.count for e in kern),
-            "fmmu_translate_ms": ft_ms,
-            "fmmu_translate_share": ft_ms / busy if busy else None,
-            "traced_launches": traced, "graph": str(key),
-            "retiring_step": {
-                "traced_launches": traced_ret,
-                "xlate_calls": delta_ret.get("kvm.xlate_calls", 0),
-                "device_launches": sum(e.count for e in kern_ret)},
-            "replay_ms_events": statistics.median(times),
+            **_step_reading(kern, delta, graph, replayed),
+            "fmmu_commit_ms": fc_ms,
+            "fmmu_commit_share": fc_ms / busy if busy else None,
+            "retiring_step": _step_reading(kern_ret, delta_ret, graph_ret,
+                                           replayed),
             "top_kernels_ms": {k[:70]: v for k, v in top}}
+    # the steady step's graph replayed alone; the engine is discarded
+    # after this, so its state may drift
+    line["replay_ms_events"] = events_ms(graph.replay, 5)
+    return line
 
 
 def commit_in_graph(eng):
     """The per-step map commit the K-step graph runs on every step: one
-    masked ``serving_grow`` (no lane grows) on a copy of the engine's
-    map state, captured alone into a graph; its launches and device
-    time by torch.profiler, and its replay time by CUDA events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    masked ``serving_grow_`` (no lane grows) on a copy of the engine's
+    map state, captured alone into a graph, through the kernel and
+    through its plain chain (impl="ref"); for each, the graph's nodes
+    (what a replay launches), its device busy time by torch.profiler
+    (None if the trace came back empty) and its replay time by CUDA
+    events. Fails unless the kernel's commit is at most 4 launches, one
+    of them fmmu_commit, and the chain's launches no fmmu_commit."""
     from repro_torch.core.fmmu import batch as fb
     from repro_torch.serving import macro
-    ms = macro._with_tensors(eng.kvm.state, [
-        t.clone() for t in macro._tensors(eng.kvm.state)])
     grow = torch.zeros(eng.n_slots, dtype=torch.bool, device="cuda")
     dl = torch.arange(eng.n_slots, dtype=torch.int32, device="cuda")
+    line = {}
+    for name, impl in (("kernel", None), ("plain", "ref")):
+        ms = fb.clone_state(eng.kvm.state)
 
-    def commit():
-        fb.serving_grow(eng.kvm.geom, ms, grow, dl)
-    macro.uncounted(commit)                             # warm-up
-    graph, _ = macro.capture(commit)
-    graph.replay()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        def commit():
+            fb.serving_grow_(eng.kvm.geom, ms, grow, dl, impl=impl)
+        macro.uncounted(commit)                             # warm-up
+        graph, _ = macro.capture(commit)
         graph.replay()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    times = []
-    for _ in range(20):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return {"launches": sum(e.count for e in kern),
-            "device_busy_ms": sum(e.self_device_time_total
-                                  for e in kern) / 1e3,
-            "replay_ms_events": statistics.median(times)}
+        nodes, named = graph_nodes(graph, ("fmmu_commit",))
+        kern = trace_kernels(graph.replay)
+        line[name] = {"launches": sum(nodes.values()), "graph_nodes": nodes,
+                      "fmmu_commit_nodes": named["fmmu_commit"],
+                      "device_busy_ms": sum(e.self_device_time_total
+                                            for e in kern) / 1e3
+                      if kern else None,
+                      "replay_ms_events": events_ms(graph.replay, 20)}
+    k = line["kernel"]
+    if not 1 <= k["launches"] <= 4 or k["fmmu_commit_nodes"] != 1 \
+            or line["plain"]["fmmu_commit_nodes"]:
+        fail(f"the in-graph map commit: {line}, expected at most 4 "
+             "launches, one of them fmmu_commit (none in the chain)")
+    return line
 
 
 def macro_phase(cfg, lens, single_tokens, replayed, eager):
@@ -967,8 +1263,8 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
     request returns its 32 tokens, equal to the single-step tokens;
     the timed pass captures nothing and makes one dispatch and one host
     sync per K tokens (plus one sync per prefill); each kernel of
-    ``replayed`` shows its launches from the replays (fmmu_translate:
-    one per step, plus one per admission and free) and each of
+    ``replayed`` shows its launches from the replays (fmmu_commit: one
+    per step, plus one per admission and free) and each of
     ``eager`` (prefill) was launched. Then a 2-layer f32 macro engine
     must give the same greedy tokens with the kernels as with
     kernel_impl="ref". Returns the phase's line and its launch
@@ -1010,7 +1306,7 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
         fail(f"{cfg.name} macro: more than one dispatch / host sync per "
              f"K tokens, or host-side map work in steady state: {counts}, "
              f"{m}")
-    want = {"fmmu_translate": MACRO_K * dispatches + 2 * n_req}
+    want = {"fmmu_commit": MACRO_K * dispatches + 2 * n_req}
     if "paged_attention" in replayed:
         n_attn = sum(cfg.layer_kind(j) == "attn"
                      for j in range(cfg.n_layers))
@@ -1046,8 +1342,8 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
                             eng._graphs.deltas.items()},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches}
-    line["profiled_macro_step"] = profile_macro_step(eng, prompts, replayed)
     line["commit_in_graph"] = commit_in_graph(eng)
+    line["profiled_macro_step"] = profile_macro_step(eng, prompts, replayed)
     del eng
     torch.cuda.empty_cache()
 
@@ -1072,6 +1368,53 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
     return line
 
 
+# the two served models: prompt lengths, and the kernels each path must
+# launch (single-step; replayed by the macro graphs; eager in macro mode)
+MODELS = {
+    # the 1020-token prompt reaches 1024 tokens (65 pages) at step 4 of
+    # its first K-step run, so the macro-vs-single-step check spans a
+    # page-bucket change (64 -> 128 pages) inside a run
+    "llama3.2-1b": dict(
+        lens=[64, 128, 256, 384, 512, 640, 768, 1020],
+        single=("fmmu_commit", "paged_attention", "flash_attention"),
+        replayed=("fmmu_commit", "paged_attention"),
+        eager=("flash_attention",)),
+    "mamba2-1.3b": dict(
+        lens=[64, 200, 256, 384, 512, 700, 768, 1024],
+        single=("mamba_chunk_scan", "fmmu_commit"),
+        replayed=("fmmu_commit",), eager=("mamba_chunk_scan",)),
+}
+
+
+def model_phases(name: str) -> dict:
+    """Both serving phases of one model: single-step, then the K-step
+    macro path (the main path). Returns their lines."""
+    from repro_torch.configs import get_arch
+    cfg, spec = get_arch(name), MODELS[name]
+    t0 = time.perf_counter()
+    serve, single = serve_phase(cfg, spec["lens"], spec["single"])
+    print(f"serve {name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    serve_macro = macro_phase(cfg, spec["lens"], single, spec["replayed"],
+                              spec["eager"])
+    print(f"serve macro {name}: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if cfg.ssm is not None:
+        for line, n_pre in ((serve, serve["prefills"]),
+                            (serve_macro, len(spec["lens"]))):
+            n_scan = line["launches"]["mamba_chunk_scan"]
+            if n_scan != cfg.n_layers * n_pre:
+                fail(f"mamba_chunk_scan launched {n_scan} times, expected "
+                     f"{cfg.n_layers} per prefill")
+    return {"serve": serve, "serve_macro": serve_macro}
+
+
+def _setup() -> None:
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1081,11 +1424,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    from repro_torch.configs import get_arch
+    _setup()
     from repro_torch.kernels import _build
 
     # 1. build ---------------------------------------------------------
@@ -1107,81 +1446,60 @@ def main() -> int:
     torch.manual_seed(SEED)
     timer = Timer()
     rows = {r["name"]: r for r in (
-        check_fmmu_translate(timer, rng), check_paged_attention(timer, rng),
-        check_flash_attention(timer), check_fmmu_lookup(timer, rng),
-        check_mamba_chunk_scan(timer))}
+        check_fmmu_translate(timer, rng), check_fmmu_commit(timer, rng),
+        check_paged_attention(timer, rng), check_flash_attention(timer),
+        check_fmmu_lookup(timer, rng), check_mamba_chunk_scan(timer))}
+    # the probe kernel's time, beside the commit kernel that redesigned it
+    rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
     print("kernels: all match their plain versions", file=sys.stderr)
 
-    # 3. llama3.2-1b serving (fmmu_translate, paged and flash attention)
-    t0 = time.perf_counter()
-    dense = ("fmmu_translate", "paged_attention", "flash_attention")
-    # the 1020-token prompt reaches 1024 tokens (65 pages) at step 4 of
-    # its first K-step run: that run attends over the 128-page table
-    # throughout, where single steps use 64 pages for 4 steps, so the
-    # macro-vs-single-step check spans a page-bucket change
-    llama, lens = get_arch("llama3.2-1b"), [64, 128, 256, 384, 512, 640,
-                                             768, 1020]
-    serve, single = serve_phase(llama, lens, dense)
+    # 3. llama3.2-1b serving, single-step then macro (fmmu_commit, paged
+    # and flash attention)
+    llama = model_phases("llama3.2-1b")
+    serve, serve_macro = llama["serve"], llama["serve_macro"]
     serve["build_s"] = build_s
-    for name in dense:
+    for name in MODELS["llama3.2-1b"]["single"]:
         rows[name]["launches_single_step"] = serve["launches"][name]
-    print(f"serve llama3.2-1b: {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
-
-    # 3b. the same requests through the K-step macro path (the main path)
-    t0 = time.perf_counter()
-    serve_macro = macro_phase(llama, lens, single,
-                              ("fmmu_translate", "paged_attention"),
-                              ("flash_attention",))
-    for name in dense:
         rows[name]["launches"] = serve_macro["launches"][name]
-    print(f"serve macro llama3.2-1b: {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
 
-    # 4. the unfused map path (fmmu_lookup) against the fused one ------
+    # 4. the map phase: the fused path (fmmu_commit), its plain chain and
+    # the unfused path (fmmu_lookup, whose launches are this path's). The
+    # probe-only fmmu_translate runs on no path since fmmu_commit does
+    # its probe: it is held and timed in the kernels phase alone.
     t0 = time.perf_counter()
     map_line = map_phase()
-    rows["fmmu_lookup"]["launches"] = map_line["launches"].get(
-        "fmmu_lookup", 0)
-    if rows["fmmu_lookup"]["launches"] <= 0:
-        fail("fmmu_lookup was not launched on the unfused map path")
+    for name in ("fmmu_commit", "fmmu_lookup"):
+        if map_line["launches"].get(name, 0) <= 0:
+            fail(f"{name} was not launched in the map phase")
+    rows["fmmu_lookup"]["launches"] = map_line["launches"]["fmmu_lookup"]
+    rows["fmmu_lookup"]["launches_path"] = "map phase"
+    rows["fmmu_translate"].update(
+        launches=serve_macro["launches"].get("fmmu_translate", 0),
+        launches_single_step=serve["launches"].get("fmmu_translate", 0),
+        launches_path="none: the probe runs inside fmmu_commit")
     print(f"map: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
-    # 5. mamba2-1.3b serving (mamba_chunk_scan, fmmu_translate) ----------
-    t0 = time.perf_counter()
-    cfg = get_arch("mamba2-1.3b")
-    lens = [64, 200, 256, 384, 512, 700, 768, 1024]
-    serve_ssm, single = serve_phase(cfg, lens,
-                                    ("mamba_chunk_scan", "fmmu_translate"))
-    n_scan = serve_ssm["launches"]["mamba_chunk_scan"]
-    if n_scan != cfg.n_layers * serve_ssm["prefills"]:
-        fail(f"mamba_chunk_scan launched {n_scan} times, expected "
-             f"{cfg.n_layers} per prefill")
-    rows["mamba_chunk_scan"]["launches_single_step"] = n_scan
-    print(f"serve mamba2-1.3b: {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
-
-    # 5b. mamba2-1.3b through the K-step macro path
-    t0 = time.perf_counter()
-    serve_ssm_macro = macro_phase(cfg, lens, single, ("fmmu_translate",),
-                                  ("mamba_chunk_scan",))
-    n_scan = serve_ssm_macro["launches"]["mamba_chunk_scan"]
-    if n_scan != cfg.n_layers * len(lens):
-        fail(f"mamba_chunk_scan launched {n_scan} times on the macro path, "
-             f"expected {cfg.n_layers} per prefill")
-    rows["mamba_chunk_scan"]["launches"] = n_scan
-    print(f"serve macro mamba2-1.3b: {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr)
+    # 5. mamba2-1.3b serving, single-step then macro (mamba_chunk_scan at
+    # prefill, fmmu_commit)
+    mamba = model_phases("mamba2-1.3b")
+    serve_ssm, serve_ssm_macro = mamba["serve"], mamba["serve_macro"]
+    rows["mamba_chunk_scan"]["launches_single_step"] = \
+        serve_ssm["launches"]["mamba_chunk_scan"]
+    rows["mamba_chunk_scan"]["launches"] = \
+        serve_ssm_macro["launches"]["mamba_chunk_scan"]
 
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_single_step", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape")
+            "launches_path", "launches_single_step", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"ptxas": ptxas_resources(logs),
                       "paged_attention_plan_at_serving_shape":
                       rows["paged_attention"]["plan"]}))
     print(smi)
-    extra = ("plain_blocked_ms",)        # comparisons some rows carry
+    # comparisons some rows carry
+    extra = ("plain_blocked_ms", "first_version_ms", "ms_masked",
+             "plain_ms_masked", "ms_paper", "plain_ms_paper",
+             "bound_ms_paper", "bound_by_paper")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))

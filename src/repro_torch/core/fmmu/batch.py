@@ -3,15 +3,25 @@
 three-call reference path).
 
 ``translate_batch`` services a mixed batch of LOOKUP / UPDATE /
-COND_UPDATE lanes with exactly ONE CMT probe (one ``ops.fmmu_translate``
-launch: probe + backing fallback + ref-bit touch) and ONE insert pass
-(one sort on a packed int32 key). All lanes read the pre-batch
-mapping; the writes apply together afterwards. Duplicate write dlpns in
-one batch are a caller contract violation; duplicate cache blocks are
-merged into one fill (the paper's MSHR merge).
+COND_UPDATE lanes with exactly ONE CMT probe and ONE insert pass (one
+sort on a packed int32 key). All lanes read the pre-batch mapping; the
+writes apply together afterwards. Duplicate write dlpns in one batch
+are a caller contract violation; duplicate cache blocks are merged into
+one fill (the paper's MSHR merge).
+
+A map commit (``translate_batch``, ``translate_serving``,
+``serving_grow``) is one ``ops.fmmu_commit`` launch on the card: pop,
+probe, write-through, insert pass and table commit together. Its plain
+version is ``commit_chain``, the chain of torch ops below, which a CPU
+tensor or ``impl="ref"`` takes. The in-place entries
+(``translate_batch_``, ``translate_serving_``, ``serving_grow_``)
+update the state's tensors, as XLA does with donated buffers; the
+functional ones clone the state first and return the clone, so the
+tensors they were given are not modified.
 
 Every leaf keeps the reference's dtype (int32 map lanes, bool flags) and
-is compared with it bit for bit. Three torch/jnp gaps are closed here:
+is compared with it bit for bit. Three torch/jnp gaps are closed in the
+chain:
   * jnp scatters with ``mode="drop"`` mark a lane "no write" with an
     out-of-range index; here the masked lanes write into one spare slot
     past the end of a copy that is then cut back (``_set_where``), which
@@ -20,11 +30,7 @@ is compared with it bit for bit. Three torch/jnp gaps are closed here:
     explicitly;
   * torch's integer sums and cumsums return int64; results are cast
     back to int32 where the reference keeps int32.
-Nothing here reads a value back to the host: a map commit is a chain of
-device ops behind one kernel launch.
-
-States are NamedTuples of tensors. Transitions return new states; the
-tensors they replace are not modified in place.
+Nothing here reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from repro_torch.kernels import ops
 I = torch.int32
 BIG = torch.iinfo(torch.int32).max
 
-# bumped once per CMT probe / insert pass executed
+# bumped once per CMT probe / insert pass executed (a map commit is one
+# of each, whichever lowering runs it)
 PROBE_CALLS = COUNTERS.cell("fmmu.probe_calls")
 INSERT_CALLS = COUNTERS.cell("fmmu.insert_calls")
 
@@ -97,7 +104,6 @@ def _insert_blocks(g: FMMUGeometry, st: BatchFMMUState, miss_bids, prio):
     priority and block id; equal keys are exactly the duplicate block
     ids, so the sort needs no stability. Set segments give each block
     its insertion rank; ranks >= W overflow and stay uncached."""
-    INSERT_CALLS[0] += 1
     dev = miss_bids.device
     s_cnt, w_cnt, e = g.cmt_sets, g.cmt_ways, g.cmt_entries
     nb = _n_blocks(g)
@@ -127,8 +133,11 @@ def _insert_blocks(g: FMMUGeometry, st: BatchFMMUState, miss_bids, prio):
     # rank within the set segment, counting kept (unique) entries only
     kept_i = kept.to(I)
     cf = torch.cumsum(kept_i, 0, dtype=I) - kept_i        # exclusive prefix
-    counts = torch.zeros(s_cnt + 1, dtype=I, device=dev).index_add_(
-        0, gsets.long(), torch.ones_like(gsets))
+    # jnp.bincount(length=S+1) drops a set past S (the key of a block id
+    # far past the map); a spare bin at S+1 takes it here
+    counts = torch.zeros(s_cnt + 2, dtype=I, device=dev).index_add_(
+        0, torch.where((gsets >= 0) & (gsets <= s_cnt), gsets,
+                       s_cnt + 1).long(), torch.ones_like(gsets))[:s_cnt + 1]
     offs = torch.cumsum(counts, 0, dtype=I) - counts      # segment starts
     seg_start = offs[gsets.clamp(0, s_cnt).long()].clamp(
         0, gsets.shape[0] - 1)
@@ -172,16 +181,51 @@ def translate_batch(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
     out is the pre-batch mapping (NIL when unmapped/inactive); ok says
     whether a COND_UPDATE lane's guarded write applied, ``active`` for
     other lanes."""
-    st, out, ok, _ = _translate_core(g, st, opcodes, dlpns, dppns,
-                                     old_dppns, impl=impl)
+    st = clone_state(st)
+    out, ok = translate_batch_(g, st, opcodes, dlpns, dppns, old_dppns,
+                               impl=impl)
     return st, out, ok
 
 
-def _translate_core(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
-                    dppns, old_dppns, impl=None):
-    """translate_batch body; also returns the commit mask ``write``
-    (lanes whose dppn entered the map)."""
+def translate_batch_(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
+                     dppns, old_dppns, impl=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``translate_batch`` in place on ``st``'s tensors: (out, ok)."""
+    out, ok, _ = _commit(g, st, dlpns, impl, opcodes=opcodes, dppns=dppns,
+                         old_dppns=old_dppns)
+    return out, ok
+
+
+def _commit(g: FMMUGeometry, ms, dlpns, impl, **lanes):
+    """One map commit in place (``ops.fmmu_commit``): one probe and one
+    insert pass, whichever lowering runs it."""
     PROBE_CALLS[0] += 1
+    INSERT_CALLS[0] += 1
+    return ops.fmmu_commit(g, ms, dlpns, impl=impl, **lanes)
+
+
+def state_tensors(ms) -> list:
+    """The tensor leaves of a BatchFMMUState or ServingMapState, in a
+    fixed order (the map state's, then the serving lanes')."""
+    if isinstance(ms, ServingMapState):
+        return list(ms.fmmu) + [t for t in ms[1:] if t is not None]
+    return list(ms)
+
+
+def clone_state(ms):
+    """A copy of a BatchFMMUState or ServingMapState, tensor by tensor."""
+    if isinstance(ms, ServingMapState):
+        return ServingMapState(clone_state(ms.fmmu), *(
+            t.clone() if t is not None else None for t in ms[1:]))
+    return BatchFMMUState(*(t.clone() for t in ms))
+
+
+def _translate_core(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
+                    dppns, old_dppns):
+    """The chain's translate: the ``fmmu_translate`` probe's plain
+    version, then the write-through, stats and insert pass as torch ops.
+    Also returns the commit mask ``write`` (lanes whose dppn entered the
+    map)."""
     e = g.cmt_entries
     active = dlpns >= 0
     is_l = opcodes == LOOKUP
@@ -192,7 +236,7 @@ def _translate_core(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
     probed = active & (is_l | is_c)
     hit, cur, set_idx, way, refbits = ops.fmmu_translate(
         st.tags, st.valid, st.ref, st.data, st.backing, dlpns, probed,
-        entries_per_block=e, impl=impl)
+        entries_per_block=e, impl="ref")
     ok = torch.where(is_c, active & (cur == old_dppns), active)
     write = (is_u & active) | (is_c & ok)
     # write-through to the backing table
@@ -267,11 +311,45 @@ def translate_serving(g: FMMUGeometry, ms: ServingMapState, opcodes,
     lanes whose write committed (the core's ``write`` mask) scatter
     their new dppn into ``ms.table``, and ``commit_seq`` counts them.
     No extra probe, no extra sort."""
-    st, out, ok, write = _translate_core(g, ms.fmmu, opcodes, dlpns,
-                                         dppns, old_dppns, impl=impl)
+    ms = clone_state(ms)
+    out, ok = translate_serving_(g, ms, opcodes, dlpns, dppns, old_dppns,
+                                 impl=impl)
+    return ms, out, ok
+
+
+def translate_serving_(g: FMMUGeometry, ms: ServingMapState, opcodes,
+                       dlpns, dppns, old_dppns, impl=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``translate_serving`` in place on ``ms``'s tensors: (out, ok)."""
+    out, ok, _ = _commit(g, ms, dlpns, impl, opcodes=opcodes, dppns=dppns,
+                         old_dppns=old_dppns)
+    return out, ok
+
+
+def commit_chain(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
+                 old_dppns=None, grow=None):
+    """One map commit as a chain of torch ops: the plain version of the
+    ``fmmu_commit`` kernel, the reference's code op for op. ``ms`` is a
+    ServingMapState (with the table commit) or a BatchFMMUState; with
+    ``grow`` (a ServingMapState's ``serving_grow``) the lanes pop their
+    blocks first. Plain torch on any device (the probe too).
+    Functional: returns (state, out or None, ok, blocks or None)."""
+    if grow is not None:
+        ms, blocks, ok = alloc_serving(ms, grow)
+        dl = torch.where(ok, dlpns, -1).to(I)
+        ms, _, _, _ = commit_chain(
+            g, ms, dl, opcodes=torch.full_like(dl, UPDATE), dppns=blocks,
+            old_dppns=torch.zeros_like(dl))
+        return ms, None, ok, blocks
+    serving = isinstance(ms, ServingMapState)
+    st, out, ok, write = _translate_core(g, ms.fmmu if serving else ms,
+                                         opcodes, dlpns, dppns, old_dppns)
+    if not serving:
+        return st, out, ok, None
     table = _set_where(ms.table, dlpns, dppns, write)
     return ms._replace(fmmu=st, table=table,
-                       commit_seq=ms.commit_seq + write.sum(dtype=I)), out, ok
+                       commit_seq=ms.commit_seq + write.sum(dtype=I)), \
+        out, ok, None
 
 
 # oob_vec, commit_seq_vec and free_serving have no caller in the port
@@ -360,11 +438,16 @@ def serving_grow(g: FMMUGeometry, ms: ServingMapState, grow, dlpns,
     to the stats, ``commit_seq`` and the clock), which is what lets a
     captured decode program run this on every step in place of the
     reference's ``lax.cond``. Returns (state, blocks [B], ok [B])."""
-    ms, blocks, ok = alloc_serving(ms, grow)
-    dl = torch.where(ok, dlpns, -1).to(I)
-    ms, _, _ = translate_serving(g, ms, torch.full_like(dl, UPDATE), dl,
-                                 blocks, torch.zeros_like(dl), impl=impl)
+    ms = clone_state(ms)
+    blocks, ok = serving_grow_(g, ms, grow, dlpns, impl=impl)
     return ms, blocks, ok
+
+
+def serving_grow_(g: FMMUGeometry, ms: ServingMapState, grow, dlpns,
+                  impl=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``serving_grow`` in place on ``ms``'s tensors: (blocks, ok)."""
+    _, ok, blocks = _commit(g, ms, dlpns, impl, grow=grow.bool())
+    return blocks, ok
 
 
 # ------------------------------------------------------------ wrappers

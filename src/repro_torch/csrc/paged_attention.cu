@@ -18,8 +18,12 @@
 // What the design does about it:
 // - The grid is (KV head x head chunk, sequence, split): the context
 //   is cut into n_split ranges of whole pages, chosen on the host from
-//   shapes only (never from ctx_lens, so no host sync): at 8 slots x
-//   64 pages, 8 splits of 128 tokens, 512 blocks, ~4 per SM. A block
+//   shapes only (never from ctx_lens, so no host sync), the split
+//   length not even from the table's width up to 256 splits: at 8
+//   slots, 8 pages (128 tokens) a split, so 8 splits and 512 blocks (~4
+//   per SM) at 64 pages; a wider table appends splits, and its empty
+//   ones add exactly nothing (past 256 splits the host doubles the
+//   split length instead, in steps). A block
 //   reads its split's block-table entries once into shared memory and
 //   serves the G query heads of its KV head from one load of each K/V
 //   row (GQA reuse). A split wholly past ctx or below the window loads
@@ -63,7 +67,22 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kEpt = 8;  // row elements per thread in the compute
-constexpr int kMaxSplits = 64;  // the host plan's MAX_SPLITS
+constexpr int kMaxSplits = 256;  // the host plan's MAX_SPLITS
+
+// fold one split's partial (m_k, l_k, o_k: o normalised by l_k) into the
+// running combine (m, den, num). An empty split (l_k = 0: no live row;
+// a live split has l_k >= 1) is skipped, so it adds exactly nothing: a
+// lane's result does not depend on how many empty splits its table
+// appends, i.e. on the table's width.
+__device__ __forceinline__ void fold_split(float& m, float& den, float& num,
+                                           float mk, float lk, float ok) {
+  if (!(lk > 0.f)) return;
+  const float mn = fmaxf(m, mk);
+  const float a = __expf(m - mn), w = __expf(mk - mn) * lk;
+  den = fmaf(den, a, w);
+  num = fmaf(num, a, w * ok);
+  m = mn;
+}
 
 // K/V rows per tile: 64, or 32 where one stage would pass 32 KB
 template <typename T, int D>
@@ -274,10 +293,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D, GC>())
         lb += red_l[w * GC + g];
         ab += red_a[(w * GC + g) * D + d];
       }
-      out[((size_t)b * H + h0 + g) * D + d] = from_f32<T>(ab / fmaxf(lb, 1e-30f));
+      // the combine of this one split, as a wider table's launch
+      // combines it with empty splits: the same bits at any width
+      float m = REPRO_NEG_INF, den = 0.f, num = 0.f;
+      fold_split(m, den, num, mb, lb, ab / fmaxf(lb, 1e-30f));
+      out[((size_t)b * H + h0 + g) * D + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
       if (m_out != nullptr && d == 0) {
-        m_out[(size_t)b * H + h0 + g] = mb;
-        l_out[(size_t)b * H + h0 + g] = lb;
+        m_out[(size_t)b * H + h0 + g] = m;
+        l_out[(size_t)b * H + h0 + g] = den;
       }
     }
     return;
@@ -324,11 +347,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T, D, GC>())
       const float mk = __ldcg(pk + GC * D + g);
       const float lk = __ldcg(pk + GC * D + GC + g);
       const float ok = __ldcg(pk + g * D + d);
-      const float mn = fmaxf(mb, mk);
-      const float a = __expf(mb - mn), w = __expf(mk - mn) * lk;
-      den = fmaf(den, a, w);
-      num = fmaf(num, a, w * ok);
-      mb = mn;
+      fold_split(mb, den, num, mk, lk, ok);
     }
     out[((size_t)b * H + h0 + g) * D + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
     if (m_out != nullptr && d == 0) {

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fmmu_commit as fc
 from repro_torch.kernels import fmmu_lookup as fl
 from repro_torch.kernels import fmmu_translate as ft
 from repro_torch.kernels import mamba_scan as ms
@@ -75,14 +76,26 @@ def fmmu_lookup(tags, valid, data, dlpns, *, entries_per_block, impl=None):
 def fmmu_translate(tags, valid, refbits, data, backing, dlpns, touch, *,
                    entries_per_block, impl=None):
     """Fused translate probe (probe + backing fallback + ref touch) —
-    the single kernel launch behind core/fmmu/batch.translate_batch.
-    Returns (hit, out_dppn, set_idx, way, refbits')."""
+    the probe of the map commit's plain version (core/fmmu/batch
+    .commit_chain). Returns (hit, out_dppn, set_idx, way, refbits')."""
     if _use_ref(impl):
         return ref.fmmu_translate_ref(tags, valid, refbits, data, backing,
                                       dlpns, touch,
                                       entries_per_block=entries_per_block)
     return ft.fmmu_translate(tags, valid, refbits, data, backing, dlpns,
                              touch, entries_per_block=entries_per_block)
+
+
+def fmmu_commit(g, ms, dlpns, *, opcodes=None, dppns=None, old_dppns=None,
+                grow=None, impl=None):
+    """The whole map commit in place (alloc for ``grow``, probe,
+    write-through, insert pass, table commit) — the single kernel launch
+    behind core/fmmu/batch's map commits. Returns (out, ok, blocks)."""
+    if _use_ref(impl):
+        return fc.fmmu_commit_ref(g, ms, dlpns, opcodes=opcodes, dppns=dppns,
+                                  old_dppns=old_dppns, grow=grow)
+    return fc.fmmu_commit(g, ms, dlpns, opcodes=opcodes, dppns=dppns,
+                          old_dppns=old_dppns, grow=grow)
 
 
 mamba_decode_step = ref.mamba_decode_step

@@ -8,14 +8,19 @@ plain version (``paged_attention_ref``); a CUDA tensor launches the
 kernel or raises.
 
 The kernel is split-context flash-decoding in one launch: ``plan``
-cuts the context into ``n_split`` ranges of whole pages from the shapes
-alone (never from ``ctx_lens``, so no host sync), each split's block
-writes a float32 partial into one scratch tensor, and the last block of
-each (sequence, KV head, head chunk) combines the partials in split
-order (``ref.combine_partial_attention``). The tickets live in a
-per-device int32 buffer that is zeroed once and that every call leaves
-at zero, so calls on one device must not overlap (they run in order on
-PyTorch's current stream).
+cuts the context into ``n_split`` ranges of ``pages_per_split`` whole
+pages from the shapes alone (never from ``ctx_lens``, so no host sync),
+each split's block writes a float32 partial into one scratch tensor,
+and the last block of each (sequence, KV head, head chunk) combines the
+partials in split order (``ref.combine_partial_attention``). Up to
+MAX_SPLITS splits the split length does not depend on the table's width
+either: a wider table only appends splits with no live page, which the
+combine skips (an empty split has l = 0), and a one-split launch folds
+its partial as the combine does, so one lane's output is bit-identical
+at every such width, as the Pallas kernel's is at any. The tickets live in a per-device int32
+buffer that is zeroed once and that every call leaves at zero, so calls
+on one device must not overlap (they run in order on PyTorch's current
+stream).
 
 Contract: ``0 <= block_table[b, i] < NB`` for every live page
 (i * P < ctx_lens[b]) — the serving engine's ``_mask_tables`` clamps NIL
@@ -40,7 +45,8 @@ paged_attention_ref = paged_attention_naive
 HEAD_DIMS = (16, 32, 64, 128)
 BLOCKS_PER_SM = 4          # split target: ~4 resident blocks on every SM
 MIN_SPLIT_TOKENS = 64      # one K/V tile: a split shorter is all overhead
-MAX_SPLITS = 64            # more only lengthens the combine's walk
+PLAN_TOKENS = 1024         # the context length the split length is set for
+MAX_SPLITS = 256           # past it, splits double in length (see plan)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _P]
@@ -57,10 +63,20 @@ class Plan(NamedTuple):
 
 
 def plan(b: int, h: int, kv: int, maxp: int, page: int, n_sm: int) -> Plan:
-    """The launch's shape from host-known sizes only: enough splits that
-    ``b * kv * head_chunks * n_split`` blocks give ~BLOCKS_PER_SM per SM,
-    none shorter than MIN_SPLIT_TOKENS (or one page), at most
-    MAX_SPLITS, whole pages each, and no split empty of pages."""
+    """The launch's shape from host-known sizes only. The split length
+    comes from ``(b, h, kv, page, n_sm)``: at a PLAN_TOKENS context,
+    enough splits that ``b * kv * head_chunks * n_split`` blocks give
+    ~BLOCKS_PER_SM per SM, none shorter than MIN_SPLIT_TOKENS (or one
+    page), whole pages each. Up to MAX_SPLITS such splits the table
+    width ``maxp`` only sets ``n_split``: a wider table appends splits
+    of the same pages, so one lane's bits are the same at every such
+    width (2048 pages, 32768 tokens, at 8 slots of the llama serving
+    shape; 1024 pages at one slot). A wider table doubles the split
+    length until MAX_SPLITS splits cover it: 2048 short splits took
+    6.5-6.7x a 64-split plan (one slot, 8192 pages; PERF.md §7). The lengths grow in steps, so every width inside one step has
+    the same splits; across a step a lane's bits may change, and the
+    serving engines give the macro and single-step paths the same page
+    bucket on every step for that."""
     g = h // kv
     gc = 1 if g == 1 else 4 if g <= 4 else 8
     chunks = -(-g // gc)
@@ -68,9 +84,11 @@ def plan(b: int, h: int, kv: int, maxp: int, page: int, n_sm: int) -> Plan:
     if maxp <= 0:
         return Plan(gc, chunks, 1, 1)
     want = -(-BLOCKS_PER_SM * n_sm // cells)
-    longest = max(1, maxp * page // MIN_SPLIT_TOKENS)
-    n = max(1, min(want, longest, maxp, MAX_SPLITS))
-    pps = -(-maxp // n)
+    pages = max(1, PLAN_TOKENS // page)
+    n = max(1, min(want, PLAN_TOKENS // MIN_SPLIT_TOKENS, pages))
+    pps = -(-pages // n)
+    while -(-maxp // pps) > MAX_SPLITS:
+        pps *= 2
     return Plan(gc, chunks, -(-maxp // pps), pps)
 
 

@@ -4,8 +4,9 @@ the single-channel path of ``repro/paging/kv_manager.py``.
 Logical address: DLPN = slot * max_pages + logical_page. Physical: a
 block id in the KV pool. The mapping lives in the batched FMMU
 (core/fmmu/batch); every map operation funnels through ONE fused entry
-point (``_xlate`` -> ``translate_serving``): one CMT probe, one insert
-pass and the incremental block-table scatter per call.
+point (``_xlate`` -> ``translate_serving_``): one map commit per call
+(one CMT probe, one insert pass and the incremental block-table
+scatter; one kernel launch on the card), in place on ``self.state``.
 
 The block table is a member of the device-resident map state, kept
 coherent by the same call that commits each map write, so
@@ -106,16 +107,16 @@ class KVPageManager:
                          dtype=np.int32)
 
     def _xlate(self, kind: int, dlpns, dppns):
-        """Single fused map entry: one translate call services the whole
-        op batch. Lanes go host->device; nothing comes back."""
+        """Single fused map entry: one commit services the whole op
+        batch, in place on the state's tensors. Lanes go host->device;
+        nothing comes back."""
         XLATE_CALLS[0] += 1
         dev = self.device
         dl = torch.as_tensor(np.asarray(dlpns, np.int32), device=dev)
         dp = torch.as_tensor(np.asarray(dppns, np.int32), device=dev)
-        self.state, out, ok = fb.translate_serving(
-            self.geom, self.state, torch.full_like(dl, kind), dl, dp,
-            torch.zeros_like(dl))
-        return out, ok
+        return fb.translate_serving_(self.geom, self.state,
+                                     torch.full_like(dl, kind), dl, dp,
+                                     torch.zeros_like(dl))
 
     # ----------------------------------------------------------- API
     def new_seq(self, slot: int, n_pages: int) -> List[int]:
@@ -171,8 +172,9 @@ class KVPageManager:
 
     def block_tables(self) -> torch.Tensor:
         """[n_slots, max_pages] int32 device view of the incremental
-        table: no translation, no state change. NIL for unmapped. The
-        view is replaced (not updated) by the next map op; re-fetch."""
+        table: no translation, no state change. NIL for unmapped. Map
+        commits update it in place; an allocator re-sync or a macro step
+        may replace the state's tensors, so re-fetch."""
         n = self.n_slots * self.max_pages    # table is geometry-padded
         return self.state.table[:n].reshape(self.n_slots, self.max_pages)
 

@@ -4,18 +4,19 @@ steps) and its counterpart on the card, one CUDA graph per variant.
 
 ``macro_fn`` is the K-step program. Per step: page-boundary detection,
 one device-side block pop per growing lane plus the fused map commit
-(``fb.serving_grow``), the masked decode step, greedy sampling and, in
+(``fb.serving_grow_``, in place on the map state: one ``fmmu_commit``
+launch on the card), the masked decode step, greedy sampling and, in
 full mode, retirement with pause semantics (EOS, budget; forced prompt
 steps never emit). It takes the reference's inputs and returns
-``(state, toks [K,S], oob)``; the caches update in place. It reads
-nothing back to the host, so it can be captured.
+``(state, toks [K,S], oob)``; the map state and the caches update in
+place. It reads nothing back to the host, so it can be captured.
 
 The reference commits growth under a ``lax.cond``, which has no
 counterpart inside a CUDA graph. Here the commit runs on every step
 under that step's grow mask; a commit with every lane masked leaves
 every tensor of the map state bit-identical (``fb.serving_grow``), so
-the program computes what the reference computes, at the price of the
-commit's launches on every step.
+the program computes what the reference computes, at the price of one
+commit launch on every step.
 
 On a CPU tensor the engine runs ``macro_fn`` eagerly. On the card it
 replays ``MacroGraphs``: the program captured once per (simple | full,
@@ -53,8 +54,12 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
 
     cur_tok, ctx_lens, alive, budget, n_pages [S]; ``pages`` (static)
     holds each step's live-page bucket, the width its tables are cut
-    to: the bucket a single step would use there, since paged
-    attention's split plan, and so its rounding, follows that width. ``simple`` (static):
+    to: the bucket a single step would use there. Up to 256 splits
+    (2048 pages at 8 slots of the llama serving shape) paged
+    attention's result does not depend on that width (its split plan
+    does not), so there the buckets only spare it the empty splits of a
+    wider table; past that its splits lengthen in steps, and the same
+    bucket as the single step keeps the tokens equal. ``simple`` (static):
     no lane can finish mid-scan (no EOS, every budget covers the
     tokens the run emits), so the live set is ``alive`` throughout and
     ``n_pages`` is the host's precomputed growth schedule
@@ -87,7 +92,7 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
                 tok = torch.where(forced[0][k] & alive, forced[1][k], tok)
             # no lane can fail here (the host's worst-case eligibility
             # check covers the run); if one does, oob is raised
-            ms, _, _ = fb.serving_grow(g, ms, grow_sched[k], dl_sched[k])
+            fb.serving_grow_(g, ms, grow_sched[k], dl_sched[k])
             nxt = decode(ms, tok, ctx, alive, k)
             toks.append(nxt)
             tok = torch.where(alive, nxt, 0)
@@ -103,7 +108,7 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
             tok = torch.where(fm & alive, ft, tok)
         need = torch.div(ctx + page, page, rounding_mode="floor")
         grow = alive & (need > npg) & (npg < max_pages)
-        ms, _, ok = fb.serving_grow(g, ms, grow, slots * max_pages + npg)
+        _, ok = fb.serving_grow_(g, ms, grow, slots * max_pages + npg)
         # a lane that wanted a block and failed PAUSES (it must not
         # decode into the scratch block); oob sends the host to the
         # single-step path
@@ -191,29 +196,17 @@ def uncounted(fn):
 def capture(fn, pool=None, stream=None):
     """Capture ``fn()`` into a new CUDA graph. The counters bump while
     it is captured, when no work runs: that delta is taken back out and
-    returned for the caller to add on each replay. Returns (graph,
-    delta)."""
-    graph = torch.cuda.CUDAGraph()
+    returned for the caller to add on each replay. The graph is kept
+    after instantiation, so its nodes (what a replay launches) stay
+    readable through ``raw_cuda_graph()``. Returns (graph, delta)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def record():
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             fn()
-    return graph, uncounted(record)
-
-
-def _tensors(ms) -> List[torch.Tensor]:
-    """The tensor leaves of a ServingMapState, in a fixed order."""
-    return ([getattr(ms.fmmu, f) for f in ms.fmmu._fields]
-            + [getattr(ms, f) for f in ms._fields
-               if f != "fmmu" and getattr(ms, f) is not None])
-
-
-def _with_tensors(ms, ts: List[torch.Tensor]):
-    nf = len(ms.fmmu._fields)
-    rest = iter(ts[nf:])
-    return ms._replace(fmmu=type(ms.fmmu)(*ts[:nf]),
-                       **{f: next(rest) for f in ms._fields
-                          if f != "fmmu" and getattr(ms, f) is not None})
+    delta = uncounted(record)
+    graph.instantiate()
+    return graph, delta
 
 
 class MacroGraphs:
@@ -227,9 +220,10 @@ class MacroGraphs:
     static copy of the map state, and writes one output buffer; the
     caches and parameters are the engine's own tensors (the caches
     update in place). Before a replay the inputs are copied in, and so
-    is every map-state tensor that an eager map op replaced since the
-    last replay; each graph ends by copying its final state into the
-    static tensors it read, so ``kvm.state`` keeps one storage across
+    is every map-state tensor that an eager op replaced since the last
+    replay (an allocator re-sync; eager map commits update the static
+    tensors in place). The program commits the map in place on the
+    static state too, so ``kvm.state`` keeps one storage across
     replays.
 
     Host-side effects are not replayed: the kernel wrappers' launch
@@ -275,9 +269,10 @@ class MacroGraphs:
 
     def _bind(self, ms):
         if self.ms is None:
-            self.ms = _with_tensors(ms, [t.clone() for t in _tensors(ms)])
+            self.ms = fb.clone_state(ms)
             return
-        for static, live in zip(_tensors(self.ms), _tensors(ms)):
+        for static, live in zip(fb.state_tensors(self.ms),
+                                fb.state_tensors(ms)):
             if live is not static:
                 static.copy_(live)
 
@@ -291,8 +286,7 @@ class MacroGraphs:
         allocator are not touched, and nothing is counted."""
         def run():
             with torch.cuda.stream(self.stream):
-                ms = _with_tensors(self.ms, [t.clone() for t in
-                                             _tensors(self.ms)])
+                ms = fb.clone_state(self.ms)
                 caches = {n: torch.zeros_like(c)
                           for n, c in self.eng.caches.items()}
                 _program(self.eng, ms, caches, self.buf.clone(), key)
@@ -314,9 +308,10 @@ class MacroGraphs:
         def program():
             ms, out = _program(self.eng, self.ms, self.eng.caches,
                                self.buf, key)
-            for static, t in zip(_tensors(self.ms), _tensors(ms)):
-                if t is not static:
-                    static.copy_(t)
+            if any(t is not static for static, t in zip(
+                    fb.state_tensors(self.ms), fb.state_tensors(ms))):
+                raise RuntimeError("the K-step program must commit the "
+                                   "map in place on the static state")
             self.out.copy_(out)
         graph, self.deltas[key] = capture(program, self.pool, self.stream)
         torch.cuda.synchronize(self.dev)

@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.counters import COUNTERS  # noqa: E402
+from repro_torch.core.fmmu import batch as fb  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
@@ -33,6 +34,58 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
+
+
+def _device_events(fn, tries):
+    """The device events (FunctionEvents) of one ``fn()`` under
+    torch.profiler. In some states of a process the profiler drops one
+    kernel record of a profile (a one-kernel profile then records
+    nothing; PERF.md §7), so ``fn()`` runs between two spin kernels
+    that are left out of the result. A profile that still records
+    nothing is taken again after a pause that doubles (10 ms first),
+    ``tries`` times in all. [] if every profile came back empty."""
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for k in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2000)
+            fn()
+            torch.cuda._sleep(2000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+        if events:
+            return events
+        _TRACE_LOG.append((k, len(prof.events())))
+        time.sleep(0.01 * 2 ** k)
+    return []
+
+
+_TRACE_LOG = []    # (attempt, events of any kind) of each empty profile
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cupti_warm():
+    """Profile once before any test of this file runs device work, and
+    fail early, with what the profiles recorded, if the profiler
+    records nothing on this card."""
+    if torch.cuda.is_available():
+        x = torch.zeros(1, device="cuda")
+        assert _device_events(lambda: x.add_(1), tries=10), \
+            f"CUPTI records nothing: {_TRACE_LOG}"
+    yield
+
+
+@pytest.fixture
+def device_trace(cuda):
+    """``trace(fn)``: the device events of one ``fn()`` under
+    torch.profiler, between spin kernels that are left out; a profile
+    that records no device event is retaken (it says nothing about the
+    kernels): up to 8 profiles, ~2.5 s."""
+    return lambda fn: _device_events(fn, tries=8)
 
 
 @pytest.mark.parametrize("sq,skv,h,kv,d", [
@@ -140,21 +193,17 @@ def test_paged_attention_repeats_bit_identical_counters_zero(cuda):
     assert int(pa._COUNTER_BUFS[args[0].device].abs().sum()) == 0
 
 
-def test_paged_attention_one_launch_per_call(cuda):
+def test_paged_attention_one_launch_per_call(cuda, device_trace):
     """One kernel on the device per call, split combine included."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     args = _paged_inputs(cuda, 8, 32, 8, 64, 16, 64, torch.bfloat16)
     ctx = torch.full((8,), 1024, dtype=torch.int32, device=cuda)
     paged_attention(*args, ctx)                # counters allocated once
     torch.cuda.synchronize()
     n0 = COUNTERS.launches()["paged_attention"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        paged_attention(*args, ctx)
-        torch.cuda.synchronize()
+    paged_attention(*args, ctx)
     assert COUNTERS.launches()["paged_attention"] - n0 == 1
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+    kernels = [e.name for e in device_trace(
+        lambda: paged_attention(*args, ctx))]
     assert len(kernels) == 1 and "paged_attention" in kernels[0], kernels
 
 
@@ -197,6 +246,30 @@ def test_fmmu_translate_kernel_bit_exact(cuda, s, w, e, n_backing, bq):
     want = fmmu_translate_ref(*args, entries_per_block=e)
     for gt, wt in zip(got, want):
         assert gt.dtype == wt.dtype and torch.equal(gt, wt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_bit_identical_across_table_widths(cuda, dtype):
+    """One lane's output and (m, l) do not depend on the table's width:
+    the same contexts read through tables of 64 and 128 pages (the wider
+    one the narrower plus other blocks) give the same bits, and contexts
+    of at most 8 pages the same bits at 8 pages (one split: the direct
+    path), 64 and 128."""
+    b, h, kv, d, page = 8, 32, 8, 64, 16
+    q, kp, vp, wide = _paged_inputs(cuda, b, h, kv, d, page, 128, dtype)
+    for widths, ctx in (((64, 128), [1024, 1000, 1, 0, 777, 129, 128, 513]),
+                        ((8, 64, 128), [128, 127, 1, 0, 16, 17, 100, 64])):
+        ctx = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+        outs = [paged_attention(q, kp, vp, wide[:, :w].contiguous(), ctx,
+                                return_stats=True) for w in widths]
+        for w, (o, (m, l)) in zip(widths[1:], outs[1:]):
+            assert torch.equal(o, outs[0][0]), (widths[0], w)
+            assert torch.equal(m, outs[0][1][0]) and \
+                torch.equal(l, outs[0][1][1]), (widths[0], w)
+        _check_paged((q, kp, vp, wide[:, :widths[0]].contiguous()), ctx,
+                     dtype)
+    assert pa.plan(b, h, kv, 8, page, pa._sm_count(cuda.index or 0)) \
+        .n_split == 1
 
 
 @pytest.mark.parametrize("bt,s,h,p,n", [
@@ -294,21 +367,15 @@ def test_mamba_chunk_scan_repeats_bit_identical(cuda, dtype):
 @pytest.mark.parametrize("dtype,body", [
     (torch.float32, "mamba_scan_kernel"),
     (torch.bfloat16, "mamba_scan_tc_kernel")])
-def test_mamba_chunk_scan_routes_by_dtype(cuda, dtype, body):
+def test_mamba_chunk_scan_routes_by_dtype(cuda, dtype, body, device_trace):
     """f32 goes through the CUDA-core recurrence, bf16 through the
     tensor-core body: one device kernel per call, named for its body."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     args, s0 = _scan_model_inputs(cuda, 1, 200, 4, 64, 128, dtype, True)
     _scan_held(args, s0, dtype)
-    for _ in range(2):        # a first profile after a while warms CUPTI
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            mamba_chunk_scan(*args, chunk=256, initial_state=s0)
-            torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == DeviceType.CUDA and "mamba" in e.name]
-    assert len(kernels) == 1 and f"{body}<" in kernels[0], kernels
+    names = [e.name for e in device_trace(
+        lambda: mamba_chunk_scan(*args, chunk=256, initial_state=s0))]
+    kernels = [n for n in names if "mamba" in n]
+    assert len(kernels) == 1 and f"{body}<" in kernels[0], names
 
 
 @pytest.mark.parametrize("s,w,e,bq", [
@@ -337,6 +404,185 @@ def test_fmmu_lookup_kernel_bit_exact(cuda, s, w, e, bq):
     for gt, wt in zip(got, want):
         assert gt.dtype == wt.dtype and torch.equal(gt, wt)
     assert got[0][:k].all() and not got[0][k:2 * k].any()
+
+
+# ------------------------------------------------- the map commit kernel
+GEOMETRIES = {
+    # the llama serving grid's map (_geometry(8, 128)): NP = 1024
+    "serving": dict(cmt_sets=16, cmt_ways=4, cmt_entries=8,
+                    entries_per_tp=128, n_tvpns=8),
+    # the paper's: 512 x 4 x 8, NP = 1,048,576
+    "paper": {}}
+
+
+def _commit_state(dev, rng, g, n_stack=64, n_lanes=8):
+    """A map state with history: tags of in-range blocks of their set
+    (duplicate-tag ways included), random valid/ref bits and clocks,
+    values past 1<<24, a random table, stack and counters."""
+    from repro_torch.core.fmmu.types import HOST_BASE
+    s, w, e = g.cmt_sets, g.cmt_ways, g.cmt_entries
+    n_pages = g.n_tvpns * g.entries_per_tp
+    tags = rng.integers(0, n_pages // e // s, (s, w)) * s + \
+        np.arange(s)[:, None]
+    tags[::3, -1] = tags[::3, 0]
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.asarray(a)).to(dev, dtype)
+    vals = (lambda *shape: rng.integers(-1, 2 * HOST_BASE, shape))
+    st = fb.BatchFMMUState(
+        tags=t(tags), valid=t(rng.random((s, w)) < 0.7, torch.bool),
+        ref=t(rng.random((s, w)) < 0.4, torch.bool),
+        clock=t(rng.integers(0, w, s)), data=t(vals(s, w, e)),
+        backing=t(vals(n_pages)), stats=t(rng.integers(0, 1000, 4)))
+    return fb.ServingMapState(
+        fmmu=st, table=t(vals(n_pages)),
+        free_stack=t(rng.permutation(1 << 20)[:n_stack]),
+        free_n=t(np.int32(n_stack)), host_stack=t(np.zeros(0, np.int32)),
+        host_n=t(np.int32(0)), oob=t(False, torch.bool),
+        swap_pending=t(np.zeros(n_lanes, bool), torch.bool),
+        commit_seq=t(np.int32(rng.integers(0, 1000))))
+
+
+def _commit_lanes(rng, g, st, bq, grow=False):
+    """Bq lanes: hits, misses (many per set: overflow), lanes past the
+    map (just past and up to int32's max), duplicate reads (LOOKUP) and
+    inactive lanes; several lanes per block with mixed op kinds; unique
+    write dlpns (the caller contract: with ``grow`` every lane may
+    write, so no read is duplicated); dppns NIL, device or host-tier."""
+    from repro_torch.core.fmmu.types import HOST_BASE, LOOKUP, NIL
+    e = g.cmt_entries
+    n_pages = g.n_tvpns * g.entries_per_tp
+    tags = st.tags.cpu().numpy()[st.valid.cpu().numpy()]
+    hit_pages = (tags[:, None] * e + np.arange(e)).reshape(-1)
+    cand = np.concatenate([
+        [n_pages, n_pages + 3, 1 << 30, (1 << 31) - 1],
+        rng.permutation(hit_pages)[:max(bq // 3, 1)],
+        rng.permutation(n_pages)[:bq]])
+    _, first = np.unique(cand, return_index=True)
+    cand = cand[np.sort(first)]
+    u = min(len(cand), max(1, 3 * bq // 4))
+    dups = rng.choice(cand[:u], (bq - u) // 2)
+    dl = np.concatenate([cand[:u], np.full_like(dups, -1) if grow else dups,
+                         rng.choice([-1, -3], bq - u - (bq - u) // 2)])
+    op = rng.integers(0, 3, bq)
+    op[u:u + (bq - u) // 2] = LOOKUP                        # duplicate reads
+    dp = rng.choice([NIL, 7, HOST_BASE + 5], bq)
+    dp = np.where(dp == NIL, NIL, dp + rng.integers(0, 99, bq))
+    order = rng.permutation(bq)
+    return [torch.from_numpy(a[order].astype(np.int32)) for a in (op, dl, dp)]
+
+
+@pytest.mark.parametrize("geom", ["serving", "paper"])
+@pytest.mark.parametrize("bq", [1, 8, 100, 1000, 4096])
+@pytest.mark.parametrize("mode", ["serving", "batch", "grow"])
+def test_fmmu_commit_kernel_bit_exact(cuda, geom, bq, mode):
+    """Three commits in a row: the kernel in place against the plain
+    chain (impl="ref") on a clone of the same state, every state tensor
+    and every output bit for bit. mode: translate_serving_ (table),
+    translate_batch_ (no table), serving_grow_ (pops from a stack that
+    runs dry mid-batch)."""
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_commit as fc
+    g = FMMUGeometry(**GEOMETRIES[geom])
+    rng = np.random.default_rng(bq)
+    ms = _commit_state(cuda, rng, g, n_stack=max(bq // 3, 1))
+    ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+    if mode == "batch":
+        ker, ref = ker.fmmu, ref.fmmu
+    n0 = fc.LAUNCHES[0]
+    for it in range(3):
+        op, dl, dp = (a.to(cuda) for a in _commit_lanes(
+            rng, g, ms.fmmu, bq, grow=mode == "grow"))
+        if mode == "grow":
+            grow = torch.from_numpy(rng.random(bq) < 0.5).to(cuda)
+            got = fb.serving_grow_(g, ker, grow, dl)
+            want = fb.serving_grow_(g, ref, grow, dl, impl="ref")
+        else:
+            # COND_UPDATE guards that hold on about half the lanes
+            out = getattr(fb, f"translate_{mode}")(
+                g, ref, torch.zeros_like(op), dl, dp, dp, impl="ref")[1]
+            old = torch.where(torch.rand(bq, device=cuda) < 0.5, out, dp)
+            got = getattr(fb, f"translate_{mode}_")(g, ker, op, dl, dp, old)
+            want = getattr(fb, f"translate_{mode}_")(g, ref, op, dl, dp, old,
+                                                     impl="ref")
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y), (it, mode)
+        for i, (x, y) in enumerate(zip(fb.state_tensors(ker),
+                                       fb.state_tensors(ref))):
+            assert x.dtype == y.dtype and torch.equal(x, y), (it, i)
+    assert fc.LAUNCHES[0] - n0 == 3
+    if mode == "grow" and bq >= 8:
+        assert bool(ker.oob)                  # the stack ran dry
+
+
+@pytest.mark.parametrize("geom", ["serving", "paper"])
+@pytest.mark.parametrize("bq", [1000, 4096])
+@pytest.mark.parametrize("mode", ["serving", "batch"])
+def test_fmmu_commit_repeats_bit_identical(cuda, geom, bq, mode):
+    """One commit of many warps (translate mode: no barrier of the grow
+    path's scan before the probe) launched 100 times, each on a fresh
+    copy of one state: every launch leaves the state tensors and
+    outputs that the plain chain leaves. A phase that reads shared
+    memory before every warp has set it up differs on some launch."""
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry(**GEOMETRIES[geom])
+    rng = np.random.default_rng(bq + 7)
+    ms = _commit_state(cuda, rng, g)
+    if mode == "batch":
+        ms = ms.fmmu
+    op, dl, dp = (a.to(cuda) for a in _commit_lanes(
+        rng, g, ms.fmmu if mode == "serving" else ms, bq))
+    commit = getattr(fb, f"translate_{mode}_")
+    ref = fb.clone_state(ms)
+    want = list(commit(g, ref, op, dl, dp, dp, impl="ref")) + \
+        fb.state_tensors(ref)
+    for it in range(100):
+        ker = fb.clone_state(ms)
+        got = list(commit(g, ker, op, dl, dp, dp)) + fb.state_tensors(ker)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert torch.equal(x, y), (it, i)
+
+
+def test_masked_serving_grow_commit_leaves_state_bit_identical(
+        cuda, device_trace):
+    """What the K-step graph runs on a step without a page boundary: a
+    grow commit with every lane masked changes no tensor of the state,
+    and it is one launch on the device."""
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_commit as fc
+    g = FMMUGeometry(**GEOMETRIES["serving"])
+    ms = _commit_state(cuda, np.random.default_rng(0), g)
+    before = fb.clone_state(ms)
+    grow = torch.zeros(8, dtype=torch.bool, device=cuda)
+    dl = torch.arange(8, dtype=torch.int32, device=cuda)
+    fb.serving_grow_(g, ms, grow, dl)                  # loaded once
+    torch.cuda.synchronize()
+    n0 = fc.LAUNCHES[0]
+    blocks, ok = fb.serving_grow_(g, ms, grow, dl)
+    assert fc.LAUNCHES[0] - n0 == 1
+    kernels = [e.name for e in device_trace(
+        lambda: fb.serving_grow_(g, ms, grow, dl))]
+    assert len(kernels) == 1 and "fmmu_commit" in kernels[0], kernels
+    assert not ok.any() and (blocks == -1).all()
+    for x, y in zip(fb.state_tensors(ms), fb.state_tensors(before)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_fmmu_commit_lane_cap_raises_on_the_card(cuda):
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_commit as fc
+    g = FMMUGeometry(**GEOMETRIES["paper"])
+    st = _commit_state(cuda, np.random.default_rng(1), g).fmmu
+    dl = torch.full((fc.LANE_CAP + 1,), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=str(fc.LANE_CAP)):
+        fb.translate_batch_(g, st, dl, dl, dl, dl)
+    dl = torch.arange(fc.LANE_CAP, dtype=torch.int32, device=cuda)
+    ref = fb.clone_state(st)
+    got = fb.translate_batch_(g, st, dl % 3, dl, dl, dl)
+    want = fb.translate_batch_(g, ref, dl % 3, dl, dl, dl, impl="ref")
+    for x, y in zip(list(got) + fb.state_tensors(st),
+                    list(want) + fb.state_tensors(ref)):
+        assert torch.equal(x, y)
 
 
 def test_wrappers_reject_bad_arguments(cuda):
@@ -410,11 +656,6 @@ MACRO_REQS = [(range(1, 34), 6), (range(90, 95), 3), (range(40, 46), 34),
               (range(60, 80), 10)]
 
 
-def _state_clone(ms):
-    from repro_torch.serving import macro
-    return macro._with_tensors(ms, [t.clone() for t in macro._tensors(ms)])
-
-
 def test_macro_graph_replay_matches_eager_program(cuda):
     """Every replay against one eager run of the same K-step program on
     clones of the same map state and caches: tokens, oob, map state and
@@ -429,7 +670,7 @@ def test_macro_graph_replay_matches_eager_program(cuda):
     seen = []
 
     def checked(ms, buf, simple, forced, pages):
-        ms0 = _state_clone(ms)
+        ms0 = fb.clone_state(ms)
         caches0 = {n: c.clone() for n, c in eng.caches.items()}
         n0 = COUNTERS.launches()
         st, out = replay(ms, buf, simple, forced, pages)
@@ -441,13 +682,16 @@ def test_macro_graph_replay_matches_eager_program(cuda):
         n2 = COUNTERS.launches()
         want = torch.cat([toks.reshape(-1), oob.to(torch.int32).reshape(1)])
         assert torch.equal(out, want)
-        for a, b in zip(macro._tensors(st), macro._tensors(ms_e)):
+        for a, b in zip(fb.state_tensors(st), fb.state_tensors(ms_e)):
             assert a.dtype == b.dtype and torch.equal(a, b)
         for n, c in eng.caches.items():
             assert torch.equal(c, caches0[n]), n
         assert {k: n1[k] - n0.get(k, 0) for k in n1} == \
             {k: n2[k] - n1.get(k, 0) for k in n2}
-        assert n1["fmmu_translate"] - n0.get("fmmu_translate", 0) == MACRO_K
+        # the in-place map commit: one kernel launch a step, and no probe
+        # kernel outside it
+        assert n1["fmmu_commit"] - n0.get("fmmu_commit", 0) == MACRO_K
+        assert n1.get("fmmu_translate", 0) == n0.get("fmmu_translate", 0)
         seen.append((simple, forced, pages))
         return st, out
 
@@ -473,16 +717,15 @@ def test_macro_capture_changes_no_state_and_steady_state_captures_nothing(
     as they were (the capture ran no work); once a round's variant is
     captured, steady rounds capture nothing and each makes one dispatch,
     one host sync, no host-side map call and no allocator re-sync, with
-    K fmmu_translate launches (and K per attention layer of
+    K fmmu_commit launches (and K per attention layer of
     paged_attention) counted per replay."""
-    from repro_torch.serving import macro
     eng = _macro_engine(cuda, arch)
     eng.min_page_bucket = 16          # one bucket for the whole test
     for t in (range(1, 9), range(20, 31)):
         eng.submit(list(t), max_new=10 ** 6)
     done: dict = {}
     eng.step(done)                    # admission, prefill, first capture
-    ms0 = _state_clone(eng.kvm.state)
+    ms0 = fb.clone_state(eng.kvm.state)
     caches0 = {n: c.clone() for n, c in eng.caches.items()}
     before = COUNTERS.snapshot()
     eng._graphs._capture((False, True, (16,) * MACRO_K))  # not yet used
@@ -490,7 +733,8 @@ def test_macro_capture_changes_no_state_and_steady_state_captures_nothing(
     d = COUNTERS.delta(before)
     assert d.pop("engine.macro_captures") == 1
     assert not any(d.values()), d
-    for a, b in zip(macro._tensors(eng.kvm.state), macro._tensors(ms0)):
+    for a, b in zip(fb.state_tensors(eng.kvm.state),
+                    fb.state_tensors(ms0)):
         assert torch.equal(a, b)
     for n, c in eng.caches.items():
         assert torch.equal(c, caches0[n]), n
@@ -505,7 +749,7 @@ def test_macro_capture_changes_no_state_and_steady_state_captures_nothing(
         assert d["engine.host_syncs"] == 1
         assert d["kvm.xlate_calls"] == d["kvm.alloc_syncs"] == 0
         assert d["kvm.full_table_calls"] == 0
-        assert d["kernel.fmmu_translate"] == MACRO_K
+        assert d["kernel.fmmu_commit"] == MACRO_K
         assert d.get("kernel.paged_attention", 0) == MACRO_K * n_attn
     assert eng.metrics["macro_fallbacks"] == 0
     torch.testing.assert_close(eng.kvm.block_tables(),
@@ -550,19 +794,33 @@ def test_macro_capture_never_grows_the_ticket_buffer(cuda, monkeypatch):
 
 def test_macro_run_crossing_a_page_bucket_matches_single_steps(cuda):
     """bf16 at page 16: the 62-token prompt reaches 64 tokens (5 pages)
-    at step 2 of the first K-step run. Paged attention's split plan, and
-    so its rounding, follows the table's width, so that run must cut
-    its tables to bucket 4 for steps 0-1 and 8 for steps 2-3, as single
-    steps do: tokens and the KV pools are then bit-identical."""
+    at step 2 of the first K-step run, which cuts its tables to bucket 4
+    for steps 0-1 and 8 for steps 2-3, as single steps do; tokens and
+    the KV pools are bit-identical to single steps'. Paged attention's
+    result does not depend on the table's width, so a macro engine
+    whose tables are always the widest bucket gives the same bits too.
+    The K-step graphs commit the map in place: after the runs the
+    engine's map state is the graphs' static state, tensor for
+    tensor."""
     reqs = [(range(1, 63), 13), (range(200, 240), 13), (range(300, 320), 13)]
     dt = torch.bfloat16
     eng = _macro_engine(cuda, dtype=dt, page=16, max_ctx=256)
     got, keys = _serve(eng, reqs)
     assert keys[0][2] == (4, 4, 8, 8)
+    for a, b in zip(fb.state_tensors(eng.kvm.state),
+                    fb.state_tensors(eng._graphs.ms)):
+        assert a is b
     single = _macro_engine(cuda, dtype=dt, page=16, max_ctx=256, macro_k=0)
     want, _ = _serve(single, reqs)
     assert got == want
+    wide = _macro_engine(cuda, dtype=dt, page=16, max_ctx=256)
+    wide.min_page_bucket = wide.max_pages
+    got_wide, keys_wide = _serve(wide, reqs)
+    assert {p for k in keys_wide for p in k[2]} == {wide.max_pages}
+    assert got_wide == want
     live = eng.scratch_block                     # the last block: scratch
     for name in ("pool_k", "pool_v"):
         assert torch.equal(eng.caches[name][:, :, :live],
+                           single.caches[name][:, :, :live]), name
+        assert torch.equal(wide.caches[name][:, :, :live],
                            single.caches[name][:, :, :live]), name

@@ -425,3 +425,143 @@ def test_extend_seqs_one_map_call_and_atomic_on_exhaustion():
         kvm.extend_seqs({0: 20, 1: 20})
     assert len(kvm.seq_pages[0]) == 3 and len(kvm.seq_pages[1]) == 4
     assert kvm.extend_seqs({0: 0, 1: 0}) == {}
+
+
+def _edge_batch(rng, g, n_lanes=BQ):
+    """A mixed batch of the commit's edge cases: more than W new blocks
+    in one set (overflow), several lanes of one block with mixed op
+    kinds (the priority collapse), unmaps (NIL) and host-tier ids past
+    1<<24, duplicate reads, lanes just past the map and far past it (up
+    to int32's max), and inactive lanes. Write dlpns are unique (the
+    caller contract). Padded with inactive lanes to ``n_lanes``."""
+    n_pages = g.n_tvpns * g.entries_per_tp
+    e, s = g.cmt_entries, g.cmt_sets
+    per_set = n_pages // e // s
+    set0 = int(rng.integers(s))
+    blocks = set0 + s * rng.choice(per_set, min(g.cmt_ways + 2, per_set),
+                                   replace=False)
+    lanes = []
+    for b in blocks:
+        for off in rng.choice(e, int(rng.integers(1, 4)), replace=False):
+            op = int(rng.choice([LOOKUP, UPDATE, COND_UPDATE]))
+            dp = int(rng.choice([NIL, HOST_BASE + int(rng.integers(1 << 20)),
+                                 int(rng.integers(0, 4096))]))
+            old = int(rng.choice([NIL, dp, int(rng.integers(0, 4096))]))
+            lanes.append((op, int(b) * e + int(off), dp, old))
+    for _, d, _, _ in lanes[:int(rng.integers(0, 3))]:
+        lanes.append((LOOKUP, d, 0, 0))                       # dup reads
+    far = [n_pages, n_pages + int(rng.integers(1, 9)), 1 << 30,
+           (1 << 31) - 1 - int(rng.integers(0, 3))]
+    for d in rng.choice(far, 2, replace=False):
+        lanes.append((int(rng.choice([LOOKUP, UPDATE])), int(d),
+                       HOST_BASE + 5, 0))
+    lanes += [(int(rng.integers(0, 3)), int(rng.choice([-1, -7])), 5, 5)
+              for _ in range(int(rng.integers(1, 3)))]
+    order = rng.permutation(len(lanes))
+    arr = np.asarray([lanes[i] for i in order]
+                     + [(LOOKUP, -1, 0, 0)] * (n_lanes - len(lanes)), np.int32)
+    return arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
+
+
+@pytest.mark.parametrize("entry", ["translate_serving", "translate_batch",
+                                   "serving_grow"])
+@pytest.mark.parametrize("geom_kw", [{}, dict(cmt_sets=2, cmt_ways=1)])
+def test_in_place_commit_equals_functional_and_jax(entry, geom_kw):
+    """The in-place entries (``translate_serving_``, ``translate_batch_``,
+    ``serving_grow_``) leave exactly the tensors the functional ones
+    return, both bit-identical to JAX after every edge-case batch, with
+    equal outputs; the functional call leaves its input untouched. The
+    grow stream pops a stack that runs dry mid-batch (oob) and is
+    refilled; the last batch is empty."""
+    g, jg = small_geometry(**geom_kw), j_small(**geom_kw)
+    rng = np.random.default_rng(11)
+    n_dev, n_lanes = 7, 3
+    n_pages = g.n_tvpns * g.entries_per_tp
+    if entry == "translate_batch":
+        tf, js = TB.init_batch_state(g, CPU), JB.init_batch_state(jg)
+    else:
+        tf = TB.init_serving_state(g, n_dev, n_lanes, device=CPU)
+        js = JB.init_serving_state(jg, n_dev, 0, n_lanes)
+    ti = TB.clone_state(tf)
+    jfn = jax.jit(functools.partial(getattr(JB, entry), jg))
+    dry = 0
+    for it in range(31):
+        bq = 0 if it == 30 else BQ
+        if entry == "serving_grow":
+            if it % 6 == 5:                                 # refill
+                stack = rng.permutation(n_dev).astype(np.int32)
+                args = (stack, np.int32(n_dev), np.zeros(0, np.int32),
+                        np.int32(0), np.zeros(n_lanes, bool))
+                tf = TB.set_allocator(tf, *args)
+                ti = TB.set_allocator(ti, *args)
+                js = JB.set_allocator(js, *args)
+            want = rng.random(bq) < 0.4
+            dl = rng.choice(n_pages + 6, bq, replace=False).astype(np.int32)
+            dl[rng.random(bq) < 0.1] = -1
+            lanes = (want, dl)
+        else:
+            lanes = tuple(a[:bq] for a in _edge_batch(rng, g))
+        src, before = tf, TB.clone_state(tf)
+        tf, *t_out = getattr(TB, entry)(g, src, *map(torch.from_numpy, lanes))
+        for x, y in zip(TB.state_tensors(src), TB.state_tensors(before)):
+            assert torch.equal(x, y)             # the input is untouched
+        i_out = getattr(TB, entry + "_")(g, ti, *map(torch.from_numpy, lanes))
+        js, *j_out = jfn(js, *map(jnp.asarray, lanes))
+        _assert_state_equal(tf, js, f"{entry} functional batch {it}")
+        _assert_state_equal(ti, js, f"{entry} in place batch {it}")
+        for t, i, j in zip(t_out, i_out, j_out):
+            assert t.numpy().dtype == i.numpy().dtype == np.asarray(j).dtype
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+            np.testing.assert_array_equal(i.numpy(), np.asarray(j))
+        if entry == "serving_grow":
+            dry += int((lanes[0] & ~t_out[1].numpy()).any())
+    if entry == "serving_grow":
+        assert dry > 0                   # the stack ran dry mid-batch
+    else:
+        st = tf if entry == "translate_batch" else tf.fmmu
+        assert int(st.stats[2]) > 0 and (st.data.numpy() >= HOST_BASE).any()
+
+
+def test_fmmu_commit_lane_cap_and_plain_dispatch():
+    """The commit kernel's wrapper refuses more lanes than one block's
+    shared memory holds (ValueError naming the cap, on any device);
+    CPU tensors take the plain version (no launch counted), which
+    equals ``impl="ref"``; ``impl="ref"`` has no cap."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.kernels import fmmu_commit as fc
+    from repro_torch.kernels import ops
+    assert fc.LANE_CAP >= 8192
+    assert fc.smem_bytes(fc.LANE_CAP) <= fc.SMEM_MAX
+    assert fc.smem_bytes(fc.LANE_CAP + 1) > fc.SMEM_MAX
+    g = small_geometry()
+    rng = np.random.default_rng(5)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    st0 = TB.init_serving_state(g, 8, 2, device=CPU)
+
+    def lanes(bq):
+        opc, dl, dp, old = (np.full(bq, v, np.int32) for v in (0, -1, 0, 0))
+        k = min(bq, n_pages)
+        dl[:k] = rng.permutation(n_pages)[:k]
+        opc[:k] = rng.integers(0, 3, k)
+        dp[:k] = rng.integers(0, HOST_BASE + 9, k)
+        return torch.from_numpy(dl), dict(
+            opcodes=torch.from_numpy(opc), dppns=torch.from_numpy(dp),
+            old_dppns=torch.from_numpy(old))
+    dl, kw = lanes(fc.LANE_CAP + 1)
+    with pytest.raises(ValueError, match=str(fc.LANE_CAP)):
+        ops.fmmu_commit(g, TB.clone_state(st0), dl, **kw)
+    ops.fmmu_commit(g, TB.clone_state(st0), dl, impl="ref", **kw)
+    with pytest.raises(ValueError):
+        ops.fmmu_commit(g, TB.clone_state(st0), dl, impl="pallas", **kw)
+    dl, kw = lanes(fc.LANE_CAP)
+    a, b = TB.clone_state(st0), TB.clone_state(st0)
+    before = COUNTERS.launches()
+    got = ops.fmmu_commit(g, a, dl, **kw)
+    want = ops.fmmu_commit(g, b, dl, impl="ref", **kw)
+    assert COUNTERS.launches() == before
+    assert got[2] is None and want[2] is None
+    for x, y in zip(got[:2], want[:2]):
+        assert torch.equal(x, y)
+    for x, y in zip(TB.state_tensors(a), TB.state_tensors(b)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert int(a.commit_seq) > 0

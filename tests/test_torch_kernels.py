@@ -273,6 +273,49 @@ def test_paged_plan_covers_every_page_from_shapes(b, h, kv, maxp, page):
         assert 128 <= pl.pages_per_split * page <= 256
 
 
+@pytest.mark.parametrize("b,h,kv,page,n_sm", [
+    (8, 32, 8, 16, 132), (4, 4, 2, 16, 132), (1, 32, 8, 16, 132),
+    (64, 32, 8, 16, 132), (3, 8, 2, 8, 114), (2, 8, 2, 256, 132)])
+def test_paged_plan_split_length_ignores_table_width(b, h, kv, page, n_sm):
+    """The split length comes from (b, h, kv, page, n_sm) alone: the
+    same pages_per_split at table widths 16, 64, 128 and 256, so a wider
+    table only appends splits (which hold no live page of a context the
+    narrower table covers), and n_split splits cover the table."""
+    from repro_torch.kernels import paged_attention as pa
+    plans = {w: pa.plan(b, h, kv, w, page, n_sm) for w in (16, 64, 128, 256)}
+    assert len({p.pages_per_split for p in plans.values()}) == 1
+    for w, p in plans.items():
+        assert p.n_split * p.pages_per_split >= w
+        assert (p.n_split - 1) * p.pages_per_split < w
+        assert p.heads_per_block == plans[16].heads_per_block
+
+
+@pytest.mark.parametrize("b,h,kv,page,n_sm", [
+    (8, 32, 8, 16, 132), (1, 32, 8, 16, 132), (2, 8, 2, 256, 132),
+    (3, 8, 2, 8, 114)])
+def test_paged_plan_wide_tables_grow_splits_in_steps(b, h, kv, page, n_sm):
+    """Past MAX_SPLITS splits of the width-free length, a table takes
+    splits of that length times the least power of two that keeps them
+    at most MAX_SPLITS: every width up to MAX_SPLITS such splits keeps
+    the width-free length, and widths inside one step share theirs."""
+    from repro_torch.kernels import paged_attention as pa
+    base = pa.plan(b, h, kv, 1, page, n_sm).pages_per_split
+    edge = base * pa.MAX_SPLITS
+    for w in (edge - 1, edge, edge + 1, 2 * edge, 2 * edge + 1, 3 * edge,
+              100_000):
+        pl = pa.plan(b, h, kv, w, page, n_sm)
+        step = pl.pages_per_split // base
+        assert pl.pages_per_split == base * step and step & (step - 1) == 0
+        assert pl.n_split <= pa.MAX_SPLITS
+        assert (pl.n_split - 1) * pl.pages_per_split < w
+        assert pl.n_split * pl.pages_per_split >= w
+        assert (step == 1) == (w <= edge)
+        if step > 1:            # the least such power of two
+            assert -(-w // (pl.pages_per_split // 2)) > pa.MAX_SPLITS
+    assert pa.plan(b, h, kv, edge + 1, page, n_sm).pages_per_split == \
+        pa.plan(b, h, kv, 2 * edge, page, n_sm).pages_per_split
+
+
 # ----------------------------------------------------------------------
 def _translate_inputs(seed, n_sets, n_ways, e, bq, np_sz, dup_tags=False):
     rng = np.random.default_rng(seed)
@@ -412,9 +455,10 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
+        "assert 'repro_torch.kernels.fmmu_commit' in mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 24
+    assert int(res.stdout.strip()) >= 25

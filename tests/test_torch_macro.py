@@ -11,6 +11,8 @@ that falls back to single steps, chunked admission through forced
 lanes, and a mamba2 model. Also the steady-state host-cost counters:
 one dispatch and one host sync per K tokens, no host-side map call, no
 full-table retranslation, no allocator re-sync."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_arch as j_get_arch  # noqa: E402
+from repro.core.fmmu import batch as JB  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import Runtime as JRuntime  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
@@ -48,6 +51,43 @@ def _pair(arch):
     jp = jm.init(jax.random.key(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
     return jm, jp, tm, tp
+
+
+# the JAX engine's compiled programs and what their traces read of it
+_PROGRAMS = ("_decode", "_prefill", "_macro", "_macro_simple")
+
+
+def _program_key(eng):
+    return (id(eng.m), eng.page, eng.n_slots, eng.max_pages,
+            eng.scratch_block, eng.macro_k, eng.eos_id, eng.channels,
+            eng.kvm.geom)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_programs():
+    """Every JAX engine and page manager jits its own programs, so each
+    case paid for tracing and compiling them again. Here engines of one
+    configuration share one set: a page manager's jitted map commits are
+    a function of its geometry alone (``make_jitted``), and an engine's
+    decode, prefill and K-step programs read only the model and the
+    configuration in ``_program_key`` when they are traced."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(JB, "make_jitted",
+               functools.lru_cache(maxsize=None)(JB.make_jitted))
+    shared = {}
+    init = JServeEngine.__init__
+
+    def shared_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        programs = shared.setdefault(_program_key(self), {})
+        for name in _PROGRAMS:
+            if name in programs:
+                setattr(self, name, programs[name])
+            else:
+                programs[name] = getattr(self, name)
+    mp.setattr(JServeEngine, "__init__", shared_init)
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,15 @@ length it prints the plan, the kernel's median device time with the L2
 flushed before each launch (chip_smoke.Timer) and with the L2 warm,
 and the bytes the call must move; first, the same timers around a
 one-element fill, the floor of any timed launch. Needs one CUDA card.
+
+    python3 tools/paged_attention_sweep.py --wide
+
+times wide tables instead (512 to 8192 pages of 16 tokens, every page
+live, 1 and 8 slots): the kernel's own plan, whose split length does
+not depend on the width (so a wide table is thousands of splits that
+the combine walks), beside a plan whose split length doubles until at
+most 64 splits remain, with the bytes each call must move and their
+time at the card's memory rate.
 """
 from __future__ import annotations
 
@@ -42,6 +51,51 @@ def warm_ms(fn, iters=50):
     return statistics.median(times)
 
 
+def wide(timer) -> None:
+    """The kernel at wide tables under its own plan and under one with
+    at most 64 longer splits (``plan`` replaced for the call)."""
+    import chip_smoke as cs
+    from repro_torch.kernels import paged_attention as pa
+    h, kv, d, page = 32, 8, 64, 16
+    own = pa.plan
+
+    def capped(*args):
+        pl = own(*args)
+        pps = pl.pages_per_split
+        while -(-args[3] // pps) > 64:
+            pps *= 2
+        return pl._replace(n_split=-(-args[3] // pps), pages_per_split=pps)
+    for b in (1, 8):
+        for maxp in (512, 1024, 2048, 4096, 8192):
+            nb = b * maxp
+            q = torch.randn((b, h, d), device="cuda").bfloat16()
+            kp = torch.randn((nb, page, kv, d), device="cuda").bfloat16()
+            vp = torch.randn((nb, page, kv, d), device="cuda").bfloat16()
+            table = torch.randperm(nb, device="cuda").reshape(
+                b, maxp).to(torch.int32)
+            ctx = torch.full((b,), maxp * page, dtype=torch.int32,
+                             device="cuda")
+
+            def call():
+                return pa.paged_attention(q, kp, vp, table, ctx)
+            row = {"b": b, "pages": maxp, "ctx": maxp * page}
+            for name, fn in (("own", own), ("capped", capped)):
+                pa.plan = fn
+                row[f"plan_{name}"] = fn(
+                    b, h, kv, maxp, page, pa._sm_count(0))._asdict()
+                row[f"ms_{name}"] = timer.ms(call)
+                row[f"out_{name}"] = call()
+            pa.plan = own
+            diff = (row.pop("out_own").float()
+                    - row.pop("out_capped").float()).abs().max()
+            n_bytes = 2 * b * maxp * page * kv * d * 2
+            row.update(max_abs_diff=float(diff), bytes=n_bytes,
+                       bytes_ms=n_bytes / cs.HBM_BYTES_PER_S * 1e3)
+            print(json.dumps(row), flush=True)
+            del q, kp, vp
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import paged_attention as pa
@@ -61,6 +115,9 @@ def main() -> int:
     table = torch.from_numpy(rng.permutation(nb)[:b * maxp].reshape(
         b, maxp).astype(np.int32)).cuda()
     timer = cs.Timer()
+    if "--wide" in sys.argv[1:]:
+        wide(timer)
+        return 0
     tiny = torch.zeros(1, device="cuda")
     print(json.dumps({"one_element_fill_ms_cold_l2": timer.ms(tiny.zero_),
                       "one_element_fill_ms_warm_l2": warm_ms(tiny.zero_)}))
