@@ -13,7 +13,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                (fmmu_commit) against its plain chain bit for bit (every
                state tensor and output, the serving map and the paper
                geometry, 1..4096 lanes, translate / batch / grow modes,
-               three commits in a row), the translate probe and the
+               three commits in a row; and the swap pipeline's commit:
+               64 COND_UPDATE lanes of one slot to the host tier and
+               back, a quarter with a stale old dppn, the guard refusing
+               exactly those), the translate probe and the
                probe-only lookup bit-exact (ids past 1<<24), the two
                attention kernels within the bf16 tolerance 2e-2 (f16
                1e-2, f32 variants 1e-4; paged also at ctx 1024 and a
@@ -52,6 +55,21 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                beside plain chain (at most 4 launches, from the graph's
                nodes). Then the 2-layer f32 kernel-vs-ref parity in
                macro mode.
+  3c. serve (swap) — the same requests at macro_k=8 on an undersized
+               device pool: 128 device blocks for the 252-page working
+               set, 256 host blocks (the pool's rows 128..383, in HBM
+               like the device tier), swap_patience 4. Admission
+               preempts slots to the host tier, and the boundary swap
+               scheduler rotates them while the graphs mask them as
+               swap-pending lanes. A first pass captures the graphs;
+               the second is counted: its tokens (and the first's) must
+               equal the full-pool macro tokens, pages must move both
+               ways, each swap must be one map call and one fmmu_commit
+               launch, and the pass must capture no graph. Prints the
+               fallbacks, preemptions, decode tokens/s and TTFT beside
+               the full-pool phase's, the pages and bytes moved, each
+               swap's host dispatch ms and device ms (CUDA events)
+               beside its byte bound, and the host syncs per K tokens.
   4. map     — a seeded stream of mixed lookup / update / cond-update
                batches at the paper's CMT geometry goes through the
                fused path (the commit kernel), its plain version (the
@@ -79,10 +97,11 @@ line, one JSON line {"ptxas": [...]} (registers, spills and static
 shared memory of each attention and scan instantiation, with the paged
 kernel's launch plan at the serving shape), the card's name and power
 limit, one JSON line {"kernels": [...]} (launches from the macro
-path's counted pass, launches_single_step from the single-step run),
-one {"serve": {...}} (llama), one {"serve_macro": {...}}, one
-{"map": {...}}, one {"serve_ssm": {...}} and one {"serve_ssm_macro":
-{...}}; the last line is
+path's counted pass, launches_single_step from the single-step run,
+launches_serve_swap from the swap phase's counted pass), one
+{"serve": {...}} (llama), one {"serve_macro": {...}}, one
+{"serve_swap": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
+and one {"serve_ssm_macro": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -365,7 +384,9 @@ def _commit_lanes(rng, g, bq, unique=False):
 
 def commit_bytes(g, ms, lanes, grow):
     """Bytes one commit must move, from what these lanes touch (the
-    plain chain run on a copy): each lane's inputs and outputs, the tags
+    plain chain run on a copy). ``lanes`` = (opcodes, dlpns, dppns[,
+    old_dppns]): without old dppns a COND_UPDATE lane's guard compares
+    with its new dppn. Each lane's inputs and outputs, the tags
     and valid bits of each probed set, one data or backing word per
     active lane, a ref byte per touching hit, each committed lane's
     backing, table and (on a hit) data word, each fill's tag, valid,
@@ -376,7 +397,8 @@ def commit_bytes(g, ms, lanes, grow):
     from repro_torch.kernels.ref import fmmu_translate_ref
     w, e = g.cmt_ways, g.cmt_entries
     st = ms.fmmu
-    op, dl, dp = lanes
+    op, dl, dp = lanes[:3]
+    old = lanes[3] if len(lanes) > 3 else dp
     after = fb.clone_state(ms)
     if grow is not None:
         blocks, ok = fb.serving_grow_(g, after, grow, dl, impl="ref")
@@ -384,7 +406,7 @@ def commit_bytes(g, ms, lanes, grow):
         op = torch.ones_like(dl)
         lane_io = dl.numel() * (4 + 1 + 4 + 1)    # dlpn, grow | blocks, ok
     else:
-        fb.translate_serving_(g, after, op, dl, dp, dp, impl="ref")
+        fb.translate_serving_(g, after, op, dl, dp, old, impl="ref")
         lane_io = dl.numel() * (4 * 4 + 4 + 1)           # 4 lanes | out, ok
     hit, _, set_idx, _, _ = fmmu_translate_ref(
         st.tags, st.valid, st.ref, st.data, st.backing, dl, dl >= 0,
@@ -481,6 +503,7 @@ def check_fmmu_commit(timer, rng):
     out["ms_masked"] = timer.ms(lambda: fb.serving_grow_(g, ms, grow, dl))
     out["plain_ms_masked"] = timer.ms(
         lambda: fb.serving_grow_(g, ms, grow, dl, impl="ref"))
+    out.update(check_swap_commits(timer, rng, g))
     return dict({
         "name": "fmmu_commit", "route": "cuda",
         "source": "src/repro_torch/csrc/fmmu_commit.cu",
@@ -488,8 +511,84 @@ def check_fmmu_commit(timer, rng):
         "max_abs_err": 0.0, "library_ms": None,
         "shape": "S=16 W=4 E=8 NP=1024, 8 growing lanes (serving_grow_); "
                  "_masked: the same, no lane growing; _paper: S=512 W=4 "
-                 "E=8 NP=1048576, 64 mixed lanes (translate_serving_)"},
+                 "E=8 NP=1048576, 64 mixed lanes (translate_serving_); "
+                 f"_swap_out / _swap_in: S=16 W=4 E=8 NP=1024, "
+                 f"{SWAP_LANES} COND_UPDATE lanes of one slot, "
+                 f"{SWAP_STALE} with a stale old dppn (translate_serving_)"},
         **out)
+
+
+SWAP_LANES, SWAP_STALE = 64, 16
+
+
+def _swap_commits(rng, g):
+    """A serving map state in which one slot's 64 pages are mapped at
+    device blocks, the swap-out commit of those pages to host blocks and
+    the swap-in commit that brings them back to other device blocks: 64
+    lanes each, every one a COND_UPDATE, a quarter of them with a stale
+    old dppn (the guard refuses them; a different quarter each way).
+    Returns [(name, state, lanes (op, dl, new, old), stale mask)], the
+    swap-in's state being the swap-out's result (plain chain)."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import COND_UPDATE, HOST_BASE, UPDATE
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+    def stale():
+        m = np.zeros(SWAP_LANES, bool)
+        m[rng.permutation(SWAP_LANES)[:SWAP_STALE]] = True
+        return m
+    ms = _commit_state(rng, g)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    dl = int(rng.integers(0, 8)) * (n_pages // 8) + np.arange(SWAP_LANES)
+    dev = rng.permutation(128)[:SWAP_LANES]
+    back = rng.permutation(128)[:SWAP_LANES]
+    host = HOST_BASE + rng.permutation(256)[:SWAP_LANES]
+    op = t(np.full(SWAP_LANES, COND_UPDATE))
+    fb.translate_serving_(g, ms, t(np.full(SWAP_LANES, UPDATE)), t(dl),
+                          t(dev), t(dev), impl="ref")
+    s_out, s_in = stale(), stale()
+    out_lanes = (op, t(dl), t(host), t(np.where(s_out, dev + 1, dev)))
+    after = fb.clone_state(ms)
+    fb.translate_serving_(g, after, *out_lanes, impl="ref")
+    in_lanes = (op, t(dl), t(back), t(np.where(s_in, host + 1, host)))
+    # a swap-in lane commits where its own guard holds and the swap-out
+    # of that page committed (else the page never left its device block)
+    return [("swap_out", ms, out_lanes, s_out),
+            ("swap_in", after, in_lanes, s_in | s_out)]
+
+
+def check_swap_commits(timer, rng, g):
+    """The swap pipeline's map commit at the serving geometry (one
+    slot's 64 pages, all COND_UPDATE, host-tagged new or old dppns, a
+    quarter stale) through the kernel and its plain chain on clones of
+    one state, bit for bit on every state tensor and output; the guard
+    must refuse exactly the stale lanes. Times both and bounds the
+    commit (``commit_bytes``)."""
+    from repro_torch.core.fmmu import batch as fb
+    out = {}
+    for name, ms, lanes, stale in _swap_commits(rng, g):
+        ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+        got = fb.translate_serving_(g, ker, *lanes)
+        want = fb.translate_serving_(g, ref, *lanes, impl="ref")
+        torch.cuda.synchronize()
+        for x, y in zip(list(got) + fb.state_tensors(ker),
+                        list(want) + fb.state_tensors(ref)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"fmmu_commit differs from its plain chain on the "
+                     f"{name} commit")
+        if not np.array_equal(got[1].cpu().numpy(), ~stale):
+            fail(f"the {name} commit's guard: ok {got[1].tolist()}, "
+                 f"stale lanes {np.nonzero(stale)[0].tolist()}")
+        for impl, key in ((None, "ms"), ("ref", "plain_ms")):
+            clones = iter([fb.clone_state(ms) for _ in range(23)])
+            out[f"{key}_{name}"] = timer.ms(
+                lambda: fb.translate_serving_(g, next(clones), *lanes,
+                                              impl=impl))
+        out[f"bound_ms_{name}"], out[f"bound_by_{name}"] = bound_ms(
+            commit_bytes(g, ms, lanes, None), 0, "int32")
+    return out
 
 
 def _sdpa(q, k, v, **kw):
@@ -895,13 +994,13 @@ def map_phase(n_batches=64, max_blocks=16):
 
 
 # ----------------------------------------------------------------- serve
-def build_engine(cfg, rt, macro_k=0):
+def build_engine(cfg, rt, macro_k=0, **config):
     from repro_torch.models import build_model
     from repro_torch.serving import ServeConfig, ServeEngine
     m = build_model(cfg, rt, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(SEED))
     return ServeEngine(m, params, config=ServeConfig(
-        n_slots=8, max_ctx=2048, macro_k=macro_k), device="cuda")
+        n_slots=8, max_ctx=2048, macro_k=macro_k, **config), device="cuda")
 
 
 def serve_prompts(cfg, lens):
@@ -1368,6 +1467,160 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
     return line
 
 
+# ------------------------------------------------------------ serve swap
+SWAP_CONFIG = dict(n_device_blocks=128, n_host_blocks=256, swap_patience=4)
+
+
+class SwapLog:
+    """Wraps an engine's page manager's swap: every swap records its
+    direction, pages, guard read, host dispatch ms (host clock around
+    the call), map calls and fmmu_commit launches. With ``spin`` set, a
+    spin kernel of that many cycles runs before each swap, so that CUDA
+    events around the call time the device's work and not the host's
+    enqueue (``events``)."""
+
+    def __init__(self, eng):
+        from repro_torch.core.counters import COUNTERS
+        self.records, self.spin = [], 0
+        swap = eng.kvm._swap
+
+        def spy(out, slot, pools, block_axis, check):
+            base = COUNTERS.snapshot()
+            ev = None
+            if self.spin:
+                torch.cuda._sleep(self.spin)
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+            t0 = time.perf_counter()
+            n = swap(out, slot, pools, block_axis, check)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if ev:
+                ev[1].record()
+            d = COUNTERS.delta(base)
+            self.records.append({
+                "out": out, "pages": n, "check": check, "host_ms": host_ms,
+                "events": ev, "xlate_calls": d.get("kvm.xlate_calls", 0),
+                "fmmu_commit": d.get("kernel.fmmu_commit", 0)})
+            return n
+        eng.kvm._swap = spy
+
+
+def swap_phase(cfg, lens, macro_line, macro_tokens):
+    """The llama macro phase's requests (8 slots x 2048 ctx, macro_k=8)
+    on an undersized device pool: 128 device blocks for a 252-page
+    working set, 256 host blocks, swap_patience 4. A first pass captures
+    the graphs; the counts are zeroed just before the second and read
+    just after. A third pass runs a spin kernel before each swap, so
+    that CUDA events around it time the device's work. Fails unless every
+    request returns its 32 tokens, equal to the full-pool macro phase's
+    (every pass), pages were swapped out and back in, each swap was one
+    map call and one fmmu_commit launch, and the counted pass captured
+    no graph while it rotated slots through the host tier. Returns the
+    phase's line: fallbacks, preemptions, decode tokens/s and TTFT
+    beside the full-pool phase's, pages and bytes moved, each swap's
+    host dispatch ms (counted pass) and device ms (timed pass) beside
+    its byte bound, host syncs per K tokens."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.models import Runtime
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K, **SWAP_CONFIG)
+    prompts = serve_prompts(cfg, lens)
+    swap_log = SwapLog(eng)
+    first, _, _ = run_requests(eng, prompts, 32)     # captures the graphs
+    graphs_first = eng._graphs.stats()["graphs"]
+    swap_log.records = log = []
+    eng.metrics = {k: 0 for k in eng.metrics}
+    COUNTERS.reset()                     # every count to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    out, reqs, wall = run_requests(eng, prompts, 32)
+    launches = COUNTERS.launches()       # ... and read just after
+    counts = COUNTERS.snapshot()
+    toks = [out[r.rid] for r in reqs]
+    m = eng.metrics
+    for r, t in zip(reqs, toks):
+        if len(t) != 32:
+            fail(f"serve_swap: request {r.rid} returned {len(t)} tokens")
+    if toks != macro_tokens or list(first.values()) != macro_tokens:
+        fail("serve_swap: tokens differ from the full-pool macro phase's")
+    if not (m["swaps_out"] > 0 and m["swaps_in"] > 0):
+        fail(f"serve_swap: no swap in both directions: {m}")
+    if len(log) != m["swaps_out"] + m["swaps_in"] or any(
+            e["xlate_calls"] != 1 or e["fmmu_commit"] != 1 for e in log):
+        fail("serve_swap: a swap was not one map call and one fmmu_commit "
+             f"launch: {[(e['xlate_calls'], e['fmmu_commit']) for e in log]}")
+    if counts.get("engine.macro_captures", 0) or \
+            eng._graphs.stats()["graphs"] != graphs_first:
+        fail("serve_swap: the counted pass captured a graph")
+    m = dict(m)                          # the counted pass's metrics
+    timed = []
+    swap_log.records, swap_log.spin = timed, Timer.SPIN_CYCLES // 5
+    again, _, _ = run_requests(eng, prompts, 32)     # the timed pass
+    torch.cuda.synchronize()
+    if list(again.values()) != macro_tokens or \
+            [(e["out"], e["pages"]) for e in timed] != \
+            [(e["out"], e["pages"]) for e in log]:
+        fail("serve_swap: the timed pass differs from the counted one")
+    pools = [eng.caches["pool_k"], eng.caches["pool_v"]]
+    row_bytes = sum(p[:, :, 0].numel() * p.element_size() for p in pools)
+    swaps = []
+    for e, t in zip(log, timed):
+        # each moved page: its rows read once and written once
+        b_ms, _ = bound_ms(2 * e["pages"] * row_bytes, 0, "bfloat16")
+        swaps.append({"dir": "out" if e["out"] else "in",
+                      "pages": e["pages"], "check": e["check"],
+                      "host_ms": e["host_ms"],
+                      "device_ms": t["events"][0].elapsed_time(
+                          t["events"][1]), "bound_ms": b_ms})
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+    decode_toks = sum(len(t) - 1 for t in toks)
+    n_pre = m["prefills"]
+    syncs = counts.get("engine.host_syncs", 0)
+    pages = sum(e["pages"] for e in log)
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "macro_k": MACRO_K, **SWAP_CONFIG,
+        "pool_rows": eng.scratch_block + 1, "row_bytes": row_bytes,
+        "wall_s": wall,
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+        "decode_tok_s": decode_toks / decode_s,
+        "decode_step_ms": decode_s / max(m["decode_steps"] - 1, 1) * 1e3,
+        "full_pool": {k: macro_line[k] for k in (
+            "ttft_ms_median", "ttft_ms_max", "decode_tok_s",
+            "decode_step_ms", "macro_steps", "graphs_captured")},
+        "decode_steps": m["decode_steps"], "macro_steps": m["macro_steps"],
+        "macro_fallbacks": m["macro_fallbacks"],
+        "preemptions": m["preemptions"],
+        "swaps_out": m["swaps_out"], "swaps_in": m["swaps_in"],
+        "pages_moved": pages, "bytes_moved": 2 * pages * row_bytes,
+        "guard_reads": sum(e["check"] for e in log),
+        "host_syncs": syncs, "prefill_syncs": n_pre,
+        "host_syncs_per_run": (syncs - n_pre)
+            / (m["macro_steps"] + m["macro_fallbacks"]),
+        # blocking reads a K-token stretch of decode makes: each run's
+        # token read (a fallback step's too) and each preemption's guard
+        "host_syncs_per_k_tokens":
+            (syncs - n_pre + sum(e["check"] for e in log)) * MACRO_K
+            / m["decode_steps"],
+        "xlate_calls": counts.get("kvm.xlate_calls", 0),
+        "alloc_syncs": counts.get("kvm.alloc_syncs", 0),
+        "graphs_captured": eng._graphs.stats()["graphs"],
+        "captures_counted_pass": counts.get("engine.macro_captures", 0),
+        "swap_host_ms_median": statistics.median(s["host_ms"]
+                                                 for s in swaps),
+        "swap_device_ms_median": statistics.median(s["device_ms"]
+                                                   for s in swaps),
+        "swaps": swaps,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches}
+    del eng
+    torch.cuda.empty_cache()
+    return line
+
+
 # the two served models: prompt lengths, and the kernels each path must
 # launch (single-step; replayed by the macro graphs; eager in macro mode)
 MODELS = {
@@ -1406,7 +1659,7 @@ def model_phases(name: str) -> dict:
             if n_scan != cfg.n_layers * n_pre:
                 fail(f"mamba_chunk_scan launched {n_scan} times, expected "
                      f"{cfg.n_layers} per prefill")
-    return {"serve": serve, "serve_macro": serve_macro}
+    return {"serve": serve, "serve_macro": serve_macro, "tokens": single}
 
 
 def _setup() -> None:
@@ -1425,6 +1678,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     _setup()
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
     # 1. build ---------------------------------------------------------
@@ -1458,9 +1712,18 @@ def main() -> int:
     llama = model_phases("llama3.2-1b")
     serve, serve_macro = llama["serve"], llama["serve_macro"]
     serve["build_s"] = build_s
+
+    # 3c. the same requests on an undersized device pool with a host
+    # tier: swaps, preemption and swap-pending lanes in the K-step graphs
+    t0 = time.perf_counter()
+    serve_swap = swap_phase(get_arch("llama3.2-1b"),
+                            MODELS["llama3.2-1b"]["lens"], serve_macro,
+                            llama["tokens"])
+    print(f"serve swap: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     for name in MODELS["llama3.2-1b"]["single"]:
         rows[name]["launches_single_step"] = serve["launches"][name]
         rows[name]["launches"] = serve_macro["launches"][name]
+        rows[name]["launches_serve_swap"] = serve_swap["launches"][name]
 
     # 4. the map phase: the fused path (fmmu_commit), its plain chain and
     # the unfused path (fmmu_lookup, whose launches are this path's). The
@@ -1490,7 +1753,8 @@ def main() -> int:
 
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_path", "launches_single_step", "max_abs_err", "ms",
+            "launches_path", "launches_single_step", "launches_serve_swap",
+            "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"ptxas": ptxas_resources(logs),
                       "paged_attention_plan_at_serving_shape":
@@ -1499,11 +1763,14 @@ def main() -> int:
     # comparisons some rows carry
     extra = ("plain_blocked_ms", "first_version_ms", "ms_masked",
              "plain_ms_masked", "ms_paper", "plain_ms_paper",
-             "bound_ms_paper", "bound_by_paper")
+             "bound_ms_paper", "bound_by_paper") + tuple(
+                 f"{k}_{d}" for d in ("swap_out", "swap_in")
+                 for k in ("ms", "plain_ms", "bound_ms", "bound_by"))
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"serve_macro": serve_macro}))
+    print(json.dumps({"serve_swap": serve_swap}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))

@@ -284,10 +284,10 @@ class ServingMapState(NamedTuple):
 
 
 def init_serving_state(g: FMMUGeometry, n_device_blocks: int = 0,
-                       n_lanes: int = 0, *,
+                       n_lanes: int = 0, *, n_host_blocks: int = 0,
                        device: torch.device) -> ServingMapState:
     """Stack order mirrors BlockPool: index i holds block n-1-i, so the
-    first pop yields block 0. No host tier in this slice."""
+    first pop yields block 0 (HOST_BASE for the host stack)."""
     return ServingMapState(
         fmmu=init_batch_state(g, device),
         table=torch.full((g.n_tvpns * g.entries_per_tp,), NIL, dtype=I,
@@ -295,9 +295,9 @@ def init_serving_state(g: FMMUGeometry, n_device_blocks: int = 0,
         free_stack=torch.arange(n_device_blocks - 1, -1, -1, dtype=I,
                                 device=device),
         free_n=torch.tensor(n_device_blocks, dtype=I, device=device),
-        host_stack=torch.arange(HOST_BASE - 1, HOST_BASE - 1, -1, dtype=I,
-                                device=device),
-        host_n=torch.tensor(0, dtype=I, device=device),
+        host_stack=torch.arange(HOST_BASE + n_host_blocks - 1,
+                                HOST_BASE - 1, -1, dtype=I, device=device),
+        host_n=torch.tensor(n_host_blocks, dtype=I, device=device),
         oob=torch.tensor(False, device=device),
         swap_pending=torch.zeros((n_lanes,), dtype=torch.bool,
                                  device=device),
@@ -352,9 +352,9 @@ def commit_chain(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
         out, ok, None
 
 
-# oob_vec, commit_seq_vec and free_serving have no caller in the port
-# yet: they are held bit-identical to the reference's until the channel
-# and swap slices call them (ROADMAP Queue 1)
+# oob_vec and commit_seq_vec have no caller in the port yet: they are
+# held bit-identical to the reference's until the channel slice calls
+# them (ROADMAP Queue 1)
 def oob_vec(ms: ServingMapState) -> torch.Tensor:
     """The sticky OutOfBlocks flag as a [C] vector ([1] here)."""
     return torch.atleast_1d(ms.oob)
@@ -395,7 +395,10 @@ def alloc_serving(ms: ServingMapState, want
 def free_serving(ms: ServingMapState, blocks) -> ServingMapState:
     """Push blocks back onto their tier stacks in lane order (the host
     ``BlockPool.free`` appends). blocks [B] int32, NIL lanes ignored,
-    tier routed by HOST_BASE; pushes past a stack's capacity drop."""
+    tier routed by HOST_BASE; pushes past a stack's capacity drop. No
+    caller, as in the reference (a swap frees on the host pool and the
+    next ``set_allocator`` re-push carries it): held bit-identical to
+    the reference's for parity."""
     valid = blocks >= 0
     is_host = valid & (blocks >= HOST_BASE)
     is_dev = valid & ~is_host
@@ -425,6 +428,23 @@ def set_allocator(ms: ServingMapState, free_stack, free_n, host_stack,
         host_stack=t(host_stack, I), host_n=t(host_n, I),
         oob=torch.tensor(False, device=dev),
         swap_pending=t(swap_pending, torch.bool))
+
+
+def mark_swap(ms: ServingMapState, lane, pending) -> ServingMapState:
+    """Flip one slot's host-tier residency lane (a pure transition, as
+    in the reference)."""
+    ms = ms._replace(swap_pending=ms.swap_pending.clone())
+    mark_swap_(ms, lane, pending)
+    return ms
+
+
+def mark_swap_(ms: ServingMapState, lane: int, pending: bool) -> None:
+    """``mark_swap`` in place on ``ms.swap_pending``: one fill on the
+    device with the value as a kernel argument (an indexed assignment
+    would copy it from the host and wait). The swap path calls it on the
+    map state the K-step graphs read, so a flip reaches their next
+    replay."""
+    ms.swap_pending.narrow(0, lane, 1).fill_(bool(pending))
 
 
 def serving_grow(g: FMMUGeometry, ms: ServingMapState, grow, dlpns,

@@ -14,6 +14,16 @@ coherent by the same call that commits each map write, so
 decode performs zero full-map retranslations. ``retranslate_tables()``
 keeps the from-scratch path as the test oracle.
 
+Host tier and swaps (one channel): a swap moves every page of a slot
+that sits in the other tier with ONE map commit (``_swap``): each lane
+a COND_UPDATE from the moving block to a fresh block of the other tier,
+so the commit lands only where the map still points at the old block,
+as the paper's relocations do. The same call flips the slot's
+``swap_pending`` lane and moves the pool rows, in place; with
+``check=False`` nothing is read back, so the host never waits on it.
+The host tier is rows ``[n_device, n_device + n_host)`` of the same pool
+tensors (``BlockPool.host_row``).
+
 Device-allocator mirror (the K-step macro path): the map state's
 ``free_stack``/``free_n`` mirror the host pool's free list. The host
 pool is authoritative at macro-step boundaries: every host-side pool
@@ -23,8 +33,9 @@ on the device are replayed onto the host pool (``reconcile_macro``) in
 the same order, so both sides apply the same delta and steady-state
 decode needs no re-push (``ALLOC_SYNCS``).
 
-Not ported yet (later slices): the host tier and swaps, channel
-sharding, GC, prefix sharing, the journal and the fault plane.
+Not ported yet (later slices): channel sharding, GC, prefix sharing,
+the journal and the fault plane (so a swap has no ``SwapFault``
+injection, no journal record and no shared-block filter).
 """
 from __future__ import annotations
 
@@ -36,7 +47,8 @@ import torch
 
 from repro_torch.core.counters import COUNTERS
 from repro_torch.core.fmmu import batch as fb
-from repro_torch.core.fmmu.types import FMMUGeometry, NIL, UPDATE
+from repro_torch.core.fmmu.types import (COND_UPDATE, FMMUGeometry, NIL,
+                                         UPDATE)
 from repro_torch.device import resolve_device
 from repro_torch.paging.pool import BlockPool
 
@@ -55,8 +67,13 @@ class MapStats:
     misses: int = 0
     fills: int = 0
     updates: int = 0
-    host_writes: int = 0
+    swaps_out: int = 0
+    swaps_in: int = 0
+    host_resident_slots: int = 0
     pool_exhausted: List[int] = dataclasses.field(default_factory=list)
+    host_writes: int = 0
+    flash_programs: int = 0
+    write_amp: float = 1.0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -87,16 +104,21 @@ class KVPageManager:
     """Host-driven control plane; device-resident map state."""
 
     def __init__(self, n_slots: int, max_pages: int, n_device_blocks: int,
-                 *, device: Union[str, torch.device] = "cuda"):
+                 n_host_blocks: int = 0, *,
+                 device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_pages = max_pages
         self.geom = _geometry(n_slots, max_pages)
         self.state = fb.init_serving_state(self.geom, n_device_blocks,
                                            n_lanes=n_slots,
+                                           n_host_blocks=n_host_blocks,
                                            device=self.device)
-        self.pool = BlockPool(n_device_blocks)
+        self.pool = BlockPool(n_device_blocks, n_host_blocks)
         self.seq_pages: Dict[int, List[int]] = {}   # slot -> block ids
+        # host-tier page count per slot, kept by the swaps so the
+        # residency predicate is O(1)
+        self._host_pages: Dict[int, int] = {}
         self.host_writes = 0
         # the device stacks are stale after a host-side pool mutation
         self._alloc_dirty = False
@@ -106,14 +128,25 @@ class KVPageManager:
         return np.arange(slot * self.max_pages, slot * self.max_pages + n,
                          dtype=np.int32)
 
+    def _lanes(self, *arrays) -> List[torch.Tensor]:
+        """Equal-length int32 lane arrays on the device, through one
+        host->device copy. On the card the copy is staged in pinned
+        memory and does not block the host; PyTorch's pinned allocator
+        records the copy on the stream and hands the buffer out again
+        only after it has run."""
+        buf = torch.empty((len(arrays), len(arrays[0])), dtype=torch.int32,
+                          pin_memory=self.device.type == "cuda")
+        host = buf.numpy()
+        for row, a in zip(host, arrays):
+            row[:] = a
+        return list(buf.to(self.device, non_blocking=True).unbind(0))
+
     def _xlate(self, kind: int, dlpns, dppns):
         """Single fused map entry: one commit services the whole op
         batch, in place on the state's tensors. Lanes go host->device;
         nothing comes back."""
         XLATE_CALLS[0] += 1
-        dev = self.device
-        dl = torch.as_tensor(np.asarray(dlpns, np.int32), device=dev)
-        dp = torch.as_tensor(np.asarray(dppns, np.int32), device=dev)
+        dl, dp = self._lanes(dlpns, dppns)
         return fb.translate_serving_(self.geom, self.state,
                                      torch.full_like(dl, kind), dl, dp,
                                      torch.zeros_like(dl))
@@ -159,20 +192,39 @@ class KVPageManager:
         return got
 
     def free_seq(self, slot: int):
+        """Unmap every page of ``slot`` and return its blocks, of both
+        tiers, to the pool."""
         blocks = self.seq_pages.pop(slot)
+        self._host_pages.pop(slot, None)
         dl = self._dlpns(slot, len(blocks))
         self._xlate(UPDATE, dl, np.full(len(blocks), NIL, np.int32))
         self.pool.free(blocks)
         self._alloc_dirty = True
 
     def is_resident(self, slot: int) -> bool:
-        """True when no page of `slot` lives in the host tier — always,
-        as this slice has no host tier."""
-        return True
+        """True when no page of `slot` lives in the host tier (the swaps
+        keep the count; allocation only ever adds device blocks)."""
+        return self._host_pages.get(slot, 0) == 0
+
+    def n_device_pages(self, slot: int) -> int:
+        """Device-tier pages held by `slot` (a preemption victim needs
+        one, or swapping it out moves nothing)."""
+        return (len(self.seq_pages.get(slot, ()))
+                - self._host_pages.get(slot, 0))
+
+    def n_host_pages(self, slot: int) -> int:
+        """Host-tier pages held by `slot`."""
+        return self._host_pages.get(slot, 0)
+
+    def host_pages_vec(self, slot: int) -> np.ndarray:
+        """Host-tier pages of `slot` per owner channel ([total] at one
+        channel): the device blocks its swap-in would take."""
+        return np.asarray([self.n_host_pages(slot)], np.int64)
 
     def block_tables(self) -> torch.Tensor:
         """[n_slots, max_pages] int32 device view of the incremental
-        table: no translation, no state change. NIL for unmapped. Map
+        table: no translation, no state change. NIL for unmapped;
+        host-tier blocks appear tagged (>= HOST_BASE). Map
         commits update it in place; an allocator re-sync or a macro step
         may replace the state's tensors, so re-fetch."""
         n = self.n_slots * self.max_pages    # table is geometry-padded
@@ -190,20 +242,27 @@ class KVPageManager:
 
     # ------------------------------------------- device allocator mirror
     def sync_allocator(self):
-        """Re-push the host free list into the device allocator stacks
-        and clear the OutOfBlocks flag. No-op unless a host-side pool
-        mutation happened since the last sync: steady-state macro decode
-        performs none (``ALLOC_SYNCS``). No host tier: the host stack is
-        empty and no lane is swap-pending."""
+        """Re-push the host free lists (both tiers) into the device
+        allocator stacks, refresh the ``swap_pending`` lane from the
+        host's tier bookkeeping and clear the OutOfBlocks flag. No-op
+        unless a host-side pool mutation happened since the last sync:
+        steady-state macro decode performs none (``ALLOC_SYNCS``). A
+        host-side free of a swapped-out slot leaves its lane set until
+        here; every such free also dirties the pool."""
         if not self._alloc_dirty:
             return
         ALLOC_SYNCS[0] += 1
-        dev = np.full(self.pool.n_device, NIL, np.int32)
-        dev[:len(self.pool._free_dev)] = self.pool._free_dev
+        resid = np.zeros(self.n_slots, bool)
+        for s, c in self._host_pages.items():
+            resid[s] = c > 0
+        pool = self.pool
+        dev = np.full(pool.n_device, NIL, np.int32)
+        dev[:len(pool._free_dev)] = pool._free_dev
+        host = np.full(pool.n_host, NIL, np.int32)
+        host[:len(pool._free_host)] = pool._free_host
         self.state = fb.set_allocator(
-            self.state, dev, np.int32(len(self.pool._free_dev)),
-            np.zeros(0, np.int32), np.int32(0),
-            np.zeros(self.n_slots, bool))
+            self.state, dev, np.int32(len(pool._free_dev)), host,
+            np.int32(len(pool._free_host)), resid)
         self._alloc_dirty = False
 
     def reconcile_macro(self, grow_seq: List[int]) -> Dict[int, List[int]]:
@@ -240,13 +299,82 @@ class KVPageManager:
         engine's growth-reserve check compares per channel."""
         return np.asarray([self.pool.free_device], np.int64)
 
+    # ----------------------------------------------------------- swapping
+    def _swap(self, out: bool, slot: int, pools: List[torch.Tensor],
+              block_axis: int, check: bool) -> int:
+        """Shared body of swap_out / swap_in: the host bookkeeping, then
+        one map commit (every lane a COND_UPDATE from the moving block
+        to a fresh block of the other tier), the slot's residency flip
+        and the pool-row moves, all in place. The lanes go to the device
+        in one staged copy; only ``check=True`` reads anything back (the
+        guard mask). Returns the number of pages moved."""
+        blocks = self.seq_pages[slot]
+        moving = [b for b in blocks if BlockPool.is_host(b) != out]
+        if not moving:
+            return 0
+        dl = [slot * self.max_pages + i for i, b in enumerate(blocks)
+              if BlockPool.is_host(b) != out]
+        fresh = self.pool.alloc(len(dl), host=out)
+        self._alloc_dirty = True
+        row = self.pool.host_row
+        src = [b if out else row(b) for b in moving]
+        dst = [row(b) if out else b for b in fresh]
+        XLATE_CALLS[0] += 1
+        dl_t, new_t, old_t, src_t, dst_t = self._lanes(dl, fresh, moving,
+                                                       src, dst)
+        _, ok = fb.translate_serving_(
+            self.geom, self.state, torch.full_like(dl_t, COND_UPDATE), dl_t,
+            new_t, old_t)
+        fb.mark_swap_(self.state, slot, out)
+        src_t, dst_t = src_t.long(), dst_t.long()
+        for p in pools:        # source and destination rows are disjoint
+            p.index_copy_(block_axis, dst_t, p.index_select(block_axis,
+                                                            src_t))
+        if check and not bool(ok.all()):
+            raise RuntimeError("swap raced with a concurrent relocation")
+        self.pool.free(moving)
+        where = dict(zip(moving, fresh))
+        self.seq_pages[slot] = [where.get(b, b) for b in blocks]
+        self._host_pages[slot] = sum(
+            BlockPool.is_host(b) for b in self.seq_pages[slot])
+        if out:
+            self.pool.stats.swaps_out += len(moving)
+        else:
+            self.pool.stats.swaps_in += len(moving)
+        return len(moving)
+
+    def swap_out(self, slot: int, pools: List[torch.Tensor],
+                 block_axis: int = 0, check: bool = True) -> int:
+        """Relocate every device page of `slot` to the host tier, in
+        place: one CondUpdate-guarded map commit, the ``swap_pending``
+        lane set, and the pool rows moved in each of ``pools`` (the
+        block index along ``block_axis``; host block b at row
+        ``pool.host_row(b)``). Returns the pages moved. ``check=False``
+        skips the guard-mask readback, so the host never waits (the
+        serving scheduler's mode)."""
+        return self._swap(True, slot, pools, block_axis, check)
+
+    def swap_in(self, slot: int, pools: List[torch.Tensor],
+                block_axis: int = 0, check: bool = True) -> int:
+        """Bring a swapped-out sequence back to device blocks (the same
+        pipeline as ``swap_out``; clears the lane)."""
+        return self._swap(False, slot, pools, block_axis, check)
+
     def hit_stats(self) -> MapStats:
-        """Map counters (a device->host read: diagnostics, not the hot
-        path)."""
+        """Map and tier counters (a device->host read: diagnostics, not
+        the hot path). A swap-in programs every page it brings back, so
+        it counts as flash programs beside the host's writes."""
         s = self.state.fmmu.stats.cpu().tolist()
-        return MapStats(hits=s[0], misses=s[1], fills=s[2], updates=s[3],
-                        host_writes=self.host_writes,
-                        pool_exhausted=list(self.pool.exhausted_ch))
+        flash = self.host_writes + self.pool.stats.swaps_in
+        return MapStats(
+            hits=s[0], misses=s[1], fills=s[2], updates=s[3],
+            swaps_out=self.pool.stats.swaps_out,
+            swaps_in=self.pool.stats.swaps_in,
+            host_resident_slots=sum(1 for c in self._host_pages.values()
+                                    if c > 0),
+            pool_exhausted=list(self.pool.exhausted_ch),
+            host_writes=self.host_writes, flash_programs=flash,
+            write_amp=flash / self.host_writes if self.host_writes else 1.0)
 
 
 __all__ = ["KVPageManager", "MapStats", "XLATE_CALLS", "FULL_TABLE_CALLS",

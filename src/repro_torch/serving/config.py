@@ -1,13 +1,18 @@
 """Typed serving-engine configuration: port of ``ServeConfig`` in
 ``repro/serving/config.py``.
 
-The field names are the reference's. Every setting whose machinery is
-not ported yet raises ``NotImplementedError`` at construction — it is
-never ignored: channel sharding (``channels > 1``), the host tier
-(``n_host_blocks > 0``), GC (``gc``), prefix sharing (``prefix``) and
-journaling (``journal_path``). The fault plane is a ``ServeEngine``
-argument and is rejected there. ``macro_k >= 2`` selects the K-step
-macro decode path (``serving/macro.py``); 0 or 1 is single-step.
+The field names and defaults are the reference's. Every setting whose
+machinery is not ported yet raises ``NotImplementedError`` at
+construction — it is never ignored: channel sharding (``channels > 1``),
+GC (``gc``), prefix sharing (``prefix``) and journaling
+(``journal_path``). The fault plane is a ``ServeEngine`` argument and is
+rejected there; its policy fields (``max_swap_retries``,
+``swap_backoff_cap``, ``watchdog_rounds``) come with it. ``macro_k >= 2``
+selects the K-step macro decode path (``serving/macro.py``); 0 or 1 is
+single-step. ``n_host_blocks > 0`` adds the host tier: swap-pending
+slots become masked lanes of the K-step runs under ``nonblocking_swap``
+(else a round with one falls back to a single step), and a slot pending
+for ``swap_patience`` boundaries forces its way back in.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ class ServeConfig:
     n_host_blocks: int = 0
     eos_id: int = -1
     macro_k: int = 0
+    nonblocking_swap: bool = True
     admit_tokens: Optional[int] = None
+    swap_patience: int = 4
     channels: int = 1
     gc: Optional[Any] = None
     prefix: Optional[Any] = None
@@ -32,7 +39,6 @@ class ServeConfig:
     def __post_init__(self):
         unported = {
             "channels > 1 (channel-sharded map)": self.channels > 1,
-            "n_host_blocks > 0 (host tier / swap)": self.n_host_blocks > 0,
             "gc (GC/CTP plane)": self.gc is not None,
             "prefix (prefix sharing)": self.prefix is not None,
             "journal_path (crash-consistency journal)":

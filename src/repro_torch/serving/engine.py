@@ -1,7 +1,8 @@
 """Serving engine: continuous batching over a fixed slot grid, with the
 FMMU page manager owning logical->physical KV translation. Port of the
-single-step and K-step macro paths of ``repro/serving/engine.py`` (one
-channel, no host tier), for dense and pure-SSM models.
+single-step and K-step macro paths of ``repro/serving/engine.py`` and
+its host tier with the non-blocking swap pipeline (one channel), for
+dense and pure-SSM models.
 
 Prefill (the flash-attention kernel, or the mamba_chunk_scan kernel
 for an SSM layer) writes each request's KV into the pool blocks named
@@ -26,14 +27,31 @@ macro steps: admission, frees and the replay of the device's pops
 one single step (counted in ``macro_fallbacks``) when the free pool
 cannot cover the decoding lanes' worst-case K-step growth.
 
-Not ported yet (later slices; ``ServeConfig`` rejects them): the host
-tier and swaps, channel sharding, GC and the CTP prefetch, prefix
-sharing, journaling and the fault plane. Without a host tier there is
-no preemption victim, so a slot whose page growth fails PAUSES until
-blocks free up, as in the reference. As in the reference, every slot
-runs through each decode step (token 0 on a paused or dead lane): its
-KV write is masked to the scratch block, but a mamba layer's state of
-a paused slot advances all the same (ROADMAP, reference divergences).
+Host tier (``n_host_blocks > 0``): pool rows ``[n_dev, n_dev + n_host)``
+hold swapped-out pages, and the scratch block moves to row
+``n_dev + n_host``. Each swap is one CondUpdate-guarded map commit plus
+in-place row moves (``KVPageManager.swap_out`` / ``swap_in``). Under
+``nonblocking_swap`` (with ``macro_k >= 2``) a boundary scheduler
+(``_swap_schedule``) runs before every round: it swaps victims out
+until the residents' worst-case K-step growth fits the device pool,
+resumes waiting slots FIFO while they fit, and lets a slot pending for
+``swap_patience`` boundaries evict the longest-resident ones. A
+swapped-out slot is a masked lane of the K-step run while the others
+decode; these swaps read nothing back. Admission and single-step growth
+that run out of blocks preempt a victim to the host tier (a swap with
+its guard read back), and a single step first swaps its slots back in
+(``_ensure_resident``).
+
+Not ported yet (later slices; ``ServeConfig`` rejects them): channel
+sharding, GC and the CTP prefetch, prefix sharing, journaling and the
+fault plane (so no swap retry, backoff or quarantine, and no watchdog,
+which the reference leaves off without a plane). Without a host tier
+there is no preemption victim, so a slot whose page growth fails PAUSES
+until blocks free up, as in the reference. As in the reference, every
+slot runs through each decode step (token 0 on a paused or dead lane):
+its KV write is masked to the scratch block, but a mamba layer's state
+of a paused slot advances all the same (ROADMAP, reference
+divergences); so a model with mamba layers does not swap.
 """
 from __future__ import annotations
 
@@ -98,11 +116,13 @@ class ServeEngine:
         self.page = self.rt.page_size
         self.max_pages = -(-config.max_ctx // self.page)
         n_dev = config.n_device_blocks or (self.n_slots * self.max_pages)
+        n_host = config.n_host_blocks
         self.kvm = KVPageManager(self.n_slots, self.max_pages, n_dev,
-                                 device=self.device)
-        # +1 scratch block: unmapped table entries (dead lanes) write
-        # their garbage KV there instead of corrupting block 0
-        self.scratch_block = n_dev
+                                 n_host, device=self.device)
+        # +1 scratch block past both tiers: unmapped table entries (dead
+        # and swap-pending lanes) write their garbage KV there instead of
+        # corrupting block 0
+        self.scratch_block = n_dev + n_host
         # prefix sharing only applies to pure paged-attention state: a
         # mamba layer's recurrent state is per-slot and
         # position-dependent, so a skipped prefill cannot be rebuilt
@@ -111,7 +131,7 @@ class ServeEngine:
             self.cfg.layer_kind(j) == "mamba"
             for j in range(self.cfg.period))
         self.caches = transformer.init_decode_caches(
-            self.cfg, self.rt, self.n_slots, n_dev + 1,
+            self.cfg, self.rt, self.n_slots, self.scratch_block + 1,
             self.rt.compute_dtype, device=self.device)
         self.ctx_lens = np.zeros(self.n_slots, np.int32)
         self.active: Dict[int, Request] = {}
@@ -124,10 +144,19 @@ class ServeEngine:
         self._macro_on = self.macro_k >= 2
         self._graphs = (macro.MacroGraphs(self) if self._macro_on
                         and self.device.type == "cuda" else None)
+        self.nonblocking_swap = config.nonblocking_swap
+        self.swap_patience = config.swap_patience
+        # the scheduling-round clock, and per slot the round it was
+        # swapped out / last became resident (the scheduler's FIFO and
+        # aging order)
+        self._boundary = 0
+        self._pending_since: Dict[int, int] = {}
+        self._resident_since: Dict[int, int] = {}
         self.metrics = {"prefills": 0, "prefill_tokens": 0,
-                        "decode_steps": 0, "generated": 0,
-                        "chunked_prefills": 0, "macro_steps": 0,
-                        "macro_fallbacks": 0}
+                        "decode_steps": 0, "preemptions": 0,
+                        "generated": 0, "chunked_prefills": 0,
+                        "macro_steps": 0, "macro_fallbacks": 0,
+                        "swaps_out": 0, "swaps_in": 0}
 
     # ------------------------------------------------------------- API
     def submit(self, tokens: List[int], max_new: int = 16) -> int:
@@ -145,11 +174,15 @@ class ServeEngine:
         return done
 
     def step(self, done: Dict[int, List[int]]) -> bool:
-        """One scheduling round: admissions, then either one K-step
-        macro step or one single decode step."""
+        """One scheduling round: admissions, the boundary swap plan,
+        then either one K-step macro step (swap-pending slots masked)
+        or one single decode step."""
         self._admit()
         if not self.active:
             return bool(self.queue)
+        self._boundary += 1      # fallback rounds age the pending too
+        if self._macro_on and self.nonblocking_swap:
+            self._swap_schedule()
         if self._macro_eligible():
             self._macro_decode_step(done)
         else:
@@ -192,15 +225,166 @@ class ServeEngine:
             free.pop(0)
             req.slot = slot
             self.active[req.rid] = req
+            self._resident_since[slot] = self._boundary
             self._do_prefill(req, chunk)
             if budget is not None:
                 budget -= chunk
 
     def _preempt(self, exclude: int) -> bool:
-        """Swap a victim out to the host tier. This slice has no host
-        tier (the reference's ``n_host == 0`` branch), so there is never
-        a victim: the caller pauses or stops instead."""
+        """Swap the longest active sequence that still holds device
+        pages out to the host tier, reading its guard back. False when
+        there is no host tier, no such victim, or the host tier cannot
+        take its blocks: the caller pauses or stops instead."""
+        if self.kvm.pool.n_host == 0:
+            return False
+        victims = [r for r in self.active.values() if r.slot != exclude]
+        for victim in sorted(victims, key=lambda r: self.ctx_lens[r.slot],
+                             reverse=True):
+            if self._swap_out_slot(victim.slot, check=True):
+                self.metrics["preemptions"] += 1
+                return True
         return False
+
+    def _ensure_resident(self):
+        """Swap in the host-tier pages of active sequences before a
+        single decode step, fewest pages first. A sequence that cannot
+        come back yet stays swapped out and PAUSES until device blocks
+        free up."""
+        if self.kvm.pool.n_host == 0:
+            return
+        for r in sorted(self.active.values(),
+                        key=lambda r: len(self.kvm.seq_pages.get(r.slot,
+                                                                 []))):
+            if not self.kvm.is_resident(r.slot):
+                self._swap_in_slot(r.slot, check=True)
+
+    # --------------------------------------------- boundary swap planner
+    def _pools(self) -> List[torch.Tensor]:
+        """The KV pool tensors a swap moves rows of (block axis 2)."""
+        if "conv" in self.caches or "pool_k" not in self.caches:
+            raise NotImplementedError(
+                "swapping a slot of a model with mamba layers: a swap "
+                "moves its KV pages, not its conv/SSM state, which the "
+                "decode steps advance while the slot is paused (ROADMAP, "
+                "reference divergences); the reference cannot swap an "
+                "attention-free model either")
+        return [self.caches["pool_k"], self.caches["pool_v"]]
+
+    def _swap_out_slot(self, slot: int, check: bool = False) -> bool:
+        """Move one slot's device pages to the host tier, in place: the
+        one home of the engine's swap-out, shared by the boundary
+        scheduler (``check=False``: nothing read back) and preemption
+        (``check=True``). The slot is a swap-pending lane, masked in
+        the K-step runs, until it is swapped back in. False when
+        nothing moved (no device page, or the host tier is full)."""
+        if self.kvm.n_device_pages(slot) == 0:
+            return False
+        try:
+            moved = self.kvm.swap_out(slot, self._pools(), block_axis=2,
+                                      check=check)
+        except OutOfBlocks:
+            return False               # host tier full: nothing moved
+        if not moved:
+            return False
+        self.metrics["swaps_out"] += 1
+        self._pending_since[slot] = self._boundary
+        return True
+
+    def _swap_in_slot(self, slot: int, check: bool = False) -> bool:
+        """Swap-out's dual (the same single home and check modes)."""
+        try:
+            moved = self.kvm.swap_in(slot, self._pools(), block_axis=2,
+                                     check=check)
+        except OutOfBlocks:
+            return False
+        if not moved:
+            return False
+        self.metrics["swaps_in"] += 1
+        self._resident_since[slot] = self._boundary
+        self._pending_since.pop(slot, None)
+        return True
+
+    def _growth_need(self, slot: int) -> int:
+        """Total worst-case device blocks ``slot`` can pop during one
+        K-step run (the sum of ``_growth_need_ch``)."""
+        return int(self._growth_need_ch(slot).sum())
+
+    def _swap_schedule(self):
+        """Boundary swap planner, run between K-step runs so that
+        swap-pending slots are masked lanes instead of a fallback to
+        single steps. Three passes:
+
+          1. reserve: swap out victims (longest context first) until
+             the residents' worst-case K-step growth fits the free
+             device pool;
+          2. resume: swap waiting slots back in, FIFO by the round they
+             left, while they fit beside the reserve;
+          3. aging: a slot pending for ``swap_patience`` rounds or more
+             evicts the longest-resident slots until it fits, so no
+             slot starves under sustained oversubscription.
+
+        Every move is a swap with ``check=False``: the host dispatches
+        it and goes on; nothing waits until the next token read."""
+        kvm = self.kvm
+        if kvm.pool.n_host == 0 or not self.active:
+            return
+        slots = {r.slot for r in self.active.values()}
+        residents = [s for s in slots if kvm.is_resident(s)]
+        pending = sorted((s for s in slots if not kvm.is_resident(s)),
+                         key=lambda s: self._pending_since.get(s, 0))
+        moved_now: set = set()
+
+        def growth_total(slots):
+            return sum((self._growth_need_ch(s) for s in slots),
+                       np.zeros(1, np.int64))
+
+        def can_resume(s):
+            # the swap-in takes the lane's host pages in free blocks;
+            # what is left must still cover the reserve and its growth
+            hp, fr = kvm.host_pages_vec(s), kvm.free_device_vec()
+            if (hp > fr).any():
+                return False
+            return bool((fr - hp >= total + self._growth_need_ch(s)).all())
+
+        # 1. reserve: the K-step run must never run the pool dry
+        total = growth_total(residents)
+        while (total > kvm.free_device_vec()).any() and len(residents) > 1:
+            victim = max(residents, key=lambda s: int(self.ctx_lens[s]))
+            if not self._swap_out_slot(victim):
+                break                  # host tier full: nothing can move
+            moved_now.add(victim)
+            residents.remove(victim)
+            pending.append(victim)
+            total = growth_total(residents)
+        # 2. resume FIFO while the reserve still holds
+        for s in list(pending):
+            if s in moved_now:
+                continue               # no ping-pong within one boundary
+            if can_resume(s) and self._swap_in_slot(s):
+                moved_now.add(s)
+                pending.remove(s)
+                residents.append(s)
+                total += self._growth_need_ch(s)
+        # 3. aging rotation: the oldest pending slot forces its way in
+        rest = [s for s in pending if s not in moved_now]
+        if not rest:
+            return
+        oldest = rest[0]
+        waited = self._boundary - self._pending_since.get(oldest,
+                                                          self._boundary)
+        if waited < self.swap_patience:
+            return
+        while not can_resume(oldest) and len(residents) > 1:
+            cands = [s for s in residents if s not in moved_now]
+            if not cands:
+                break
+            victim = min(cands, key=lambda s: self._resident_since.get(s, 0))
+            if not self._swap_out_slot(victim):
+                break
+            residents.remove(victim)
+            total = growth_total(residents)
+        if can_resume(oldest):
+            self._swap_in_slot(oldest)
 
     # ------------------------------------------------------------- prefill
     def _do_prefill(self, req: Request, n_chunk: Optional[int] = None):
@@ -240,10 +424,12 @@ class ServeEngine:
         return grid[:, :pages or self.max_pages]
 
     def _mask_tables(self, grid, live):
-        """Mask dead lanes to the scratch block (their garbage KV write
-        lands there) and clamp out-of-range entries (NIL, or ids past
-        the pool) to it — what keeps every id the paged-attention kernel
-        reads inside the pool."""
+        """Mask dead and swap-pending lanes to the scratch block (their
+        garbage KV write lands there) and clamp out-of-range entries
+        (NIL, host-tier tags >= HOST_BASE, any id at or past the scratch
+        row) to it — what keeps every id the paged-attention kernel
+        reads inside the pool: on the card a stray id is an illegal
+        address, not an exception."""
         t = torch.where(live[:, None], grid, self.scratch_block)
         return torch.where((t < 0) | (t >= self.scratch_block),
                            self.scratch_block, t)
@@ -264,10 +450,11 @@ class ServeEngine:
     def _grow_pages(self, residents) -> List[Request]:
         """Allocate pages for every resident crossing a page boundary:
         one batched allocation + one fused map call on the fast path.
-        Returns the residents that may decode this step: a slot whose
-        growth fails PAUSES (decoding it with the new page unmapped
-        would write its KV into the scratch block) and retries every
-        step until blocks free up."""
+        Returns the residents that may decode this step: preemption on
+        the OutOfBlocks slow path may swap some out, and a slot whose
+        growth fails outright PAUSES (decoding it with the new page
+        unmapped would write its KV into the scratch block) and retries
+        every step until blocks free up."""
         wants: Dict[int, int] = {}
         for r in residents:
             need = -(-int(self.ctx_lens[r.slot] + 1) // self.page)
@@ -281,14 +468,22 @@ class ServeEngine:
             return residents
         except OutOfBlocks:
             pass
-        # slow path: grow slot by slot (no host tier: no victim to
-        # preempt, so a slot that cannot grow pauses)
+        # slow path: grow slot by slot, preempting victims to the host
+        # tier (without one, a slot that cannot grow pauses)
         failed = set()
         for slot, n in wants.items():
+            if not self.kvm.is_resident(slot):
+                continue               # preempted earlier in this loop
             try:
                 self.kvm.extend_seq(slot, n)
             except OutOfBlocks:
-                failed.add(slot)
+                if not self._preempt(exclude=slot):
+                    failed.add(slot)
+                    continue
+                try:
+                    self.kvm.extend_seq(slot, n)
+                except OutOfBlocks:
+                    failed.add(slot)
         if len(failed) == len(residents):
             # nothing extended, nothing swapped: the same state recurs
             # next step, so pausing would livelock instead of degrade
@@ -296,10 +491,15 @@ class ServeEngine:
                 f"pool exhausted: all {len(residents)} resident "
                 "sequences need pages and none can be grown or "
                 "preempted (no host tier / no victim)")
-        return [r for r in residents if r.slot not in failed]
+        return [r for r in residents if r.slot not in failed
+                and self.kvm.is_resident(r.slot)]
 
     def _decode_step(self, done: Dict[int, List[int]]):
-        residents = list(self.active.values())
+        self._ensure_resident()
+        residents = [r for r in self.active.values()
+                     if self.kvm.is_resident(r.slot)]
+        if not residents:
+            return
         residents = self._grow_pages(residents)
         if not residents:
             return
@@ -347,8 +547,15 @@ class ServeEngine:
         r.t_done = time.perf_counter()
         done[r.rid] = r.out[:r.max_new]
         self.kvm.free_seq(r.slot)
-        self.ctx_lens[r.slot] = 0
+        self._release_slot(r.slot)
         del self.active[r.rid]
+
+    def _release_slot(self, slot: int):
+        """Per-slot cleanup at retirement: a reused slot inherits no
+        context length and no residency ages."""
+        self.ctx_lens[slot] = 0
+        self._pending_since.pop(slot, None)
+        self._resident_since.pop(slot, None)
 
     # ------------------------------------------------------ macro-steps
     def _growth_need_ch(self, slot: int) -> np.ndarray:
@@ -365,12 +572,23 @@ class ServeEngine:
         """A macro step runs only when it provably cannot need the host
         mid-flight: the free pool covers the worst-case K-step growth of
         every decoding lane, so the device allocator cannot run dry.
-        Finishing mid-run is fine (handled on the device)."""
+        Finishing mid-run is fine (handled on the device). Under
+        ``nonblocking_swap`` a swapped-out slot is no reason to fall
+        back: it is a masked lane while the residents decode (the
+        boundary scheduler reserved their growth); without it, every
+        slot must be resident."""
         if not self._macro_on or not self.active:
             return False
-        need = sum(self._growth_need_ch(r.slot)
-                   for r in self.active.values())
-        return bool((need <= self.kvm.free_device_vec()).all())
+        need = np.zeros(1, np.int64)
+        n_res = 0
+        for r in self.active.values():
+            if not self.kvm.is_resident(r.slot):
+                if not self.nonblocking_swap:
+                    return False
+                continue
+            n_res += 1
+            need += self._growth_need_ch(r.slot)
+        return n_res > 0 and bool((need <= self.kvm.free_device_vec()).all())
 
     def _macro_lanes(self, residents, k: int):
         """Lane arrays for one K-step run: tokens/alive/budget/pages
@@ -466,7 +684,10 @@ class ServeEngine:
         token matrix + oob flag), the replay of the device's pops onto
         the host pool, token bookkeeping, frees."""
         self.kvm.sync_allocator()      # no-op unless the pool mutated
-        residents = list(self.active.values())
+        # swap-pending slots stay active but are not in the run: masked
+        # lanes until the boundary scheduler resumes them
+        residents = [r for r in self.active.values()
+                     if self.kvm.is_resident(r.slot)]
         k = self.macro_k
         (tokens, alive, budget, npages, pend, fmask, ftok, emit,
          slot2req) = self._macro_lanes(residents, k)

@@ -75,7 +75,9 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
     page, max_pages = eng.page, eng.max_pages
     dev = cur_tok.device
     slots = torch.arange(eng.n_slots, dtype=I, device=dev)
-    # swap-pending slots are paused lanes (always none: no host tier)
+    # swap-pending slots are paused lanes for the whole run: the host
+    # leaves them out of ``alive`` too, and every swap flips the lane in
+    # place on this (static) state before the next run
     alive = alive & ~ms.swap_pending
 
     def decode(ms, tok, ctx, live, k):
@@ -221,8 +223,9 @@ class MacroGraphs:
     caches and parameters are the engine's own tensors (the caches
     update in place). Before a replay the inputs are copied in, and so
     is every map-state tensor that an eager op replaced since the last
-    replay (an allocator re-sync; eager map commits update the static
-    tensors in place). The program commits the map in place on the
+    replay (an allocator re-sync; eager map commits, a swap's among
+    them, and its residency flip update the static tensors in place).
+    So no key holds residency: a swap or a rotation captures nothing. The program commits the map in place on the
     static state too, so ``kvm.state`` keeps one storage across
     replays.
 

@@ -568,6 +568,50 @@ def test_masked_serving_grow_commit_leaves_state_bit_identical(
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
+@pytest.mark.parametrize("bq,seed", [(64, 0), (64, 1), (128, 2)])
+def test_fmmu_commit_swap_commits_bit_exact(cuda, bq, seed):
+    """The swap pipeline's commit at the serving map (S=16 W=4 E=8,
+    NP=1024): one slot's pages mapped at device blocks go to host
+    blocks and come back to other device blocks, every lane a
+    COND_UPDATE with host-tagged new (out) or old (in) dppns, a quarter
+    of them with a stale old dppn. The kernel in place against the plain
+    chain on a clone, every state tensor and output bit for bit; the
+    guard refuses exactly the stale lanes (and, coming back, the pages
+    that never left)."""
+    from repro_torch.core.fmmu.types import (COND_UPDATE, FMMUGeometry,
+                                             HOST_BASE, UPDATE)
+    g = FMMUGeometry(**GEOMETRIES["serving"])
+    rng = np.random.default_rng(seed)
+    ms = _commit_state(cuda, rng, g)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+
+    def stale():
+        m = np.zeros(bq, bool)
+        m[rng.permutation(bq)[:bq // 4]] = True
+        return m
+    dl = int(rng.integers(0, 8)) * 128 + np.arange(bq)
+    dev, back = rng.permutation(1024)[:bq], rng.permutation(1024)[:bq]
+    host = HOST_BASE + rng.permutation(4096)[:bq]
+    fb.translate_serving_(g, ms, t(np.full(bq, UPDATE)), t(dl), t(dev),
+                          t(dev), impl="ref")
+    op = t(np.full(bq, COND_UPDATE))
+    s_out, s_in = stale(), stale()
+    for new, old, refused in ((host, np.where(s_out, dev + 1, dev), s_out),
+                              (back, np.where(s_in, host + 1, host),
+                               s_in | s_out)):
+        ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+        got = fb.translate_serving_(g, ker, op, t(dl), t(new), t(old))
+        want = fb.translate_serving_(g, ref, op, t(dl), t(new), t(old),
+                                     impl="ref")
+        for x, y in zip(list(got) + fb.state_tensors(ker),
+                        list(want) + fb.state_tensors(ref)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        np.testing.assert_array_equal(got[1].cpu().numpy(), ~refused)
+        ms = ker
+
+
 def test_fmmu_commit_lane_cap_raises_on_the_card(cuda):
     from repro_torch.core.fmmu.types import FMMUGeometry
     from repro_torch.kernels import fmmu_commit as fc
@@ -656,15 +700,13 @@ MACRO_REQS = [(range(1, 34), 6), (range(90, 95), 3), (range(40, 46), 34),
               (range(60, 80), 10)]
 
 
-def test_macro_graph_replay_matches_eager_program(cuda):
-    """Every replay against one eager run of the same K-step program on
-    clones of the same map state and caches: tokens, oob, map state and
-    caches bit-identical, and the replay's launch counts equal the eager
-    run's. The runs take the simple, full and forced variants, with the
-    page bucket alternating 4 / 8 between rounds, so graphs of two
-    buckets are replayed in turns."""
+def _check_replays(eng, cuda):
+    """Hold every replay of ``eng``'s K-step graphs against one eager run
+    of the same program on clones of the same map state and caches:
+    tokens, oob, map state and caches bit-identical, the replay's launch
+    counts equal the eager run's, K fmmu_commit launches a replay and no
+    probe kernel outside them. Returns the list of replayed keys."""
     from repro_torch.serving import macro
-    eng = _macro_engine(cuda, admit_tokens=12)
     graphs = eng._graphs
     replay = graphs.run
     seen = []
@@ -696,6 +738,17 @@ def test_macro_graph_replay_matches_eager_program(cuda):
         return st, out
 
     graphs.run = checked
+    return seen
+
+
+def test_macro_graph_replay_matches_eager_program(cuda):
+    """Every replay against one eager run of the same K-step program
+    (``_check_replays``). The runs take the simple, full and forced
+    variants, with the page bucket alternating 4 / 8 between rounds, so
+    graphs of two buckets are replayed in turns."""
+    eng = _macro_engine(cuda, admit_tokens=12)
+    graphs = eng._graphs
+    seen = _check_replays(eng, cuda)
     rids = [eng.submit(list(t), max_new=n) for t, n in MACRO_REQS]
     done: dict = {}
     i = 0
@@ -824,3 +877,100 @@ def test_macro_run_crossing_a_page_bucket_matches_single_steps(cuda):
                            single.caches[name][:, :, :live]), name
         assert torch.equal(wide.caches[name][:, :, :live],
                            single.caches[name][:, :, :live]), name
+
+
+# ------------------------------------------- host tier and swaps
+# the reference tests' oversubscribed shape: four 8-token prompts x 24
+# new tokens (16 pages) on 10 device blocks, 24 host blocks
+OVERSUB = dict(max_ctx=64, n_device_blocks=10, n_host_blocks=24,
+               swap_patience=2)
+OVERSUB_REQS = [(range(1 + 20 * i, 9 + 20 * i), 24) for i in range(4)]
+
+
+def test_oversubscribed_macro_replays_match_eager_program(cuda):
+    """About 2x oversubscription on the card: the boundary scheduler
+    swaps slots out and back while the K-step graphs mask them; every
+    replay equals the eager program on clones (``_check_replays``), no
+    round falls back, and the tokens equal a full-pool macro engine's
+    and a single-step engine's."""
+    eng = _macro_engine(cuda, **OVERSUB)
+    seen = _check_replays(eng, cuda)
+    got, _ = _serve(eng, OVERSUB_REQS)
+    assert seen
+    assert eng.metrics["macro_fallbacks"] == 0
+    assert eng.metrics["swaps_out"] > 0 and eng.metrics["swaps_in"] > 0
+    assert eng._graphs.stats()["graphs"] == len(set(seen))
+    want, _ = _serve(_macro_engine(cuda, max_ctx=64), OVERSUB_REQS)
+    single, _ = _serve(_macro_engine(cuda, macro_k=0, **OVERSUB),
+                       OVERSUB_REQS)
+    assert got == want == single
+
+
+def test_residency_flips_reach_the_static_state_without_a_capture(cuda):
+    """A slot swapped out by hand between two K-step runs: the flip and
+    the swap's commit land in place on the graphs' static map state, the
+    next run masks the slot (no token, no context) and captures nothing,
+    and after the swap back the tokens equal an engine that never
+    swapped. Budgets of 1 + 5K keep every run in the simple variant, and
+    the widest page bucket is pinned: one graph serves every run."""
+    from repro_torch.serving import macro
+    reqs = [(range(1, 9), 1 + 5 * MACRO_K), (range(30, 41), 1 + 5 * MACRO_K)]
+    want, _ = _serve(_macro_engine(cuda, max_ctx=64), reqs)
+    eng = _macro_engine(cuda, max_ctx=64, n_host_blocks=16)
+    eng.min_page_bucket = eng.max_pages          # one bucket throughout
+    rids = [eng.submit(list(t), max_new=n) for t, n in reqs]
+    done: dict = {}
+    eng.step(done)                  # admission, prefill, first capture
+    static = eng._graphs.ms
+    slot = eng.active[rids[1]].slot
+    n_out = len(eng.active[rids[1]].out)
+    ctx = int(eng.ctx_lens[slot])
+    assert eng._swap_out_slot(slot)
+    assert bool(static.swap_pending[slot])
+    for a, b in zip(fb.state_tensors(eng.kvm.state),
+                    fb.state_tensors(static)):
+        assert a is b                # the commit and the flip in place
+    c0 = macro.MACRO_CAPTURES[0]
+    eng._macro_decode_step(done)    # a run with the slot masked
+    assert macro.MACRO_CAPTURES[0] == c0
+    assert len(eng.active[rids[1]].out) == n_out
+    assert int(eng.ctx_lens[slot]) == ctx
+    assert eng._swap_in_slot(slot)
+    assert not bool(eng.kvm.state.swap_pending[slot])
+    while eng.step(done):
+        pass
+    assert macro.MACRO_CAPTURES[0] == c0
+    assert [done[r] for r in rids] == want
+
+
+def test_swap_with_check_false_never_syncs(cuda):
+    """``check=False`` swaps (the scheduler's) make no synchronising call
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), and
+    leave the pool rows and the map state that a CPU manager running the
+    same swaps leaves."""
+    from repro_torch.paging.kv_manager import KVPageManager
+    kvms = [KVPageManager(2, 8, 16, 16, device=d) for d in (cuda, "cpu")]
+    g = torch.Generator().manual_seed(0)
+    pools = [torch.randn((33, 4, 8), generator=g) for _ in range(2)]
+    pools = [[p.to(cuda) for p in pools], pools]
+    for kvm, ps in zip(kvms, pools):
+        kvm.new_seq(0, 5)
+        kvm.new_seq(1, 3)
+        kvm.swap_out(1, ps, block_axis=0)      # warm: loads, pinned pool
+        kvm.swap_in(1, ps, block_axis=0)
+    torch.cuda.synchronize()
+    for kvm, ps in zip(kvms, pools):
+        if kvm.device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            assert kvm.swap_out(0, ps, check=False) == 5
+            assert kvm.swap_out(1, ps, check=False) == 3
+            assert kvm.swap_in(0, ps, check=False) == 5
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(pools[0], pools[1]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(fb.state_tensors(kvms[0].state),
+                    fb.state_tensors(kvms[1].state)):
+        assert torch.equal(a.cpu(), b)
+    assert kvms[0].seq_pages == kvms[1].seq_pages

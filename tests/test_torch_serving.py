@@ -147,11 +147,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(channels=2), dict(n_host_blocks=4), dict(gc=object()),
+    dict(channels=2), dict(gc=object()),
     dict(prefix=object()), dict(journal_path="j.log")])
 def test_serve_config_rejects_unported_features(kw):
     with pytest.raises(NotImplementedError):
         ServeConfig(n_slots=2, max_ctx=32, **kw)
+
+
+def test_serve_config_accepts_swap_settings():
+    cfg = ServeConfig(n_slots=2, max_ctx=32, n_host_blocks=4,
+                      nonblocking_swap=False, swap_patience=2)
+    assert (cfg.nonblocking_swap, cfg.swap_patience) == (False, 2)
 
 
 def test_engine_rejects_fault_plane(models):
