@@ -24,10 +24,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                repeated calls bit-identical), the Mamba2 scan within the
                Pallas tests' 8e-2 bf16 / 5e-3 f32 (S 1024, ragged 1000,
                65 and 1, with and without an initial state, repeats
-               bit-identical). Times the kernel, the plain version, the
-               bound and the PyTorch library call where one exists (for
-               the scan also its blocked plain version, the kernel's
-               arithmetic in many calls).
+               bit-identical). The commit's channel grid: at C in
+               {2, 8, 32} on the paper geometry cut into 1/C shards, a
+               64-lane mixed batch, a 1024-lane batch and a grow batch
+               with one dry channel, each one launch of C blocks,
+               bit-exact against the per-channel plain chain; each C's
+               64-lane commit timed beside the one-block launch on the
+               whole geometry, with its byte bound. Times the kernel,
+               the plain version, the bound and the PyTorch library
+               call where one exists (for the scan also its blocked
+               plain version, the kernel's arithmetic in many calls).
   3. serve   — llama3.2-1b at its published widths (bf16, page 16,
                8 slots x 2048 ctx, random weights from a seed) serves
                8 requests of 64..1020 prompt tokens for 32 new tokens
@@ -70,14 +76,35 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                the full-pool phase's, the pages and bytes moved, each
                swap's host dispatch ms and device ms (CUDA events)
                beside its byte bound, and the host syncs per K tokens.
+  3d. serve (channels) — the same requests at macro_k=8 with the map
+               sharded across 8 channels: each run's growth is
+               pre-committed at the boundary (one map call, one
+               fmmu_commit launch of 8 blocks) and the graphs decode
+               against that table. A first pass captures the graphs;
+               the second is counted: its tokens (and the first's) must
+               equal the one-channel macro tokens, each run must be one
+               dispatch and one host sync, each boundary at most one map
+               call and one fmmu_commit launch, no graph may hold an
+               fmmu_commit node (libcuda), no round may fall back, and
+               every channel must service at least 1/(2C) of the lanes.
+               Prints decode tokens/s, TTFT, each pre-commit's host
+               dispatch ms and device ms (CUDA events behind a spin
+               kernel, third pass) and the graphs' launches per K
+               tokens beside the one-channel macro phase's. Then a
+               2-layer f32 engine at 2 channels on the reference test's
+               oversubscribed pool (10 device + 24 host blocks,
+               macro_k=4): kernel tokens equal kernel_impl="ref" tokens.
   4. map     — a seeded stream of mixed lookup / update / cond-update
                batches at the paper's CMT geometry goes through the
                fused path (the commit kernel), its plain version (the
-               torch chain) and the three unfused calls (the
-               fmmu_lookup probe): final state and
-               every output bit-identical; the three paths' times are
-               printed (the paper's FMMU-vs-software comparison, not a
-               claim).
+               torch chain), the three unfused calls (the fmmu_lookup
+               probe) and the 32-channel sharded path (the paper's
+               32-channel SSD: 32 shards of the paper's CMT, one launch
+               of 32 blocks a batch): final state and every output
+               bit-identical, and the sharded path's outputs and
+               interleaved table equal to the one-channel path's after
+               every batch; the paths' times are printed (the paper's
+               FMMU-vs-software comparison, not a claim).
   5. serve (SSM) — mamba2-1.3b at its published widths (48 layers,
                d 2048, bf16, page 16, 8 slots x 2048 ctx) serves 8
                requests of 64..1024 prompt tokens (chunk multiples and
@@ -98,9 +125,10 @@ shared memory of each attention and scan instantiation, with the paged
 kernel's launch plan at the serving shape), the card's name and power
 limit, one JSON line {"kernels": [...]} (launches from the macro
 path's counted pass, launches_single_step from the single-step run,
-launches_serve_swap from the swap phase's counted pass), one
-{"serve": {...}} (llama), one {"serve_macro": {...}}, one
-{"serve_swap": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
+launches_serve_swap and launches_serve_channels from the swap and
+channel phases' counted passes), one {"serve": {...}} (llama), one
+{"serve_macro": {...}}, one {"serve_swap": {...}}, one
+{"serve_channels": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
 and one {"serve_ssm_macro": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -382,7 +410,7 @@ def _commit_lanes(rng, g, bq, unique=False):
             for a in (op, dl, dp)]
 
 
-def commit_bytes(g, ms, lanes, grow):
+def commit_bytes(g, ms, lanes, grow, with_lanes=True):
     """Bytes one commit must move, from what these lanes touch (the
     plain chain run on a copy). ``lanes`` = (opcodes, dlpns, dppns[,
     old_dppns]): without old dppns a COND_UPDATE lane's guard compares
@@ -392,7 +420,9 @@ def commit_bytes(g, ms, lanes, grow):
     backing, table and (on a hit) data word, each fill's tag, valid,
     ref, E data words and the E backing words they come from, the clock
     of each set that filled, each pop's stack word, and the scalars
-    (stats, commit_seq, free_n, oob) read and written once."""
+    (stats, commit_seq, free_n, oob) read and written once. Without
+    ``with_lanes`` the lanes' inputs and outputs are left out (a
+    channel's share of a sharded commit, whose lanes count once)."""
     from repro_torch.core.fmmu import batch as fb
     from repro_torch.kernels.ref import fmmu_translate_ref
     w, e = g.cmt_ways, g.cmt_entries
@@ -420,6 +450,8 @@ def commit_bytes(g, ms, lanes, grow):
     fill_sets = int(((after.fmmu.tags != st.tags).any(1)
                      | (after.fmmu.clock != st.clock)).sum())
     pops = int(ms.free_n - after.free_n)
+    if not with_lanes:
+        lane_io = 0
     return (lane_io + probed * w * (4 + 1) + 4 * int(active.sum()) + touch
             + writes * (4 + 4) + 4 * write_hits
             + fills * (4 + 1 + 1 + 2 * 4 * e) + fill_sets * 8 + 4 * pops
@@ -588,6 +620,273 @@ def check_swap_commits(timer, rng, g):
                                               impl=impl))
         out[f"bound_ms_{name}"], out[f"bound_by_{name}"] = bound_ms(
             commit_bytes(g, ms, lanes, None), 0, "int32")
+    return out
+
+
+GRID_CHANNELS = (2, 8, 32)
+
+
+def _sharded_commit_state(rng, c_n, dry=None):
+    """The paper geometry cut into ``c_n`` 1/C shards, as the page
+    manager's ``_geometry`` cuts the serving map (512 x 4 x 8 CMT each,
+    backing 1,048,576 / C), each shard with its own history
+    (``_commit_state``), stacked on the channel axis; channel ``dry``'s
+    free stack is empty. Returns (shard geometry, state)."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry(n_tvpns=256 // c_n)
+    ms = _stack_shards([_commit_state(rng, g) for _ in range(c_n)])
+    if dry is not None:
+        ms.free_n[dry] = 0
+    return g, ms
+
+
+def _stack_shards(shards):
+    """Unstacked serving states stacked on a leading channel axis."""
+    from repro_torch.core.fmmu import batch as fb
+    st = fb.BatchFMMUState(*(torch.stack(ts) for ts in zip(
+        *(sh.fmmu for sh in shards))))
+    return fb.ServingMapState(st, *(torch.stack(ts) for ts in zip(
+        *(sh[1:9] for sh in shards))))
+
+
+def _sharded_lanes(rng, g, ms, bq, unique=False):
+    """``_commit_lanes`` over a stacked state's global dlpn space: hits
+    in every channel's CMT (local page * C + channel), misses anywhere,
+    lanes past the space up to int32's max, duplicate reads (inactive
+    lanes when ``unique``), inactive lanes, unique write dlpns.
+    Returns (opcodes, dlpns, dppns) on the card."""
+    from repro_torch.core.fmmu.types import HOST_BASE, NIL
+    c_n, e = ms.table.shape[0], g.cmt_entries
+    n_pages = c_n * g.n_tvpns * g.entries_per_tp
+    tags, valid = ms.fmmu.tags.cpu().numpy(), ms.fmmu.valid.cpu().numpy()
+    hits = np.concatenate([
+        ((tags[c][valid[c]][:, None] * e + np.arange(e)) * c_n + c)
+        .reshape(-1) for c in range(c_n)])
+    cand = np.concatenate([[n_pages, n_pages + 3, 1 << 30, (1 << 31) - 1],
+                           rng.permutation(hits)[:max(1, bq // 3)],
+                           rng.permutation(n_pages)[:bq]])
+    _, first = np.unique(cand, return_index=True)
+    cand = rng.permutation(cand[np.sort(first)])
+    u = min(len(cand), max(1, 3 * bq // 4))
+    n_dup = (bq - u) // 2
+    dups = np.full(n_dup, -1) if unique else rng.choice(cand[:u], n_dup)
+    dl = np.concatenate([cand[:u], dups, np.full(bq - u - n_dup, -1)])
+    op = rng.integers(0, 3, bq)
+    op[u:u + n_dup] = 0                                  # LOOKUP reads
+    dp = rng.choice([NIL, 7, HOST_BASE + 5], bq)
+    dp = np.where(dp == NIL, NIL, dp + rng.integers(0, 1 << 20, bq))
+    order = rng.permutation(bq)
+    return [torch.from_numpy(a[order].astype(np.int32)).cuda()
+            for a in (op, dl, dp)]
+
+
+def sharded_commit_bytes(g, ms, lanes, grow):
+    """Bytes one sharded commit must move: each channel's share
+    (``commit_bytes`` of its own lanes on its shard) and every lane's
+    inputs and outputs once."""
+    from repro_torch.core.fmmu import batch as fb
+    c_n = ms.table.shape[0]
+    op, dl, dp = lanes[:3]
+    owner, local = fb.channel_of(dl, c_n), fb.local_dlpn(dl, c_n)
+    total = dl.numel() * ((4 + 1 + 4 + 1) if grow is not None
+                          else (4 * 4 + 4 + 1))
+    for c in range(c_n):
+        own = (owner == c) & ((grow if grow is not None else dl >= 0))
+        dl_c = torch.where(own, local, -1).to(torch.int32)
+        total += commit_bytes(
+            g, fb.clone_state(fb.shard(ms, c)), (op, dl_c, dp, *lanes[3:]),
+            own if grow is not None else None, with_lanes=False)
+    return total
+
+
+def check_fmmu_commit_grid(timer, rng):
+    """The channel grid of the commit kernel: at C in {2, 8, 32} on the
+    paper geometry cut into 1/C shards, a 64-lane mixed batch, a
+    1024-lane batch and a grow batch with one dry channel, each one
+    launch of C blocks, bit-exact against the plain per-channel chain
+    on every state tensor and output (three commits in a row). Times
+    each C's 64-lane commit (kernel, plain chain, byte bound) beside the
+    one-block launch on the whole geometry (C = 1) over the same global
+    lanes."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.kernels import fmmu_commit as fc
+    out = {}
+    for c_n in GRID_CHANNELS:
+        for bq, grow_mode in ((64, False), (1024, False), (64, True)):
+            g, ms = _sharded_commit_state(rng, c_n,
+                                          dry=1 if grow_mode else None)
+            ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+            for it in range(3):
+                op, dl, dp = _sharded_lanes(rng, g, ms, bq,
+                                            unique=grow_mode)
+                n0 = fc.LAUNCHES[0]
+                if grow_mode:
+                    grow = torch.from_numpy(rng.random(bq) < 0.5).cuda()
+                    # one growing lane in the dry channel 1 at least
+                    used, page = set(dl.tolist()), 1
+                    while page in used:
+                        page += c_n
+                    dl[0] = page
+                    grow[0] = True
+                    got = fb.grow_sharded_(g, c_n, ker, grow, dl)
+                    want = fb.grow_sharded_(g, c_n, ref, grow, dl,
+                                            impl="ref")
+                else:
+                    got = fb.translate_sharded_(g, c_n, ker, op, dl, dp, dp)
+                    want = fb.translate_sharded_(g, c_n, ref, op, dl, dp,
+                                                 dp, impl="ref")
+                torch.cuda.synchronize()
+                if fc.LAUNCHES[0] - n0 != 1:
+                    fail(f"fmmu_commit at C={c_n}: "
+                         f"{fc.LAUNCHES[0] - n0} launches for one commit")
+                for x, y in zip(list(got) + fb.state_tensors(ker),
+                                list(want) + fb.state_tensors(ref)):
+                    if x is None and y is None:
+                        continue
+                    if x.dtype != y.dtype or not torch.equal(x, y):
+                        fail(f"fmmu_commit grid differs from its plain "
+                             f"chain: C={c_n} Bq={bq} grow={grow_mode} "
+                             f"commit {it}")
+            oob = fb.oob_vec(ker).tolist()
+            if grow_mode and (not oob[1] or any(oob[:1] + oob[2:])):
+                fail(f"fmmu_commit grid at C={c_n}: oob flags {oob}, "
+                     "expected the dry channel 1's alone")
+
+    def stream(c_n, impl, n=64):
+        """A 64-lane mixed commit per call on one state, fresh lanes
+        each call; c_n = 1: the unstacked whole geometry."""
+        lrng = np.random.default_rng(SEED + 2)
+        g, ms = _sharded_commit_state(np.random.default_rng(SEED),
+                                      max(c_n, 2))
+        batches = [_sharded_lanes(lrng, g, ms, 64) for _ in range(n)]
+        if c_n == 1:
+            g = _commit_geometry("paper")
+            ms = _commit_state(np.random.default_rng(SEED), g)
+        calls = iter(range(1 << 30))
+
+        def call():
+            op, dl, dp = batches[next(calls) % n]
+            if c_n == 1:
+                fb.translate_serving_(g, ms, op, dl, dp, dp, impl=impl)
+            else:
+                fb.translate_sharded_(g, c_n, ms, op, dl, dp, dp,
+                                      impl=impl)
+        return call, g, ms, batches[0]
+    for c_n in (1,) + GRID_CHANNELS:
+        call, g, ms, lanes = stream(c_n, None)
+        key = f"c{c_n}"
+        out[f"ms_grid_{key}"] = timer.ms(call)
+        call, _, _, _ = stream(c_n, "ref")
+        out[f"plain_ms_grid_{key}"] = timer.ms(call, iters=5, warmup=1)
+        n_bytes = commit_bytes(g, fb.clone_state(ms), lanes, None) \
+            if c_n == 1 else sharded_commit_bytes(g, ms, lanes, None)
+        out[f"bound_ms_grid_{key}"], out[f"bound_by_grid_{key}"] = \
+            bound_ms(n_bytes, 0, "int32")
+    out.update(check_serving_grid_commits(timer, rng))
+    return out
+
+
+def _serving_grid_commits(rng):
+    """The commits ``serve_channels`` launches, at its map: 8 channel
+    shards of ``_geometry(8, 128, 8)`` (8 slots x 128 pages, 8 x 4 x 8
+    CMT and 128 pages each, 1024 device blocks striped over the
+    channels), each shard with its own history (``_commit_state``). The
+    boundary's growth pre-commit (one UPDATE lane per growing slot, to
+    a fresh block of the page's owner channel, old dppn 0 as
+    ``KVPageManager._xlate`` sends it), and a slot's swap-out and
+    swap-in (``SWAP_LANES`` COND_UPDATE lanes each, to blocks of the
+    owner channel of the other tier, ``SWAP_STALE`` with a stale old
+    dppn). Returns (shard geometry, [(name, state, lanes (op, dl, new,
+    old), stale mask)]), each state the previous one's result (plain
+    chain)."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import COND_UPDATE, HOST_BASE, UPDATE
+    from repro_torch.paging.kv_manager import _geometry
+    c_n, n_slots, max_pages = SERVE_CHANNELS, 8, 128
+    g = _geometry(n_slots, max_pages, c_n)
+    ms = _stack_shards([_commit_state(rng, g) for _ in range(c_n)])
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+
+    def owned(dl, n_blocks, base=0):
+        """Distinct blocks of each lane's owner channel (b mod C ==
+        dl mod C), as ``BlockPool.alloc_for`` gives them."""
+        out = np.empty_like(dl)
+        for c in range(c_n):
+            m = dl % c_n == c
+            out[m] = base + c + c_n * rng.permutation(
+                n_blocks // c_n)[:m.sum()]
+        return out
+
+    def stale():
+        m = np.zeros(SWAP_LANES, bool)
+        m[rng.permutation(SWAP_LANES)[:SWAP_STALE]] = True
+        return m
+    n_dev = n_slots * max_pages
+    grow = np.arange(n_slots) * max_pages + rng.integers(4, max_pages,
+                                                         n_slots)
+    pre = (t(np.full(n_slots, UPDATE)), t(grow),
+           t(owned(grow, n_dev)), t(np.zeros(n_slots)))
+    after_pre = fb.clone_state(ms)
+    fb.translate_sharded_(g, c_n, after_pre, *pre, impl="ref")
+    dl = int(rng.integers(0, n_slots)) * max_pages + np.arange(SWAP_LANES)
+    dev, back = owned(dl, n_dev), owned(dl, n_dev)
+    host = owned(dl, 2 * n_dev, HOST_BASE)
+    op = t(np.full(SWAP_LANES, COND_UPDATE))
+    fb.translate_sharded_(g, c_n, after_pre, t(np.full(SWAP_LANES, UPDATE)),
+                          t(dl), t(dev), t(dev), impl="ref")
+    s_out, s_in = stale(), stale()
+    out_lanes = (op, t(dl), t(host), t(np.where(s_out, dev + c_n, dev)))
+    after_out = fb.clone_state(after_pre)
+    fb.translate_sharded_(g, c_n, after_out, *out_lanes, impl="ref")
+    in_lanes = (op, t(dl), t(back), t(np.where(s_in, host + c_n, host)))
+    return g, [("precommit", ms, pre, np.zeros(n_slots, bool)),
+               ("swap_out", after_pre, out_lanes, s_out),
+               ("swap_in", after_out, in_lanes, s_in | s_out)]
+
+
+def check_serving_grid_commits(timer, rng):
+    """The grid commit at ``serve_channels``' shape (C = 8 shards of
+    ``_geometry(8, 128, 8)``): the growth pre-commit and a swap each
+    way (``_serving_grid_commits``), one launch of 8 blocks each,
+    through the kernel and its plain per-channel chain on clones of one
+    state, bit for bit on every state tensor and output; the swaps'
+    guards must refuse exactly the stale lanes. Times both and bounds
+    each commit (``sharded_commit_bytes``), beside the one-channel
+    serving commits of ``check_fmmu_commit``."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.kernels import fmmu_commit as fc
+    c_n = SERVE_CHANNELS
+    g, commits = _serving_grid_commits(rng)
+    out = {}
+    for name, ms, lanes, stale in commits:
+        ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+        n0 = fc.LAUNCHES[0]
+        got = fb.translate_sharded_(g, c_n, ker, *lanes)
+        want = fb.translate_sharded_(g, c_n, ref, *lanes, impl="ref")
+        torch.cuda.synchronize()
+        if fc.LAUNCHES[0] - n0 != 1:
+            fail(f"the serving grid's {name} commit: "
+                 f"{fc.LAUNCHES[0] - n0} launches")
+        for x, y in zip(list(got) + fb.state_tensors(ker),
+                        list(want) + fb.state_tensors(ref)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"fmmu_commit grid differs from its plain chain on "
+                     f"the serving grid's {name} commit (C={c_n})")
+        if not np.array_equal(got[1].cpu().numpy(), ~stale):
+            fail(f"the serving grid's {name} commit's guard: ok "
+                 f"{got[1].tolist()}, stale lanes "
+                 f"{np.nonzero(stale)[0].tolist()}")
+        key = f"serve_c{c_n}_{name}"
+        for impl, k in ((None, "ms"), ("ref", "plain_ms")):
+            clones = iter([fb.clone_state(ms) for _ in range(23)])
+            out[f"{k}_{key}"] = timer.ms(
+                lambda: fb.translate_sharded_(g, c_n, next(clones), *lanes,
+                                              impl=impl))
+        out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound_ms(
+            sharded_commit_bytes(g, ms, lanes, None), 0, "int32")
     return out
 
 
@@ -880,12 +1179,17 @@ def _split_order_sensitive(g, tags, valid, batch):
     return False
 
 
+MAP_CHANNELS = 32
+
+
 def map_phase(n_batches=64, max_blocks=16):
     """The fused map path (the commit kernel, in place), its plain
-    version (the torch chain, impl="ref") and the unfused path
-    (fmmu_lookup and its chain) on the card, in turns.
+    version (the torch chain, impl="ref"), the unfused path
+    (fmmu_lookup and its chain) and the 32-channel sharded path (one
+    launch of 32 blocks a batch) on the card, in turns.
     Returns the map line; fails unless the final states and every output
-    are bit-identical."""
+    are bit-identical (the sharded path: its outputs and interleaved
+    table equal the one-channel path's after every batch)."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.core.fmmu import batch as fb
     from repro_torch.core.fmmu.types import (COND_UPDATE, LOOKUP, NIL,
@@ -954,6 +1258,32 @@ def map_phase(n_batches=64, max_blocks=16):
             outs.append((ou, oku))
         return s_, outs
 
+    # the paper's 32-channel SSD: the map cut into 32 shards of the
+    # paper's CMT (512 x 4 x 8) and 1/32 of the backing, one launch of 32
+    # blocks a batch
+    c_n = MAP_CHANNELS
+    g_c = FMMUGeometry(n_tvpns=g.n_tvpns // c_n)
+
+    def run_sharded():
+        s_, outs = fb.init_sharded_state(g_c, c_n, device=dev), []
+        for b in batches:
+            outs.append(fb.translate_sharded_(g_c, c_n, s_, *b["fused"]))
+        return s_, outs
+
+    # the sharded path against the one-channel fused path (serving
+    # state: its table) after every batch: outputs, ok masks and the
+    # interleaved table (the reference's sharded_lockstep contract)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    s1 = fb.init_serving_state(g, device=dev)
+    s_c = fb.init_sharded_state(g_c, c_n, device=dev)
+    for i, b in enumerate(batches):
+        out1, ok1 = fb.translate_serving_(g, s1, *b["fused"])
+        out_c, ok_c = fb.translate_sharded_(g_c, c_n, s_c, *b["fused"])
+        if not (torch.equal(out1, out_c) and torch.equal(ok1, ok_c)
+                and torch.equal(fb.dense_table(s_c, n_pages), s1.table)):
+            fail(f"map phase: batch {i}: the {c_n}-channel path differs "
+                 "from the one-channel fused path")
+
     def timed(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -961,13 +1291,15 @@ def map_phase(n_batches=64, max_blocks=16):
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t0) * 1e3
 
-    paths = {"fused": run_fused, "plain": run_plain, "unfused": run_unfused}
+    paths = {"fused": run_fused, "plain": run_plain, "unfused": run_unfused,
+             f"sharded_c{c_n}": run_sharded}
     for fn in paths.values():                     # warm-up
         fn()
     COUNTERS.reset()                     # every count to 0 just before
     times = {name: [] for name in paths}
     res = {}
-    for name in ("fused", "plain", "unfused", "unfused", "plain", "fused"):
+    order = list(paths)
+    for name in order + order[::-1]:
         res[name], ms_ = timed(paths[name])
         times[name].append(ms_)
     launches = COUNTERS.launches()       # ... and read just after
@@ -982,8 +1314,18 @@ def map_phase(n_batches=64, max_blocks=16):
             ml, mc = (torch.from_numpy(m).to(dev) for m in b["masks"])
             if not (torch.equal(out[ml], ou) and torch.equal(ok[mc], oku)):
                 fail(f"map phase: batch {i} outputs {name} != unfused")
+    st_f, outs_f = res["fused"]
+    for i, ((out, ok), (out_c, ok_c)) in enumerate(
+            zip(outs_f, res[f"sharded_c{c_n}"][1])):
+        if not (torch.equal(out, out_c) and torch.equal(ok, ok_c)):
+            fail(f"map phase: batch {i} outputs sharded != fused")
+    if not torch.equal(fb.dense_table(res[f"sharded_c{c_n}"][0], n_pages),
+                       st_f.backing):
+        fail("map phase: the sharded table differs from the fused map")
     n_lanes = sum(int(b["fused"][0].numel()) for b in batches)
     line = {"geometry": "S=512 W=4 E=8, backing 1048576",
+            "geometry_sharded": f"{c_n} shards of S=512 W=4 E=8, backing "
+                                f"{n_pages // c_n}",
             "batches": n_batches, "lanes": n_lanes,
             "launches": launches, "bit_identical": True}
     for name in paths:
@@ -1621,6 +1963,257 @@ def swap_phase(cfg, lens, macro_line, macro_tokens):
     return line
 
 
+# ------------------------------------------------------- serve channels
+SERVE_CHANNELS = 8
+
+
+class BoundaryLog:
+    """Wraps a channel-sharded engine's K-step boundary: for each
+    boundary, the map calls and fmmu_commit launches made before its
+    graph replay (the growth pre-commit), the replayed graph's key, and
+    each pre-commit's host dispatch ms (host clock around the call).
+    With ``spin`` set, a spin kernel of that many cycles runs before
+    each pre-commit, so that CUDA events around it time the device's
+    work and not the host's enqueue (``events``)."""
+
+    def __init__(self, eng):
+        from repro_torch.core.counters import COUNTERS
+        self.boundaries, self.commits, self.spin = [], [], 0
+        step, replay = eng._macro_decode_step_sharded, eng._graphs.run
+        precommit = eng.kvm.precommit_growth
+        base = {}
+
+        def spy_step(done):
+            base["at"] = COUNTERS.snapshot()
+            self.boundaries.append({"key": None})
+            return step(done)
+
+        def spy_replay(ms, buf, *key):
+            d = COUNTERS.delta(base["at"])
+            self.boundaries[-1].update(
+                key=key, xlate_calls=d.get("kvm.xlate_calls", 0),
+                fmmu_commit=d.get("kernel.fmmu_commit", 0))
+            return replay(ms, buf, *key)
+
+        def spy_precommit(grow_seq, dlpns=None):
+            ev = None
+            if self.spin:
+                torch.cuda._sleep(self.spin)
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+            t0 = time.perf_counter()
+            got = precommit(grow_seq, dlpns=dlpns)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if ev:
+                ev[1].record()
+            if grow_seq:
+                self.commits.append({"lanes": len(grow_seq),
+                                     "host_ms": host_ms, "events": ev})
+            return got
+        eng._macro_decode_step_sharded = spy_step
+        eng._graphs.run = spy_replay
+        eng.kvm.precommit_growth = spy_precommit
+        self.eng = eng
+
+    def remove(self):
+        """Uninstall the spies: the engine's own bound methods again."""
+        del self.eng._macro_decode_step_sharded, self.eng._graphs.run, \
+            self.eng.kvm.precommit_growth
+
+
+def _oversub_parity(cfg, channels):
+    """A 2-layer f32 engine at ``channels`` with the reference test's
+    oversubscribed pool (4 slots x 64 ctx, page 8, 10 device + 24 host
+    blocks, macro_k 4, swap_patience 2; four 8-token prompts x 24 new
+    tokens), with the kernels and with kernel_impl="ref": the tokens
+    must be equal, with no fallback and swaps both ways. kernel_impl
+    reaches the model's kernels only: both arms commit the map through
+    ``fmmu_commit`` (``check_serving_grid_commits`` holds it against its
+    plain chain at the served shape). Returns the tokens' count."""
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    prompts = [list(range(1 + 20 * i, 9 + 20 * i)) for i in range(4)]
+    toks = {}
+    for impl in (None, "ref"):
+        rt32 = Runtime(compute_dtype=torch.float32,
+                       param_dtype=torch.float32, page_size=8,
+                       kernel_impl=impl)
+        m = build_model(cfg2, rt32, device="cuda")
+        params = m.init(torch.Generator(device="cuda").manual_seed(SEED))
+        eng = ServeEngine(m, params, config=ServeConfig(
+            n_slots=4, max_ctx=64, n_device_blocks=10, n_host_blocks=24,
+            macro_k=4, swap_patience=2, channels=channels), device="cuda")
+        toks[impl], _, _ = run_requests(eng, prompts, 24)
+        met = eng.metrics
+        if met["macro_fallbacks"] or not (met["swaps_out"] and
+                                          met["swaps_in"]):
+            fail(f"2-layer f32 at {channels} channels, oversubscribed: "
+                 f"{met}")
+        del eng, m, params
+        torch.cuda.empty_cache()
+    if list(toks[None].values()) != list(toks["ref"].values()):
+        fail(f"2-layer f32 at {channels} channels, oversubscribed: kernel "
+             "tokens differ from ref tokens")
+    return sum(len(v) for v in toks["ref"].values())
+
+
+def _decode_in_turns(cfg, rt, prompts, eng_c, tokens, order="1CC11C"):
+    """Decode tokens/s and TTFT of the sharded engine ``eng_c`` and a
+    new one-channel macro engine of the same weights, pass by pass in
+    turns (one-channel, C, C, one-channel, ...), the graphs of both
+    captured first; then each engine's steady graph replayed alone (CUDA
+    events). Fails unless every pass gives ``tokens``. Returns
+    {"1": {...}, "C": {...}} with the passes' readings and medians."""
+    eng_1 = build_engine(cfg, rt, macro_k=MACRO_K)
+    run_requests(eng_1, prompts, 32)                 # captures the graphs
+    engines = {"1": eng_1, "C": eng_c}
+    out = {k: {"decode_tok_s": [], "ttft_ms_median": []} for k in engines}
+    for k in order:
+        got, reqs, _ = run_requests(engines[k], prompts, 32)
+        if list(got.values()) != tokens:
+            fail(f"serve_channels: a pass in turns ({k}) changed the tokens")
+        decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+        out[k]["decode_tok_s"].append(
+            sum(len(t) - 1 for t in got.values()) / decode_s)
+        out[k]["ttft_ms_median"].append(statistics.median(
+            (r.t_first - r.t_submit) * 1e3 for r in reqs))
+    for k, eng in engines.items():
+        for name in ("decode_tok_s", "ttft_ms_median"):
+            out[k][name + "_median"] = statistics.median(out[k][name])
+        # the engines are discarded after this, so their state may drift
+        keys = list(eng._graphs.graphs)
+        out[k]["replay_ms_events"] = {
+            str(key): events_ms(eng._graphs.graphs[key].replay, 5)
+            for key in keys}
+    del eng_1, engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def channels_phase(cfg, lens, macro_line, macro_tokens):
+    """The llama macro phase's requests (8 slots x 2048 ctx, page 16,
+    bf16, macro_k=8) with the map sharded across 8 channels: each
+    K-step run's growth is pre-committed at the boundary (one map call,
+    one fmmu_commit launch of 8 blocks) and the graphs decode against
+    that table. A first pass captures the graphs; the counts are zeroed
+    just before the second and read just after. A third pass runs a
+    spin kernel before each pre-commit, so that CUDA events time its
+    device work. Fails unless the tokens equal the one-channel macro
+    phase's (every pass), each run is one dispatch and one host sync,
+    each boundary makes at most one map call and one fmmu_commit launch,
+    no graph holds an fmmu_commit node, no round falls back, and every
+    channel serviced at least 1/(2C) of the lanes. Then the sharded and
+    a one-channel engine in turns (``_decode_in_turns``), and the
+    2-layer f32 kernel-vs-ref parity at two channels, oversubscribed.
+    Returns the phase's line."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.models import Runtime
+    c_n = SERVE_CHANNELS
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K, channels=c_n)
+    prompts = serve_prompts(cfg, lens)
+    log = BoundaryLog(eng)
+    first, _, _ = run_requests(eng, prompts, 32)     # captures the graphs
+    graphs_first = eng._graphs.stats()["graphs"]
+    log.boundaries, log.commits = [], []
+    eng.metrics = {k: 0 for k in eng.metrics}
+    eng.kvm.channel_lanes[:] = 0
+    COUNTERS.reset()                     # every count to 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    out, reqs, wall = run_requests(eng, prompts, 32)
+    launches = COUNTERS.launches()       # ... and read just after
+    counts = COUNTERS.snapshot()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    toks = [out[r.rid] for r in reqs]
+    m = dict(eng.metrics)
+    lanes = eng.kvm.channel_lanes.copy()
+    boundaries, commits = log.boundaries, log.commits
+    if toks != macro_tokens or list(first.values()) != macro_tokens:
+        fail("serve_channels: tokens differ from the one-channel macro "
+             "phase's")
+    n_req = len(prompts)
+    dispatches = counts.get("engine.macro_dispatches", 0)
+    if (m["macro_fallbacks"] or dispatches != m["macro_steps"]
+            or dispatches != len(boundaries)
+            or counts.get("engine.host_syncs", 0) != n_req + dispatches
+            or counts.get("engine.macro_captures", 0)
+            or counts.get("kvm.full_table_calls", 0)
+            or counts.get("kvm.alloc_syncs", 0)):
+        fail(f"serve_channels: more than one dispatch / host sync per K "
+             f"tokens, a fallback or a capture: {counts}, {m}")
+    if any(b["key"] is None or b["xlate_calls"] > 1 or b["fmmu_commit"] > 1
+           for b in boundaries) or not commits:
+        fail(f"serve_channels: a boundary made more than one map call or "
+             f"fmmu_commit launch: {boundaries}")
+    nodes = {}
+    for key, graph in eng._graphs.graphs.items():
+        types, named = graph_nodes(graph, ("fmmu_commit", "paged_attention"))
+        if named["fmmu_commit"]:
+            fail(f"serve_channels: graph {key} holds "
+                 f"{named['fmmu_commit']} fmmu_commit nodes")
+        nodes[key] = (sum(types.values()), named["paged_attention"])
+    if lanes.min() * 2 * c_n < lanes.sum():
+        fail(f"serve_channels: channel lanes {lanes.tolist()}, a channel "
+             f"under 1/(2C) of {lanes.sum()}")
+    timed = []
+    log.commits, log.spin = timed, Timer.SPIN_CYCLES // 5
+    again, _, _ = run_requests(eng, prompts, 32)     # the timed pass
+    torch.cuda.synchronize()
+    if list(again.values()) != macro_tokens or \
+            [c["lanes"] for c in timed] != [c["lanes"] for c in commits]:
+        fail("serve_channels: the timed pass differs from the counted one")
+    device_ms = [c["events"][0].elapsed_time(c["events"][1]) for c in timed]
+    steady = max(set(b["key"] for b in boundaries),
+                 key=[b["key"] for b in boundaries].count)
+    log.remove()         # the passes in turns run both engines bare
+    turns = _decode_in_turns(cfg, rt, prompts, eng, macro_tokens)
+    ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+    decode_toks = sum(len(t) - 1 for t in toks)
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "macro_k": MACRO_K, "channels": c_n,
+        "geometry_per_channel": str(eng.kvm.geom), "wall_s": wall,
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+        "decode_tok_s": decode_toks / decode_s,
+        "decode_step_ms": decode_s / max(m["decode_steps"] - 1, 1) * 1e3,
+        "one_channel": {k: macro_line[k] for k in (
+            "ttft_ms_median", "ttft_ms_max", "decode_tok_s",
+            "decode_step_ms", "macro_steps", "graphs_captured")},
+        "one_channel_graph_launches_per_k_tokens":
+            macro_line["profiled_macro_step"]["graph_launches"],
+        "decode_steps": m["decode_steps"], "macro_steps": m["macro_steps"],
+        "macro_fallbacks": m["macro_fallbacks"], "dispatches": dispatches,
+        "host_syncs": counts.get("engine.host_syncs", 0),
+        "xlate_calls": counts.get("kvm.xlate_calls", 0),
+        "alloc_syncs": counts.get("kvm.alloc_syncs", 0),
+        "boundary_map_calls": [b["xlate_calls"] for b in boundaries],
+        "boundary_fmmu_commit": [b["fmmu_commit"] for b in boundaries],
+        "precommits": len(commits),
+        "precommit_lanes": [c["lanes"] for c in commits],
+        "precommit_host_ms": [c["host_ms"] for c in commits],
+        "precommit_host_ms_median": statistics.median(
+            c["host_ms"] for c in commits),
+        "precommit_device_ms": device_ms,
+        "precommit_device_ms_median": statistics.median(device_ms),
+        "channel_lanes": lanes.tolist(),
+        "graphs_captured": eng._graphs.stats()["graphs"],
+        "graphs_first_pass": graphs_first,
+        "graph_launches_per_k_tokens": nodes[steady][0],
+        "graph_paged_attention_nodes": nodes[steady][1],
+        "graph_fmmu_commit_nodes": 0,
+        "in_turns": turns, "peak_mem_gib": peak_gib,
+        "launches": launches}
+    del eng, log
+    torch.cuda.empty_cache()
+    line["oversub_ref_parity_tokens"] = _oversub_parity(cfg, 2)
+    return line
+
+
 # the two served models: prompt lengths, and the kernels each path must
 # launch (single-step; replayed by the macro graphs; eager in macro mode)
 MODELS = {
@@ -1705,6 +2298,15 @@ def main() -> int:
         check_fmmu_lookup(timer, rng), check_mamba_chunk_scan(timer))}
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
+    # the channel grid: one launch of C blocks, C in {2, 8, 32}
+    rows["fmmu_commit"].update(check_fmmu_commit_grid(timer, rng))
+    rows["fmmu_commit"]["shape"] += (
+        "; _grid_cN: S=512 W=4 E=8 NP=1048576 cut into N shards of "
+        "NP/N, 64 mixed lanes (translate_sharded_; c1: the unstacked "
+        f"whole map); _serve_c{SERVE_CHANNELS}_*: {SERVE_CHANNELS} shards "
+        "of S=8 W=4 E=8 NP=128 (serve_channels' map): the growth "
+        "pre-commit (8 UPDATE lanes) and a slot's swap-out / swap-in "
+        f"({SWAP_LANES} COND_UPDATE lanes, {SWAP_STALE} stale)")
     print("kernels: all match their plain versions", file=sys.stderr)
 
     # 3. llama3.2-1b serving, single-step then macro (fmmu_commit, paged
@@ -1720,10 +2322,20 @@ def main() -> int:
                             MODELS["llama3.2-1b"]["lens"], serve_macro,
                             llama["tokens"])
     print(f"serve swap: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    # 3d. the same requests with the map sharded across 8 channels: the
+    # growth pre-committed at each boundary in one launch of 8 blocks
+    t0 = time.perf_counter()
+    serve_channels = channels_phase(get_arch("llama3.2-1b"),
+                                    MODELS["llama3.2-1b"]["lens"],
+                                    serve_macro, llama["tokens"])
+    print(f"serve channels: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
     for name in MODELS["llama3.2-1b"]["single"]:
         rows[name]["launches_single_step"] = serve["launches"][name]
         rows[name]["launches"] = serve_macro["launches"][name]
         rows[name]["launches_serve_swap"] = serve_swap["launches"][name]
+        rows[name]["launches_serve_channels"] = \
+            serve_channels["launches"].get(name, 0)
 
     # 4. the map phase: the fused path (fmmu_commit), its plain chain and
     # the unfused path (fmmu_lookup, whose launches are this path's). The
@@ -1765,12 +2377,19 @@ def main() -> int:
              "plain_ms_masked", "ms_paper", "plain_ms_paper",
              "bound_ms_paper", "bound_by_paper") + tuple(
                  f"{k}_{d}" for d in ("swap_out", "swap_in")
-                 for k in ("ms", "plain_ms", "bound_ms", "bound_by"))
+                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")) + \
+        tuple(f"{k}_grid_c{c}" for c in (1,) + GRID_CHANNELS
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by")) + \
+        tuple(f"{k}_serve_c{SERVE_CHANNELS}_{d}"
+              for d in ("precommit", "swap_out", "swap_in")
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by")) + \
+        ("launches_serve_channels",)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"serve_macro": serve_macro}))
     print(json.dumps({"serve_swap": serve_swap}))
+    print(json.dumps({"serve_channels": serve_channels}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))

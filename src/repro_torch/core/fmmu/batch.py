@@ -1,6 +1,6 @@
 """Batched FMMU translation engine: port of ``repro/core/fmmu/batch.py``
-(the unsharded single-probe path, its serving wrapper, and the unfused
-three-call reference path).
+(the single-probe path, its serving wrapper, the channel-sharded map
+on one device, and the unfused three-call reference path).
 
 ``translate_batch`` services a mixed batch of LOOKUP / UPDATE /
 COND_UPDATE lanes with exactly ONE CMT probe and ONE insert pass (one
@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.counters import COUNTERS
@@ -198,10 +199,25 @@ def translate_batch_(g: FMMUGeometry, st: BatchFMMUState, opcodes, dlpns,
 
 def _commit(g: FMMUGeometry, ms, dlpns, impl, **lanes):
     """One map commit in place (``ops.fmmu_commit``): one probe and one
-    insert pass, whichever lowering runs it."""
-    PROBE_CALLS[0] += 1
-    INSERT_CALLS[0] += 1
+    insert pass per channel, whichever lowering runs it."""
+    n = n_channels(ms)
+    PROBE_CALLS[0] += n
+    INSERT_CALLS[0] += n
     return ops.fmmu_commit(g, ms, dlpns, impl=impl, **lanes)
+
+
+def n_channels(ms) -> int:
+    """Channels of a map state: the leading axis of a stacked state's
+    CMT tags ([C, S, W]), 1 for an unstacked one ([S, W])."""
+    tags = ms.fmmu.tags if isinstance(ms, ServingMapState) else ms.tags
+    return tags.shape[0] if tags.dim() == 3 else 1
+
+
+def shard(ms: ServingMapState, c: int) -> ServingMapState:
+    """Channel ``c``'s shard of a stacked state, as views of its
+    tensors (writes to them land in the stacked state)."""
+    return ServingMapState(BatchFMMUState(*(t[c] for t in ms.fmmu)), *(
+        t[c] if t is not None else None for t in ms[1:]))
 
 
 def state_tensors(ms) -> list:
@@ -352,16 +368,16 @@ def commit_chain(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
         out, ok, None
 
 
-# oob_vec and commit_seq_vec have no caller in the port yet: they are
-# held bit-identical to the reference's until the channel slice calls
-# them (ROADMAP Queue 1)
 def oob_vec(ms: ServingMapState) -> torch.Tensor:
-    """The sticky OutOfBlocks flag as a [C] vector ([1] here)."""
+    """The sticky OutOfBlocks flag as a [C] vector ([1] for the
+    unsharded state, whose flag is a scalar): the one read layout of
+    every boundary observer (``KVPageManager.observe_exhaustion``)."""
     return torch.atleast_1d(ms.oob)
 
 
 def commit_seq_vec(ms: ServingMapState) -> torch.Tensor:
-    """The committed-lane counter as a [C] vector ([1] here)."""
+    """The committed-lane counter as a [C] vector ([1] unsharded); its
+    sum is the map's committed write lanes (``ServeEngine._device_lanes``)."""
     return torch.atleast_1d(ms.commit_seq)
 
 
@@ -443,8 +459,9 @@ def mark_swap_(ms: ServingMapState, lane: int, pending: bool) -> None:
     device with the value as a kernel argument (an indexed assignment
     would copy it from the host and wait). The swap path calls it on the
     map state the K-step graphs read, so a flip reaches their next
-    replay."""
-    ms.swap_pending.narrow(0, lane, 1).fill_(bool(pending))
+    replay. On a channel-stacked state ([C, n_lanes]) the lane flips in
+    every channel's copy (``mark_swap_sharded``)."""
+    ms.swap_pending.narrow(-1, lane, 1).fill_(bool(pending))
 
 
 def serving_grow(g: FMMUGeometry, ms: ServingMapState, grow, dlpns,
@@ -468,6 +485,184 @@ def serving_grow_(g: FMMUGeometry, ms: ServingMapState, grow, dlpns,
     """``serving_grow`` in place on ``ms``'s tensors: (blocks, ok)."""
     _, ok, blocks = _commit(g, ms, dlpns, impl, grow=grow.bool())
     return blocks, ok
+
+
+# ----------------------------------------------- channel-sharded map
+# The paper's scalability axis: the map state is partitioned per
+# channel. Logical pages stripe by the static hash owner(dlpn) = dlpn
+# mod C, and each channel holds a complete ServingMapState shard: a
+# 1/C-sized CMT, backing table and block-table slice, and the free
+# stacks of the blocks it owns (block b belongs to channel b mod C,
+# host blocks by their tier-local index), so a page and its block live
+# in one channel. A sharded state is a ServingMapState whose tensors
+# carry a leading [C] axis. Every per-channel transition is the
+# unchanged single-probe commit: on the card one ``fmmu_commit`` launch
+# of C blocks, block c committing shard c; on a CPU tensor a loop over
+# the channels of ``commit_chain`` on views of the stacked tensors (the
+# reference's vmap, written out). Lane results merge as the reference's
+# "+1" sum does: each active lane takes its owner channel's answer, a
+# lane no channel owns gets NIL / False.
+def channel_of(dlpns, n_channels: int):
+    """Static dlpn -> channel hash (the paper's channel striping)."""
+    return torch.remainder(dlpns, n_channels)
+
+
+def local_dlpn(dlpns, n_channels: int):
+    """Channel-local logical page id of a global dlpn."""
+    return torch.div(dlpns, n_channels, rounding_mode="floor")
+
+
+def channel_stack(n_blocks: int, n_channels: int, c: int, cap: int,
+                  base: int = 0) -> Tuple[np.ndarray, int]:
+    """Free-stack init for one channel: the blocks it owns (global id
+    mod C == c) in per-channel BlockPool order (first pop yields block
+    base + c), padded with NIL to the channel-uniform capacity ``cap``.
+    Returns (stack [cap] int32, depth)."""
+    owned = np.asarray([base + b for b in range(n_blocks)
+                        if b % n_channels == c][::-1], np.int32)
+    out = np.full((cap,), NIL, np.int32)
+    out[:owned.shape[0]] = owned
+    return out, owned.shape[0]
+
+
+def init_sharded_state(g: FMMUGeometry, n_channels: int,
+                       n_device_blocks: int = 0, n_host_blocks: int = 0,
+                       n_lanes: int = 0, track_live: bool = False,
+                       track_refs: bool = False, *,
+                       device: torch.device) -> ServingMapState:
+    """C per-channel ServingMapStates stacked on a leading channel axis.
+    ``g`` is the per-channel geometry (its dlpn space covers
+    ceil(n_dlpns / C) local pages). Both tiers stripe by block id mod C
+    with channel-uniform stack capacities ceil(n / C). The residency
+    lane is replicated: every channel masks the same slots."""
+    if track_live or track_refs:
+        raise NotImplementedError(
+            "not ported to repro_torch yet: the live and refcnt lanes "
+            "(GC and prefix sharing)")
+    c_n = n_channels
+    dev_cap = -(-n_device_blocks // c_n)
+    host_cap = -(-n_host_blocks // c_n)
+    stacks = {"free": [], "host": []}
+    depths = {"free": [], "host": []}
+    for c in range(c_n):
+        for key, n, cap, base in (("free", n_device_blocks, dev_cap, 0),
+                                  ("host", n_host_blocks, host_cap,
+                                   HOST_BASE)):
+            stack, depth = channel_stack(n, c_n, c, cap, base)
+            stacks[key].append(stack)
+            depths[key].append(depth)
+    one = init_serving_state(g, 0, n_lanes, device=device)
+
+    def stacked(t):
+        return t[None].expand((c_n,) + tuple(t.shape)).contiguous()
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return ServingMapState(
+        fmmu=BatchFMMUState(*(stacked(x) for x in one.fmmu)),
+        table=stacked(one.table),
+        free_stack=t(np.stack(stacks["free"]).reshape(c_n, dev_cap)),
+        free_n=t(depths["free"]),
+        host_stack=t(np.stack(stacks["host"]).reshape(c_n, host_cap)),
+        host_n=t(depths["host"]),
+        oob=stacked(one.oob), swap_pending=stacked(one.swap_pending),
+        commit_seq=stacked(one.commit_seq))
+
+
+def _check_sharded(ms: ServingMapState, n_channels: int) -> None:
+    if ms.table.dim() != 2 or ms.table.shape[0] != n_channels:
+        raise ValueError(f"expected a state stacked on {n_channels} "
+                         f"channels, got a table of {tuple(ms.table.shape)}")
+
+
+def translate_sharded(g: FMMUGeometry, n_channels: int, ms: ServingMapState,
+                      opcodes, dlpns, dppns, old_dppns, impl=None
+                      ) -> Tuple[ServingMapState, torch.Tensor, torch.Tensor]:
+    """Channel-sharded ``translate_serving``: each channel services the
+    lanes it owns (channel-local dlpns) with one local probe and one
+    local insert pass, all channels in one commit. ``ms`` tensors carry
+    a leading [C] axis. Returns (state, out, ok)."""
+    ms = clone_state(ms)
+    out, ok = translate_sharded_(g, n_channels, ms, opcodes, dlpns, dppns,
+                                 old_dppns, impl=impl)
+    return ms, out, ok
+
+
+def translate_sharded_(g: FMMUGeometry, n_channels: int,
+                       ms: ServingMapState, opcodes, dlpns, dppns,
+                       old_dppns, impl=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``translate_sharded`` in place on ``ms``'s tensors: (out, ok)."""
+    _check_sharded(ms, n_channels)
+    out, ok, _ = _commit(g, ms, dlpns, impl, opcodes=opcodes, dppns=dppns,
+                         old_dppns=old_dppns)
+    return out, ok
+
+
+def grow_sharded(g: FMMUGeometry, n_channels: int, ms: ServingMapState,
+                 grow, dlpns, impl=None
+                 ) -> Tuple[ServingMapState, torch.Tensor, torch.Tensor]:
+    """Channel-sharded ``serving_grow``: each growth lane pops from its
+    owner channel's free stack and commits through that channel's map;
+    a dry channel fails only its own lanes and raises only its own
+    ``oob``. Returns (state, blocks [B] (NIL where the pop failed), ok)."""
+    ms = clone_state(ms)
+    blocks, ok = grow_sharded_(g, n_channels, ms, grow, dlpns, impl=impl)
+    return ms, blocks, ok
+
+
+def grow_sharded_(g: FMMUGeometry, n_channels: int, ms: ServingMapState,
+                  grow, dlpns, impl=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``grow_sharded`` in place on ``ms``'s tensors: (blocks, ok)."""
+    _check_sharded(ms, n_channels)
+    _, ok, blocks = _commit(g, ms, dlpns, impl, grow=grow.bool())
+    return blocks, ok
+
+
+def set_allocator_sharded(ms: ServingMapState, free_stack, free_n,
+                          host_stack, host_n, swap_pending=None
+                          ) -> ServingMapState:
+    """``set_allocator`` on a channel-stacked state: the tier stacks
+    arrive as [C, cap] rows (host pool order), the per-channel
+    OutOfBlocks flags clear, and the residency lane refreshes in every
+    channel's copy."""
+    dev = ms.free_n.device
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    sp = ms.swap_pending
+    if swap_pending is not None:
+        sp = t(swap_pending, torch.bool)[None].expand(
+            tuple(sp.shape)).contiguous()
+    return ms._replace(
+        free_stack=t(free_stack, I), free_n=t(free_n, I),
+        host_stack=t(host_stack, I), host_n=t(host_n, I),
+        oob=torch.zeros_like(ms.oob), swap_pending=sp)
+
+
+# the reference's name: ``mark_swap`` flips the lane in every channel's
+# copy of a stacked state
+mark_swap_sharded = mark_swap
+
+
+def interleave_table(table: torch.Tensor, n: int) -> torch.Tensor:
+    """The one home of the shard-interleave layout: a [C, L] stack of
+    per-channel table shards flattens to global dlpn order (global d
+    lives at shard [d mod C, d // C]); a flat [L] table (unstacked)
+    passes through, cut to ``n``. Every reader of the striped layout
+    (``dense_table``, the engine's decode paths, the sharded
+    retranslation) goes through here."""
+    if table.dim() == 1:
+        return table[:n]
+    return table.t().reshape(-1)[:n]
+
+
+def dense_table(ms: ServingMapState, n: int) -> torch.Tensor:
+    """The global block table of a (possibly channel-stacked) serving
+    state: ``interleave_table`` on ``ms.table``. The layout follows the
+    table's rank, so a stacked C = 1 state ([1, L]) reads right too."""
+    return interleave_table(ms.table, n)
 
 
 # ------------------------------------------------------------ wrappers

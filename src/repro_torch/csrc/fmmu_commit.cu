@@ -23,16 +23,31 @@
 // The result is bit-identical to that chain of torch ops (the plain
 // version, core/fmmu/batch.commit_chain).
 //
+// Channel-sharded map (repro/core/fmmu/batch.py `translate_sharded`,
+// `grow_sharded`: a jax.vmap of that commit over the channel axis): the
+// state tensors carry a leading [C] axis and one launch runs C blocks,
+// block c committing shard c, as the paper's one FMMU per channel. Every
+// block reads every lane. Lane i is block c's own when it lies in channel
+// c (dlpn >= 0 and dlpn mod C == c; in grow mode any dlpn with
+// dlpn mod C == c); an own lane runs with the channel-local dlpn
+// dlpn div C, any other as an inactive lane (-1), and in grow mode only
+// the own lanes pop (so the requester ranks count only the channel's
+// pops). Each output lane has one writer, its owner block, or block 0
+// for a lane no channel owns (an inactive lane: NIL, not ok), so the
+// reference's "+1" sum over the channels is a plain write. The unstacked
+// state (kSharded = false) is the one-block kernel unchanged.
+//
 // What bounds it here: latency. A serving commit carries 8 to a few
 // hundred lanes and touches kilobytes; the chain it replaces was ~230
 // launches of a few microseconds each. So the design is one launch and
 // as few barriers as the reference's ordering allows.
 //
 // What the design does about it:
-// - One thread block, on one SM, up to 1024 threads; lanes are strided
-//   over the threads, so lane i lives on thread i % blockDim in every
-//   phase and a thread re-reads its own earlier global writes without a
-//   barrier.
+// - One thread block per shard (one in all unsharded), on one SM, up
+//   to 1024 threads; lanes are strided over the threads, so lane i
+//   lives on thread i % blockDim in every phase and a thread re-reads
+//   its own earlier global writes without a barrier. Blocks share no
+//   state: each writes its shard and its own lanes' outputs.
 // - Phases are separated by __syncthreads(): the block's global writes
 //   before a barrier are visible to the block after it, which gives the
 //   reference's ordering (probe on the pre-batch state, write-through,
@@ -64,6 +79,12 @@ constexpr unsigned kFull = 0xffffffffu;
 // lane flags kept in shared memory between phases; priority in bits 3-4
 constexpr uint8_t kHit = 1, kWrite = 2, kMiss = 4;
 
+// elements between two channels' shards of each stacked state tensor
+struct ShardStrides {
+  int tags, valid, ref, clock, data, backing, stats, table, commit_seq,
+      free_stack, free_n, oob;
+};
+
 struct Commit {
   int* tags;
   uint8_t* valid;
@@ -87,6 +108,8 @@ struct Commit {
   int* blocks;           // grow mode only
   int n_sets, n_ways, n_entries, n_backing, n_table, n_stack, n_lanes;
   int n_sorted, n_hash, q_cap, n_blocks;
+  int n_channels;
+  ShardStrides stride;
 };
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -192,6 +215,28 @@ __device__ __forceinline__ int find_way(const Commit& c, int set, int bid) {
   return -1;
 }
 
+// block ch's shard of every stacked state tensor
+__device__ void select_shard(Commit& c, int ch) {
+  const ShardStrides& s = c.stride;
+  c.tags += ch * s.tags;
+  c.valid += ch * s.valid;
+  c.ref += ch * s.ref;
+  c.clock += ch * s.clock;
+  c.data += ch * s.data;
+  c.backing += ch * s.backing;
+  c.stats += ch * s.stats;
+  if (c.table != nullptr) {
+    c.table += ch * s.table;
+    c.commit_seq += ch * s.commit_seq;
+  }
+  if (c.grow != nullptr) {
+    c.free_stack += ch * s.free_stack;
+    c.free_n += ch * s.free_n;
+    c.oob += ch * s.oob;
+  }
+}
+
+template <bool kSharded>
 __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
   extern __shared__ int smem[];
   const int n = c.n_sorted, bq = c.n_lanes, T = blockDim.x, tid = threadIdx.x;
@@ -204,6 +249,8 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
   uint8_t* flags = reinterpret_cast<uint8_t*>(hval + c.n_hash);  // [bq]
   __shared__ int red[32];
   const bool grow_mode = c.grow != nullptr;
+  const int C = c.n_channels, ch = blockIdx.x;
+  if (kSharded) select_shard(c, ch);
 
   for (int i = tid; i < c.n_hash; i += T) {
     hkey[i] = kEmpty;
@@ -211,8 +258,10 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
   }
   for (int i = bq + tid; i < n; i += T) keys[i] = kBig;
   int n_alloc = 0, n_fail = 0;
-  if (grow_mode) {  // 1. ranks of the requesting lanes
-    for (int i = tid; i < bq; i += T) cf[i] = c.grow[i] ? 1 : 0;
+  if (grow_mode) {  // 1. ranks of the requesting (own) lanes
+    for (int i = tid; i < bq; i += T) {
+      cf[i] = c.grow[i] && (!kSharded || floor_mod(c.dlpns[i], C) == ch);
+    }
   }
   // every hash slot is empty before any lane inserts into it
   __syncthreads();
@@ -223,20 +272,30 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
   int n_hit = 0, n_miss = 0;
   for (int i = tid; i < bq; i += T) {
     int d, op;
+    bool writer = true;  // this block writes lane i's outputs
+    const int dg = c.dlpns[i];
     if (grow_mode) {
-      const bool want = c.grow[i] != 0;
+      writer = !kSharded || floor_mod(dg, C) == ch;
+      const bool want = c.grow[i] && writer;
       const int idx = free_n0 - 1 - cf[i];
       const bool ok = want && idx >= 0;
       const int picked =
           c.n_stack > 0 ? c.free_stack[min(max(idx, 0), c.n_stack - 1)] : kNil;
-      c.blocks[i] = ok ? picked : kNil;
-      c.ok[i] = ok;
+      if (writer) {
+        c.blocks[i] = ok ? picked : kNil;
+        c.ok[i] = ok;
+      }
       n_alloc += ok;
       n_fail += want && !ok;
-      d = ok ? c.dlpns[i] : -1;
+      d = ok ? (kSharded ? floor_div(dg, C) : dg) : -1;
       op = kUpdate;
     } else {
-      d = c.dlpns[i];
+      d = dg;
+      if (kSharded) {
+        const bool own = dg >= 0 && floor_mod(dg, C) == ch;
+        writer = own || (dg < 0 && ch == 0);
+        d = own ? floor_div(dg, C) : -1;
+      }
       op = c.opcodes[i];
     }
     const bool active = d >= 0;
@@ -256,8 +315,10 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
     bool ok = active;
     if (!grow_mode) {
       if (is_c) ok = active && cur == c.old_dppns[i];
-      c.out[i] = active ? cur : kNil;
-      c.ok[i] = ok;
+      if (writer) {
+        c.out[i] = active ? cur : kNil;
+        c.ok[i] = ok;
+      }
     }
     const bool write = (is_u && active) || (is_c && ok);
     if (hit && probed) c.ref[set * W + way] = 1;  // every toucher stores 1
@@ -277,7 +338,8 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
   for (int i = tid; i < bq; i += T) {
     const int f = flags[i];
     if (f & kWrite) {
-      const int d = c.dlpns[i];  // a write lane is active (and allocated)
+      // a write lane is active, the block's own (and allocated)
+      const int d = kSharded ? floor_div(c.dlpns[i], C) : c.dlpns[i];
       const int v = grow_mode ? c.blocks[i] : c.dppns[i];
       if (d < c.n_backing) c.backing[d] = v;
       if (f & kHit) {
@@ -394,6 +456,23 @@ extern "C" int fmmu_commit_smem_bytes(int n_lanes) {
   return 4 * (n + n + 1 + 2 * hs) + n_lanes;
 }
 
+template <bool kSharded>
+int launch(const Commit& c, int grid, int threads, int smem,
+           cudaStream_t stream) {
+  static int opted_in = 48 * 1024;  // the default dynamic shared memory
+  if (smem > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fmmu_commit_kernel<kSharded>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = smem;
+  }
+  fmmu_commit_kernel<kSharded><<<grid, threads, smem, stream>>>(c);
+  return (int)cudaGetLastError();
+}
+
+// n_channels == 0: an unstacked state (one block); n_channels >= 1: a
+// state stacked on n_channels shards, whose strides the s_* give.
 extern "C" int fmmu_commit_launch(
     void* tags, void* valid, void* ref, void* clock, void* data,
     void* backing, void* stats, void* table, void* commit_seq,
@@ -401,8 +480,11 @@ extern "C" int fmmu_commit_launch(
     const void* opcodes, const void* dlpns, const void* dppns,
     const void* old_dppns, void* out, void* ok, void* blocks, int n_sets,
     int n_ways, int n_entries, int n_backing, int n_table, int n_stack,
-    int n_lanes, int q_cap, int n_blocks, void* stream) {
-  if (n_lanes < 1) return (int)cudaErrorInvalidValue;
+    int n_lanes, int q_cap, int n_blocks, int n_channels, int s_tags,
+    int s_valid, int s_ref, int s_clock, int s_data, int s_backing,
+    int s_stats, int s_table, int s_commit_seq, int s_free_stack,
+    int s_free_n, int s_oob, void* stream) {
+  if (n_lanes < 1 || n_channels < 0) return (int)cudaErrorInvalidValue;
   Commit c{(int*)tags, (uint8_t*)valid, (uint8_t*)ref, (int*)clock,
            (int*)data, (int*)backing, (int*)stats, (int*)table,
            (int*)commit_seq, (const int*)free_stack, (int*)free_n,
@@ -410,17 +492,14 @@ extern "C" int fmmu_commit_launch(
            (const int*)dlpns, (const int*)dppns, (const int*)old_dppns,
            (int*)out, (uint8_t*)ok, (int*)blocks, n_sets, n_ways, n_entries,
            n_backing, n_table, n_stack, n_lanes, next_pow2(n_lanes),
-           next_pow2(2 * n_lanes), q_cap, n_blocks};
+           next_pow2(2 * n_lanes), q_cap, n_blocks, n_channels,
+           ShardStrides{s_tags, s_valid, s_ref, s_clock, s_data, s_backing,
+                        s_stats, s_table, s_commit_seq, s_free_stack,
+                        s_free_n, s_oob}};
   const int smem = fmmu_commit_smem_bytes(n_lanes);
-  static int opted_in = 48 * 1024;  // the default dynamic shared memory
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fmmu_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
-  }
   const int threads = n_lanes >= 1024 ? 1024 : (n_lanes + 31) / 32 * 32;
-  fmmu_commit_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(c);
-  return (int)cudaGetLastError();
+  if (n_channels == 0) {
+    return launch<false>(c, 1, threads, smem, (cudaStream_t)stream);
+  }
+  return launch<true>(c, n_channels, threads, smem, (cudaStream_t)stream);
 }

@@ -13,6 +13,13 @@ donated buffers; the functional entry points of ``core/fmmu/batch``
 clone the state first. A CPU tensor takes the plain version
 (``fmmu_commit_ref``: the map path's chain of torch ops, written into
 the same tensors); a CUDA tensor launches the kernel or raises.
+
+A channel-stacked serving state (tensors with a leading [C] axis,
+``batch.init_sharded_state``) is one launch of C blocks, block c
+committing channel c's shard with the lanes it owns
+(``translate_sharded``, ``grow_sharded``: the reference's vmap over the
+channels). Its plain version loops over the channels, the chain on
+each shard's views.
 """
 from __future__ import annotations
 
@@ -30,7 +37,10 @@ BIG = torch.iinfo(torch.int32).max
 SMEM_MAX = 232448 - 1024     # a block's shared memory, less the static part
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 20 + [_I] * 9 + [_P]
+_ARGTYPES = [_P] * 20 + [_I] * 22 + [_P]
+# the stacked state tensors whose per-shard strides a launch passes
+_SHARDED = ("tags", "valid", "ref", "clock", "data", "backing", "stats",
+            "table", "commit_seq", "free_stack", "free_n", "oob")
 
 __all__ = ["fmmu_commit", "fmmu_commit_ref", "smem_bytes", "LANE_CAP",
            "LAUNCHES"]
@@ -56,15 +66,47 @@ def fmmu_commit_ref(g: FMMUGeometry, ms, dlpns, *, opcodes=None,
                     ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
                                Optional[torch.Tensor]]:
     """The plain version: ``core/fmmu/batch.commit_chain`` (the chain of
-    torch ops the kernel replaces), written into ``ms``'s tensors."""
+    torch ops the kernel replaces), written into ``ms``'s tensors; on a
+    channel-stacked state, once per channel on the shard's views."""
     # the chain lives with the map path, which imports this module
     from repro_torch.core.fmmu import batch
+    if isinstance(ms, batch.ServingMapState) and ms.table.dim() == 2:
+        return _sharded_ref(g, ms, dlpns, opcodes, dppns, old_dppns, grow)
     new, out, ok, blocks = batch.commit_chain(
         g, ms, dlpns, opcodes=opcodes, dppns=dppns, old_dppns=old_dppns,
         grow=grow)
     for dst, src in zip(batch.state_tensors(ms), batch.state_tensors(new)):
         if dst is not src:
             dst.copy_(src)
+    return out, ok, blocks
+
+
+def _sharded_ref(g, ms, dlpns, opcodes, dppns, old_dppns, grow):
+    """The plain sharded commit: channel c commits the lanes it owns
+    (channel-local dlpns; the rest inactive) on its shard, and each
+    lane's outputs come from its owner channel (NIL / False for a lane
+    no channel owns), as the reference's "+1" sum over the channels."""
+    from repro_torch.core.fmmu import batch
+    n_ch = batch.n_channels(ms)
+    owner = batch.channel_of(dlpns, n_ch)
+    local = batch.local_dlpn(dlpns, n_ch)
+    nil = torch.full_like(dlpns, -1)
+    out, blocks = (None, nil) if grow is not None else (nil, None)
+    ok = torch.zeros(dlpns.shape, dtype=torch.bool, device=dlpns.device)
+    for c in range(n_ch):
+        if grow is not None:
+            own = grow & (owner == c)
+        else:
+            own = (dlpns >= 0) & (owner == c)
+        dl = torch.where(own, local, -1).to(torch.int32)
+        out_c, ok_c, blocks_c = fmmu_commit_ref(
+            g, batch.shard(ms, c), dl, opcodes=opcodes, dppns=dppns,
+            old_dppns=old_dppns, grow=own if grow is not None else None)
+        if grow is not None:
+            blocks = torch.where(own & ok_c, blocks_c, blocks)
+        else:
+            out = torch.where(own, out_c, out)
+        ok = torch.where(own, ok_c, ok)
     return out, ok, blocks
 
 
@@ -80,6 +122,8 @@ def fmmu_commit(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
     given (a mixed LOOKUP / UPDATE / COND_UPDATE batch), or ``grow``
     [Bq] bool with a ServingMapState (``serving_grow``: one block pop
     per grow lane, an UPDATE of dlpn -> block where the pop succeeded).
+    A ServingMapState stacked on C channels is one launch of C blocks
+    (global dlpns in, each lane committed by its owner channel).
     Returns (out [Bq] int32 or None in grow mode, ok [Bq] bool, blocks
     [Bq] int32 in grow mode or None). Raises ValueError past LANE_CAP
     lanes, on any device."""
@@ -95,59 +139,76 @@ def fmmu_commit(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
     grow_mode = grow is not None
     if grow_mode and not serving:
         raise ValueError("fmmu_commit: grow needs a ServingMapState")
+    stacked = st.tags.dim() == 3
+    if stacked and not serving:
+        raise ValueError("fmmu_commit: a stacked state is a "
+                         "ServingMapState")
+    lead = (st.tags.shape[0],) if stacked else ()
     dev = dlpns.device
     s, w, e = g.cmt_sets, g.cmt_ways, g.cmt_entries
     nb = g.n_tvpns * g.entries_per_tp // e
     q_cap = -(-nb // s)
     assert 4 * q_cap * (s + 1) < BIG, "packed insert key overflows"
-    req = _build.require
     i32, b8 = torch.int32, torch.bool
-    req(st.tags, "tags", device=dev, dtype=i32, shape=(s, w))
-    req(st.valid, "valid", device=dev, dtype=b8, shape=(s, w))
-    req(st.ref, "ref", device=dev, dtype=b8, shape=(s, w))
-    req(st.clock, "clock", device=dev, dtype=i32, shape=(s,))
-    req(st.data, "data", device=dev, dtype=i32, shape=(s, w, e))
-    req(st.backing, "backing", device=dev, dtype=i32, shape=(nb * e,))
-    req(st.stats, "stats", device=dev, dtype=i32, shape=(4,))
-    req(dlpns, "dlpns", device=dev, dtype=i32, shape=(bq,))
+
+    def req(t, name, dtype, shape):
+        _build.require(t, name, device=dev, dtype=dtype,
+                       shape=lead + tuple(shape))
+    req(st.tags, "tags", i32, (s, w))
+    req(st.valid, "valid", b8, (s, w))
+    req(st.ref, "ref", b8, (s, w))
+    req(st.clock, "clock", i32, (s,))
+    req(st.data, "data", i32, (s, w, e))
+    req(st.backing, "backing", i32, (nb * e,))
+    req(st.stats, "stats", i32, (4,))
+    _build.require(dlpns, "dlpns", device=dev, dtype=i32, shape=(bq,))
     table = commit_seq = free_stack = free_n = oob = None
     if serving:
         table, commit_seq = ms.table, ms.commit_seq
-        if table.dim() != 1:
-            raise ValueError(f"table: expected [N], got {tuple(table.shape)}")
-        req(table, "table", device=dev, dtype=i32, shape=table.shape)
-        req(commit_seq, "commit_seq", device=dev, dtype=i32, shape=())
+        if table.dim() != len(lead) + 1:
+            raise ValueError(f"table: expected {len(lead) + 1} dims, got "
+                             f"{tuple(table.shape)}")
+        req(table, "table", i32, table.shape[len(lead):])
+        req(commit_seq, "commit_seq", i32, ())
     if grow_mode:
         free_stack, free_n, oob = ms.free_stack, ms.free_n, ms.oob
-        req(grow, "grow", device=dev, dtype=b8, shape=(bq,))
-        req(free_stack, "free_stack", device=dev, dtype=i32,
-            shape=free_stack.shape[:1])
-        req(free_n, "free_n", device=dev, dtype=i32, shape=())
-        req(oob, "oob", device=dev, dtype=b8, shape=())
+        _build.require(grow, "grow", device=dev, dtype=b8, shape=(bq,))
+        req(free_stack, "free_stack", i32,
+            free_stack.shape[len(lead):len(lead) + 1])
+        req(free_n, "free_n", i32, ())
+        req(oob, "oob", b8, ())
         out = None
         blocks = torch.empty(bq, dtype=i32, device=dev)
     else:
         for name, t in (("opcodes", opcodes), ("dppns", dppns),
                         ("old_dppns", old_dppns)):
-            req(t, name, device=dev, dtype=i32, shape=(bq,))
+            _build.require(t, name, device=dev, dtype=i32, shape=(bq,))
         out = torch.empty(bq, dtype=i32, device=dev)
         blocks = None
     ok = torch.empty(bq, dtype=b8, device=dev)
     if bq == 0:
         return out, ok, blocks
+    tensors = {"tags": st.tags, "valid": st.valid, "ref": st.ref,
+               "clock": st.clock, "data": st.data, "backing": st.backing,
+               "stats": st.stats, "table": table, "commit_seq": commit_seq,
+               "free_stack": free_stack, "free_n": free_n, "oob": oob}
+    strides = [tensors[n].stride(0) if stacked and tensors[n] is not None
+               else 0 for n in _SHARDED]
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
     lib = _build.load("fmmu_commit", _ARGTYPES)
+    per = len(lead)
     err = lib.fmmu_commit_launch(
         *(ptr(t) for t in (st.tags, st.valid, st.ref, st.clock, st.data,
                            st.backing, st.stats, table, commit_seq,
                            free_stack, free_n, oob, grow, opcodes, dlpns,
                            dppns, old_dppns, out, ok, blocks)),
-        s, w, e, st.backing.shape[0],
-        table.shape[0] if table is not None else 0,
-        free_stack.shape[0] if free_stack is not None else 0,
-        bq, q_cap, nb, _build.stream_ptr(dlpns))
+        s, w, e, st.backing.shape[per],
+        table.shape[per] if table is not None else 0,
+        free_stack.shape[per] if free_stack is not None else 0,
+        bq, q_cap, nb, lead[0] if stacked else 0, *strides,
+        _build.stream_ptr(dlpns))
     _build.check(lib, "fmmu_commit", err)
     LAUNCHES[0] += 1
     return out, ok, blocks

@@ -1,8 +1,8 @@
 """Serving engine: continuous batching over a fixed slot grid, with the
 FMMU page manager owning logical->physical KV translation. Port of the
-single-step and K-step macro paths of ``repro/serving/engine.py`` and
-its host tier with the non-blocking swap pipeline (one channel), for
-dense and pure-SSM models.
+single-step and K-step macro paths of ``repro/serving/engine.py``, its
+host tier with the non-blocking swap pipeline and its channel-sharded
+map, for dense and pure-SSM models.
 
 Prefill (the flash-attention kernel, or the mamba_chunk_scan kernel
 for an SSM layer) writes each request's KV into the pool blocks named
@@ -42,9 +42,23 @@ that run out of blocks preempt a victim to the host tier (a swap with
 its guard read back), and a single step first swaps its slots back in
 (``_ensure_resident``).
 
-Not ported yet (later slices; ``ServeConfig`` rejects them): channel
-sharding, GC and the CTP prefetch, prefix sharing, journaling and the
-fault plane (so no swap retry, backoff or quarantine, and no watchdog,
+Channels (``channels=C > 1``): the page manager shards the map across
+C channels by the static hash dlpn mod C (``KVPageManager``). A K-step
+run's worst-case growth is pre-committed at the boundary
+(``KVPageManager.precommit_growth``: one channel-aware pool allocation
+in the run's pop order and one map commit, one ``fmmu_commit`` launch
+of C blocks on the card), and the run decodes against that table
+(``macro.macro_fn`` on the stacked state: no allocator and no commit
+inside it; the [C, L] shard stack interleaves to global order once per
+run). The
+reserve and eligibility checks compare per channel. A lane that
+retires mid-run keeps its pre-committed pages until its slot frees, so
+the pool order can differ from single steps' (the reference's
+documented divergence); the tokens never do.
+
+Not ported yet (later slices; ``ServeConfig`` rejects them): the
+channel mesh, GC and the CTP prefetch, prefix sharing, journaling and
+the fault plane (so no swap retry, backoff or quarantine, and no watchdog,
 which the reference leaves off without a plane). Without a host tier
 there is no preemption victim, so a slot whose page growth fails PAUSES
 until blocks free up, as in the reference. As in the reference, every
@@ -58,13 +72,14 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Union
+from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.counters import COUNTERS
+from repro_torch.core.fmmu import batch as fb
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.model import Model
@@ -117,8 +132,10 @@ class ServeEngine:
         self.max_pages = -(-config.max_ctx // self.page)
         n_dev = config.n_device_blocks or (self.n_slots * self.max_pages)
         n_host = config.n_host_blocks
+        self.channels = config.channels
         self.kvm = KVPageManager(self.n_slots, self.max_pages, n_dev,
-                                 n_host, device=self.device)
+                                 n_host, channels=self.channels,
+                                 device=self.device)
         # +1 scratch block past both tiers: unmapped table entries (dead
         # and swap-pending lanes) write their garbage KV there instead of
         # corrupting block 0
@@ -334,9 +351,11 @@ class ServeEngine:
                          key=lambda s: self._pending_since.get(s, 0))
         moved_now: set = set()
 
+        # per-channel vectors: a reserve that fits in aggregate can
+        # still run one channel dry
         def growth_total(slots):
             return sum((self._growth_need_ch(s) for s in slots),
-                       np.zeros(1, np.int64))
+                       np.zeros(self.channels, np.int64))
 
         def can_resume(s):
             # the swap-in takes the lane's host pages in free blocks;
@@ -418,9 +437,12 @@ class ServeEngine:
         return min(p, self.max_pages)
 
     def _table_grid(self, table, pages):
-        """Flat incremental table -> [n_slots, <=pages] grid."""
+        """Flat (or [C, L] channel-sharded) incremental table ->
+        [n_slots, <=pages] global grid, through ``fb.interleave_table``
+        (the one home of the shard-interleave layout)."""
         n = self.n_slots * self.max_pages    # table is geometry-padded
-        grid = table[:n].reshape(self.n_slots, self.max_pages)
+        grid = fb.interleave_table(table, n).reshape(self.n_slots,
+                                                     self.max_pages)
         return grid[:, :pages or self.max_pages]
 
     def _mask_tables(self, grid, live):
@@ -560,13 +582,18 @@ class ServeEngine:
     # ------------------------------------------------------ macro-steps
     def _growth_need_ch(self, slot: int) -> np.ndarray:
         """Worst-case device blocks ``slot`` can pop during one K-step
-        run, per owner channel ([total] at one channel): the same
+        run, per owner channel ([total] at one channel): page p pops
+        from channel (slot * max_pages + p) mod C. The same
         page-boundary arithmetic as the program and ``_growth_walk``."""
         have = len(self.kvm.seq_pages[slot])
         target = min(self.max_pages,
                      -(-(int(self.ctx_lens[slot]) + self.macro_k)
                        // self.page))
-        return np.asarray([max(0, target - have)], np.int64)
+        out = np.zeros(self.channels, np.int64)
+        base = slot * self.max_pages
+        for p in range(have, target):
+            out[(base + p) % self.channels] += 1
+        return out
 
     def _macro_eligible(self) -> bool:
         """A macro step runs only when it provably cannot need the host
@@ -579,7 +606,7 @@ class ServeEngine:
         slot must be resident."""
         if not self._macro_on or not self.active:
             return False
-        need = np.zeros(1, np.int64)
+        need = np.zeros(self.channels, np.int64)
         n_res = 0
         for r in self.active.values():
             if not self.kvm.is_resident(r.slot):
@@ -679,10 +706,37 @@ class ServeEngine:
                        if valid[k, s]]
             self._finish_step(stepped, toks[k], done)
 
+    def _step_buckets(self, live, npages, grow_sched) -> Tuple[int, ...]:
+        """Each step's table width: the bucket a single step would use
+        there, from the pages the growth walk has mapped by that step
+        (``grow_sched`` [K,S]) over the lanes live at it (``live``
+        [K,S]). A step with no live lane keeps the previous width."""
+        npg = npages[None] + np.cumsum(grow_sched, axis=0)
+        pages, b = [], self.min_page_bucket
+        for s in range(self.macro_k):
+            if live[s].any():
+                b = self._page_bucket(int(npg[s][live[s]].max()))
+            pages.append(b)
+        return tuple(pages)
+
+    def _macro_live(self, alive, budget, emit, simple: bool):
+        """[K,S] lanes that decode at each step, as far as the host can
+        tell: ``alive`` throughout a simple run; in a full run a lane
+        stops after the step that spends its budget (an EOS stop is not
+        known here: such a lane counts as live, which only widens later
+        steps' buckets)."""
+        if simple:
+            return np.broadcast_to(alive, (self.macro_k, self.n_slots))
+        spent = np.cumsum(emit, axis=0) - emit
+        return alive[None] & (spent < budget[None])
+
     def _macro_decode_step(self, done: Dict[int, List[int]]):
         """One K-step run, then the boundary work: ONE host sync (the
         token matrix + oob flag), the replay of the device's pops onto
         the host pool, token bookkeeping, frees."""
+        if self.channels > 1:
+            self._macro_decode_step_sharded(done)
+            return
         self.kvm.sync_allocator()      # no-op unless the pool mutated
         # swap-pending slots stay active but are not in the run: masked
         # lanes until the boundary scheduler resumes them
@@ -698,28 +752,14 @@ class ServeEngine:
             (budget[alive] >= gen[alive]).all())
         lanes = dict(tokens=tokens, ctx=self.ctx_lens, alive=alive,
                      budget=budget, npages=npages)
-        if simple:
-            # no retirement: the live set is static, so the growth
-            # schedule is a pure function of what the host holds
-            live = np.broadcast_to(alive, (k, self.n_slots))
-        else:
-            # a lane stops after the step that spends its budget (an
-            # EOS stop is not known here: such a lane counts as live,
-            # which only widens later steps' buckets)
-            spent = np.cumsum(emit, axis=0) - emit
-            live = alive[None] & (spent < budget[None])
+        # no retirement in a simple run: the live set is static, so the
+        # growth schedule is a pure function of what the host holds
+        live = self._macro_live(alive, budget, emit, simple)
         grow_sched, dl, _ = self._growth_walk(lambda s: live[s], npages,
                                               self.ctx_lens)
         if simple:
             lanes.update(grow=grow_sched, dl=dl)
-        # each step's table width is the bucket a single step would use
-        npg = npages[None] + np.cumsum(grow_sched, axis=0)
-        pages, b = [], self.min_page_bucket
-        for s in range(k):
-            if live[s].any():
-                b = self._page_bucket(int(npg[s][live[s]].max()))
-            pages.append(b)
-        pages = tuple(pages)
+        pages = self._step_buckets(live, npages, grow_sched)
         forced = bool(pend.any())
         if forced:
             lanes.update(fmask=fmask, ftok=ftok, emit=emit)
@@ -757,6 +797,69 @@ class ServeEngine:
             # the pool's exhaustion counts and mark the allocator dirty
             # (the re-sync clears it), single-step mode recovers
             self.kvm.observe_exhaustion(flags=[oob])
+
+
+    def _macro_decode_step_sharded(self, done: Dict[int, List[int]]):
+        """The channel-sharded K-step run: commit the run's worst-case
+        growth (no retirement) ahead of it, as one channel-aware pool
+        allocation in the run's pop order (step-major, slot-ascending:
+        what K single steps pop) and one map commit
+        (``precommit_growth``), then the K decode steps against that
+        table (``macro.macro_fn`` on the stacked state) and the usual
+        bookkeeping. Per K tokens: one dispatch, one host sync, at most
+        one map call, no allocator re-sync. A pool that cannot cover the schedule (the
+        commit raises before any pop) falls back to one single step."""
+        residents = [r for r in self.active.values()
+                     if self.kvm.is_resident(r.slot)]
+        k = self.macro_k
+        (tokens, alive, budget, npages, pend, fmask, ftok, emit,
+         slot2req) = self._macro_lanes(residents, k)
+        grow_sched, dl, _ = self._growth_walk(lambda s: alive, npages,
+                                              self.ctx_lens)
+        grow_seq = [int(s) for s in np.nonzero(grow_sched)[1]]
+        try:
+            self.kvm.precommit_growth(
+                grow_seq, dlpns=[int(d) for d in dl[grow_sched]])
+        except OutOfBlocks:
+            self.metrics["macro_fallbacks"] += 1
+            self._decode_step(done)
+            return
+        gen = k - np.maximum(pend - 1, 0)
+        simple = self.eos_id < 0 and bool(
+            (budget[alive] >= gen[alive]).all())
+        # each step's width from the pre-committed walk, over the lanes
+        # that decode there (a lane live at a step has grown as it would
+        # have in single steps)
+        pages = self._step_buckets(
+            self._macro_live(alive, budget, emit, simple), npages,
+            grow_sched)
+        lanes = dict(tokens=tokens, ctx=self.ctx_lens, alive=alive,
+                     budget=budget)
+        forced = bool(pend.any())
+        if forced:
+            lanes.update(fmask=fmask, ftok=ftok, emit=emit)
+        buf = macro.pack_inputs(k, self.n_slots, **lanes)
+        MACRO_DISPATCHES[0] += 1
+        if self._graphs is not None:
+            st, out = self._graphs.run(self.kvm.state, buf, simple, forced,
+                                       pages)
+        else:
+            st, out = macro.run_eager(self, buf, simple, forced, pages)
+        self.kvm.state = st
+        HOST_SYNCS[0] += 1
+        toks = out[:k * self.n_slots].cpu().numpy().reshape(k, self.n_slots)
+        self.metrics["macro_steps"] += 1
+        if simple:
+            self._macro_book_simple(residents, toks, pend, k, done)
+        else:
+            valid = (toks >= 0) & alive[None, :]
+            self._macro_book_full(valid, toks, slot2req, done)
+
+    def _device_lanes(self) -> int:
+        """Committed map-write lanes on the device (the ``commit_seq``
+        lane, summed over the channel shards). A readback: diagnostics
+        and tests only."""
+        return int(fb.commit_seq_vec(self.kvm.state).sum())
 
 
 # ----------------------------------------------------------------------

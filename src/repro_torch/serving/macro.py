@@ -18,7 +18,14 @@ every tensor of the map state bit-identical (``fb.serving_grow``), so
 the program computes what the reference computes, at the price of one
 commit launch on every step.
 
-On a CPU tensor the engine runs ``macro_fn`` eagerly. On the card it
+On a channel-stacked map state the same program is the port of
+``ServeEngine._macro_sharded_fn``: the boundary has already
+pre-committed every page the run can need
+(``KVPageManager.precommit_growth``), so the steps skip the growth
+commit and decode against a read-only table, the [C, L] shard stack
+interleaved to global order once per run.
+
+On a CPU tensor the engine runs the program eagerly. On the card it
 replays ``MacroGraphs``: the program captured once per (simple | full,
 forced | none, per-step page buckets), all graphs in one memory pool.
 One replay is one dispatch per K tokens; its inputs go in as one
@@ -68,20 +75,33 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
     token of a chunk-prefilled request) instead of the carried sample,
     and only steps with emit spend budget or can retire.
 
-    Returns (state, toks [K,S] int32, oob [] bool). In full mode toks is
-    NIL on lanes that emitted nothing; in simple mode dead-lane columns
-    are garbage and the host masks them."""
+    On a channel-stacked map state (the port of ``_macro_sharded_fn``)
+    the boundary has pre-committed every page the run can need
+    (``KVPageManager.precommit_growth``): the steps skip the growth
+    commit, ``n_pages`` is unused, and the [C, L] shard stack is
+    interleaved to global order once here. Pages mapped ahead of a
+    lane's context are invisible to attention (it reads ctx_lens
+    positions only), so a step equals a single step.
+
+    Returns (state, toks [K,S] int32, oob: ``ms.oob``, [] or [C] bool).
+    In full mode toks is NIL on lanes that emitted nothing; in simple
+    mode dead-lane columns are garbage and the host masks them."""
     g = eng.kvm.geom
     page, max_pages = eng.page, eng.max_pages
     dev = cur_tok.device
     slots = torch.arange(eng.n_slots, dtype=I, device=dev)
+    pre = fb.n_channels(ms) > 1             # growth pre-committed
+    # a view of the one-channel table (its commits land in it); one
+    # relayout of the sharded stack per run
+    table = fb.interleave_table(ms.table, eng.n_slots * max_pages)
     # swap-pending slots are paused lanes for the whole run: the host
     # leaves them out of ``alive`` too, and every swap flips the lane in
-    # place on this (static) state before the next run
-    alive = alive & ~ms.swap_pending
+    # place on this (static) state before the next run (in every
+    # channel's copy of a stacked state)
+    alive = alive & ~(ms.swap_pending[0] if pre else ms.swap_pending)
 
-    def decode(ms, tok, ctx, live, k):
-        return eng.decode_fn(params, caches, tok, ctx, ms.table, live,
+    def decode(tok, ctx, live, k):
+        return eng.decode_fn(params, caches, tok, ctx, table, live,
                              pages[k])
 
     toks: List[torch.Tensor] = []
@@ -94,8 +114,9 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
                 tok = torch.where(forced[0][k] & alive, forced[1][k], tok)
             # no lane can fail here (the host's worst-case eligibility
             # check covers the run); if one does, oob is raised
-            fb.serving_grow_(g, ms, grow_sched[k], dl_sched[k])
-            nxt = decode(ms, tok, ctx, alive, k)
+            if not pre:
+                fb.serving_grow_(g, ms, grow_sched[k], dl_sched[k])
+            nxt = decode(tok, ctx, alive, k)
             toks.append(nxt)
             tok = torch.where(alive, nxt, 0)
             ctx = ctx + alive.to(I)
@@ -108,15 +129,18 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
         else:
             fm, ft, em = (f[k] for f in forced)
             tok = torch.where(fm & alive, ft, tok)
-        need = torch.div(ctx + page, page, rounding_mode="floor")
-        grow = alive & (need > npg) & (npg < max_pages)
-        _, ok = fb.serving_grow_(g, ms, grow, slots * max_pages + npg)
-        # a lane that wanted a block and failed PAUSES (it must not
-        # decode into the scratch block); oob sends the host to the
-        # single-step path
-        live = alive & ~(grow & ~ok)
-        npg = npg + ok.to(I)
-        nxt = decode(ms, torch.where(live, tok, 0), ctx, live, k)
+        if pre:
+            live = alive
+        else:
+            need = torch.div(ctx + page, page, rounding_mode="floor")
+            grow = alive & (need > npg) & (npg < max_pages)
+            _, ok = fb.serving_grow_(g, ms, grow, slots * max_pages + npg)
+            # a lane that wanted a block and failed PAUSES (it must not
+            # decode into the scratch block); oob sends the host to the
+            # single-step path
+            live = alive & ~(grow & ~ok)
+            npg = npg + ok.to(I)
+        nxt = decode(torch.where(live, tok, 0), ctx, live, k)
         # advance, then retire finished lanes with pause semantics:
         # frozen ctx, no growth, no tokens
         tok = torch.where(live, nxt, tok)
@@ -162,15 +186,19 @@ def unpack_inputs(buf: torch.Tensor, k: int, s: int, simple: bool,
 
 
 def _program(eng, ms, caches, buf: torch.Tensor, key):
-    """``macro_fn`` on a packed input buffer; key = (simple, forced,
-    per-step page buckets). Returns (state, out [K*S+1] int32: the
-    tokens, then oob)."""
+    """The engine's K-step program (``macro_fn``) on a packed input
+    buffer; key = (simple, forced, per-step page buckets). Returns
+    (state, out int32): the [K*S] tokens, then at one channel the
+    in-graph allocator's oob flag (a channel-sharded run pops nothing,
+    so it packs the tokens alone)."""
     simple, forced, pages = key
     cur_tok, ctx, n_pages, alive, budget, fc = unpack_inputs(
         buf, eng.macro_k, eng.n_slots, simple, forced)
     ms, toks, oob = macro_fn(eng, eng.params, ms, caches, cur_tok, ctx,
                              n_pages, alive, budget, fc, pages,
                              simple=simple)
+    if oob.dim():
+        return ms, toks.reshape(-1)
     return ms, torch.cat([toks.reshape(-1), oob.to(I).reshape(1)])
 
 
@@ -225,9 +253,12 @@ class MacroGraphs:
     is every map-state tensor that an eager op replaced since the last
     replay (an allocator re-sync; eager map commits, a swap's among
     them, and its residency flip update the static tensors in place).
-    So no key holds residency: a swap or a rotation captures nothing. The program commits the map in place on the
-    static state too, so ``kvm.state`` keeps one storage across
-    replays.
+    So no key holds residency: a swap or a rotation captures nothing.
+    The one-channel program commits the map in place on the static
+    state too, so ``kvm.state`` keeps one storage across replays. The
+    channel-sharded program only reads the static table: its graphs hold
+    no ``fmmu_commit`` node, and the boundary's pre-commit (one eager
+    launch) writes the static state in place before the replay.
 
     Host-side effects are not replayed: the kernel wrappers' launch
     counts and the map's probe/insert counts bump while a graph is
@@ -257,7 +288,8 @@ class MacroGraphs:
             pages: Tuple[int, ...]):
         """Replay the variant's graph (capturing it first if new) on
         ``ms`` and the packed inputs. Returns (static state, out
-        [K*S+1] int32 on the device: the tokens, then oob)."""
+        [K*S+1] int32 on the device: the tokens, then oob; the
+        channel-sharded program writes only the tokens)."""
         self._bind(ms)
         self.host_buf.numpy()[:] = buf
         self.buf.copy_(self.host_buf, non_blocking=True)
@@ -311,11 +343,13 @@ class MacroGraphs:
         def program():
             ms, out = _program(self.eng, self.ms, self.eng.caches,
                                self.buf, key)
+            # the one-channel program commits the map in place on the
+            # static state; the sharded one only reads its table
             if any(t is not static for static, t in zip(
                     fb.state_tensors(self.ms), fb.state_tensors(ms))):
-                raise RuntimeError("the K-step program must commit the "
-                                   "map in place on the static state")
-            self.out.copy_(out)
+                raise RuntimeError("the K-step program must leave the map "
+                                   "on the static state")
+            self.out[:out.numel()].copy_(out)
         graph, self.deltas[key] = capture(program, self.pool, self.stream)
         torch.cuda.synchronize(self.dev)
         self.capture_s += time.perf_counter() - t0

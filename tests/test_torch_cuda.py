@@ -629,6 +629,161 @@ def test_fmmu_commit_lane_cap_raises_on_the_card(cuda):
         assert torch.equal(x, y)
 
 
+# ------------------------------------- the channel grid of the commit
+def _sharded_state(dev, rng, c_n, dry=None, n_stack=64):
+    """A paper-geometry map cut into ``c_n`` 1/C shards (512 x 4 x 8 CMT
+    each, backing 1,048,576 / C), each with its own history
+    (``_commit_state``), stacked on the channel axis; channel ``dry``
+    has an empty free stack. Returns (shard geometry, state)."""
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry(n_tvpns=256 // c_n)
+    shards = [_commit_state(dev, rng, g, n_stack=n_stack)
+              for _ in range(c_n)]
+    st = fb.BatchFMMUState(*(torch.stack(ts) for ts in zip(
+        *(sh.fmmu for sh in shards))))
+    ms = fb.ServingMapState(st, *(torch.stack(ts) for ts in zip(
+        *(sh[1:9] for sh in shards))))
+    if dry is not None:
+        ms.free_n[dry] = 0
+    return g, ms
+
+
+def _sharded_lanes(rng, g, ms, bq, grow=False):
+    """Bq global lanes over a stacked state: hits in each channel's CMT
+    (local page * C + channel), misses anywhere in the global space,
+    lanes past it up to int32's max, duplicate reads (LOOKUP; none with
+    ``grow``), inactive lanes, mixed op kinds, unique write dlpns,
+    dppns NIL, device or host-tier. Returns (op, dl, dp) on the CPU."""
+    from repro_torch.core.fmmu.types import HOST_BASE, LOOKUP, NIL
+    c_n, e = ms.table.shape[0], g.cmt_entries
+    n_pages = c_n * g.n_tvpns * g.entries_per_tp
+    tags, valid = ms.fmmu.tags.cpu().numpy(), ms.fmmu.valid.cpu().numpy()
+    hits = np.concatenate([
+        ((tags[c][valid[c]][:, None] * e + np.arange(e)) * c_n + c)
+        .reshape(-1) for c in range(c_n)])
+    cand = np.concatenate([
+        [n_pages, n_pages + 3, 1 << 30, (1 << 31) - 1],
+        rng.permutation(hits)[:max(bq // 3, 1)],
+        rng.permutation(n_pages)[:bq]])
+    _, first = np.unique(cand, return_index=True)
+    cand = cand[np.sort(first)]
+    u = min(len(cand), max(1, 3 * bq // 4))
+    dups = rng.choice(cand[:u], (bq - u) // 2)
+    dl = np.concatenate([cand[:u], np.full_like(dups, -1) if grow else dups,
+                         rng.choice([-1, -3], bq - u - (bq - u) // 2)])
+    op = rng.integers(0, 3, bq)
+    op[u:u + (bq - u) // 2] = LOOKUP
+    dp = rng.choice([NIL, 7, HOST_BASE + 5], bq)
+    dp = np.where(dp == NIL, NIL, dp + rng.integers(0, 99, bq))
+    order = rng.permutation(bq)
+    return [torch.from_numpy(a[order].astype(np.int32)) for a in (op, dl, dp)]
+
+
+@pytest.mark.parametrize("c_n", [2, 8, 32])
+@pytest.mark.parametrize("bq", [64, 1024])
+@pytest.mark.parametrize("mode", ["translate", "grow"])
+def test_fmmu_commit_grid_bit_exact(cuda, c_n, bq, mode):
+    """One launch of C blocks per commit, three commits in a row, on a
+    paper-geometry map cut into C shards: the kernel in place against
+    the plain per-channel chain on a clone, every state tensor and
+    output bit for bit. Grow mode pops from each lane's owner channel;
+    channel 1's stack is empty, so its lanes fail and raise only its
+    oob flag."""
+    from repro_torch.kernels import fmmu_commit as fc
+    rng = np.random.default_rng(c_n * 100 + bq)
+    g, ms = _sharded_state(cuda, rng, c_n,
+                           dry=1 if mode == "grow" else None, n_stack=bq)
+    ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+    for it in range(3):
+        op, dl, dp = (a.to(cuda) for a in _sharded_lanes(
+            rng, g, ms, bq, grow=mode == "grow"))
+        n0 = fc.LAUNCHES[0]
+        if mode == "grow":
+            grow = torch.from_numpy(rng.random(bq) < 0.5).to(cuda)
+            # one growing lane in the dry channel 1 at least
+            used, page = set(dl.tolist()), 1
+            while page in used:
+                page += c_n
+            dl[0] = page
+            grow[0] = True
+            got = fb.grow_sharded_(g, c_n, ker, grow, dl)
+            want = fb.grow_sharded_(g, c_n, ref, grow, dl, impl="ref")
+        else:
+            out = fb.translate_sharded(g, c_n, ref, torch.zeros_like(op), dl,
+                                       dp, dp, impl="ref")[1]
+            old = torch.where(torch.rand(bq, device=cuda) < 0.5, out, dp)
+            got = fb.translate_sharded_(g, c_n, ker, op, dl, dp, old)
+            want = fb.translate_sharded_(g, c_n, ref, op, dl, dp, old,
+                                         impl="ref")
+        assert fc.LAUNCHES[0] - n0 == 1
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y), (it, mode)
+        for i, (x, y) in enumerate(zip(fb.state_tensors(ker),
+                                       fb.state_tensors(ref))):
+            assert x.dtype == y.dtype and torch.equal(x, y), (it, i)
+    if mode == "grow":
+        oob = fb.oob_vec(ker).tolist()
+        assert oob[1] and not any(oob[:1] + oob[2:]), oob
+
+
+def test_fmmu_commit_grid_repeats_bit_identical(cuda):
+    """One 4096-lane commit at C = 8 launched 100 times, each on a fresh
+    copy of one stacked state: every launch leaves the state tensors
+    and outputs that the plain per-channel chain leaves (the race check
+    of the one-block commit, on the grid)."""
+    c_n = 8
+    rng = np.random.default_rng(8)
+    g, ms = _sharded_state(cuda, rng, c_n)
+    op, dl, dp = (a.to(cuda) for a in _sharded_lanes(rng, g, ms, 4096))
+    ref = fb.clone_state(ms)
+    want = list(fb.translate_sharded_(g, c_n, ref, op, dl, dp, dp,
+                                      impl="ref")) + fb.state_tensors(ref)
+    for it in range(100):
+        ker = fb.clone_state(ms)
+        got = list(fb.translate_sharded_(g, c_n, ker, op, dl, dp, dp)) + \
+            fb.state_tensors(ker)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert torch.equal(x, y), (it, i)
+
+
+def test_sharded_manager_at_the_served_map_equals_the_cpu_chain(cuda):
+    """The served channel map (8 slots x 128 pages over 8 channels,
+    1024 device + 1024 host blocks): admissions, growth pre-commits,
+    swaps both ways (``check=False`` and ``check=True``) and a free on a
+    card manager (one grid launch a map call) leave, after every op,
+    the map state, page lists and per-channel free lists that a CPU
+    manager (the plain per-channel chain) leaves."""
+    from repro_torch.kernels import fmmu_commit as fc
+    from repro_torch.paging.kv_manager import XLATE_CALLS, KVPageManager
+    kvms = [KVPageManager(8, 128, 1024, 1024, channels=8, device=d)
+            for d in (cuda, "cpu")]
+    pages = [-(-n // 16) for n in (64, 128, 256, 384, 512, 640, 768, 1020)]
+    ops = [("new", s, n) for s, n in enumerate(pages)] + [
+        ("pre", list(range(8)) * 2), ("swap_out", 7, False),
+        ("pre", [0, 2, 4, 6]), ("swap_out", 3, True), ("swap_in", 7, False),
+        ("pre", [1, 5, 7]), ("swap_in", 3, True), ("free", 4),
+        ("new", 4, 9), ("pre", list(range(8)))]
+    for op in ops:
+        for kvm in kvms:
+            n0, x0 = fc.LAUNCHES[0], XLATE_CALLS[0]
+            if op[0] == "new":
+                kvm.new_seq(op[1], op[2])
+            elif op[0] == "pre":
+                kvm.precommit_growth(op[1])
+            elif op[0] == "free":
+                kvm.free_seq(op[1])
+            else:
+                getattr(kvm, op[0])(op[1], [], check=op[2])
+            if kvm.device.type == "cuda":
+                assert fc.LAUNCHES[0] - n0 == XLATE_CALLS[0] - x0 == 1, op
+        for a, b in zip(fb.state_tensors(kvms[0].state),
+                        fb.state_tensors(kvms[1].state)):
+            assert torch.equal(a.cpu(), b), op
+        assert kvms[0].seq_pages == kvms[1].seq_pages, op
+        assert kvms[0].pool._free_dev_ch == kvms[1].pool._free_dev_ch, op
+    assert kvms[0].pool.stats.swaps_out and kvms[0].pool.stats.swaps_in
+
+
 def test_wrappers_reject_bad_arguments(cuda):
     q = torch.zeros((1, 8, 4, 16), device=cuda)
     with pytest.raises(ValueError):
@@ -974,3 +1129,85 @@ def test_swap_with_check_false_never_syncs(cuda):
                     fb.state_tensors(kvms[1].state)):
         assert torch.equal(a.cpu(), b)
     assert kvms[0].seq_pages == kvms[1].seq_pages
+
+
+# ------------------------------------------- channel-sharded macro path
+def test_sharded_macro_replays_match_eager_program(cuda):
+    """A two-channel macro engine: every replay of its K-step graphs
+    equals one eager run of ``macro_fn`` on clones of the map state and
+    the caches (tokens and caches bit for bit, the same counted
+    launches), no graph
+    holds an ``fmmu_commit`` launch (the growth commit is the
+    boundary's one eager launch), and the tokens equal a one-channel
+    engine's and a two-channel single-step engine's."""
+    from repro_torch.serving import macro
+    eng = _macro_engine(cuda, channels=2, admit_tokens=12)
+    graphs = eng._graphs
+    replay = graphs.run
+    seen = []
+
+    def checked(ms, buf, simple, forced, pages):
+        caches0 = {n: c.clone() for n, c in eng.caches.items()}
+        ms0 = fb.clone_state(ms)
+        n0 = COUNTERS.launches()
+        st, out = replay(ms, buf, simple, forced, pages)
+        n1 = COUNTERS.launches()
+        args = macro.unpack_inputs(torch.from_numpy(buf).to(cuda), MACRO_K,
+                                   eng.n_slots, simple, forced)
+        _, toks, _ = macro.macro_fn(
+            eng, eng.params, ms0, caches0, *args, pages, simple=simple)
+        n2 = COUNTERS.launches()
+        assert torch.equal(out[:toks.numel()], toks.reshape(-1))
+        for n, c in eng.caches.items():
+            assert torch.equal(c, caches0[n]), n
+        assert {k: n1[k] - n0.get(k, 0) for k in n1} == \
+            {k: n2[k] - n1.get(k, 0) for k in n2}
+        assert n1.get("fmmu_commit", 0) == n0.get("fmmu_commit", 0)
+        seen.append((simple, forced, pages))
+        return st, out
+
+    graphs.run = checked
+    got, _ = _serve(eng, MACRO_REQS)
+    assert {(s, f) for s, f, _ in seen} == {(True, True), (True, False),
+                                            (False, True), (False, False)}
+    assert all(d.get("kernel.fmmu_commit", 0) == 0
+               for d in graphs.deltas.values())
+    assert eng.metrics["macro_fallbacks"] == 0
+    want, _ = _serve(_macro_engine(cuda, admit_tokens=12), MACRO_REQS)
+    single, _ = _serve(_macro_engine(cuda, channels=2, admit_tokens=12,
+                                     macro_k=0), MACRO_REQS)
+    assert got == want == single
+
+
+def test_stacked_residency_flip_in_place_without_a_capture(cuda):
+    """A two-channel engine: a slot swapped out by hand between two
+    K-step runs flips its lane in both channels' copies, in place on the
+    graphs' static map state (its commit too); the next run masks the
+    slot and captures nothing, and after the swap back the tokens equal
+    an engine that never swapped."""
+    from repro_torch.serving import macro
+    reqs = [(range(1, 9), 1 + 5 * MACRO_K), (range(30, 41), 1 + 5 * MACRO_K)]
+    want, _ = _serve(_macro_engine(cuda, max_ctx=64), reqs)
+    eng = _macro_engine(cuda, max_ctx=64, n_host_blocks=16, channels=2)
+    eng.min_page_bucket = eng.max_pages          # one bucket throughout
+    rids = [eng.submit(list(t), max_new=n) for t, n in reqs]
+    done: dict = {}
+    eng.step(done)                  # admission, prefill, first capture
+    static = eng._graphs.ms
+    slot = eng.active[rids[1]].slot
+    n_out = len(eng.active[rids[1]].out)
+    assert eng._swap_out_slot(slot)
+    assert static.swap_pending[:, slot].tolist() == [True, True]
+    for a, b in zip(fb.state_tensors(eng.kvm.state),
+                    fb.state_tensors(static)):
+        assert a is b
+    c0 = macro.MACRO_CAPTURES[0]
+    eng._macro_decode_step(done)    # a run with the slot masked
+    assert macro.MACRO_CAPTURES[0] == c0
+    assert len(eng.active[rids[1]].out) == n_out
+    assert eng._swap_in_slot(slot)
+    assert not eng.kvm.state.swap_pending.any()
+    while eng.step(done):
+        pass
+    assert macro.MACRO_CAPTURES[0] == c0
+    assert [done[r] for r in rids] == want

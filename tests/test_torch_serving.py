@@ -147,7 +147,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(channels=2), dict(gc=object()),
+    dict(use_mesh=True), dict(gc=object()),
     dict(prefix=object()), dict(journal_path="j.log")])
 def test_serve_config_rejects_unported_features(kw):
     with pytest.raises(NotImplementedError):
