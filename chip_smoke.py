@@ -30,7 +30,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                with one dry channel, each one launch of C blocks,
                bit-exact against the per-channel plain chain; each C's
                64-lane commit timed beside the one-block launch on the
-               whole geometry, with its byte bound. Times the kernel,
+               whole geometry, with its byte bound. The fault plane's
+               commits at the llama serving map, at 1 and 8 channels: a
+               retirement (4 COND_UPDATE lanes) and a restore (1024
+               UPDATE lanes into a fresh state), one launch each,
+               bit-exact, timed with their bounds. Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -94,6 +98,33 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                2-layer f32 engine at 2 channels on the reference test's
                oversubscribed pool (10 device + 24 host blocks,
                macro_k=4): kernel tokens equal kernel_impl="ref" tokens.
+  3e. serve (faults) — the swap phase's requests and pool under a
+               seeded fault plan (swap 0.2, program 0.03, alloc 0.05;
+               every axis must fire): swaps back off and one request is
+               quarantined, bad blocks retire (one map call and one
+               fmmu_commit launch each; after a K-step run the rows it
+               wrote move too), allocations fail transiently. Three
+               passes, each after a reset with a fresh plane (capture,
+               counted, timed): the tokens must equal the full-pool
+               macro phase's and the counted pass must capture nothing.
+               Prints the retirements, quarantines, swap faults,
+               fallbacks, decode tokens/s beside serve_swap's and each
+               retirement's device ms (events behind a spin kernel)
+               beside its byte bound and host dispatch ms. Then a
+               2-layer f32 engine at 2 channels, oversubscribed, under
+               the plan with a journal: kernel tokens and journal equal
+               kernel_impl="ref"'s, frame for frame.
+  3f. serve (recover) — the channel phase's configuration (8 channels)
+               with program faults, channel 3 browned out and a journal:
+               decode tokens/s journaled beside unjournaled, host ms per
+               append and snapshot, journal bytes a record; then a power
+               cut inside the first growth pre-commit's record (its OOB
+               frame whole): the crashed engine recovers (its graphs
+               kept: no variant captured twice) and drains, and so does
+               a fresh engine from the same journal; both drains give
+               the one-channel macro tokens, both recoveries take the
+               OOB scan, each restore is one map call and one
+               fmmu_commit launch. Prints MTTR (recover_s).
   4. map     — a seeded stream of mixed lookup / update / cond-update
                batches at the paper's CMT geometry goes through the
                fused path (the commit kernel), its plain version (the
@@ -125,10 +156,12 @@ shared memory of each attention and scan instantiation, with the paged
 kernel's launch plan at the serving shape), the card's name and power
 limit, one JSON line {"kernels": [...]} (launches from the macro
 path's counted pass, launches_single_step from the single-step run,
-launches_serve_swap and launches_serve_channels from the swap and
-channel phases' counted passes), one {"serve": {...}} (llama), one
+launches_serve_swap, launches_serve_channels and launches_serve_faults
+from the swap, channel and fault phases' counted passes,
+launches_serve_recover from the recovered drain of the crashed engine), one {"serve": {...}} (llama), one
 {"serve_macro": {...}}, one {"serve_swap": {...}}, one
-{"serve_channels": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
+{"serve_channels": {...}}, one {"serve_faults": {...}}, one
+{"serve_recover": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
 and one {"serve_ssm_macro": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -887,6 +920,101 @@ def check_serving_grid_commits(timer, rng):
                                               impl=impl))
         out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound_ms(
             sharded_commit_bytes(g, ms, lanes, None), 0, "int32")
+    return out
+
+
+RETIRE_LANES = 4
+
+
+def _fault_commits(rng):
+    """The commits of the fault plane and recovery at the llama serving
+    map (8 slots x 128 pages, ``_geometry(8, 128, C)``), at one channel
+    and at ``SERVE_CHANNELS``: a retirement (``RETIRE_LANES`` COND_UPDATE
+    lanes moving mapped pages from their bad blocks to replacements of
+    the page's owner channel, old dppn the bad block, on a map with
+    history) and a restore (``KVPageManager.restore_mapping``: one UPDATE
+    lane per page of every slot, 1024, to blocks of the owner channel,
+    old dppn 0, into a fresh state). Returns [(key, shard geometry,
+    channels, state, lanes (op, dl, new, old))]."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import COND_UPDATE, UPDATE
+    from repro_torch.paging.kv_manager import _geometry
+    n_slots, max_pages = 8, 128
+    n_dev = n_slots * max_pages
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    out = []
+    for c_n in (1, SERVE_CHANNELS):
+        g = _geometry(n_slots, max_pages, c_n)
+        commit = (fb.translate_serving_ if c_n == 1 else
+                  lambda g_, ms_, *a, **k: fb.translate_sharded_(
+                      g_, c_n, ms_, *a, **k))
+
+        def owned(dl):
+            """Distinct device blocks of each lane's owner channel."""
+            blk = np.empty_like(dl)
+            for c in range(c_n):
+                m = dl % c_n == c
+                blk[m] = c + c_n * rng.permutation(n_dev // c_n)[:m.sum()]
+            return blk
+        ms = _commit_state(rng, g) if c_n == 1 else \
+            _stack_shards([_commit_state(rng, g) for _ in range(c_n)])
+        dl = rng.permutation(n_dev)[:RETIRE_LANES]
+        both = owned(np.concatenate([dl, dl]))
+        bad, new = both[:RETIRE_LANES], both[RETIRE_LANES:]
+        commit(g, ms, t(np.full(RETIRE_LANES, UPDATE)), t(dl), t(bad),
+               t(np.zeros(RETIRE_LANES)), impl="ref")
+        out.append((f"retire_c{c_n}", g, c_n, ms,
+                    (t(np.full(RETIRE_LANES, COND_UPDATE)), t(dl), t(new),
+                     t(bad))))
+        fresh = (fb.init_serving_state(g, n_dev, n_lanes=n_slots,
+                                       n_host_blocks=2 * n_dev,
+                                       device="cuda") if c_n == 1 else
+                 fb.init_sharded_state(g, c_n, n_dev, 2 * n_dev,
+                                       n_lanes=n_slots, device="cuda"))
+        dl = np.arange(n_dev)
+        out.append((f"restore_c{c_n}", g, c_n, fresh,
+                    (t(np.full(n_dev, UPDATE)), t(dl), t(owned(dl)),
+                     t(np.zeros(n_dev)))))
+    return out
+
+
+def check_fault_commits(timer, rng):
+    """The retirement and the restore commit (``_fault_commits``), one
+    launch each (of C blocks at C channels), through the kernel and its
+    plain chain on clones of one state, bit for bit on every state
+    tensor and output, every lane's guard holding. Times both and
+    bounds each commit (``commit_bytes`` / ``sharded_commit_bytes``)."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.kernels import fmmu_commit as fc
+    out = {}
+    for key, g, c_n, ms, lanes in _fault_commits(rng):
+        def commit(state, impl=None):
+            if c_n == 1:
+                return fb.translate_serving_(g, state, *lanes, impl=impl)
+            return fb.translate_sharded_(g, c_n, state, *lanes, impl=impl)
+        ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+        n0 = fc.LAUNCHES[0]
+        got = commit(ker)
+        want = commit(ref, "ref")
+        torch.cuda.synchronize()
+        if fc.LAUNCHES[0] - n0 != 1:
+            fail(f"the {key} commit: {fc.LAUNCHES[0] - n0} launches")
+        for x, y in zip(list(got) + fb.state_tensors(ker),
+                        list(want) + fb.state_tensors(ref)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"fmmu_commit differs from its plain chain on the "
+                     f"{key} commit")
+        if not bool(got[1].all()):
+            fail(f"the {key} commit refused lanes: {got[1].tolist()}")
+        for impl, k in ((None, "ms"), ("ref", "plain_ms")):
+            clones = iter([fb.clone_state(ms) for _ in range(23)])
+            out[f"{k}_{key}"] = timer.ms(lambda: commit(next(clones), impl))
+        n_bytes = commit_bytes(g, ms, lanes, None) if c_n == 1 else \
+            sharded_commit_bytes(g, ms, lanes, None)
+        out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound_ms(
+            n_bytes, 0, "int32")
     return out
 
 
@@ -1813,20 +1941,20 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
 SWAP_CONFIG = dict(n_device_blocks=128, n_host_blocks=256, swap_patience=4)
 
 
-class SwapLog:
-    """Wraps an engine's page manager's swap: every swap records its
-    direction, pages, guard read, host dispatch ms (host clock around
-    the call), map calls and fmmu_commit launches. With ``spin`` set, a
-    spin kernel of that many cycles runs before each swap, so that CUDA
-    events around the call time the device's work and not the host's
-    enqueue (``events``)."""
+class CallLog:
+    """Wraps ``obj.<name>``: every call records its host dispatch ms
+    (host clock around the call), map calls, fmmu_commit launches and
+    the fields ``fields(args, kwargs, result)`` gives. With ``spin``
+    set, a spin kernel of that many cycles runs before each call, so
+    that CUDA events around it time the device's work and not the
+    host's enqueue (``events``)."""
 
-    def __init__(self, eng):
+    def __init__(self, obj, name, fields):
         from repro_torch.core.counters import COUNTERS
         self.records, self.spin = [], 0
-        swap = eng.kvm._swap
+        fn = getattr(obj, name)
 
-        def spy(out, slot, pools, block_axis, check):
+        def spy(*args, **kwargs):
             base = COUNTERS.snapshot()
             ev = None
             if self.spin:
@@ -1835,17 +1963,17 @@ class SwapLog:
                       for _ in range(2)]
                 ev[0].record()
             t0 = time.perf_counter()
-            n = swap(out, slot, pools, block_axis, check)
+            out = fn(*args, **kwargs)
             host_ms = (time.perf_counter() - t0) * 1e3
             if ev:
                 ev[1].record()
             d = COUNTERS.delta(base)
-            self.records.append({
-                "out": out, "pages": n, "check": check, "host_ms": host_ms,
-                "events": ev, "xlate_calls": d.get("kvm.xlate_calls", 0),
-                "fmmu_commit": d.get("kernel.fmmu_commit", 0)})
-            return n
-        eng.kvm._swap = spy
+            self.records.append(dict(
+                fields(args, kwargs, out), host_ms=host_ms, events=ev,
+                xlate_calls=d.get("kvm.xlate_calls", 0),
+                fmmu_commit=d.get("kernel.fmmu_commit", 0)))
+            return out
+        setattr(obj, name, spy)
 
 
 def swap_phase(cfg, lens, macro_line, macro_tokens):
@@ -1869,10 +1997,12 @@ def swap_phase(cfg, lens, macro_line, macro_tokens):
                  page_size=16)
     eng = build_engine(cfg, rt, macro_k=MACRO_K, **SWAP_CONFIG)
     prompts = serve_prompts(cfg, lens)
-    swap_log = SwapLog(eng)
+    # each swap: direction, pages, guard read (``CallLog``)
+    spy = CallLog(eng.kvm, "_swap", lambda a, k, n: {
+        "out": a[0], "pages": n, "check": a[4]})
     first, _, _ = run_requests(eng, prompts, 32)     # captures the graphs
     graphs_first = eng._graphs.stats()["graphs"]
-    swap_log.records = log = []
+    spy.records = log = []
     eng.metrics = {k: 0 for k in eng.metrics}
     COUNTERS.reset()                     # every count to 0 just before
     torch.cuda.reset_peak_memory_stats()
@@ -1897,7 +2027,7 @@ def swap_phase(cfg, lens, macro_line, macro_tokens):
         fail("serve_swap: the counted pass captured a graph")
     m = dict(m)                          # the counted pass's metrics
     timed = []
-    swap_log.records, swap_log.spin = timed, Timer.SPIN_CYCLES // 5
+    spy.records, spy.spin = timed, Timer.SPIN_CYCLES // 5
     again, _, _ = run_requests(eng, prompts, 32)     # the timed pass
     torch.cuda.synchronize()
     if list(again.values()) != macro_tokens or \
@@ -2214,6 +2344,347 @@ def channels_phase(cfg, lens, macro_line, macro_tokens):
     return line
 
 
+# --------------------------------------------------------- serve faults
+# the fault plan of serve_faults and of its 2-layer parity engine: on
+# the swap phase's schedule every axis fires (swaps fail, one request is
+# quarantined, blocks retire at admission, growth and after K-step runs,
+# allocations fail transiently), found by replaying that schedule on the
+# CPU with a 1-layer model (the schedule does not depend on the weights:
+# no EOS)
+FAULT_SEED = 2
+FAULT_PLAN = dict(swap_fail_p=0.2, program_fail_p=0.03, alloc_fail_p=0.05)
+
+
+def _fault_parity(cfg):
+    """A 2-layer f32 engine at 2 channels on the reference test's
+    oversubscribed pool (``_oversub_parity``'s shape) under the fault
+    plan, journaled, with the kernels and with kernel_impl="ref": the
+    tokens must be equal, every axis must fire, and the two journals
+    must be equal frame for frame. Returns (tokens, frames) counted."""
+    import tempfile
+    from repro_torch.core import journal as jl
+    from repro_torch.core.faults import FaultPlane, make_plan
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    prompts = [list(range(1 + 20 * i, 9 + 20 * i)) for i in range(4)]
+    toks, frames = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in (None, "ref"):
+            rt32 = Runtime(compute_dtype=torch.float32,
+                           param_dtype=torch.float32, page_size=8,
+                           kernel_impl=impl)
+            m = build_model(cfg2, rt32, device="cuda")
+            params = m.init(torch.Generator(device="cuda").manual_seed(SEED))
+            d = os.path.join(tmp, str(impl))
+            plane = FaultPlane(make_plan(FAULT_SEED, channels=2,
+                                         **FAULT_PLAN))
+            eng = ServeEngine(m, params, config=ServeConfig(
+                n_slots=4, max_ctx=64, n_device_blocks=10, n_host_blocks=24,
+                macro_k=4, swap_patience=2, channels=2, journal_path=d),
+                device="cuda", fault_plane=plane)
+            toks[impl], _, _ = run_requests(eng, prompts, 24)
+            if not all(plane.counts()[a] for a in ("swap", "program",
+                                                   "alloc")):
+                fail(f"2-layer f32 fault parity: an axis never fired: "
+                     f"{plane.counts()}")
+            eng.journal.close()
+            frames[impl] = [jl.read_frames(os.path.join(d, n))[0]
+                            for n in ("journal.log", "oob.log")]
+            del eng, m, params
+            torch.cuda.empty_cache()
+    if list(toks[None].values()) != list(toks["ref"].values()):
+        fail("2-layer f32 under faults: kernel tokens differ from ref tokens")
+    if frames[None] != frames["ref"]:
+        fail("2-layer f32 under faults: the kernel engine's journal differs "
+             "from the ref engine's")
+    return (sum(len(v) for v in toks["ref"].values()),
+            sum(len(f) for f in frames["ref"]))
+
+
+def faults_phase(cfg, lens, swap_line, macro_tokens):
+    """The swap phase's requests and pool (8 slots x 2048 ctx, macro_k=8,
+    128 device + 256 host blocks) under ``FAULT_PLAN``: swaps fail
+    (backoff, one quarantine), blocks fail their programs (retired and
+    relocated, after a K-step run with the rows it wrote), allocations
+    fail transiently. Each pass resets the engine with a fresh plane of
+    the same plan (the graphs and caches stay): a first pass captures
+    the graphs; the counts are zeroed just before the second and read
+    just after; a third runs a spin kernel before each retirement, so
+    that CUDA events time its device work. Fails unless every request
+    returns the full-pool macro phase's tokens (every pass), every axis
+    fired, each retirement was one map call and one fmmu_commit launch,
+    and the counted pass captured no graph. Then the 2-layer f32
+    kernel-vs-ref parity under the plan with a journal
+    (``_fault_parity``). Returns the phase's line."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.core.faults import FaultPlane, make_plan
+    from repro_torch.models import Runtime
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K, **SWAP_CONFIG)
+    prompts = serve_prompts(cfg, lens)
+    # each retirement: pages relocated, rows moved or not (``CallLog``)
+    log = CallLog(eng.kvm, "retire_bad_blocks", lambda a, k, n: {
+        "pages": n, "rows": bool(k.get("pools"))})
+
+    def one_pass():
+        plane = FaultPlane(make_plan(FAULT_SEED, **FAULT_PLAN))
+        eng.reset(plane)
+        out, reqs, wall = run_requests(eng, prompts, 32)
+        if [out[r.rid] for r in reqs] != macro_tokens:
+            fail("serve_faults: tokens differ from the full-pool macro "
+                 "phase's")
+        return plane, reqs, wall
+    one_pass()                                       # captures the graphs
+    graphs_first = eng._graphs.stats()["graphs"]
+    log.records = recs = []
+    COUNTERS.reset()                     # every count to 0 just before
+    plane, reqs, wall = one_pass()
+    launches = COUNTERS.launches()       # ... and read just after
+    counts = COUNTERS.snapshot()
+    m, fired = dict(eng.metrics), plane.counts()
+    st = eng.kvm.hit_stats()
+    if not all(fired[a] for a in ("swap", "program", "alloc")):
+        fail(f"serve_faults: an axis never fired: {fired}")
+    done = [r for r in recs if r["pages"]]
+    if not done or any((r["xlate_calls"], r["fmmu_commit"]) !=
+                       ((1, 1) if r["pages"] else (0, 0)) for r in recs):
+        fail("serve_faults: a retirement was not one map call and one "
+             f"fmmu_commit launch: {recs}")
+    if counts.get("engine.macro_captures", 0) or \
+            eng._graphs.stats()["graphs"] != graphs_first:
+        fail("serve_faults: the counted pass captured a graph")
+    timed = []
+    log.records, log.spin = timed, Timer.SPIN_CYCLES // 5
+    one_pass()                                       # the timed pass
+    torch.cuda.synchronize()
+    if [(r["pages"], r["rows"]) for r in timed] != \
+            [(r["pages"], r["rows"]) for r in recs]:
+        fail("serve_faults: the timed pass retired otherwise")
+    pools = [eng.caches["pool_k"], eng.caches["pool_v"]]
+    row_bytes = sum(p[:, :, 0].numel() * p.element_size() for p in pools)
+    retirements = []
+    for r, t in zip(recs, timed):
+        if not r["pages"]:
+            continue
+        # each page: its 4 lane inputs, 2 outputs, and the backing, table
+        # and data words it writes; with rows, its KV rows read and
+        # written once
+        b_ms, b_by = bound_ms(r["pages"] * (4 * 4 + 4 + 1 + 3 * 4)
+                              + (2 * r["pages"] * row_bytes if r["rows"]
+                                 else 0), 0, "bfloat16")
+        retirements.append({
+            "pages": r["pages"], "rows_moved": r["rows"],
+            "host_ms": r["host_ms"],
+            "device_ms": t["events"][0].elapsed_time(t["events"][1]),
+            "bound_ms": b_ms, "bound_by": b_by})
+    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "macro_k": MACRO_K, **SWAP_CONFIG, "fault_seed": FAULT_SEED,
+        **FAULT_PLAN, "fired": fired, "wall_s": wall,
+        "decode_tok_s": sum(len(r.out[:r.max_new]) - 1 for r in reqs)
+        / decode_s,
+        "decode_tok_s_serve_swap": swap_line["decode_tok_s"],
+        "wall_s_serve_swap": swap_line["wall_s"],
+        "macro_steps": m["macro_steps"],
+        "macro_fallbacks": m["macro_fallbacks"],
+        "swap_faults": m["swap_faults"], "quarantines": m["quarantines"],
+        "requeues": m["requeues"], "preemptions": m["preemptions"],
+        "swaps_out": m["swaps_out"], "swaps_in": m["swaps_in"],
+        "retire_calls": len(recs), "retirements": len(done),
+        "retired_blocks": st["retired_blocks"],
+        "retired_ch": st["retired_ch"],
+        "pages_relocated": sum(r["pages"] for r in done),
+        "retirements_with_rows": sum(r["rows"] for r in done),
+        "retire_host_ms_median": statistics.median(
+            r["host_ms"] for r in retirements),
+        "retire_device_ms_median": statistics.median(
+            r["device_ms"] for r in retirements),
+        "retire_bound_ms_median": statistics.median(
+            r["bound_ms"] for r in retirements),
+        "retire": retirements, "row_bytes": row_bytes,
+        "xlate_calls": counts.get("kvm.xlate_calls", 0),
+        "graphs_captured": eng._graphs.stats()["graphs"],
+        "captures_counted_pass": counts.get("engine.macro_captures", 0),
+        "launches": launches}
+    del eng, log
+    torch.cuda.empty_cache()
+    line["parity_tokens"], line["parity_journal_frames"] = \
+        _fault_parity(cfg)
+    return line
+
+
+# -------------------------------------------------------- serve recover
+RECOVER_STALL = 2.0        # channel 3 browned out
+
+
+def recover_phase(cfg, lens, channels_line, macro_tokens):
+    """The channel phase's configuration (8 slots x 2048 ctx, macro_k=8,
+    8 channels) under a plan with program faults and channel 3 browned
+    out (stall ``RECOVER_STALL``), with the journal in a temporary
+    directory. Passes, each after ``reset`` with a fresh plane of the
+    plan: one to capture the graphs, one without a journal and one with
+    it (decode tokens/s of both, host ms of each append and snapshot,
+    journal bytes a record; its first PRECOMMIT record locates the
+    crash), then one that cuts power while that record is written
+    (``crash_at`` there, tear 0.9: its OOB frame lands whole, its record
+    does not). The engine that crashed recovers (``recover``: its graphs
+    kept) and drains; a fresh engine recovers from the same journal
+    state and drains. Fails unless each drain gives the one-channel
+    macro phase's tokens, ``last_recovery`` reports the OOB scan, the
+    restore is one map call and one fmmu_commit launch, and the crashed
+    engine captures no graph for a variant it had captured. Returns the
+    phase's line."""
+    import shutil
+    import tempfile
+    from repro_torch.core import journal as jl
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.core.faults import Crash, FaultPlane, make_plan
+    from repro_torch.models import Runtime
+    from repro_torch.serving import ServeEngine
+    c_n = SERVE_CHANNELS
+    stall = [1.0] * c_n
+    stall[3] = RECOVER_STALL
+    kw = dict(channels=c_n, program_fail_p=0.02, stall=stall)
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K, channels=c_n)
+    prompts = serve_prompts(cfg, lens)
+    tmp = tempfile.mkdtemp()
+
+    def one_pass(journal=None, crash_at=None):
+        plan = make_plan(FAULT_SEED, crash_at=crash_at, **kw)
+        eng.reset(FaultPlane(plan._replace(
+            crash_tear=np.full_like(plan.crash_tear, 0.9))))
+        if journal:
+            eng.attach_journal(journal, snapshot_every=4)
+        out, reqs, wall = run_requests(eng, prompts, 32)
+        if [out[r.rid] for r in reqs] != macro_tokens:
+            fail("serve_recover: tokens differ from the one-channel macro "
+                 "phase's")
+        decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+        return sum(len(out[r.rid]) - 1 for r in reqs) / decode_s
+    one_pass()                                       # captures the graphs
+    tok_s_plain = one_pass()
+    times = {"append": [], "snapshot": []}
+    spied = {}
+    for name in times:
+        orig = getattr(jl.Journal, name)
+
+        def timed(self, *a, _orig=orig, _name=name, **k):
+            t0 = time.perf_counter()
+            try:
+                return _orig(self, *a, **k)
+            finally:
+                times[_name].append((time.perf_counter() - t0) * 1e3)
+        spied[name] = orig
+        setattr(jl.Journal, name, timed)
+    try:
+        d_ok = os.path.join(tmp, "journaled")
+        tok_s_journal = one_pass(d_ok)
+    finally:
+        for name, orig in spied.items():
+            setattr(jl.Journal, name, orig)
+    n_records = eng.journal.records
+    eng.journal.close()
+    frames, _, _ = jl.read_frames(os.path.join(d_ok, "journal.log"))
+    j_bytes = os.path.getsize(os.path.join(d_ok, "journal.log"))
+    o_bytes = os.path.getsize(os.path.join(d_ok, "oob.log"))
+    seq = next(s for s, k, _ in frames if k == jl.PRECOMMIT)
+    d = os.path.join(tmp, "crash")
+    try:
+        one_pass(d, crash_at=seq - 1)
+        fail("serve_recover: the scheduled power cut never fired")
+    except Crash as e:
+        crash = {"seq": e.seq, "kind": e.kind, "torn": e.torn}
+    d_fresh = os.path.join(tmp, "fresh")
+    shutil.copytree(d, d_fresh)
+
+    def drain(e, path):
+        """Recover ``e`` from ``path`` (restore counted) and drain, every
+        count zeroed just before and read just after; the tokens of
+        every prompt. Returns (last_recovery, restore counts, captures
+        during the drain, launches)."""
+        restore = e.kvm.restore_mapping
+        rc = {}
+
+        def spy(rec):
+            base = COUNTERS.snapshot()
+            n = restore(rec)
+            dd = COUNTERS.delta(base)
+            rc.update(pages=n, xlate_calls=dd.get("kvm.xlate_calls", 0),
+                      fmmu_commit=dd.get("kernel.fmmu_commit", 0))
+            return n
+        e.kvm.restore_mapping = spy
+        COUNTERS.reset()
+        try:
+            durable = e.recover(path)
+        finally:
+            del e.kvm.restore_mapping
+        c0 = COUNTERS.snapshot().get("engine.macro_captures", 0)
+        present = set(durable) | {r.rid for r in e.queue}
+        if present != set(range(len(prompts))):
+            fail(f"serve_recover: requests lost in the crash: {present}")
+        done = e.run()
+        torch.cuda.synchronize()
+        launches = COUNTERS.launches()
+        got = {**durable, **done}
+        if [got[r] for r in range(len(prompts))] != macro_tokens:
+            fail("serve_recover: the recovered drain's tokens differ from "
+                 "the one-channel macro phase's")
+        e.journal.close()
+        return dict(e.last_recovery), rc, \
+            COUNTERS.snapshot().get("engine.macro_captures", 0) - c0, \
+            launches
+    keys_before = set(eng._graphs.graphs)
+    info, restore, captured, launches = drain(eng, d)
+    for name in MODELS["llama3.2-1b"]["single"]:
+        if launches.get(name, 0) <= 0:
+            fail(f"serve_recover: {name} was not launched in the recovered "
+                 "drain")
+    new_keys = set(eng._graphs.graphs) - keys_before
+    if captured != len(new_keys):
+        fail(f"serve_recover: {captured} captures for {len(new_keys)} new "
+             "variants: a variant captured twice")
+    fresh = ServeEngine(eng.m, eng.params, config=eng.config, device="cuda")
+    info_fresh, restore_fresh, captured_fresh, _ = drain(fresh, d_fresh)
+    for i, rc in ((info, restore), (info_fresh, restore_fresh)):
+        if not i["oob_scan"] or (rc["xlate_calls"], rc["fmmu_commit"]) \
+                != (1, 1):
+            fail(f"serve_recover: recovery {i}, restore {rc}: expected the "
+                 "OOB scan and one map call and one fmmu_commit launch")
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "macro_k": MACRO_K, "channels": c_n, "fault_seed": FAULT_SEED,
+        "program_fail_p": kw["program_fail_p"], "stall": stall,
+        "crash": crash, "crash_tear": 0.9,
+        "recover_s": info["recover_s"],
+        "recover_s_fresh_engine": info_fresh["recover_s"],
+        "last_recovery": info, "restore": restore,
+        "restore_fresh_engine": restore_fresh,
+        "captures_after_recovery": captured,
+        "new_variants_after_recovery": len(new_keys),
+        "captures_fresh_engine": captured_fresh,
+        "records": n_records, "journal_bytes": j_bytes,
+        "oob_bytes": o_bytes, "journal_bytes_per_record": j_bytes / n_records,
+        "append_host_ms_median": statistics.median(times["append"]),
+        "append_host_ms_max": max(times["append"]),
+        "snapshots": len(times["snapshot"]),
+        "snapshot_host_ms_median": statistics.median(times["snapshot"]),
+        "decode_tok_s_journaled": tok_s_journal,
+        "decode_tok_s_unjournaled": tok_s_plain,
+        "decode_tok_s_serve_channels": channels_line["decode_tok_s"],
+        "launches": launches}
+    del eng, fresh
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return line
+
+
 # the two served models: prompt lengths, and the kernels each path must
 # launch (single-step; replayed by the macro graphs; eager in macro mode)
 MODELS = {
@@ -2307,6 +2778,13 @@ def main() -> int:
         "of S=8 W=4 E=8 NP=128 (serve_channels' map): the growth "
         "pre-commit (8 UPDATE lanes) and a slot's swap-out / swap-in "
         f"({SWAP_LANES} COND_UPDATE lanes, {SWAP_STALE} stale)")
+    # the fault plane's commits: a retirement and a restore, C = 1 and 8
+    rows["fmmu_commit"].update(check_fault_commits(timer, rng))
+    rows["fmmu_commit"]["shape"] += (
+        f"; _retire_cN / _restore_cN: the llama serving map at N channels "
+        f"(_geometry(8, 128, N)): {RETIRE_LANES} COND_UPDATE lanes moving "
+        "pages off bad blocks; 1024 UPDATE lanes, every page of 8 slots, "
+        "into a fresh state")
     print("kernels: all match their plain versions", file=sys.stderr)
 
     # 3. llama3.2-1b serving, single-step then macro (fmmu_commit, paged
@@ -2330,7 +2808,24 @@ def main() -> int:
                                     serve_macro, llama["tokens"])
     print(f"serve channels: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
+    # 3e. the swap phase's requests and pool under the fault plan; 3f.
+    # the channel phase's configuration crashed and recovered
+    t0 = time.perf_counter()
+    serve_faults = faults_phase(get_arch("llama3.2-1b"),
+                                MODELS["llama3.2-1b"]["lens"], serve_swap,
+                                llama["tokens"])
+    print(f"serve faults: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    serve_recover = recover_phase(get_arch("llama3.2-1b"),
+                                  MODELS["llama3.2-1b"]["lens"],
+                                  serve_channels, llama["tokens"])
+    print(f"serve recover: {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
     for name in MODELS["llama3.2-1b"]["single"]:
+        rows[name]["launches_serve_faults"] = \
+            serve_faults["launches"].get(name, 0)
+        rows[name]["launches_serve_recover"] = \
+            serve_recover["launches"].get(name, 0)
         rows[name]["launches_single_step"] = serve["launches"][name]
         rows[name]["launches"] = serve_macro["launches"][name]
         rows[name]["launches_serve_swap"] = serve_swap["launches"][name]
@@ -2383,13 +2878,19 @@ def main() -> int:
         tuple(f"{k}_serve_c{SERVE_CHANNELS}_{d}"
               for d in ("precommit", "swap_out", "swap_in")
               for k in ("ms", "plain_ms", "bound_ms", "bound_by")) + \
-        ("launches_serve_channels",)
+        tuple(f"{k}_{d}_c{c}" for d in ("retire", "restore")
+              for c in (1, SERVE_CHANNELS)
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by")) + \
+        ("launches_serve_channels", "launches_serve_faults",
+         "launches_serve_recover")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"serve_macro": serve_macro}))
     print(json.dumps({"serve_swap": serve_swap}))
     print(json.dumps({"serve_channels": serve_channels}))
+    print(json.dumps({"serve_faults": serve_faults}))
+    print(json.dumps({"serve_recover": serve_recover}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))

@@ -11,6 +11,10 @@ COND_UPDATE = 2   # f1=dlpn f2=dppn f3=old_dppn
 
 NIL = -1
 
+# swap directions (``faults.SwapFault.direction``)
+SWAP_OUT = 0      # device -> host tier
+SWAP_IN = 1       # host -> device tier
+
 # Tier tag for physical KV block ids: device blocks are [0, HOST_BASE),
 # host ("flash"-analogue) blocks are [HOST_BASE, ...). Ids at or above
 # 1<<24 leave float32's exact-integer range, so every map value path

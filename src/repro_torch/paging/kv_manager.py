@@ -52,25 +52,40 @@ read), ``batch.set_allocator_sharded`` and ``batch.grow_sharded_`` (the
 kernel's sharded grow mode) are parity code with the reference, reached
 by the tests and the kernel checks only.
 
-Not ported yet (later slices): the channel mesh across devices, GC,
-prefix sharing, the journal and the fault plane (so a swap has no
-``SwapFault`` injection, no journal record and no shared-block filter,
-and a pre-commit no program-fault retirement).
+Faults and journaling: with a fault plane (``faults``) the manager
+consults it at its host commit points, as the reference does: a swap may
+raise ``SwapFault`` before any change, an allocation may report a
+transient shortage before any pop, and every freshly programmed device
+block (admission, growth, a pre-commit; the engine checks a K-step
+run's pops) may fail its program. A failed program is retired:
+``retire_bad_blocks`` pops a same-channel replacement, moves the
+mapping with one COND_UPDATE map commit (one ``fmmu_commit`` launch, of
+C blocks when sharded) and, when the data was already written, the pool
+rows in place, the swap's relocation (``_relocate``). With a journal
+(``journal``) every commit point appends its record after the op, its
+OOB frame first; ``snapshot_state`` and ``restore_mapping`` (one batched
+UPDATE commit of every mapped page, one allocator re-push) are the
+manager's share of a snapshot and of recovery.
+
+Not ported yet (later slices): the channel mesh across devices, GC and
+prefix sharing (so a swap has no shared-block filter).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import faults as flt
+from repro_torch.core import journal as jl
 from repro_torch.core.counters import COUNTERS
 from repro_torch.core.fmmu import batch as fb
-from repro_torch.core.fmmu.types import (COND_UPDATE, FMMUGeometry,
-                                         LOOKUP, NIL, UPDATE)
+from repro_torch.core.fmmu.types import (COND_UPDATE, SWAP_IN, SWAP_OUT,
+                                         FMMUGeometry, LOOKUP, NIL, UPDATE)
 from repro_torch.device import resolve_device
-from repro_torch.paging.pool import BlockPool
+from repro_torch.paging.pool import BlockPool, OutOfBlocks
 
 # one bump per fused map call / full-map retranslation / allocator
 # re-push
@@ -78,11 +93,21 @@ XLATE_CALLS = COUNTERS.cell("kvm.xlate_calls")
 FULL_TABLE_CALLS = COUNTERS.cell("kvm.full_table_calls")
 ALLOC_SYNCS = COUNTERS.cell("kvm.alloc_syncs")
 
+# a retirement chain retires at most this many consecutive
+# schedule-failed replacement candidates; the last one is kept
+# regardless, so no cascade can stall a boundary
+_MAX_REDRIVE = 4
+
+
+def _ji(xs) -> List[int]:
+    """Journal payloads are JSON: plain ints."""
+    return [int(x) for x in xs]
+
 
 @dataclasses.dataclass
 class MapStats:
-    """Typed ``KVPageManager.hit_stats()`` result: the reference's map
-    and write counters that this slice maintains."""
+    """Typed ``KVPageManager.hit_stats()`` result: the reference's map,
+    tier, fault and write counters that the port maintains."""
     hits: int = 0
     misses: int = 0
     fills: int = 0
@@ -90,7 +115,12 @@ class MapStats:
     swaps_out: int = 0
     swaps_in: int = 0
     host_resident_slots: int = 0
+    retired_blocks: int = 0
+    retired_ch: List[int] = dataclasses.field(default_factory=list)
     pool_exhausted: List[int] = dataclasses.field(default_factory=list)
+    swap_faults: int = 0
+    program_faults: int = 0
+    alloc_faults: int = 0
     host_writes: int = 0
     flash_programs: int = 0
     write_amp: float = 1.0
@@ -127,25 +157,35 @@ class KVPageManager:
 
     def __init__(self, n_slots: int, max_pages: int, n_device_blocks: int,
                  n_host_blocks: int = 0, channels: int = 1, *,
+                 faults: Optional["flt.FaultPlane"] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.n_slots = n_slots
         self.max_pages = max_pages
-        self.channels = c_n = int(channels)
-        self.geom = _geometry(n_slots, max_pages, c_n)
-        if c_n > 1:
-            self.state = fb.init_sharded_state(
-                self.geom, c_n, n_device_blocks, n_host_blocks,
-                n_lanes=n_slots, device=self.device)
-        else:
-            self.state = fb.init_serving_state(
-                self.geom, n_device_blocks, n_lanes=n_slots,
-                n_host_blocks=n_host_blocks, device=self.device)
-        self.pool = BlockPool(n_device_blocks, n_host_blocks,
-                              n_channels=c_n)
+        self._n_dev = n_device_blocks
+        self._n_host = n_host_blocks
+        self.channels = int(channels)
+        self.geom = _geometry(n_slots, max_pages, self.channels)
         # lanes each channel serviced (routed map lanes): the 1/C
         # translate-work split is read from these, not inferred
-        self.channel_lanes = np.zeros(c_n, np.int64)
+        self.channel_lanes = np.zeros(self.channels, np.int64)
+        self.reset(faults)
+
+    def reset(self, faults: Optional["flt.FaultPlane"] = None):
+        """Fresh map state, pool and bookkeeping on the same geometry,
+        with ``faults`` as the fault plane. Detaches the journal (the
+        engine re-attaches it after a recovery)."""
+        if self.channels > 1:
+            self.state = fb.init_sharded_state(
+                self.geom, self.channels, self._n_dev, self._n_host,
+                n_lanes=self.n_slots, device=self.device)
+        else:
+            self.state = fb.init_serving_state(
+                self.geom, self._n_dev, n_lanes=self.n_slots,
+                n_host_blocks=self._n_host, device=self.device)
+        self.pool = BlockPool(self._n_dev, self._n_host,
+                              n_channels=self.channels)
+        self.channel_lanes[:] = 0
         self.seq_pages: Dict[int, List[int]] = {}   # slot -> block ids
         # host-tier page count per slot, kept by the swaps so the
         # residency predicate is O(1)
@@ -153,6 +193,9 @@ class KVPageManager:
         self.host_writes = 0
         # the device stacks are stale after a host-side pool mutation
         self._alloc_dirty = False
+        # consulted at the host commit points only, never on the device
+        self.faults = faults
+        self.journal: Optional["jl.Journal"] = None
 
     # ----------------------------------------------------------- helpers
     def _dlpns(self, slot: int, n: int) -> np.ndarray:
@@ -196,11 +239,46 @@ class KVPageManager:
         return self._commit(torch.full_like(dl, kind), dl, dp,
                             torch.zeros_like(dl))
 
+    def _relocate(self, dlpns, news, olds, pools=(), block_axis: int = 0,
+                  rows: Optional[Tuple[Sequence[int], Sequence[int]]] = None
+                  ) -> torch.Tensor:
+        """One relocation: a map commit of COND_UPDATE lanes dlpn: old ->
+        new (each lands only where the map still points at the old
+        block), then in each of ``pools`` the rows ``rows`` = (src, dst)
+        move in place along ``block_axis`` (default: the block ids
+        themselves, device-tier rows). Shared by the swaps and bad-block
+        retirement. The lanes go to the device in one staged copy;
+        nothing comes back. Returns the guard mask ``ok`` (on the
+        device)."""
+        XLATE_CALLS[0] += 1
+        self._count_lanes(dlpns)
+        src, dst = rows if rows is not None else (olds, news)
+        dl_t, new_t, old_t, src_t, dst_t = self._lanes(dlpns, news, olds,
+                                                       src, dst)
+        _, ok = self._commit(torch.full_like(dl_t, COND_UPDATE), dl_t,
+                             new_t, old_t)
+        src_t, dst_t = src_t.long(), dst_t.long()
+        for p in pools:        # source and destination rows are disjoint
+            p.index_copy_(block_axis, dst_t, p.index_select(block_axis,
+                                                            src_t))
+        return ok
+
     def _alloc_blocks(self, dlpns: Sequence[int], *,
                       host: bool = False) -> List[int]:
         """Pool allocation for a batch of dlpns: channel-free pops at one
         channel, per owner channel otherwise (a page and its block share
-        a channel, so each channel's device stack mirror stays exact)."""
+        a channel, so each channel's device stack mirror stays exact).
+        With a fault plane, each call consults its alloc axis first: a
+        hit raises a transient ``OutOfBlocks`` before any pop, so a
+        retry sees an untouched pool."""
+        if self.faults is not None and len(dlpns) \
+                and self.faults.alloc_fails():
+            c = int(dlpns[0]) % self.channels
+            self.pool.note_exhausted(c)
+            raise OutOfBlocks(
+                f"injected transient {'host' if host else 'device'} "
+                f"allocator exhaustion ({len(dlpns)} blocks)",
+                channel=c, transient=True)
         if self.channels == 1:
             return self.pool.alloc(len(dlpns), host=host)
         return self.pool.alloc_for(
@@ -208,7 +286,10 @@ class KVPageManager:
 
     # ----------------------------------------------------------- API
     def new_seq(self, slot: int, n_pages: int) -> List[int]:
-        """Admit a sequence into `slot` with `n_pages` logical pages."""
+        """Admit a sequence into `slot` with `n_pages` logical pages.
+        With a fault plane the fresh blocks' programs are checked after
+        the map commit and before prefill writes them: a bad one is
+        relocated map-only."""
         assert slot not in self.seq_pages, f"slot {slot} busy"
         dl = self._dlpns(slot, n_pages)
         blocks = self._alloc_blocks(dl)
@@ -216,7 +297,13 @@ class KVPageManager:
         self._alloc_dirty = True
         self._xlate(UPDATE, dl, blocks)
         self.seq_pages[slot] = list(blocks)
-        return list(blocks)
+        if self.journal is not None:
+            self.journal.append(
+                jl.NEW_SEQ, {"slot": int(slot), "dl": _ji(dl),
+                             "blocks": _ji(blocks)},
+                programmed=zip(dl, blocks))
+        self._maybe_retire_programs(dl, blocks)
+        return list(self.seq_pages[slot])
 
     def extend_seq(self, slot: int, n_new: int) -> List[int]:
         return self.extend_seqs({slot: n_new}).get(slot, [])
@@ -244,6 +331,14 @@ class KVPageManager:
             i += n
             self.seq_pages[slot].extend(got[slot])
         self._xlate(UPDATE, dl, blocks)
+        if self.journal is not None:
+            self.journal.append(
+                jl.EXTEND, {"dl": _ji(dl), "blocks": _ji(blocks)},
+                programmed=zip(dl, blocks))
+        # the decode step that follows programs these blocks, so a
+        # failed program re-drives map-only
+        if self._maybe_retire_programs(dl, blocks):
+            got = {s: self.seq_pages[s][-n:] for s, n in wants.items()}
         return got
 
     def free_seq(self, slot: int):
@@ -255,6 +350,11 @@ class KVPageManager:
         self._xlate(UPDATE, dl, np.full(len(blocks), NIL, np.int32))
         self.pool.free(blocks)
         self._alloc_dirty = True
+        if self.journal is not None:
+            # no OOB frame: a free programs nothing
+            self.journal.append(jl.FREE,
+                                {"slot": int(slot), "blocks": _ji(blocks),
+                                 "lanes": len(blocks)})
 
     def is_resident(self, slot: int) -> bool:
         """True when no page of `slot` lives in the host tier (the swaps
@@ -375,9 +475,18 @@ class KVPageManager:
             return got
         blocks = self.pool.alloc(len(grow_seq))
         self.host_writes += len(blocks)
+        dl: List[int] = []
         for slot, b in zip(grow_seq, blocks):
             self.seq_pages[slot].append(b)
+            dl.append(slot * self.max_pages + len(self.seq_pages[slot]) - 1)
             got.setdefault(slot, []).append(b)
+        if self.journal is not None:
+            # the run committed these lanes on the device; this record
+            # is their durability point
+            self.journal.append(
+                jl.RECONCILE, {"grow_seq": _ji(grow_seq), "dl": _ji(dl),
+                               "blocks": _ji(blocks)},
+                programmed=zip(dl, blocks))
         return got
 
     def _grow_dlpns(self, grow_seq: List[int]) -> List[int]:
@@ -400,8 +509,9 @@ class KVPageManager:
         post-growth table with no allocator on the device. ``dlpns``
         (aligned with ``grow_seq``) is the schedule the engine's growth
         walk produced; without it the schedule is derived from the page
-        lists. Raises OutOfBlocks before any pop or map write. Returns
-        {slot: [new blocks]} in page order."""
+        lists. Raises OutOfBlocks before any pop or map write. The run
+        programs the blocks after this, so a failed program re-drives
+        map-only. Returns {slot: [new blocks]} in page order."""
         got: Dict[int, List[int]] = {}
         if not grow_seq:
             return got
@@ -413,11 +523,101 @@ class KVPageManager:
         # with the reference; no C > 1 serving path makes one) re-pushes
         self._alloc_dirty = True
         self.host_writes += len(blocks)
+        counts: Dict[int, int] = {}
         for slot, b in zip(grow_seq, blocks):
             self.seq_pages[slot].append(b)
             got.setdefault(slot, []).append(b)
+            counts[slot] = counts.get(slot, 0) + 1
         self._xlate(UPDATE, dl, blocks)
+        if self.journal is not None:
+            self.journal.append(
+                jl.PRECOMMIT, {"grow_seq": _ji(grow_seq), "dl": _ji(dl),
+                               "blocks": _ji(blocks)},
+                programmed=zip(dl, blocks))
+        if self._maybe_retire_programs(dl, blocks):
+            got = {s: self.seq_pages[s][-n:] for s, n in counts.items()}
         return got
+
+    # ------------------------------------------------ bad-block retirement
+    def _maybe_retire_programs(self, dl, blocks) -> int:
+        """Consult the fault plane once per freshly programmed device
+        block, in allocation order, and retire the failed ones map-only
+        (callers run this before the data is written). Returns the
+        number relocated."""
+        f = self.faults
+        if f is None:
+            return 0
+        bad = [(int(d), int(b)) for d, b in zip(dl, blocks)
+               if not BlockPool.is_host(int(b)) and f.program_fails()]
+        if not bad:
+            return 0
+        return self.retire_bad_blocks(bad)
+
+    def retire_bad_blocks(self, bad: List[Tuple[int, int]], pools=(),
+                          block_axis: int = 0) -> int:
+        """Bad-block retirement: for each (dlpn, block) whose program
+        failed, pop a replacement from the same channel, move the mapping
+        with one COND_UPDATE map commit for the whole batch (a program
+        failure is one more relocation) and retire the bad block for
+        good. With ``pools`` the relocation also moves the rows old ->
+        new in place (data already written, as by a K-step run); without,
+        only the map moves. A replacement's program consults the plane
+        again: a chain retires up to ``_MAX_REDRIVE`` bad candidates. A
+        dry channel defers the retirement (the old block serves on).
+        Returns the number of pages relocated."""
+        f = self.faults
+        done: List[Tuple[int, int, int]] = []    # (dlpn, old, new)
+        popped: List[int] = []      # every replacement candidate popped
+        retired: List[int] = []     # every block retired
+        for dlpn, old in bad:
+            assert not BlockPool.is_host(old), \
+                "program faults model device-tier block programs"
+            c = self.pool.channel_of(old)
+            chain = [old]
+            new = None
+            for i in range(_MAX_REDRIVE):
+                try:
+                    cand = self.pool.alloc_for([c])[0]
+                except OutOfBlocks:
+                    break
+                popped.append(cand)
+                chain.append(cand)
+                if f is None or i == _MAX_REDRIVE - 1 \
+                        or not f.program_fails():
+                    new = cand
+                    break
+            if new is None:
+                # dry channel: the old block serves on; candidates popped
+                # before it ran dry failed their programs and retire
+                dead = chain[1:]
+                if dead:
+                    self.pool.retire(dead)
+                    retired.extend(dead)
+                continue
+            dead = [b for b in chain if b != new]
+            self.pool.retire(dead)
+            retired.extend(dead)
+            done.append((dlpn, old, new))
+        if popped:
+            self._alloc_dirty = True
+        if done:
+            self._relocate([d for d, _, _ in done], [n for _, _, n in done],
+                           [o for _, o, _ in done], pools, block_axis)
+            for d, o, n in done:
+                pages = self.seq_pages[d // self.max_pages]
+                pages[pages.index(o)] = n
+        if self.journal is not None and (done or popped):
+            touched = sorted({d // self.max_pages for d, _, _ in done})
+            self.journal.append(
+                jl.RETIRE,
+                {"done": [[int(d), int(o), int(n)] for d, o, n in done],
+                 "popped": _ji(popped), "retired": _ji(retired),
+                 "pages": {int(s): _ji(self.seq_pages[s])
+                           for s in touched},
+                 "lanes": len(done)},
+                programmed=[(d, n) for d, _, n in done],
+                retired=retired)
+        return len(done)
 
     def observe_exhaustion(self, flags=None) -> np.ndarray:
         """Fold the sticky OutOfBlocks flags (one per channel) into the
@@ -447,15 +647,19 @@ class KVPageManager:
     def _swap(self, out: bool, slot: int, pools: List[torch.Tensor],
               block_axis: int, check: bool) -> int:
         """Shared body of swap_out / swap_in: the host bookkeeping, then
-        one map commit (every lane a COND_UPDATE from the moving block
-        to a fresh block of the other tier), the slot's residency flip
-        and the pool-row moves, all in place. The lanes go to the device
-        in one staged copy; only ``check=True`` reads anything back (the
-        guard mask). Returns the number of pages moved."""
+        one relocation (``_relocate``: every lane a COND_UPDATE from the
+        moving block to a fresh block of the other tier, and the pool
+        rows) and the slot's residency flip, all in place. Only
+        ``check=True`` reads anything back (the guard mask). An injected
+        ``SwapFault`` raises before any change. Returns the number of
+        pages moved."""
         blocks = self.seq_pages[slot]
         moving = [b for b in blocks if BlockPool.is_host(b) != out]
         if not moving:
             return 0
+        if self.faults is not None and self.faults.swap_fails():
+            raise flt.SwapFault(slot, SWAP_OUT if out else SWAP_IN,
+                                len(moving))
         dl = [slot * self.max_pages + i for i, b in enumerate(blocks)
               if BlockPool.is_host(b) != out]
         fresh = self._alloc_blocks(dl, host=out)
@@ -463,17 +667,9 @@ class KVPageManager:
         row = self.pool.host_row
         src = [b if out else row(b) for b in moving]
         dst = [row(b) if out else b for b in fresh]
-        XLATE_CALLS[0] += 1
-        self._count_lanes(dl)
-        dl_t, new_t, old_t, src_t, dst_t = self._lanes(dl, fresh, moving,
-                                                       src, dst)
-        _, ok = self._commit(torch.full_like(dl_t, COND_UPDATE), dl_t,
-                             new_t, old_t)
+        ok = self._relocate(dl, fresh, moving, pools, block_axis,
+                            rows=(src, dst))
         fb.mark_swap_(self.state, slot, out)    # every channel's copy
-        src_t, dst_t = src_t.long(), dst_t.long()
-        for p in pools:        # source and destination rows are disjoint
-            p.index_copy_(block_axis, dst_t, p.index_select(block_axis,
-                                                            src_t))
         if check and not bool(ok.all()):
             raise RuntimeError("swap raced with a concurrent relocation")
         self.pool.free(moving)
@@ -485,6 +681,15 @@ class KVPageManager:
             self.pool.stats.swaps_out += len(moving)
         else:
             self.pool.stats.swaps_in += len(moving)
+        if self.journal is not None:
+            # the swap's commit point: a whole OOB frame (dl -> fresh)
+            # lets the scan re-apply the move; a torn one drops it
+            self.journal.append(
+                jl.SWAP,
+                {"slot": int(slot), "out": bool(out), "moving": _ji(moving),
+                 "fresh": _ji(fresh), "pages": _ji(self.seq_pages[slot]),
+                 "hp": int(self._host_pages[slot])},
+                programmed=zip(dl, fresh))
         return len(moving)
 
     def swap_out(self, slot: int, pools: List[torch.Tensor],
@@ -504,22 +709,82 @@ class KVPageManager:
         pipeline as ``swap_out``; clears the lane)."""
         return self._swap(False, slot, pools, block_axis, check)
 
+    # -------------------------------------------------- crash consistency
+    def journal_cfg(self) -> dict:
+        """Geometry stamped into every snapshot: recovery refuses to
+        restore into a manager of another shape."""
+        return {"channels": self.channels, "n_device": self._n_dev,
+                "n_host": self._n_host, "max_pages": self.max_pages,
+                "n_slots": self.n_slots}
+
+    def snapshot_state(self) -> dict:
+        """The manager's share of a journal snapshot, in the reference's
+        layout: page lists, host-page counts and the pool allocator's
+        whole state (free-list order included). Host data only: the
+        device map is a function of it (``restore_mapping``)."""
+        d = {"cfg": self.journal_cfg(),
+             "seq_pages": {int(s): _ji(p)
+                           for s, p in self.seq_pages.items()},
+             "host_pages": {int(s): int(n)
+                            for s, n in self._host_pages.items()}}
+        d.update(self.pool.state_dict())
+        return d
+
+    def restore_mapping(self, rec: "jl.Recovered") -> int:
+        """Rebuild this (freshly reset) manager from recovered host
+        truth: the pool and page lists, then the whole device map with
+        ONE batched UPDATE commit of every mapped page (one
+        ``fmmu_commit`` launch) and one allocator re-push. The table,
+        free stacks and residency lanes come back as they were before the
+        crash; the CMT refills warm. Returns the pages re-committed."""
+        cfg = self.journal_cfg()
+        assert rec.cfg == cfg, f"snapshot geometry {rec.cfg} != {cfg}"
+        self.pool.load_state({
+            "free_dev_ch": rec.free_dev_ch,
+            "free_host_ch": rec.free_host_ch,
+            "rr": rec.rr, "retired": sorted(rec.retired),
+            "retired_ch": rec.retired_ch,
+            "exhausted_ch": rec.exhausted_ch, "stats": rec.stats})
+        self.seq_pages = {int(s): _ji(p)
+                          for s, p in rec.seq_pages.items()}
+        self._host_pages = {int(s): int(n)
+                            for s, n in rec.host_pages.items()}
+        dl: List[int] = []
+        blocks: List[int] = []
+        for s in sorted(self.seq_pages):
+            for i, b in enumerate(self.seq_pages[s]):
+                dl.append(s * self.max_pages + i)
+                blocks.append(b)
+        if dl:
+            self._xlate(UPDATE, dl, blocks)
+        self._alloc_dirty = True
+        self.sync_allocator()    # stacks + residency lanes in one push
+        return len(dl)
+
     def hit_stats(self) -> MapStats:
-        """Map and tier counters (a device->host read: diagnostics, not
-        the hot path). A swap-in programs every page it brings back, so
-        it counts as flash programs beside the host's writes."""
+        """Map, tier and fault counters (a device->host read:
+        diagnostics, not the hot path). A swap-in programs every page it
+        brings back, so it counts as flash programs beside the host's
+        writes; retirement re-drives do not (fault recovery, not
+        amplification)."""
         s = self.state.fmmu.stats.cpu()
         if self.channels > 1:
             s = s.sum(0, dtype=torch.int32)
         s = s.tolist()
         flash = self.host_writes + self.pool.stats.swaps_in
+        fired = self.faults.counts() if self.faults is not None else {}
         return MapStats(
             hits=s[0], misses=s[1], fills=s[2], updates=s[3],
             swaps_out=self.pool.stats.swaps_out,
             swaps_in=self.pool.stats.swaps_in,
             host_resident_slots=sum(1 for c in self._host_pages.values()
                                     if c > 0),
+            retired_blocks=self.pool.stats.retired,
+            retired_ch=list(self.pool.retired_ch),
             pool_exhausted=list(self.pool.exhausted_ch),
+            swap_faults=fired.get("swap", 0),
+            program_faults=fired.get("program", 0),
+            alloc_faults=fired.get("alloc", 0),
             host_writes=self.host_writes, flash_programs=flash,
             write_amp=flash / self.host_writes if self.host_writes else 1.0)
 

@@ -18,24 +18,30 @@ At one channel the channel-0 list is the single flat list.
 
 The free list order is part of the state: the device-resident map
 mirrors it, and the equivalence tests compare it with the reference
-pool entry by entry. Bad-block retirement and GC allocation come with
-the slices that port them.
+pool entry by entry, and ``state_dict``/``load_state`` carry it for the
+journal's snapshots. Bad-block retirement (``retire``) removes a block
+from service for good: ``free`` drops it. GC allocation comes with the
+slice that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Set
 
 from repro_torch.core.fmmu.types import HOST_BASE
 
 
 class OutOfBlocks(RuntimeError):
     """A pool shortage, raised before any pop; ``channel`` is the
-    channel it is counted against."""
+    channel it is counted against. ``transient`` marks a shortage the
+    fault plane injected: the caller retries next round, and the
+    engine's livelock guard does not treat it as terminal."""
 
-    def __init__(self, msg: str, *, channel: Optional[int] = None):
+    def __init__(self, msg: str, *, channel: Optional[int] = None,
+                 transient: bool = False):
         super().__init__(msg)
         self.channel = channel
+        self.transient = transient
 
 
 @dataclasses.dataclass
@@ -45,6 +51,7 @@ class PoolStats:
     swaps_out: int = 0
     swaps_in: int = 0
     peak_used: int = 0
+    retired: int = 0          # bad blocks permanently removed
 
 
 class BlockPool:
@@ -67,6 +74,10 @@ class BlockPool:
         self._free_host = self._free_host_ch[0]
         self._rr = 0        # round-robin cursor of the channel-free alloc
         self.stats = PoolStats()
+        # retired (bad) blocks never re-enter a free list; capacity
+        # shrinks for good, like a block marked bad in the BBT
+        self._retired: Set[int] = set()
+        self.retired_ch = [0] * n_channels
         # pool-exhaustion events per channel (the device-side sticky
         # oob flags fold in via KVPageManager.observe_exhaustion)
         self.exhausted_ch = [0] * n_channels
@@ -151,14 +162,60 @@ class BlockPool:
         self._bump_alloc(len(out))
         return out
 
-    def note_exhausted(self, channel: int):
-        self.exhausted_ch[channel] += 1
+    def note_exhausted(self, channel: int, n: int = 1):
+        """Count ``n`` pool-exhaustion events against ``channel``."""
+        self.exhausted_ch[channel] += n
 
     def free(self, blocks: List[int]):
         """Push blocks back onto their tier's list of their channel, in
-        order."""
+        order; a retired block is dropped instead."""
+        n = 0
         for b in blocks:
+            if b in self._retired:
+                continue
             lists = self._free_host_ch if self.is_host(b) \
                 else self._free_dev_ch
             lists[self.channel_of(b)].append(b)
-        self.stats.frees += len(blocks)
+            n += 1
+        self.stats.frees += n
+
+    def retire(self, blocks: Sequence[int]):
+        """Remove blocks from service for good (bad-block retirement):
+        the caller owns them (not on a free list) and has relocated
+        their mappings; ``free`` drops them from now on."""
+        for b in blocks:
+            assert b not in self._retired, f"block {b} retired twice"
+            self._retired.add(b)
+            self.retired_ch[self.channel_of(b)] += 1
+        self.stats.retired += len(blocks)
+
+    def is_retired(self, block: int) -> bool:
+        return block in self._retired
+
+    def state_dict(self) -> dict:
+        """The allocator's whole state as JSON-ready host data, in the
+        reference's layout: free lists in order (the device mirror makes
+        the order part of the state), the round-robin cursor, retirement
+        and counters."""
+        return {"free_dev_ch": [list(ch) for ch in self._free_dev_ch],
+                "free_host_ch": [list(ch) for ch in self._free_host_ch],
+                "rr": self._rr,
+                "retired": sorted(self._retired),
+                "retired_ch": list(self.retired_ch),
+                "exhausted_ch": list(self.exhausted_ch),
+                "stats": dataclasses.asdict(self.stats)}
+
+    def load_state(self, d: dict):
+        """Restore ``state_dict`` output exactly. The per-channel lists
+        change in place: at one channel ``_free_dev``/``_free_host`` are
+        channel 0's lists."""
+        assert len(d["free_dev_ch"]) == self.n_channels
+        for c in range(self.n_channels):
+            self._free_dev_ch[c][:] = [int(b) for b in d["free_dev_ch"][c]]
+            self._free_host_ch[c][:] = [int(b)
+                                        for b in d["free_host_ch"][c]]
+        self._rr = int(d["rr"])
+        self._retired = set(int(b) for b in d["retired"])
+        self.retired_ch = [int(n) for n in d["retired_ch"]]
+        self.exhausted_ch = [int(n) for n in d["exhausted_ch"]]
+        self.stats = PoolStats(**d["stats"])

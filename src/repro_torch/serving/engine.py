@@ -56,11 +56,31 @@ retires mid-run keeps its pre-committed pages until its slot frees, so
 the pool order can differ from single steps' (the reference's
 documented divergence); the tokens never do.
 
+Fault plane (``fault_plane``, ``core/faults.py``): a swap that fails
+(``SwapFault``, before any change) backs its slot off for min(2^fails,
+``swap_backoff_cap``) rounds and quarantines it after
+``max_swap_retries`` failures in a row: its pages are freed and its
+request goes back to the front of the queue with its output reset
+(greedy decode restarts to the same tokens). A watchdog quarantines any
+lane that neither decodes nor moves for ``watchdog_rounds`` rounds. A
+transient allocation fault pauses growth for a round instead of
+tripping the livelock guard. A failed block program is retired: at
+admission, growth and a pre-commit by the page manager (map only), and
+after a one-channel K-step run by ``_retire_macro_programs``, which
+also moves the rows the run already wrote. A browned-out channel
+(``stall``) advertises 1/stall of its free blocks to the boundary
+planners (``_free_eff``).
+
+Journal (``journal_path``, ``core/journal.py``): every host commit
+point appends a record (the page manager's, and SUBMIT / ADMIT / FINISH
+/ QUAR here), every ``snapshot_every``-th round writes a snapshot, and
+``recover`` rebuilds the engine from disk after a power cut (``Crash``)
+and requeues what was in flight. ``reset`` and ``recover`` keep the
+engine's tensors (caches zeroed in place) and its CUDA graphs.
+
 Not ported yet (later slices; ``ServeConfig`` rejects them): the
-channel mesh, GC and the CTP prefetch, prefix sharing, journaling and
-the fault plane (so no swap retry, backoff or quarantine, and no watchdog,
-which the reference leaves off without a plane). Without a host tier
-there is no preemption victim, so a slot whose page growth fails PAUSES
+channel mesh, GC and the CTP prefetch, prefix sharing. Without a host
+tier there is no preemption victim, so a slot whose page growth fails PAUSES
 until blocks free up, as in the reference. As in the reference, every
 slot runs through each decode step (token 0 on a paused or dead lane):
 its KV write is masked to the scratch block, but a mamba layer's state
@@ -78,7 +98,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import journal as jl
 from repro_torch.core.counters import COUNTERS
+from repro_torch.core.faults import FaultPlane, SwapFault
 from repro_torch.core.fmmu import batch as fb
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
@@ -114,10 +136,11 @@ class Request:
 class ServeEngine:
     def __init__(self, model: Model, params, *, config: ServeConfig,
                  device: Union[str, torch.device] = "cuda",
-                 fault_plane=None):
-        if fault_plane is not None:
-            raise NotImplementedError(
-                "not ported to repro_torch yet: fault_plane")
+                 fault_plane: Optional[FaultPlane] = None):
+        if fault_plane is not None and not isinstance(fault_plane,
+                                                      FaultPlane):
+            raise TypeError(f"fault_plane: a FaultPlane, not "
+                            f"{type(fault_plane).__name__}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -135,7 +158,7 @@ class ServeEngine:
         self.channels = config.channels
         self.kvm = KVPageManager(self.n_slots, self.max_pages, n_dev,
                                  n_host, channels=self.channels,
-                                 device=self.device)
+                                 faults=fault_plane, device=self.device)
         # +1 scratch block past both tiers: unmapped table entries (dead
         # and swap-pending lanes) write their garbage KV there instead of
         # corrupting block 0
@@ -169,11 +192,37 @@ class ServeEngine:
         self._boundary = 0
         self._pending_since: Dict[int, int] = {}
         self._resident_since: Dict[int, int] = {}
+        # the fault policy: per slot, consecutive swap failures, the
+        # round its backoff ends and its last progress stamp
+        # (len(out), len(pending_prompt), round)
+        self.faults = fault_plane
+        self.max_swap_retries = config.faults.max_swap_retries
+        self.swap_backoff_cap = config.faults.swap_backoff_cap
+        watchdog = config.faults.watchdog_rounds
+        if watchdog is None:
+            watchdog = (8 * max(1, self.swap_patience)
+                        if fault_plane is not None else 0)
+        self.watchdog_rounds = int(watchdog)
+        self._swap_fails: Dict[int, int] = {}
+        self._retry_at: Dict[int, int] = {}
+        self._progress: Dict[int, tuple] = {}
         self.metrics = {"prefills": 0, "prefill_tokens": 0,
                         "decode_steps": 0, "preemptions": 0,
                         "generated": 0, "chunked_prefills": 0,
                         "macro_steps": 0, "macro_fallbacks": 0,
-                        "swaps_out": 0, "swaps_in": 0}
+                        "swaps_out": 0, "swaps_in": 0, "swap_faults": 0,
+                        "quarantines": 0, "watchdog_quarantines": 0,
+                        "requeues": 0, "recoveries": 0}
+        # the crash-consistency journal: durably finished outputs, the
+        # rids ever admitted, and the device's committed lanes at attach
+        self.journal: Optional[jl.Journal] = None
+        self.snapshot_every = config.durability.snapshot_every
+        self._finished: Dict[int, List[int]] = {}
+        self._ever_admitted: set = set()
+        self._lane_base = 0
+        self.last_recovery: Optional[dict] = None
+        if config.durability.journal_path:
+            self.attach_journal(config.durability.journal_path)
 
     # ------------------------------------------------------------- API
     def submit(self, tokens: List[int], max_new: int = 16) -> int:
@@ -181,6 +230,11 @@ class ServeEngine:
         self._rid += 1
         self.queue.append(Request(rid, list(tokens), max_new,
                                   t_submit=time.perf_counter()))
+        if self.journal is not None:
+            self.journal.append(jl.SUBMIT,
+                                {"rid": rid,
+                                 "tokens": [int(t) for t in tokens],
+                                 "max_new": int(max_new), "lanes": 0})
         return rid
 
     def run(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
@@ -190,14 +244,150 @@ class ServeEngine:
                 break
         return done
 
+    def reset(self, fault_plane: Optional[FaultPlane] = None):
+        """Fresh serving state with ``fault_plane`` installed, on the
+        same tensors: the caches are zeroed in place (the CUDA graphs
+        hold their addresses, and their static map state takes the
+        fresh map at the next replay), and the page manager resets.
+        Detaches and closes the journal."""
+        self.kvm.reset(faults=fault_plane)
+        self.faults = fault_plane
+        for c in self.caches.values():
+            c.zero_()
+        self.ctx_lens[:] = 0
+        self.active = {}
+        self.queue = deque()
+        self._rid = 0
+        self._boundary = 0
+        for d in (self._pending_since, self._resident_since,
+                  self._swap_fails, self._retry_at, self._progress,
+                  self._finished):
+            d.clear()
+        self._ever_admitted = set()
+        if self.journal is not None:
+            self.journal.close()
+        self.journal = None
+        for k in self.metrics:
+            self.metrics[k] = 0
+
+    # ----------------------------------------------------- crash consistency
+    def attach_journal(self, path: str,
+                       snapshot_every: Optional[int] = None,
+                       resume: bool = False) -> jl.Journal:
+        """Arm journaling at ``path``: every host commit point appends a
+        record, every ``snapshot_every``-th round writes a snapshot, and
+        the fault plane's crash axis is consumed per append. Writes the
+        base snapshot now, so recovery always has one."""
+        if snapshot_every is not None:
+            self.snapshot_every = int(snapshot_every)
+        self.journal = jl.Journal(path, faults=self.faults, resume=resume)
+        self.kvm.journal = self.journal
+        # the device's committed lanes and the journal's advance in
+        # lockstep from here (journal_lane_check)
+        self._lane_base = self._device_lanes()
+        self.journal.lanes_base = self.journal.commit_lanes
+        self._write_snapshot()
+        return self.journal
+
+    def _journal_finish(self, r: Request):
+        """FINISH precedes the slot's FREE: a crash between the two
+        leaves an orphan mapping that replay frees."""
+        if self.journal is None:
+            return
+        out = [int(t) for t in r.out[:r.max_new]]
+        self._finished[r.rid] = out
+        self.journal.append(jl.FINISH,
+                            {"rid": r.rid, "out": out, "lanes": 0})
+
+    def journal_lane_check(self) -> bool:
+        """At a quiet boundary (after ``step`` returns): the device's
+        committed lanes and the journal's have advanced alike since
+        attach. A device read: diagnostics and tests only."""
+        if self.journal is None:
+            return True
+        return (self._device_lanes() - self._lane_base
+                == self.journal.commit_lanes - self.journal.lanes_base)
+
+    def _write_snapshot(self) -> str:
+        """One snapshot: the page manager's host truth plus the
+        engine's request and admission state (host data only: in-flight
+        requests restart on recovery)."""
+        st = self.kvm.snapshot_state()
+        st["queue"] = [r.rid for r in self.queue]
+        st["ever_admitted"] = sorted(self._ever_admitted)
+        st["active"] = [[r.rid, r.slot] for r in self.active.values()]
+        st["done"] = {int(r): o for r, o in self._finished.items()}
+        st["submits"] = {
+            r.rid: [[int(t) for t in r.tokens], int(r.max_new)]
+            for r in list(self.queue) + list(self.active.values())}
+        st["rid"] = self._rid
+        st["boundary"] = self._boundary
+        return self.journal.snapshot(st)
+
+    def recover(self, path: str, fault_plane: Optional[FaultPlane] = None,
+                snapshot_every: Optional[int] = None
+                ) -> Dict[int, List[int]]:
+        """Sudden-power-off recovery: rebuild this engine from the
+        journal at ``path`` (snapshot + record replay + the OOB scan of a
+        torn tail, ``core.journal.replay``), restore the map in one
+        batched commit, restart every in-flight request from its prompt
+        (pages freed, output reset) and re-arm the journal with a fresh
+        snapshot. The queue becomes: the requests quarantined before the
+        crash (they were already at the front), then the in-flight ones
+        in admission order, then the never-admitted ones in arrival
+        order. Returns the durably finished outputs {rid: tokens};
+        ``last_recovery`` holds the replay's diagnostics and the wall
+        time (MTTR)."""
+        t0 = time.perf_counter()
+        rec = jl.replay(path)
+        n_recov = self.metrics["recoveries"]
+        self.reset(fault_plane)
+        self.kvm.restore_mapping(rec)
+        # the KV was volatile: free what survives (journal detached, so
+        # the fresh snapshot below carries these frees)
+        requeued: List[Request] = []
+        now = time.perf_counter()
+        for rid, slot in rec.active.items():
+            if slot in self.kvm.seq_pages:
+                self.kvm.free_seq(slot)
+            toks, mx = rec.submits[rid]
+            requeued.append(Request(rid, list(toks), int(mx), t_submit=now))
+        qreqs = [Request(rid, list(rec.submits[rid][0]),
+                         int(rec.submits[rid][1]), t_submit=now)
+                 for rid in rec.queue]
+        k = 0
+        while k < len(qreqs) and qreqs[k].rid in rec.ever_admitted:
+            k += 1
+        self.queue = deque(qreqs[:k] + requeued + qreqs[k:])
+        self._rid = int(rec.rid)
+        self._boundary = int(rec.boundary)
+        self._finished = {int(r): list(o) for r, o in rec.done.items()}
+        self._ever_admitted = set(rec.ever_admitted) | set(rec.active)
+        self.metrics["requeues"] += len(requeued)
+        self.metrics["recoveries"] = n_recov + 1
+        self.attach_journal(path, snapshot_every=snapshot_every,
+                            resume=True)
+        self.last_recovery = {
+            "snap_seq": int(rec.snap_seq), "last_seq": int(rec.last_seq),
+            "replayed": int(rec.replayed), "torn": bool(rec.torn),
+            "oob_scan": bool(rec.oob_scan), "requeued": len(requeued),
+            "recover_s": time.perf_counter() - t0}
+        return {int(r): list(o) for r, o in rec.done.items()}
+
+    # ------------------------------------------------------------- steps
     def step(self, done: Dict[int, List[int]]) -> bool:
-        """One scheduling round: admissions, the boundary swap plan,
-        then either one K-step macro step (swap-pending slots masked)
-        or one single decode step."""
+        """One scheduling round: admissions, the watchdog, the boundary
+        swap plan, then either one K-step macro step (swap-pending slots
+        masked) or one single decode step; every ``snapshot_every``-th
+        round ends with a journal snapshot."""
         self._admit()
         if not self.active:
             return bool(self.queue)
         self._boundary += 1      # fallback rounds age the pending too
+        if self.watchdog_rounds:
+            self._watchdog()
+            if not self.active:
+                return bool(self.queue)
         if self._macro_on and self.nonblocking_swap:
             self._swap_schedule()
         if self._macro_eligible():
@@ -206,6 +396,9 @@ class ServeEngine:
             if self._macro_on:
                 self.metrics["macro_fallbacks"] += 1
             self._decode_step(done)
+        if self.journal is not None and self.snapshot_every \
+                and self._boundary % self.snapshot_every == 0:
+            self._write_snapshot()
         return bool(self.active or self.queue)
 
     def _free_slots(self) -> List[int]:
@@ -242,7 +435,12 @@ class ServeEngine:
             free.pop(0)
             req.slot = slot
             self.active[req.rid] = req
+            self._ever_admitted.add(req.rid)
             self._resident_since[slot] = self._boundary
+            if self.journal is not None:
+                self.journal.append(
+                    jl.ADMIT, {"rid": req.rid, "slot": int(slot),
+                               "lanes": 0})
             self._do_prefill(req, chunk)
             if budget is not None:
                 budget -= chunk
@@ -260,6 +458,10 @@ class ServeEngine:
             if self._swap_out_slot(victim.slot, check=True):
                 self.metrics["preemptions"] += 1
                 return True
+            if victim.rid not in self.active:
+                # its failed swap quarantined it: its pages are free now,
+                # which is all the caller needed
+                return True
         return False
 
     def _ensure_resident(self):
@@ -272,7 +474,8 @@ class ServeEngine:
         for r in sorted(self.active.values(),
                         key=lambda r: len(self.kvm.seq_pages.get(r.slot,
                                                                  []))):
-            if not self.kvm.is_resident(r.slot):
+            if not self.kvm.is_resident(r.slot) \
+                    and not self._backed_off(r.slot):
                 self._swap_in_slot(r.slot, check=True)
 
     # --------------------------------------------- boundary swap planner
@@ -299,10 +502,14 @@ class ServeEngine:
         try:
             moved = self.kvm.swap_out(slot, self._pools(), block_axis=2,
                                       check=check)
+        except SwapFault:
+            self._note_swap_fault(slot)   # backoff, maybe quarantine
+            return False
         except OutOfBlocks:
             return False               # host tier full: nothing moved
         if not moved:
             return False
+        self._clear_fault_stamps(slot)
         self.metrics["swaps_out"] += 1
         self._pending_since[slot] = self._boundary
         return True
@@ -312,10 +519,14 @@ class ServeEngine:
         try:
             moved = self.kvm.swap_in(slot, self._pools(), block_axis=2,
                                      check=check)
+        except SwapFault:
+            self._note_swap_fault(slot)
+            return False
         except OutOfBlocks:
             return False
         if not moved:
             return False
+        self._clear_fault_stamps(slot)
         self.metrics["swaps_in"] += 1
         self._resident_since[slot] = self._boundary
         self._pending_since.pop(slot, None)
@@ -325,6 +536,88 @@ class ServeEngine:
         """Total worst-case device blocks ``slot`` can pop during one
         K-step run (the sum of ``_growth_need_ch``)."""
         return int(self._growth_need_ch(slot).sum())
+
+    # ------------------------------------------------------ fault recovery
+    def _clear_fault_stamps(self, slot: int):
+        """A completed tier move: the slot's failure count, backoff and
+        watchdog stamp start over."""
+        for d in (self._swap_fails, self._retry_at, self._progress):
+            d.pop(slot, None)
+
+    def _note_swap_fault(self, slot: int):
+        """A swap failed with the state untouched: back the slot off for
+        min(2^fails, swap_backoff_cap) rounds, and quarantine it once
+        ``max_swap_retries`` attempts in a row have failed."""
+        self.metrics["swap_faults"] += 1
+        n = self._swap_fails.get(slot, 0) + 1
+        self._swap_fails[slot] = n
+        if n >= self.max_swap_retries:
+            self._quarantine(slot, "swap retries exhausted")
+        else:
+            self._retry_at[slot] = self._boundary + min(
+                1 << n, self.swap_backoff_cap)
+
+    def _backed_off(self, slot: int) -> bool:
+        """True while ``slot``'s backoff is open: the scheduler neither
+        retries its swap nor picks it as a victim."""
+        return self._retry_at.get(slot, 0) > self._boundary
+
+    def _quarantine(self, slot: int, reason: str):
+        """Take a failing slot out of service: free its pages (both
+        tiers), requeue its request at the front of the queue with its
+        output reset, and clear every per-slot stamp. Its reserved
+        growth is free the moment this returns."""
+        req = next((r for r in self.active.values() if r.slot == slot),
+                   None)
+        if req is None:
+            return
+        self.kvm.free_seq(slot)
+        del self.active[req.rid]
+        self._release_slot(slot)
+        req.slot = -1
+        req.out = []
+        req.pending_prompt = []
+        req.t_first = 0.0
+        self.queue.appendleft(req)
+        if self.journal is not None:
+            self.journal.append(jl.QUAR, {"rid": req.rid, "lanes": 0})
+        self.metrics["quarantines"] += 1
+        self.metrics["requeues"] += 1
+        if "watchdog" in reason:
+            self.metrics["watchdog_quarantines"] += 1
+
+    def _watchdog(self):
+        """Quarantine any lane with no progress for ``watchdog_rounds``
+        rounds. Progress is a token (generated, or a prompt token
+        consumed) or a completed tier move (the swaps clear the stamp):
+        a lane rotating through the host tier is waiting, not wedged."""
+        for r in list(self.active.values()):
+            s = r.slot
+            cur = (len(r.out), len(r.pending_prompt))
+            last = self._progress.get(s)
+            if last is None or (last[0], last[1]) != cur:
+                self._progress[s] = (cur[0], cur[1], self._boundary)
+            elif self._boundary - last[2] >= self.watchdog_rounds:
+                self._quarantine(s, "watchdog: no token progress")
+
+    def _stall_shrink(self, free: np.ndarray) -> np.ndarray:
+        """A free-block vector with the plane's per-channel stall
+        multipliers applied (a browned-out channel advertises 1/stall of
+        its blocks). Identity without a plane."""
+        if self.faults is not None:
+            st = self.faults.stall_vec(self.channels)
+            if (st > 1.0).any():
+                free = (free / np.maximum(st, 1.0)).astype(np.int64)
+        return free
+
+    def _free_eff(self) -> np.ndarray:
+        """Per-channel free device blocks as the boundary planners
+        (``_macro_eligible``, ``_swap_schedule``) see them: shrunk by the
+        brownout, so residency and growth shrink on a stalled channel
+        while the others keep their budget. The single-step path
+        allocates against the real pool, so a brownout slows the engine
+        but cannot livelock it."""
+        return self._stall_shrink(self.kvm.free_device_vec())
 
     def _swap_schedule(self):
         """Boundary swap planner, run between K-step runs so that
@@ -357,35 +650,57 @@ class ServeEngine:
             return sum((self._growth_need_ch(s) for s in slots),
                        np.zeros(self.channels, np.int64))
 
+        def live():     # a quarantine mid-pass shrinks the active set
+            return {r.slot for r in self.active.values()}
+
         def can_resume(s):
-            # the swap-in takes the lane's host pages in free blocks;
-            # what is left must still cover the reserve and its growth
+            # the swap-in takes the lane's host pages in real free
+            # blocks; only the growth reserve is judged by the
+            # stall-shrunk budget, so a brownout shrinks residency and
+            # growth but does not wall off re-admission
             hp, fr = kvm.host_pages_vec(s), kvm.free_device_vec()
             if (hp > fr).any():
                 return False
-            return bool((fr - hp >= total + self._growth_need_ch(s)).all())
+            return bool((self._stall_shrink(fr - hp)
+                         >= total + self._growth_need_ch(s)).all())
 
-        # 1. reserve: the K-step run must never run the pool dry
+        # 1. reserve: the K-step run must never run a channel dry.
+        # Backed-off slots are no victims; a failed swap-out that
+        # quarantined its victim freed the pages, which serves as well
         total = growth_total(residents)
-        while (total > kvm.free_device_vec()).any() and len(residents) > 1:
-            victim = max(residents, key=lambda s: int(self.ctx_lens[s]))
+        while (total > self._free_eff()).any() and len(residents) > 1:
+            cands = [s for s in residents if not self._backed_off(s)]
+            if not cands:
+                break
+            victim = max(cands, key=lambda s: int(self.ctx_lens[s]))
             if not self._swap_out_slot(victim):
-                break                  # host tier full: nothing can move
+                if victim not in live():
+                    residents.remove(victim)
+                    total = growth_total(residents)
+                    continue
+                if self._backed_off(victim):
+                    continue    # a SwapFault: excluded next iteration
+                break           # host tier full: nothing can move
             moved_now.add(victim)
             residents.remove(victim)
             pending.append(victim)
             total = growth_total(residents)
         # 2. resume FIFO while the reserve still holds
         for s in list(pending):
-            if s in moved_now:
+            if s in moved_now or self._backed_off(s):
                 continue               # no ping-pong within one boundary
-            if can_resume(s) and self._swap_in_slot(s):
-                moved_now.add(s)
-                pending.remove(s)
-                residents.append(s)
-                total += self._growth_need_ch(s)
+            if can_resume(s):
+                if self._swap_in_slot(s):
+                    moved_now.add(s)
+                    pending.remove(s)
+                    residents.append(s)
+                    total += self._growth_need_ch(s)
+                elif s not in live():
+                    pending.remove(s)  # its failed swap-in quarantined it
         # 3. aging rotation: the oldest pending slot forces its way in
-        rest = [s for s in pending if s not in moved_now]
+        rest = [s for s in pending
+                if s not in moved_now and not self._backed_off(s)
+                and s in live()]
         if not rest:
             return
         oldest = rest[0]
@@ -394,11 +709,16 @@ class ServeEngine:
         if waited < self.swap_patience:
             return
         while not can_resume(oldest) and len(residents) > 1:
-            cands = [s for s in residents if s not in moved_now]
+            cands = [s for s in residents if s not in moved_now
+                     and not self._backed_off(s)]
             if not cands:
                 break
             victim = min(cands, key=lambda s: self._resident_since.get(s, 0))
             if not self._swap_out_slot(victim):
+                if victim not in live():
+                    residents.remove(victim)
+                    total = growth_total(residents)
+                    continue
                 break
             residents.remove(victim)
             total = growth_total(residents)
@@ -493,28 +813,37 @@ class ServeEngine:
         # slow path: grow slot by slot, preempting victims to the host
         # tier (without one, a slot that cannot grow pauses)
         failed = set()
+        transient = False
         for slot, n in wants.items():
-            if not self.kvm.is_resident(slot):
-                continue               # preempted earlier in this loop
+            if slot not in self.kvm.seq_pages \
+                    or not self.kvm.is_resident(slot):
+                # preempted earlier in this loop, or quarantined by a
+                # failed preemption swap (its pages are free already)
+                continue
             try:
                 self.kvm.extend_seq(slot, n)
-            except OutOfBlocks:
+            except OutOfBlocks as e:
+                transient |= e.transient
                 if not self._preempt(exclude=slot):
                     failed.add(slot)
                     continue
                 try:
                     self.kvm.extend_seq(slot, n)
-                except OutOfBlocks:
+                except OutOfBlocks as e:
+                    transient |= e.transient
                     failed.add(slot)
-        if len(failed) == len(residents):
+        if len(failed) == len(residents) and not transient:
             # nothing extended, nothing swapped: the same state recurs
-            # next step, so pausing would livelock instead of degrade
+            # next step, so pausing would livelock instead of degrade.
+            # An injected transient shortage is exempt: its schedule
+            # advances at every consult, so the retry is progress
             raise OutOfBlocks(
                 f"pool exhausted: all {len(residents)} resident "
                 "sequences need pages and none can be grown or "
                 "preempted (no host tier / no victim)")
+        # a request quarantined in the loop holds a freed slot
         return [r for r in residents if r.slot not in failed
-                and self.kvm.is_resident(r.slot)]
+                and r.rid in self.active and self.kvm.is_resident(r.slot)]
 
     def _decode_step(self, done: Dict[int, List[int]]):
         self._ensure_resident()
@@ -568,16 +897,19 @@ class ServeEngine:
     def _retire(self, r: Request, done: Dict[int, List[int]]):
         r.t_done = time.perf_counter()
         done[r.rid] = r.out[:r.max_new]
+        self._journal_finish(r)
         self.kvm.free_seq(r.slot)
         self._release_slot(r.slot)
         del self.active[r.rid]
 
     def _release_slot(self, slot: int):
-        """Per-slot cleanup at retirement: a reused slot inherits no
-        context length and no residency ages."""
+        """Per-slot cleanup at retirement and quarantine: a reused slot
+        inherits no context length, residency ages, backoff or watchdog
+        stamp."""
         self.ctx_lens[slot] = 0
         self._pending_since.pop(slot, None)
         self._resident_since.pop(slot, None)
+        self._clear_fault_stamps(slot)
 
     # ------------------------------------------------------ macro-steps
     def _growth_need_ch(self, slot: int) -> np.ndarray:
@@ -615,7 +947,8 @@ class ServeEngine:
                 continue
             n_res += 1
             need += self._growth_need_ch(r.slot)
-        return n_res > 0 and bool((need <= self.kvm.free_device_vec()).all())
+        # per channel, against the brownout-shrunk budget
+        return n_res > 0 and bool((need <= self._free_eff()).all())
 
     def _macro_lanes(self, residents, k: int):
         """Lane arrays for one K-step run: tokens/alive/budget/pages
@@ -787,7 +1120,8 @@ class ServeEngine:
             grew, _, _ = self._growth_walk(lambda s: valid[s], npages,
                                            self.ctx_lens)
             grow_seq = [int(s) for s in np.nonzero(grew)[1]]
-        self.kvm.reconcile_macro(grow_seq)
+        got = self.kvm.reconcile_macro(grow_seq)
+        self._retire_macro_programs(grow_seq, got)
         if simple:
             self._macro_book_simple(residents, toks, pend, k, done)
         else:
@@ -797,6 +1131,26 @@ class ServeEngine:
             # the pool's exhaustion counts and mark the allocator dirty
             # (the re-sync clears it), single-step mode recovers
             self.kvm.observe_exhaustion(flags=[oob])
+
+    def _retire_macro_programs(self, grow_seq, got):
+        """The program-fault check of a one-channel K-step run's pops.
+        The run already wrote KV into them, so a bad block's relocation
+        also moves its rows (``retire_bad_blocks(pools=...)``: one
+        COND_UPDATE commit and in-place row copies). The plane is
+        consulted in the device's pop order (step-major, slot-ascending:
+        ``grow_seq``), as the pre-commit paths consult it."""
+        kvm = self.kvm
+        if not got or kvm.faults is None:
+            return
+        idx = {s: len(kvm.seq_pages[s]) - len(bs) for s, bs in got.items()}
+        bad = []
+        for s in grow_seq:
+            j = idx[s]
+            idx[s] = j + 1
+            if kvm.faults.program_fails():
+                bad.append((s * self.max_pages + j, kvm.seq_pages[s][j]))
+        if bad:
+            kvm.retire_bad_blocks(bad, pools=self._pools(), block_axis=2)
 
 
     def _macro_decode_step_sharded(self, done: Dict[int, List[int]]):

@@ -96,9 +96,14 @@ def macro_fn(eng, params, ms, caches, cur_tok, ctx_lens, n_pages, alive,
     table = fb.interleave_table(ms.table, eng.n_slots * max_pages)
     # swap-pending slots are paused lanes for the whole run: the host
     # leaves them out of ``alive`` too, and every swap flips the lane in
-    # place on this (static) state before the next run (in every
-    # channel's copy of a stacked state)
-    alive = alive & ~(ms.swap_pending[0] if pre else ms.swap_pending)
+    # place on this (static) state before the next run. The one-channel
+    # program intersects with the lane, as the reference's does (the
+    # boundary re-syncs it first); the sharded one reads ``alive`` only,
+    # as ``_macro_sharded_fn`` does: nothing re-syncs a stacked state's
+    # lane, so after a host-side free of a swapped-out slot (a
+    # quarantine, a recovery) it stays set for the slot's next occupant
+    if not pre:
+        alive = alive & ~ms.swap_pending
 
     def decode(tok, ctx, live, k):
         return eng.decode_fn(params, caches, tok, ctx, table, live,

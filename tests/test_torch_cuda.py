@@ -1211,3 +1211,92 @@ def test_stacked_residency_flip_in_place_without_a_capture(cuda):
         pass
     assert macro.MACRO_CAPTURES[0] == c0
     assert [done[r] for r in rids] == want
+
+
+# ------------------------------------------- faults and recovery
+@pytest.mark.parametrize("channels", [1, 8])
+def test_retire_and_restore_commits_match_the_cpu_chain(cuda, channels,
+                                                        tmp_path):
+    """Page managers on the card and on the CPU at the llama serving map
+    (8 slots x 128 pages, 1024 device + 256 host blocks), journaled, run
+    the same admissions; then a retirement of 4 pages with pool rows and
+    a restore (the journal replayed into the reset manager): each is one
+    ``fmmu_commit`` launch (of C blocks at C channels), and the map
+    state, pool rows and page lists equal the CPU manager's after each.
+    The restored block table equals the one before the reset."""
+    from repro_torch.core import journal as jl
+    from repro_torch.kernels import fmmu_commit as fc
+    from repro_torch.paging.kv_manager import KVPageManager
+    kvms = [KVPageManager(8, 128, 1024, 256, channels, device=d)
+            for d in (cuda, "cpu")]
+    g = torch.Generator().manual_seed(0)
+    pool = torch.randn((1024 + 256 + 1, 4), generator=g)
+    pools = [pool.clone().to(cuda), pool.clone()]
+    for i, kvm in enumerate(kvms):
+        kvm.journal = jl.Journal(str(tmp_path / str(i)))
+        kvm.journal.snapshot(kvm.snapshot_state())
+        for s in range(8):
+            kvm.new_seq(s, 3 + 9 * s)
+    bad = [(s * 128 + s, kvms[1].seq_pages[s][s]) for s in (1, 3, 5, 7)]
+    tables = []
+    for kvm, p in zip(kvms, pools):
+        n0 = fc.LAUNCHES[0]
+        assert kvm.retire_bad_blocks(bad, pools=[p]) == 4
+        if kvm.device.type == "cuda":
+            assert fc.LAUNCHES[0] - n0 == 1
+        tables.append(kvm.block_tables().cpu())
+        kvm.journal.close()
+    assert torch.equal(pools[0].cpu(), pools[1])
+    for kvm, (dl, old) in ((k, b) for k in kvms for b in bad):
+        new = kvm.seq_pages[dl // 128][dl % 128]
+        assert new != old and torch.equal(pools[1][new], pool[old])
+    for a, b in zip(fb.state_tensors(kvms[0].state),
+                    fb.state_tensors(kvms[1].state)):
+        assert torch.equal(a.cpu(), b)
+    for i, kvm in enumerate(kvms):
+        rec = jl.replay(str(tmp_path / str(i)))
+        kvm.reset()
+        n0 = fc.LAUNCHES[0]
+        assert kvm.restore_mapping(rec) == sum(3 + 9 * s for s in range(8))
+        if kvm.device.type == "cuda":
+            assert fc.LAUNCHES[0] - n0 == 1
+        assert torch.equal(kvm.block_tables().cpu(), tables[i])
+    for a, b in zip(fb.state_tensors(kvms[0].state),
+                    fb.state_tensors(kvms[1].state)):
+        assert torch.equal(a.cpu(), b)
+    assert kvms[0].seq_pages == kvms[1].seq_pages
+    assert kvms[0].pool.state_dict() == kvms[1].pool.state_dict()
+
+
+def test_macro_retirement_moves_the_rows_the_graph_wrote(cuda):
+    """A K-step engine under program faults on the card: every replay
+    equals the eager program (``_check_replays``); after a run, each
+    retirement of its pops moves the rows the graph wrote to the
+    replacement block, in place, with one ``fmmu_commit`` launch; the
+    tokens equal a fault-free engine's."""
+    from repro_torch.core.faults import FaultPlane, make_plan
+    from repro_torch.kernels import fmmu_commit as fc
+    want, _ = _serve(_macro_engine(cuda), MACRO_REQS)
+    eng = _macro_engine(cuda)
+    eng.reset(FaultPlane(make_plan(5, program_fail_p=0.3)))
+    seen = _check_replays(eng, cuda)
+    retire = eng.kvm.retire_bad_blocks
+    moved = []
+
+    def spy(bad, pools=(), block_axis=0):
+        before = [p.clone() for p in pools]
+        n0 = fc.LAUNCHES[0]
+        n = retire(bad, pools=pools, block_axis=block_axis)
+        assert fc.LAUNCHES[0] - n0 == (1 if n else 0)
+        if pools and n:
+            for dl, old in bad:
+                new = eng.kvm.seq_pages[dl // eng.max_pages][
+                    dl % eng.max_pages]
+                for p, p0 in zip(pools, before):
+                    assert torch.equal(p[:, :, new], p0[:, :, old])
+            moved.append(n)
+        return n
+    eng.kvm.retire_bad_blocks = spy
+    got, _ = _serve(eng, MACRO_REQS)
+    assert seen and moved
+    assert got == want

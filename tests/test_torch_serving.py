@@ -148,8 +148,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(models):
 
 @pytest.mark.parametrize("kw", [
     dict(use_mesh=True), dict(gc=object()),
-    dict(prefix=object()), dict(journal_path="j.log")])
+    dict(prefix=object()), dict(journal_path="j.log", gc=object())])
 def test_serve_config_rejects_unported_features(kw):
+    """The mesh, GC and prefix sharing raise; journaling is ported, but
+    not beside a GC plane."""
     with pytest.raises(NotImplementedError):
         ServeConfig(n_slots=2, max_ctx=32, **kw)
 
@@ -161,7 +163,14 @@ def test_serve_config_accepts_swap_settings():
 
 
 def test_engine_rejects_fault_plane(models):
+    """The fault plane is ported: the engine takes a ``FaultPlane`` and
+    rejects anything else."""
+    from repro_torch.core.faults import FaultPlane, make_plan
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ServeEngine(tm, tp, config=ServeConfig(n_slots=1, max_ctx=16),
                     device="cpu", fault_plane=object())
+    plane = FaultPlane(make_plan(0))
+    eng = ServeEngine(tm, tp, config=ServeConfig(n_slots=1, max_ctx=16),
+                      device="cpu", fault_plane=plane)
+    assert eng.faults is plane and eng.kvm.faults is plane
