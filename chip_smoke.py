@@ -34,7 +34,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                commits at the llama serving map, at 1 and 8 channels: a
                retirement (4 COND_UPDATE lanes) and a restore (1024
                UPDATE lanes into a fresh state), one launch each,
-               bit-exact, timed with their bounds. Times the kernel,
+               bit-exact, timed with their bounds. The GC and sharing
+               planes' commits with both count lanes (live, refcnt)
+               armed, at 1 and 8 channels: a GC relocation (8
+               COND_UPDATE lanes, 2 stale), a shared admission (64
+               lanes onto mapped blocks + 4 fresh), a grow batch and a
+               copy-on-write, one launch each, bit-exact on every state
+               tensor and both lanes, timed beside the same commit with
+               the lanes off. Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -125,6 +132,32 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                the one-channel macro tokens, both recoveries take the
                OOB scan, each restore is one map call and one
                fmmu_commit launch. Prints MTTR (recover_s).
+  3g. serve (gc) — serve_swap's configuration with the GC/CTP plane
+               (GCConfig(watermark=6, pages_per_boundary=8,
+               block_pages=4, prefetch=True)): three passes after a
+               reset each (capture, counted, timed); the tokens must
+               equal the full-pool macro tokens, the walks must move
+               pages and reclaim a victim, each walk that relocates one
+               map call and one fmmu_commit launch, the live lane equal
+               to a recount from the page lists at every walk and after
+               each pass, no capture in the counted pass. Prints walks,
+               moves, victims, write_amp, prefetch hits and misses, each
+               walk's relocation device ms (events behind a spin) beside
+               its bound and the walk's host ms, host syncs per K
+               tokens, decode tokens/s beside gc=None in turns.
+  3h. serve (prefix) — copy-on-write prefix sharing at llama widths
+               in f32 (in bf16 a shared request's tail, decoded instead
+               of prefilled, rounds otherwise), macro_k=8, sharing on
+               beside off: (a) 8 requests of one
+               1024-token system prompt + a 32-token tail: tokens equal,
+               1 prefill against 8, 7 shared admissions of 448 pages,
+               the prefill-token and peak-page ratios and TTFT; (b) 8
+               copies of one 1000-token prompt: tokens equal, the CPU
+               replay's COW moves, each COW batch one map call and one
+               fmmu_commit launch. Then a 2-layer f32 engine at 2
+               channels, oversubscribed, with GC, sharing and a journal:
+               kernel tokens, metrics and journal equal kernel_impl=
+               "ref"'s, frame for frame.
   4. map     — a seeded stream of mixed lookup / update / cond-update
                batches at the paper's CMT geometry goes through the
                fused path (the commit kernel), its plain version (the
@@ -158,10 +191,14 @@ limit, one JSON line {"kernels": [...]} (launches from the macro
 path's counted pass, launches_single_step from the single-step run,
 launches_serve_swap, launches_serve_channels and launches_serve_faults
 from the swap, channel and fault phases' counted passes,
-launches_serve_recover from the recovered drain of the crashed engine), one {"serve": {...}} (llama), one
+launches_serve_recover from the recovered drain of the crashed engine,
+launches_serve_gc and launches_serve_prefix from the GC phase's counted
+pass and the prefix phase's counted sharing passes), one {"serve":
+{...}} (llama), one
 {"serve_macro": {...}}, one {"serve_swap": {...}}, one
 {"serve_channels": {...}}, one {"serve_faults": {...}}, one
-{"serve_recover": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
+{"serve_recover": {...}}, one {"serve_gc": {...}}, one
+{"serve_prefix": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
 and one {"serve_ssm_macro": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -455,7 +492,10 @@ def commit_bytes(g, ms, lanes, grow, with_lanes=True):
     of each set that filled, each pop's stack word, and the scalars
     (stats, commit_seq, free_n, oob) read and written once. Without
     ``with_lanes`` the lanes' inputs and outputs are left out (a
-    channel's share of a sharded commit, whose lanes count once)."""
+    channel's share of a sharded commit, whose lanes count once). With
+    the count lanes armed (``live``, ``refcnt``), each word a write lane
+    moves a count in (the block it unmapped, the block it mapped, inside
+    the lane) is read and written once in each armed lane."""
     from repro_torch.core.fmmu import batch as fb
     from repro_torch.kernels.ref import fmmu_translate_ref
     w, e = g.cmt_ways, g.cmt_entries
@@ -467,14 +507,24 @@ def commit_bytes(g, ms, lanes, grow, with_lanes=True):
         blocks, ok = fb.serving_grow_(g, after, grow, dl, impl="ref")
         dl = torch.where(ok, dl, -1)
         op = torch.ones_like(dl)
+        dp = blocks
         lane_io = dl.numel() * (4 + 1 + 4 + 1)    # dlpn, grow | blocks, ok
     else:
         fb.translate_serving_(g, after, op, dl, dp, old, impl="ref")
         lane_io = dl.numel() * (4 * 4 + 4 + 1)           # 4 lanes | out, ok
-    hit, _, set_idx, _, _ = fmmu_translate_ref(
+    hit, cur, set_idx, _, _ = fmmu_translate_ref(
         st.tags, st.valid, st.ref, st.data, st.backing, dl, dl >= 0,
         entries_per_block=e)
     active = dl >= 0
+    armed = [t for t in (ms.live, ms.refcnt) if t is not None]
+    lane_rmw = 0
+    if armed:
+        nd = armed[0].shape[-1]
+        write = active if grow is not None else \
+            active & ((op == 1) | ((op == 2) & (cur == old)))
+        moved = torch.cat([cur[write & (cur >= 0) & (cur < nd)],
+                           dp[write & (dp >= 0) & (dp < nd)]])
+        lane_rmw = 8 * len(armed) * int(torch.unique(moved).numel())
     probed = torch.unique(set_idx[active]).numel()
     touch = int((hit & ((op == 0) | (op == 2))).sum())
     d_stats = (after.fmmu.stats - st.stats).tolist()
@@ -488,7 +538,7 @@ def commit_bytes(g, ms, lanes, grow, with_lanes=True):
     return (lane_io + probed * w * (4 + 1) + 4 * int(active.sum()) + touch
             + writes * (4 + 4) + 4 * write_hits
             + fills * (4 + 1 + 1 + 2 * 4 * e) + fill_sets * 8 + 4 * pops
-            + 2 * (16 + 4 + 4 + 1))
+            + 2 * (16 + 4 + 4 + 1) + lane_rmw)
 
 
 def check_fmmu_commit(timer, rng):
@@ -1013,6 +1063,156 @@ def check_fault_commits(timer, rng):
             out[f"{k}_{key}"] = timer.ms(lambda: commit(next(clones), impl))
         n_bytes = commit_bytes(g, ms, lanes, None) if c_n == 1 else \
             sharded_commit_bytes(g, ms, lanes, None)
+        out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound_ms(
+            n_bytes, 0, "int32")
+    return out
+
+
+# --------------------------------------- the commit with its count lanes
+GC_LANES, GC_STALE = 8, 2             # a GC walk's relocation, stale lanes
+SHARE_LANES, SHARE_FRESH = 64, 4      # a shared admission's lanes
+COW_LANES = 8
+
+
+def _armed_commits(rng):
+    """The commits of the GC and sharing planes with both count lanes
+    (``live``, ``refcnt``) armed, at the llama serving map at one
+    channel and at ``SERVE_CHANNELS`` (``_geometry(8, 128, C)``, 1024
+    device blocks striped over the channels): on a map with history
+    whose slots 0-3 map all their 512 pages (the lanes counting them),
+    a GC relocation (``GC_LANES`` COND_UPDATE lanes of mapped pages to
+    fresh blocks of their channel, ``GC_STALE`` with a stale old
+    block), a shared admission (slot 5's pages 0-63 onto slot 0's
+    blocks, ``SHARE_FRESH`` more onto fresh blocks: UPDATE), a grow
+    batch (one growing page per slot, popping fresh blocks of its
+    channel) and a copy-on-write (``COW_LANES`` of slot 5's shared pages
+    to fresh blocks, after the admission). Returns [(key, geometry,
+    channels, state, lanes (op, dl, new, old) or (grow, dl), stale
+    mask, shared blocks)]."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.core.fmmu.types import COND_UPDATE, UPDATE
+    from repro_torch.paging.kv_manager import _geometry
+    n_slots, max_pages = 8, 128
+    n_dev = n_slots * max_pages
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    out = []
+    for c_n in (1, SERVE_CHANNELS):
+        g = _geometry(n_slots, max_pages, c_n)
+        lead = (c_n,) if c_n > 1 else ()
+        commit = (fb.translate_serving_ if c_n == 1 else
+                  lambda g_, ms_, *a, **k: fb.translate_sharded_(
+                      g_, c_n, ms_, *a, **k))
+        ms = _commit_state(rng, g) if c_n == 1 else \
+            _stack_shards([_commit_state(rng, g) for _ in range(c_n)])
+        zeros = torch.zeros(lead + (n_dev,), dtype=torch.int32,
+                            device="cuda")
+        ms = ms._replace(live=zeros, refcnt=zeros.clone())
+        free = {c: list(c + c_n * rng.permutation(n_dev // c_n))
+                for c in range(c_n)}
+
+        def take(dl):
+            """A fresh block of each lane's owner channel."""
+            return np.asarray([free[int(d) % c_n].pop() for d in dl])
+        mapped = np.arange(4 * max_pages)             # slots 0-3, full
+        blocks = take(mapped)
+        commit(g, ms, t(np.full(len(mapped), UPDATE)), t(mapped), t(blocks),
+               t(np.zeros(len(mapped))), impl="ref")
+        sel = rng.permutation(len(mapped))[:GC_LANES]
+        stale = np.zeros(GC_LANES, bool)
+        stale[:GC_STALE] = True
+        old = np.where(stale, blocks[sel] + c_n, blocks[sel])
+        out.append((f"gc_c{c_n}", g, c_n, ms,
+                    (t(np.full(GC_LANES, COND_UPDATE)), t(mapped[sel]),
+                     t(take(mapped[sel])), t(old)), stale, None))
+        sh_dl = 5 * max_pages + np.arange(SHARE_LANES + SHARE_FRESH)
+        sh_new = np.concatenate([blocks[:SHARE_LANES],
+                                 take(sh_dl[SHARE_LANES:])])
+        share = (t(np.full(len(sh_dl), UPDATE)), t(sh_dl), t(sh_new),
+                 t(np.zeros(len(sh_dl))))
+        out.append((f"share_c{c_n}", g, c_n, ms, share,
+                    np.zeros(len(sh_dl), bool), blocks[:SHARE_LANES]))
+        grow_dl = np.arange(n_slots) * max_pages + max_pages - 1
+        stack = np.full(lead + (n_dev // c_n,), -1, np.int32)
+        depth = []
+        for c in range(c_n):
+            own = [b for b in free[c][-64:]][::-1]
+            (stack[c] if c_n > 1 else stack)[:len(own)] = own
+            depth.append(len(own))
+        grown = ms._replace(
+            free_stack=t(stack),
+            free_n=t(depth if c_n > 1 else depth[0]))
+        out.append((f"grow_lanes_c{c_n}", g, c_n, grown,
+                    (torch.ones(n_slots, dtype=torch.bool, device="cuda"),
+                     t(grow_dl)), np.zeros(n_slots, bool), None))
+        after = fb.clone_state(ms)
+        commit(g, after, *share, impl="ref")
+        cow_dl = sh_dl[SHARE_LANES - COW_LANES:SHARE_LANES]
+        cow_old = blocks[SHARE_LANES - COW_LANES:SHARE_LANES]
+        out.append((f"cow_c{c_n}", g, c_n, after,
+                    (t(np.full(COW_LANES, COND_UPDATE)), t(cow_dl),
+                     t(take(cow_dl)), t(cow_old)), np.zeros(COW_LANES, bool),
+                    cow_old))
+    return out
+
+
+def check_armed_commits(timer, rng):
+    """The commits of ``_armed_commits``, one launch each (of C blocks at
+    C channels), through the kernel and its plain chain on clones of one
+    state, bit for bit on every state tensor (both count lanes
+    included) and output; the GC relocation's guard refuses exactly its
+    stale lanes; the shared admission counts each shared block up by one
+    in ``refcnt`` and the copy-on-write counts it down. Times each, the
+    same commit with the lanes off (``ms_unarmed_*``: the state without
+    them) and the plain chain, and bounds each (``commit_bytes`` with
+    the lanes' read-modify-writes)."""
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.kernels import fmmu_commit as fc
+    out = {}
+    for key, g, c_n, ms, lanes, stale, shared in _armed_commits(rng):
+        grow_mode = len(lanes) == 2
+
+        def commit(state, impl=None):
+            if grow_mode:
+                if c_n == 1:
+                    return fb.serving_grow_(g, state, *lanes, impl=impl)
+                return fb.grow_sharded_(g, c_n, state, *lanes, impl=impl)
+            if c_n == 1:
+                return fb.translate_serving_(g, state, *lanes, impl=impl)
+            return fb.translate_sharded_(g, c_n, state, *lanes, impl=impl)
+        ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+        n0 = fc.LAUNCHES[0]
+        got = commit(ker)
+        want = commit(ref, "ref")
+        torch.cuda.synchronize()
+        if fc.LAUNCHES[0] - n0 != 1:
+            fail(f"the armed {key} commit: {fc.LAUNCHES[0] - n0} launches")
+        for x, y in zip(list(got) + fb.state_tensors(ker),
+                        list(want) + fb.state_tensors(ref)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"fmmu_commit with the count lanes differs from its "
+                     f"plain chain on the {key} commit")
+        if not np.array_equal(got[1].cpu().numpy(), ~stale):
+            fail(f"the armed {key} commit's guard: ok {got[1].tolist()}, "
+                 f"stale lanes {np.nonzero(stale)[0].tolist()}")
+        if shared is not None:
+            step = 1 if key.startswith("share") else -1
+            idx = torch.from_numpy(shared).long().cuda()
+            before = fb.refcount_vec(ms)[idx]
+            if not torch.equal(fb.refcount_vec(ker)[idx], before + step):
+                fail(f"the {key} commit did not count each shared block "
+                     f"{'up' if step > 0 else 'down'} by one")
+        bare = ms._replace(live=None, refcnt=None)
+        for state, impl, k in ((ms, None, "ms"), (bare, None, "ms_unarmed"),
+                               (ms, "ref", "plain_ms")):
+            clones = iter([fb.clone_state(state) for _ in range(23)])
+            out[f"{k}_{key}"] = timer.ms(lambda: commit(next(clones), impl))
+        grow = lanes[0] if grow_mode else None
+        lanes_b = (torch.ones_like(lanes[1]), lanes[1], None) if grow_mode \
+            else lanes
+        n_bytes = commit_bytes(g, ms, lanes_b, grow) if c_n == 1 else \
+            sharded_commit_bytes(g, ms, lanes_b, grow)
         out[f"bound_ms_{key}"], out[f"bound_by_{key}"] = bound_ms(
             n_bytes, 0, "int32")
     return out
@@ -2687,6 +2887,393 @@ def recover_phase(cfg, lens, channels_line, macro_tokens):
 
 # the two served models: prompt lengths, and the kernels each path must
 # launch (single-step; replayed by the macro graphs; eager in macro mode)
+# ------------------------------------------------------------- serve gc
+# the reference serving bench's GC_WATERMARK / GC_BUDGET / GC_BLOCK_PAGES
+# (benchmarks/serve_bench.py), with the CTP armed
+GC_CONFIG = dict(watermark=6, pages_per_boundary=8, block_pages=4,
+                 prefetch=True)
+# what a CPU replay of serve_gc's schedule gives, in both packages
+# (tests/test_torch_gc.py::test_smoke_gc_schedule_replays_alike): the
+# schedule does not depend on the weights (no EOS)
+GC_REPLAY = dict(gc_walks=3, gc_moves=3, gc_victims=2)
+
+
+def _live_recount(kvm):
+    """Live pages per device block, recounted from the page lists."""
+    lv = np.zeros(kvm.pool.n_device, np.int64)
+    for pages in kvm.seq_pages.values():
+        for b in pages:
+            if not kvm.pool.is_host(b):
+                lv[b] += 1
+    return lv
+
+
+def gc_phase(cfg, lens, swap_line, macro_tokens):
+    """``serve_swap``'s configuration (8 slots x 2048 ctx, macro_k=8, 128
+    device + 256 host blocks, swap_patience 4) with the GC/CTP plane
+    (``GC_CONFIG``). Three passes, each after a reset: a first captures
+    the graphs; the counts are zeroed just before the second and read
+    just after; a third runs a spin kernel before each walk, so that
+    CUDA events time its device work. Fails unless every pass gives the
+    full-pool macro tokens, the walks move pages and reclaim a victim,
+    each walk that plans a relocation is one map call and one
+    fmmu_commit launch, the live lane equals a recount from the page
+    lists at every walk and after each pass, and the counted pass
+    captures nothing. Then decode tokens/s of this engine and of one
+    with ``gc=None`` (same weights), pass by pass in turns. Returns the
+    phase's line."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.core.fmmu import batch as fb
+    from repro_torch.models import Runtime
+    from repro_torch.serving import GCConfig, ServeConfig, ServeEngine
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K, **SWAP_CONFIG,
+                       gc=GCConfig(**GC_CONFIG))
+    prompts = serve_prompts(cfg, lens)
+    log = CallLog(eng.kvm, "gc_collect", lambda a, k, n: {
+        "moved": n[0], "victims": n[1]})
+    checks = []
+    read = eng.kvm.live_counts
+
+    def checked_read():
+        lv = read()
+        checks.append(bool(np.array_equal(lv, _live_recount(eng.kvm))))
+        return lv
+    eng.kvm.live_counts = checked_read
+
+    def one_pass():
+        eng.reset(None)
+        out, reqs, wall = run_requests(eng, prompts, 32)
+        if [out[r.rid] for r in reqs] != macro_tokens:
+            fail("serve_gc: tokens differ from the full-pool macro phase's")
+        lane = fb.live_vec(eng.kvm.state).cpu().numpy()
+        if not np.array_equal(lane, _live_recount(eng.kvm)):
+            fail("serve_gc: the live lane differs from the recount")
+        return reqs, wall
+    one_pass()                                       # captures the graphs
+    graphs_first = eng._graphs.stats()["graphs"]
+    log.records = recs = []
+    checks.clear()
+    COUNTERS.reset()                     # every count to 0 just before
+    reqs, wall = one_pass()
+    launches = COUNTERS.launches()       # ... and read just after
+    counts = COUNTERS.snapshot()
+    m, st = dict(eng.metrics), eng.kvm.hit_stats()
+    if not (m["gc_moves"] > 0 and m["gc_victims"] > 0):
+        fail(f"serve_gc: the walk moved {m['gc_moves']} pages and "
+             f"reclaimed {m['gc_victims']} victims")
+    if any(r["xlate_calls"] != r["fmmu_commit"] or r["xlate_calls"] > 1
+           or (r["moved"] and r["xlate_calls"] != 1) for r in recs):
+        fail("serve_gc: a walk was not one map call and one fmmu_commit "
+             f"launch: {recs}")
+    if not checks or not all(checks):
+        fail(f"serve_gc: the live lane differed from the recount at a "
+             f"walk: {checks}")
+    if counts.get("engine.macro_captures", 0) or \
+            eng._graphs.stats()["graphs"] != graphs_first:
+        fail("serve_gc: the counted pass captured a graph")
+    # the timed pass: a walk reads the lane and its guard mask back, so
+    # events around the whole walk would time the host; they go around
+    # its relocation (the commit and the row moves), behind a spin
+    timed, events, in_walk = [], [], [False]
+    log.records = timed
+    walk, relocate = eng.kvm.gc_collect, eng.kvm._relocate
+
+    def walk_flagged(*a, **k):
+        in_walk[0] = True
+        try:
+            return walk(*a, **k)
+        finally:
+            in_walk[0] = False
+
+    def relocate_timed(*a, **k):
+        if not in_walk[0]:
+            return relocate(*a, **k)
+        torch.cuda._sleep(Timer.SPIN_CYCLES // 5)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = relocate(*a, **k)
+        ev[1].record()
+        events.append(ev)
+        return out
+    eng.kvm.gc_collect, eng.kvm._relocate = walk_flagged, relocate_timed
+    one_pass()                                       # the timed pass
+    torch.cuda.synchronize()
+    eng.kvm.gc_collect, eng.kvm._relocate = walk, relocate
+    if [(r["moved"], r["victims"]) for r in timed] != \
+            [(r["moved"], r["victims"]) for r in recs]:
+        fail("serve_gc: the timed pass walked otherwise")
+    ev_iter = iter(events)
+    pools = [eng.caches["pool_k"], eng.caches["pool_v"]]
+    row_bytes = sum(p[:, :, 0].numel() * p.element_size() for p in pools)
+    walks = []
+    for r in recs:
+        # each moved page: its 4 lane inputs and 2 outputs, the backing,
+        # table and data words and the live lane's two words it writes,
+        # its KV rows read and written once
+        b_ms, b_by = bound_ms(r["moved"] * (4 * 4 + 4 + 1 + 3 * 4 + 2 * 8)
+                              + 2 * r["moved"] * row_bytes, 0, "bfloat16")
+        ev = next(ev_iter) if r["xlate_calls"] else None
+        walks.append({"moved": r["moved"], "victims": r["victims"],
+                      "map_calls": r["xlate_calls"],
+                      "host_ms": r["host_ms"],
+                      "device_ms": ev[0].elapsed_time(ev[1]) if ev
+                      else None,
+                      "bound_ms": b_ms, "bound_by": b_by})
+    decode_s = max(r.t_done for r in reqs) - max(r.t_first for r in reqs)
+    syncs = counts.get("engine.host_syncs", 0)
+    reads = counts.get("kvm.host_reads", 0)
+    n_pre = m["prefills"]
+    line = {
+        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "macro_k": MACRO_K, **SWAP_CONFIG, "gc": GC_CONFIG,
+        "cpu_replay": GC_REPLAY, "wall_s": wall,
+        "decode_tok_s": sum(len(r.out[:r.max_new]) - 1 for r in reqs)
+        / decode_s,
+        "decode_tok_s_serve_swap": swap_line["decode_tok_s"],
+        "macro_steps": m["macro_steps"],
+        "macro_fallbacks": m["macro_fallbacks"],
+        "preemptions": m["preemptions"], "swaps_out": m["swaps_out"],
+        "swaps_in": m["swaps_in"], "gc_walks": m["gc_walks"],
+        "gc_moves": m["gc_moves"], "gc_victims": m["gc_victims"],
+        "victims_ch": st["victims_ch"], "write_amp": st["write_amp"],
+        "flash_programs": st["flash_programs"],
+        "host_writes": st["host_writes"],
+        "prefetch_hits": st["prefetch_hits"],
+        "prefetch_misses": st["prefetch_misses"],
+        "walk_calls": len(recs),
+        "walks": [w for w in walks if w["map_calls"]],
+        "walk_host_ms_median": statistics.median(
+            w["host_ms"] for w in walks if w["map_calls"]),
+        "walk_device_ms_median": statistics.median(
+            w["device_ms"] for w in walks if w["map_calls"]),
+        "live_checks": len(checks),
+        "host_syncs": syncs, "plane_host_reads": reads,
+        # blocking reads a K-token stretch makes: each run's token read
+        # and the plane's reads (a walk's lane and guard reads, a
+        # prefetch's two stats reads)
+        "host_syncs_per_k_tokens": (syncs - n_pre + reads) * MACRO_K
+        / m["decode_steps"],
+        "host_syncs_per_k_tokens_without_plane":
+            (syncs - n_pre) * MACRO_K / m["decode_steps"],
+        "xlate_calls": counts.get("kvm.xlate_calls", 0),
+        "graphs_captured": eng._graphs.stats()["graphs"],
+        "captures_counted_pass": counts.get("engine.macro_captures", 0),
+        "row_bytes": row_bytes, "launches": launches}
+    # decode tokens/s with the plane and without it, in turns
+    eng.kvm.live_counts = read
+    del log
+    off = ServeEngine(eng.m, eng.params, device="cuda", config=ServeConfig(
+        n_slots=8, max_ctx=2048, macro_k=MACRO_K, **SWAP_CONFIG))
+    run_requests(off, prompts, 32)                   # captures the graphs
+    turns = {"gc": [], "off": []}
+    for k in ("gc", "off", "off", "gc"):
+        e = eng if k == "gc" else off
+        e.reset(None)
+        got, rq, _ = run_requests(e, prompts, 32)
+        if list(got.values()) != macro_tokens:
+            fail(f"serve_gc: a pass in turns ({k}) changed the tokens")
+        d_s = max(r.t_done for r in rq) - max(r.t_first for r in rq)
+        turns[k].append(sum(len(t) - 1 for t in got.values()) / d_s)
+    line["decode_tok_s_in_turns"] = turns
+    line["decode_tok_s_retained"] = (statistics.median(turns["gc"])
+                                     / statistics.median(turns["off"]))
+    del eng, off
+    torch.cuda.empty_cache()
+    return line
+
+
+# --------------------------------------------------------- serve prefix
+# serve_prefix (b): what a CPU replay of the schedule gives, in both
+# packages (tests/test_torch_prefix.py::
+# test_smoke_prefix_schedule_replays_alike)
+PREFIX_COW_MOVES = 8
+# the 2-layer f32 parity: the reference chaos GC shape (4 slots x 64
+# ctx, page 8, 24 host blocks, macro_k 4, swap_patience 2) at 2
+# channels, oversubscribed, with prompts that share and a tree small
+# enough that its pins do not drain the pool. 14 device blocks and
+# watermark 4 rather than 12 and 3: there the reference engine's
+# copy-on-write, retried after a preemption, passes pool buffers the
+# preemption's swap donated and fails (ROADMAP Queue 3), so
+# tests/test_torch_prefix.py could not hold this shape against it
+PARITY_PROMPTS = [list(range(1, 9)) + [30 + i] * 4 for i in range(3)] + \
+    [list(range(1 + i, 20 + i)) for i in range(3)]
+PARITY_CONFIG = dict(n_slots=4, max_ctx=64, n_device_blocks=14,
+                     n_host_blocks=24, macro_k=4, swap_patience=2,
+                     channels=2)
+PARITY_GC = dict(watermark=4, pages_per_boundary=8, block_pages=2,
+                 prefetch=True)
+
+
+def prefix_prompts(cfg):
+    """serve_prefix's two workloads, seeded token ids: (a) 8 requests of
+    one 1024-token system prompt and a 32-token tail each; (b) 8 copies
+    of one 1000-token prompt (its last page partial)."""
+    prng = np.random.default_rng(SEED + 2)
+
+    def toks(n):
+        return [int(t) for t in prng.integers(0, cfg.vocab_size, n)]
+    common = toks(1024)
+    one = toks(1000)
+    return ([common + toks(32) for _ in range(8)],
+            [list(one) for _ in range(8)])
+
+
+def _gc_prefix_parity(cfg):
+    """A 2-layer f32 engine at ``PARITY_CONFIG`` with GC, prefix sharing
+    and a journal armed, with the kernels and with kernel_impl="ref":
+    the tokens and the journals (every frame) must be equal, and the
+    walk, the sharing and the copy-on-write must have run. Returns
+    (tokens, frames, metrics) counted."""
+    import tempfile
+    from repro_torch.core import journal as jl
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.serving import (GCConfig, PrefixConfig, ServeConfig,
+                                     ServeEngine)
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    toks, frames, met = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in (None, "ref"):
+            rt32 = Runtime(compute_dtype=torch.float32,
+                           param_dtype=torch.float32, page_size=8,
+                           kernel_impl=impl)
+            m = build_model(cfg2, rt32, device="cuda")
+            params = m.init(torch.Generator(device="cuda").manual_seed(SEED))
+            d = os.path.join(tmp, str(impl))
+            eng = ServeEngine(m, params, device="cuda", config=ServeConfig(
+                **PARITY_CONFIG, journal_path=d, gc=GCConfig(**PARITY_GC),
+                prefix=PrefixConfig(min_tokens=8, max_nodes=2)))
+            toks[impl], _, _ = run_requests(eng, PARITY_PROMPTS, 16)
+            met[impl] = dict(eng.metrics)
+            eng.journal.close()
+            frames[impl] = [jl.read_frames(os.path.join(d, n))[0]
+                            for n in ("journal.log", "oob.log")]
+            del eng, m, params
+            torch.cuda.empty_cache()
+    mm = met[None]
+    if not (mm["gc_moves"] and mm["shared_admits"] and mm["cow_moves"]
+            and mm["swaps_out"]):
+        fail(f"2-layer f32 GC + sharing parity: a plane never ran or no "
+             f"slot swapped: {mm}")
+    if list(toks[None].values()) != list(toks["ref"].values()):
+        fail("2-layer f32 GC + sharing: kernel tokens differ from ref "
+             "tokens")
+    if frames[None] != frames["ref"] or met[None] != met["ref"]:
+        fail("2-layer f32 GC + sharing: the kernel engine's journal or "
+             "metrics differ from the ref engine's")
+    return (sum(len(v) for v in toks["ref"].values()),
+            sum(len(f) for f in frames["ref"]),
+            {k: mm[k] for k in ("gc_moves", "shared_admits", "cow_moves",
+                                "swaps_out")})
+
+
+def prefix_phase(cfg):
+    """Copy-on-write prefix sharing at llama3.2-1b's widths (f32, page
+    16, 8 slots x 2048 ctx, macro_k=8), each workload of
+    ``prefix_prompts`` on an engine with sharing (``PrefixConfig(
+    min_tokens=16)``) and one without, same weights, each pass after a
+    reset, the graphs captured by a first pass: (a) the tokens equal,
+    one prefill against eight, 7 shared admissions of 448 pages; prints
+    the prefill-token ratio, the peak distinct device pages ratio and
+    TTFT on and off; (b) the tokens equal, ``PREFIX_COW_MOVES``
+    copy-on-write moves, each COW batch one map call and one
+    fmmu_commit launch. Counts are zeroed just before the sharing
+    engine's counted passes and read just after. Then the 2-layer f32
+    kernel-vs-ref parity with GC, sharing and a journal
+    (``_gc_prefix_parity``). Returns the phase's line.
+
+    f32, not bf16: with sharing a follower's unshared tail (at least its
+    last prompt token) runs through decode steps (paged attention)
+    instead of its prefill (flash attention, other GEMM shapes), and in
+    bf16 those two roundings give different greedy tokens; in f32 they
+    agree, as the reference's tests hold them on the CPU."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.models import Runtime
+    from repro_torch.serving import PrefixConfig, ServeConfig, ServeEngine
+    rt = Runtime(compute_dtype=torch.float32, param_dtype=torch.float32,
+                 page_size=16)
+    on = build_engine(cfg, rt, macro_k=MACRO_K,
+                      prefix=PrefixConfig(min_tokens=16))
+    off = ServeEngine(on.m, on.params, device="cuda", config=ServeConfig(
+        n_slots=8, max_ctx=2048, macro_k=MACRO_K))
+    log = CallLog(on.kvm, "cow_writes", lambda a, k, n: {"moved": n})
+    shared, same = prefix_prompts(cfg)
+    for eng in (on, off):                            # captures the graphs
+        for prompts in (shared, same):
+            eng.reset(None)
+            run_requests(eng, prompts, 32)
+    line = {"model": cfg.name, "dtype": "float32", "page_size": 16,
+            "n_slots": 8, "max_ctx": 2048, "max_new": 32,
+            "macro_k": MACRO_K, "min_tokens": 16}
+    launches = {}
+    for part, prompts in (("a", shared), ("b", same)):
+        res = {}
+        log.records = recs = []
+        for k, eng in (("off", off), ("on", on)):
+            eng.reset(None)
+            torch.cuda.synchronize()
+            if k == "on":
+                COUNTERS.reset()         # every count to 0 just before
+            out, reqs, wall = run_requests(eng, prompts, 32)
+            if k == "on":
+                counts = COUNTERS.snapshot()
+                for n, v in COUNTERS.launches().items():
+                    launches[n] = launches.get(n, 0) + v    # ... and after
+            ttft = sorted((r.t_first - r.t_submit) * 1e3 for r in reqs)
+            res[k] = {"tokens": [out[r.rid] for r in reqs],
+                      "metrics": dict(eng.metrics),
+                      "peak_pages": eng.kvm.pool.stats.peak_used,
+                      "ttft_ms_median": statistics.median(ttft),
+                      "ttft_ms_max": ttft[-1], "wall_s": wall}
+        a, b = res["on"], res["off"]
+        if a["tokens"] != b["tokens"]:
+            fail(f"serve_prefix ({part}): tokens differ with sharing on")
+        ma = a["metrics"]
+        if part == "a" and (ma["prefills"], b["metrics"]["prefills"],
+                            ma["shared_admits"], ma["shared_pages"]) != \
+                (1, 8, 7, 448):
+            fail(f"serve_prefix (a): prefills {ma['prefills']} / "
+                 f"{b['metrics']['prefills']}, shared_admits "
+                 f"{ma['shared_admits']}, shared_pages {ma['shared_pages']}")
+        if part == "b":
+            if ma["cow_moves"] != PREFIX_COW_MOVES:
+                fail(f"serve_prefix (b): {ma['cow_moves']} COW moves, the "
+                     f"CPU replay's {PREFIX_COW_MOVES}")
+            moved = [r for r in recs if r["moved"]]
+            if not moved or any((r["xlate_calls"], r["fmmu_commit"]) !=
+                                (1, 1) for r in moved):
+                fail("serve_prefix (b): a COW batch was not one map call "
+                     f"and one fmmu_commit launch: {recs}")
+            line["cow_batches"] = [{"moved": r["moved"],
+                                    "host_ms": r["host_ms"]} for r in moved]
+        if counts.get("engine.macro_captures", 0):
+            fail(f"serve_prefix ({part}): the counted pass captured a graph")
+        line[part] = {
+            "prompt_tokens": [len(p) for p in prompts][:1],
+            **{f"{k}_{n}": res[k]["metrics"][n] for k in ("on", "off")
+               for n in ("prefills", "prefill_tokens", "decode_steps",
+                         "macro_steps")},
+            "shared_admits": ma["shared_admits"],
+            "shared_pages": ma["shared_pages"],
+            "cow_moves": ma["cow_moves"],
+            "prefill_token_ratio": ma["prefill_tokens"]
+            / b["metrics"]["prefill_tokens"],
+            "peak_pages_on": a["peak_pages"],
+            "peak_pages_off": b["peak_pages"],
+            "peak_pages_ratio": a["peak_pages"] / b["peak_pages"],
+            **{f"{n}_{k}": res[k][n] for k in ("on", "off")
+               for n in ("ttft_ms_median", "ttft_ms_max", "wall_s")},
+            "xlate_calls_on": counts.get("kvm.xlate_calls", 0)}
+    line["launches"] = launches
+    del on, off, log
+    torch.cuda.empty_cache()
+    line["parity_tokens"], line["parity_journal_frames"], \
+        line["parity_metrics"] = _gc_prefix_parity(cfg)
+    return line
+
+
 MODELS = {
     # the 1020-token prompt reaches 1024 tokens (65 pages) at step 4 of
     # its first K-step run, so the macro-vs-single-step check spans a
@@ -2785,6 +3372,16 @@ def main() -> int:
         f"(_geometry(8, 128, N)): {RETIRE_LANES} COND_UPDATE lanes moving "
         "pages off bad blocks; 1024 UPDATE lanes, every page of 8 slots, "
         "into a fresh state")
+    # the GC and sharing planes' commits with the count lanes armed
+    rows["fmmu_commit"].update(check_armed_commits(timer, rng))
+    rows["fmmu_commit"]["shape"] += (
+        "; _gc_cN / _share_cN / _grow_lanes_cN / _cow_cN: the llama "
+        "serving map at N channels with the live and refcnt lanes armed "
+        f"(1024 device blocks): a GC relocation ({GC_LANES} COND_UPDATE "
+        f"lanes, {GC_STALE} stale), a shared admission ({SHARE_LANES} "
+        f"lanes onto mapped blocks + {SHARE_FRESH} fresh, UPDATE), a grow "
+        f"batch (8 lanes), a copy-on-write ({COW_LANES} COND_UPDATE "
+        "lanes); ms_unarmed_*: the same commit with the lanes off")
     print("kernels: all match their plain versions", file=sys.stderr)
 
     # 3. llama3.2-1b serving, single-step then macro (fmmu_commit, paged
@@ -2821,6 +3418,16 @@ def main() -> int:
                                   serve_channels, llama["tokens"])
     print(f"serve recover: {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
+    # 3g. the swap phase's configuration with the GC/CTP plane; 3h.
+    # copy-on-write prefix sharing
+    t0 = time.perf_counter()
+    serve_gc = gc_phase(get_arch("llama3.2-1b"),
+                        MODELS["llama3.2-1b"]["lens"], serve_swap,
+                        llama["tokens"])
+    print(f"serve gc: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    serve_prefix = prefix_phase(get_arch("llama3.2-1b"))
+    print(f"serve prefix: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     for name in MODELS["llama3.2-1b"]["single"]:
         rows[name]["launches_serve_faults"] = \
             serve_faults["launches"].get(name, 0)
@@ -2831,6 +3438,13 @@ def main() -> int:
         rows[name]["launches_serve_swap"] = serve_swap["launches"][name]
         rows[name]["launches_serve_channels"] = \
             serve_channels["launches"].get(name, 0)
+        rows[name]["launches_serve_gc"] = serve_gc["launches"].get(name, 0)
+        rows[name]["launches_serve_prefix"] = \
+            serve_prefix["launches"].get(name, 0)
+    for phase, line in (("serve_gc", serve_gc),
+                        ("serve_prefix", serve_prefix)):
+        if line["launches"].get("fmmu_commit", 0) <= 0:
+            fail(f"fmmu_commit was not launched in {phase}")
 
     # 4. the map phase: the fused path (fmmu_commit), its plain chain and
     # the unfused path (fmmu_lookup, whose launches are this path's). The
@@ -2881,8 +3495,13 @@ def main() -> int:
         tuple(f"{k}_{d}_c{c}" for d in ("retire", "restore")
               for c in (1, SERVE_CHANNELS)
               for k in ("ms", "plain_ms", "bound_ms", "bound_by")) + \
+        tuple(f"{k}_{d}_c{c}" for d in ("gc", "share", "grow_lanes", "cow")
+              for c in (1, SERVE_CHANNELS)
+              for k in ("ms", "ms_unarmed", "plain_ms", "bound_ms",
+                        "bound_by")) + \
         ("launches_serve_channels", "launches_serve_faults",
-         "launches_serve_recover")
+         "launches_serve_recover", "launches_serve_gc",
+         "launches_serve_prefix")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
@@ -2891,6 +3510,8 @@ def main() -> int:
     print(json.dumps({"serve_channels": serve_channels}))
     print(json.dumps({"serve_faults": serve_faults}))
     print(json.dumps({"serve_recover": serve_recover}))
+    print(json.dumps({"serve_gc": serve_gc}))
+    print(json.dumps({"serve_prefix": serve_prefix}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))

@@ -284,8 +284,18 @@ class ServingMapState(NamedTuple):
     lanes, as in the reference. ``table`` holds the current dlpn->dppn
     mapping (NIL when unmapped), maintained by ``translate_serving`` in
     the same commit that writes the map. ``free_stack[:free_n]`` mirror
-    the host pool's free list (index i == list index i). ``live`` and
-    ``refcnt`` (GC and prefix sharing) are not ported and stay None."""
+    the host pool's free list (index i == list index i).
+
+    ``live`` and ``refcnt`` are the optional per-device-block int32
+    lanes of the GC walk (live pages a block holds) and of prefix
+    sharing (dlpns mapping a block), None when off. The commit that
+    writes the map keeps them with its ``write`` mask: a committed lane
+    takes one from the block it unmapped (its pre-batch mapping) and
+    adds one to the block it mapped, each gated to the device tier
+    ``[0, n_device)``. A channel-stacked state gives every shard a
+    full-size ``[n_device]`` lane over global block ids (a shard only
+    touches the blocks its channel owns); ``live_vec`` and
+    ``refcount_vec`` sum the shards."""
     fmmu: BatchFMMUState
     table: torch.Tensor
     free_stack: torch.Tensor   # [n_device] int32 free device block ids
@@ -301,9 +311,13 @@ class ServingMapState(NamedTuple):
 
 def init_serving_state(g: FMMUGeometry, n_device_blocks: int = 0,
                        n_lanes: int = 0, *, n_host_blocks: int = 0,
+                       track_live: bool = False, track_refs: bool = False,
                        device: torch.device) -> ServingMapState:
     """Stack order mirrors BlockPool: index i holds block n-1-i, so the
-    first pop yields block 0 (HOST_BASE for the host stack)."""
+    first pop yields block 0 (HOST_BASE for the host stack).
+    ``track_live`` / ``track_refs`` arm the ``live`` / ``refcnt``
+    lanes."""
+    lane = (n_device_blocks,)
     return ServingMapState(
         fmmu=init_batch_state(g, device),
         table=torch.full((g.n_tvpns * g.entries_per_tp,), NIL, dtype=I,
@@ -317,7 +331,14 @@ def init_serving_state(g: FMMUGeometry, n_device_blocks: int = 0,
         oob=torch.tensor(False, device=device),
         swap_pending=torch.zeros((n_lanes,), dtype=torch.bool,
                                  device=device),
-        commit_seq=torch.tensor(0, dtype=I, device=device))
+        commit_seq=torch.tensor(0, dtype=I, device=device),
+        live=_zeros_if(track_live, lane, device),
+        refcnt=_zeros_if(track_refs, lane, device))
+
+
+def _zeros_if(on: bool, shape, device) -> Optional[torch.Tensor]:
+    """A zeroed int32 count lane of ``shape``, or None when off."""
+    return torch.zeros(shape, dtype=I, device=device) if on else None
 
 
 def translate_serving(g: FMMUGeometry, ms: ServingMapState, opcodes,
@@ -364,8 +385,28 @@ def commit_chain(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
         return st, out, ok, None
     table = _set_where(ms.table, dlpns, dppns, write)
     return ms._replace(fmmu=st, table=table,
+                       live=_count_lane(ms.live, write, out, dppns),
+                       refcnt=_count_lane(ms.refcnt, write, out, dppns),
                        commit_seq=ms.commit_seq + write.sum(dtype=I)), \
         out, ok, None
+
+
+def _count_lane(lane, write, out, dppns):
+    """A per-device-block count lane after a commit: -1 at each write
+    lane's pre-batch block ``out``, +1 at its new block ``dppns``, each
+    only inside ``[0, n_device)`` (the reference's two drop-mode
+    scatter-adds; a lane outside adds into a spare row that is cut
+    off). None stays None."""
+    if lane is None:
+        return None
+    nb = lane.shape[0]
+    ext = torch.cat([lane, lane.new_zeros((1,))])
+    for blk, delta in ((out, -1), (dppns, 1)):
+        on = write & (blk >= 0) & (blk < nb)
+        ext.index_add_(0, torch.where(on, blk, nb).long(),
+                       torch.full(blk.shape, delta, dtype=I,
+                                  device=blk.device))
+    return ext[:nb]
 
 
 def oob_vec(ms: ServingMapState) -> torch.Tensor:
@@ -373,6 +414,22 @@ def oob_vec(ms: ServingMapState) -> torch.Tensor:
     unsharded state, whose flag is a scalar): the one read layout of
     every boundary observer (``KVPageManager.observe_exhaustion``)."""
     return torch.atleast_1d(ms.oob)
+
+
+def live_vec(ms: ServingMapState) -> torch.Tensor:
+    """Live pages per device block as an [n_device] vector: the one
+    cross-channel combine of the ``live`` lane (a stacked state's
+    [C, n_device] shards summed)."""
+    assert ms.live is not None, "live tracking is off for this state"
+    return ms.live if ms.live.dim() == 1 else ms.live.sum(0, dtype=I)
+
+
+def refcount_vec(ms: ServingMapState) -> torch.Tensor:
+    """Mapping references per device block as an [n_device] vector:
+    ``live_vec``'s twin for the ``refcnt`` lane."""
+    assert ms.refcnt is not None, "ref tracking is off for this state"
+    return ms.refcnt if ms.refcnt.dim() == 1 \
+        else ms.refcnt.sum(0, dtype=I)
 
 
 def commit_seq_vec(ms: ServingMapState) -> torch.Tensor:
@@ -534,11 +591,9 @@ def init_sharded_state(g: FMMUGeometry, n_channels: int,
     ``g`` is the per-channel geometry (its dlpn space covers
     ceil(n_dlpns / C) local pages). Both tiers stripe by block id mod C
     with channel-uniform stack capacities ceil(n / C). The residency
-    lane is replicated: every channel masks the same slots."""
-    if track_live or track_refs:
-        raise NotImplementedError(
-            "not ported to repro_torch yet: the live and refcnt lanes "
-            "(GC and prefix sharing)")
+    lane is replicated: every channel masks the same slots. The
+    ``live`` / ``refcnt`` lanes are full-size [C, n_device] over global
+    block ids."""
     c_n = n_channels
     dev_cap = -(-n_device_blocks // c_n)
     host_cap = -(-n_host_blocks // c_n)
@@ -566,7 +621,9 @@ def init_sharded_state(g: FMMUGeometry, n_channels: int,
         host_stack=t(np.stack(stacks["host"]).reshape(c_n, host_cap)),
         host_n=t(depths["host"]),
         oob=stacked(one.oob), swap_pending=stacked(one.swap_pending),
-        commit_seq=stacked(one.commit_seq))
+        commit_seq=stacked(one.commit_seq),
+        live=_zeros_if(track_live, (c_n, n_device_blocks), device),
+        refcnt=_zeros_if(track_refs, (c_n, n_device_blocks), device))
 
 
 def _check_sharded(ms: ServingMapState, n_channels: int) -> None:

@@ -10,10 +10,11 @@ serving map here, in three layers:
 * **Journal** — an append-only log of sequence-numbered records, one
   per host commit point: ``KVPageManager.new_seq`` / ``extend_seqs`` /
   ``precommit_growth`` / ``reconcile_macro`` / ``free_seq`` / ``_swap``
-  / ``retire_bad_blocks``, and the engine's request events (submit,
-  admit, finish, quarantine). It is host file I/O behind an
-  ``if journal is not None`` guard: a run without a journal does no
-  extra work.
+  / ``retire_bad_blocks`` / ``gc_collect`` / ``cow_writes``, the
+  sharing's admissions, pins and unpins (SHARE), and the engine's
+  request events (submit, admit, finish, quarantine). It is host file
+  I/O behind an ``if journal is not None`` guard: a run without a
+  journal does no extra work.
 * **Snapshot** — the host-authoritative serving state (page lists, both
   tiers' free lists in order, retired blocks, request and admission
   state), written every few scheduling rounds through tmp ->
@@ -34,10 +35,11 @@ snapshot + records (+ OOB scan), then restarts every in-flight request
 from its prompt, since its KV lived in volatile memory; greedy decode
 is deterministic, so the resumed drain gives the uncrashed tokens.
 
-Not ported yet: the records of GC and prefix sharing (GC, SHARE, COW;
-ROADMAP Queue 1 item 4). ``replay`` raises ``NotImplementedError`` on
-one, and on a snapshot that holds sharing refcounts, rather than skip
-it.
+Prefix sharing adds the mapping refcounts of share-managed blocks and
+the radix tree's pins to the recovered truth (``Recovered.ref`` /
+``pinned``): a shared block may sit in several page lists, and frees
+go through the refcount gate (``_unref_give``), as the live manager's
+``_unref``.
 """
 from __future__ import annotations
 
@@ -72,9 +74,9 @@ SUBMIT = 8       # engine: request enqueued (rid, tokens, max_new)
 ADMIT = 9        # engine: request admitted to a slot (rid, slot)
 FINISH = 10      # engine: request completed (rid, out)
 QUAR = 11        # engine: request quarantined + front-requeued (rid)
-GC = 12          # map: GC victim-walk relocation (not ported)
-SHARE = 13       # map: prefix sharing (not ported)
-COW = 14         # map: copy-on-write relocation (not ported)
+GC = 12          # map: GC victim-walk relocation (moves, returned)
+SHARE = 13       # map: shared admission, or a tree pin / unpin
+COW = 14         # map: copy-on-write relocation (moves, returned)
 
 _KIND_NAMES = {OOB: "oob", NEW_SEQ: "new_seq", EXTEND: "extend",
                PRECOMMIT: "precommit", RECONCILE: "reconcile",
@@ -86,9 +88,6 @@ _KIND_NAMES = {OOB: "oob", NEW_SEQ: "new_seq", EXTEND: "extend",
 _JOURNAL = "journal.log"
 _OOBLOG = "oob.log"
 _SNAP_FMT = "snap_%012d.json"
-
-_UNPORTED = ("GC and prefix sharing (ROADMAP Queue 1 item 4) are not "
-             "ported to repro_torch yet")
 
 
 class JournalError(RuntimeError):
@@ -261,6 +260,11 @@ class Recovered:
     submits: Dict[int, Tuple[List[int], int]]
     rid: int
     boundary: int
+    # prefix sharing: mapping refcounts of share-managed blocks and the
+    # tree's pinned blocks (the free gate's truth; the tree's content
+    # is volatile and never recovered)
+    ref: Dict[int, int] = dataclasses.field(default_factory=dict)
+    pinned: Set[int] = dataclasses.field(default_factory=set)
     # diagnostics
     snap_seq: int = 0
     last_seq: int = 0
@@ -273,6 +277,9 @@ class Recovered:
         """Map-consistency invariants: every block lives in exactly one
         of {a free list, a page list, the retired set}; free lists
         respect channel striping; host-page counts match the page lists.
+        Prefix sharing relaxes one clause: a share-managed block (in
+        ``ref``) may sit in several page lists, its refcount equal to
+        its mappers, and a pinned one with no mapper is the tree's.
         Raises JournalError on a violation."""
         c_n = self.cfg["channels"]
         n_dev, n_host = self.cfg["n_device"], self.cfg["n_host"]
@@ -294,14 +301,30 @@ class Recovered:
                 if i % c_n != c or not 0 <= i < n_host:
                     raise JournalError(f"host block {b} in channel {c}")
                 claim(b, f"free_host[{c}]")
+        mappers: Dict[int, int] = {}
         for s, pages in self.seq_pages.items():
             for b in pages:
-                claim(b, f"slot{s}")
+                if b in self.ref:
+                    mappers[b] = mappers.get(b, 0) + 1
+                    if mappers[b] == 1:
+                        claim(b, f"slot{s}")
+                else:
+                    claim(b, f"slot{s}")
             hp = sum(b >= HOST_BASE for b in pages)
             if hp != self.host_pages.get(s, 0):
                 raise JournalError(
                     f"slot {s}: host_pages {self.host_pages.get(s, 0)}"
                     f" != counted {hp}")
+        for b, n in self.ref.items():
+            if n != mappers.get(b, 0):
+                raise JournalError(
+                    f"shared block {b}: refcount {n} != "
+                    f"{mappers.get(b, 0)} mapping slots")
+            if b not in seen:
+                if b not in self.pinned:
+                    raise JournalError(
+                        f"share-managed block {b} has no owner")
+                claim(b, "pinned")      # the tree holds the last reference
         for b in self.retired:
             claim(b, "retired")
         every = ([b for b in range(n_dev)]
@@ -335,9 +358,6 @@ def _fresh_shadow(cfg: dict) -> Recovered:
 
 
 def _load_snapshot(sh: Recovered, doc: dict):
-    if doc.get("ref") or doc.get("pinned"):
-        raise NotImplementedError(
-            f"snapshot holds prefix-sharing refcounts: {_UNPORTED}")
     sh.seq_pages = {int(s): list(p)
                     for s, p in doc["seq_pages"].items()}
     sh.host_pages = {int(s): int(n)
@@ -358,6 +378,8 @@ def _load_snapshot(sh: Recovered, doc: dict):
                   for r, (t, m) in doc.get("submits", {}).items()}
     sh.rid = int(doc.get("rid", 0))
     sh.boundary = int(doc.get("boundary", 0))
+    sh.ref = {int(b): int(n) for b, n in doc.get("ref", {}).items()}
+    sh.pinned = set(int(b) for b in doc.get("pinned", []))
     sh.lanes = int(doc.get("lanes", 0))
 
 
@@ -394,6 +416,20 @@ def _give(sh: Recovered, block: int) -> int:
     return 1
 
 
+def _unref_give(sh: Recovered, block: int) -> int:
+    """Drop one mapping reference, as ``KVPageManager._unref``: a block
+    outside ``ref`` frees at once; a share-managed one at zero
+    references with no pin. Returns 1 when the block reached a free
+    list (the live run's ``frees`` count)."""
+    n = sh.ref.get(block)
+    if n is not None:
+        sh.ref[block] = n - 1
+        if n - 1 > 0 or block in sh.pinned:
+            return 0
+        del sh.ref[block]
+    return _give(sh, block)
+
+
 def _apply(sh: Recovered, kind: int, p: dict):
     """Replay one whole record onto the shadow state. The free-list
     mutations remove exactly the ids the live pool popped, so the
@@ -417,7 +453,8 @@ def _apply(sh: Recovered, kind: int, p: dict):
     elif kind == FREE:
         sh.seq_pages.pop(p["slot"], None)
         sh.host_pages.pop(p["slot"], None)
-        sh.stats["frees"] += sum(_give(sh, b) for b in p["blocks"])
+        # the refcount gate, per block in lane order, as the live free
+        sh.stats["frees"] += sum(_unref_give(sh, b) for b in p["blocks"])
     elif kind == SWAP:
         for b in p["fresh"]:
             _take(sh, b, host=p["out"])
@@ -442,9 +479,61 @@ def _apply(sh: Recovered, kind: int, p: dict):
         sh.stats["retired"] += len(p["retired"])
         for s, pages in p["pages"].items():
             sh.seq_pages[int(s)] = list(pages)
-    elif kind in (GC, SHARE, COW):
-        raise NotImplementedError(
-            f"journal record {_KIND_NAMES[kind]!r}: {_UNPORTED}")
+    elif kind == GC:
+        # the live walk popped every destination first, then freed the
+        # applied lanes' old frames and the stale lanes' destinations
+        # ("returned"): takes before gives, in the same orders
+        returned = p.get("returned", [])
+        for _, _, new in p["moves"]:
+            _take(sh, new, host=False)
+        for b in returned:
+            _take(sh, b, host=False)
+        _peak(sh)
+        sh.stats["allocs"] += len(p["moves"]) + len(returned)
+        for d, _, new in p["moves"]:
+            sh.seq_pages[d // mp][d % mp] = new
+        sh.stats["frees"] += sum(_give(sh, old) for _, old, _ in p["moves"])
+        sh.stats["frees"] += sum(_give(sh, b) for b in returned)
+    elif kind == SHARE:
+        op = p.get("op")
+        if op is None:
+            # shared admission: only the fresh tail left the free lists;
+            # the leading n_shared blocks gain a mapping reference
+            k = p["n_shared"]
+            for b in p["blocks"][k:]:
+                _take(sh, b, host=False)
+            _peak(sh)
+            sh.seq_pages[p["slot"]] = list(p["blocks"])
+            sh.stats["allocs"] += len(p["blocks"]) - k
+            for b in p["blocks"][:k]:
+                sh.ref[b] = sh.ref.get(b, 0) + 1
+        elif op == "pin":
+            # the owner's block becomes share-managed (its one mapping)
+            # and the tree holds it
+            for b in p["blocks"]:
+                sh.pinned.add(b)
+                sh.ref.setdefault(b, 1)
+        else:
+            assert op == "unpin", op
+            for b in p["blocks"]:
+                sh.pinned.discard(b)
+                if sh.ref.get(b, 0) <= 0:
+                    sh.ref.pop(b, None)
+                    sh.stats["frees"] += _give(sh, b)
+    elif kind == COW:
+        # as GC: destination pops first; the shared frame drops one
+        # reference and frees only as its last
+        returned = p.get("returned", [])
+        for _, _, _, new in p["moves"]:
+            _take(sh, new, host=False)
+        for b in returned:
+            _take(sh, b, host=False)
+        _peak(sh)
+        sh.stats["allocs"] += len(p["moves"]) + len(returned)
+        for s, pg, old, new in p["moves"]:
+            sh.seq_pages[s][pg] = new
+            sh.stats["frees"] += _unref_give(sh, old)
+        sh.stats["frees"] += sum(_give(sh, b) for b in returned)
     elif kind == SUBMIT:
         sh.submits[p["rid"]] = (list(p["tokens"]), p["max_new"])
         sh.queue.append(p["rid"])
@@ -478,7 +567,10 @@ def _oob_scan(sh: Recovered, pairs: List[List[int]],
     to the free pool. Bad-block marks re-apply retirement, and also pull
     the block off its shadow free list when it is there: the live run
     popped schedule-failed replacement candidates before retiring them,
-    which the shadow never saw."""
+    which the shadow never saw. A shared admission's metadata-only
+    lanes (a block already mapped, or held by the tree alone) take a
+    mapping reference instead of a free block; a displaced owner drops
+    one reference."""
     mp = sh.cfg["max_pages"]
     for b in retired:
         if b in sh.retired:
@@ -490,21 +582,29 @@ def _oob_scan(sh: Recovered, pairs: List[List[int]],
         sh.retired.add(b)
         sh.retired_ch[_channel_of(sh.cfg, b)] += 1
         sh.stats["retired"] += 1
+    mapped = {b for ps in sh.seq_pages.values() for b in ps}
+    taken = 0
     for d, b in sorted((int(d), int(b)) for d, b in pairs):
         slot, page = divmod(d, mp)
         pages = sh.seq_pages.setdefault(slot, [])
         if page > len(pages):
             raise JournalError(
                 f"OOB owner (dlpn={d}) maps a hole at page {page}")
-        _take(sh, b, host=b >= HOST_BASE)
+        if b in mapped or b in sh.ref:
+            sh.ref[b] = sh.ref.get(b, 0) + 1
+        else:
+            _take(sh, b, host=b >= HOST_BASE)
+            taken += 1
+            mapped.add(b)
         if page == len(pages):
             pages.append(b)
         else:
             old = pages[page]
             pages[page] = b
-            _give(sh, old)
+            if old != b:
+                _unref_give(sh, old)
         sh.host_pages[slot] = sum(x >= HOST_BASE for x in pages)
-    sh.stats["allocs"] += len(pairs)
+    sh.stats["allocs"] += taken
 
 
 def latest_snapshot(path: str) -> Optional[dict]:
@@ -568,7 +668,7 @@ def replay(path: str) -> Recovered:
         owned = set(sh.active.values())
         for slot in [s for s in sh.seq_pages if s not in owned]:
             for b in sh.seq_pages.pop(slot):
-                sh.stats["frees"] += _give(sh, b)
+                sh.stats["frees"] += _unref_give(sh, b)
             sh.host_pages.pop(slot, None)
     sh.check()
     return sh

@@ -20,6 +20,11 @@
 //      ranks >= W overflow, ways (clock + rank) % W filled from the
 //      post-write backing, clocks advanced;
 //   5. stats, commit_seq, free_n and oob, each written by one thread.
+// With the optional count lanes armed (`live`, `refcnt`: the GC walk's
+// live pages per device block and prefix sharing's mapping references,
+// `translate_serving`'s two scatter-adds each), every write lane also
+// takes one from the block it unmapped and adds one to the block it
+// mapped, inside [0, n_device), in phase 2 where both are at hand.
 // The result is bit-identical to that chain of torch ops (the plain
 // version, core/fmmu/batch.commit_chain).
 //
@@ -61,7 +66,9 @@
 //   shuffles); the sort is a bitonic sort in shared memory.
 // - Counts are block reductions; every scalar of the state (stats,
 //   commit_seq, free_n, oob) and each set's clock has one writer, so no
-//   atomic's order shows in the result.
+//   atomic's order shows in the result. The count lanes' atomicAdds are
+//   the one exception, and integer adds commute: any order gives the
+//   chain's counts. A null lane is a branch uniform across the block.
 // - The CMT is not staged: the few touched sets are read from global
 //   memory (the paper geometry's data array alone is 64 KB).
 // - Values are plain int32 loads and stores: host-tier ids at 1<<24 and
@@ -82,7 +89,7 @@ constexpr uint8_t kHit = 1, kWrite = 2, kMiss = 4;
 // elements between two channels' shards of each stacked state tensor
 struct ShardStrides {
   int tags, valid, ref, clock, data, backing, stats, table, commit_seq,
-      free_stack, free_n, oob;
+      free_stack, free_n, oob, live, refcnt;
 };
 
 struct Commit {
@@ -106,6 +113,9 @@ struct Commit {
   int* out;              // null in grow mode
   uint8_t* ok;
   int* blocks;           // grow mode only
+  int* live;             // null: the lane is off
+  int* refcnt;           // null: the lane is off
+  int n_device;          // length of the count lanes (device blocks)
   int n_sets, n_ways, n_entries, n_backing, n_table, n_stack, n_lanes;
   int n_sorted, n_hash, q_cap, n_blocks;
   int n_channels;
@@ -234,6 +244,15 @@ __device__ void select_shard(Commit& c, int ch) {
     c.free_n += ch * s.free_n;
     c.oob += ch * s.oob;
   }
+  if (c.live != nullptr) c.live += ch * s.live;
+  if (c.refcnt != nullptr) c.refcnt += ch * s.refcnt;
+}
+
+// a write lane's move in one count lane: -1 at the block it unmapped
+// (`out`), +1 at the block it mapped (`v`), each inside [0, n)
+__device__ __forceinline__ void count_move(int* lane, int n, int out, int v) {
+  if (out >= 0 && out < n) atomicAdd(&lane[out], -1);
+  if (v >= 0 && v < n) atomicAdd(&lane[v], 1);
 }
 
 template <bool kSharded>
@@ -273,6 +292,7 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
   for (int i = tid; i < bq; i += T) {
     int d, op;
     bool writer = true;  // this block writes lane i's outputs
+    int v = kNil;        // the block a write lane maps
     const int dg = c.dlpns[i];
     if (grow_mode) {
       writer = !kSharded || floor_mod(dg, C) == ch;
@@ -287,6 +307,7 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
       }
       n_alloc += ok;
       n_fail += want && !ok;
+      if (ok) v = picked;
       d = ok ? (kSharded ? floor_div(dg, C) : dg) : -1;
       op = kUpdate;
     } else {
@@ -321,6 +342,12 @@ __global__ void __launch_bounds__(1024, 1) fmmu_commit_kernel(Commit c) {
       }
     }
     const bool write = (is_u && active) || (is_c && ok);
+    if (write) {
+      // `cur` is the lane's pre-batch mapping (an active lane's)
+      if (!grow_mode) v = c.dppns[i];
+      if (c.live != nullptr) count_move(c.live, c.n_device, cur, v);
+      if (c.refcnt != nullptr) count_move(c.refcnt, c.n_device, cur, v);
+    }
     if (hit && probed) c.ref[set * W + way] = 1;  // every toucher stores 1
     n_hit += probed && hit;
     n_miss += probed && !hit;
@@ -478,24 +505,26 @@ extern "C" int fmmu_commit_launch(
     void* backing, void* stats, void* table, void* commit_seq,
     const void* free_stack, void* free_n, void* oob, const void* grow,
     const void* opcodes, const void* dlpns, const void* dppns,
-    const void* old_dppns, void* out, void* ok, void* blocks, int n_sets,
+    const void* old_dppns, void* out, void* ok, void* blocks, void* live,
+    void* refcnt, int n_device, int n_sets,
     int n_ways, int n_entries, int n_backing, int n_table, int n_stack,
     int n_lanes, int q_cap, int n_blocks, int n_channels, int s_tags,
     int s_valid, int s_ref, int s_clock, int s_data, int s_backing,
     int s_stats, int s_table, int s_commit_seq, int s_free_stack,
-    int s_free_n, int s_oob, void* stream) {
+    int s_free_n, int s_oob, int s_live, int s_refcnt, void* stream) {
   if (n_lanes < 1 || n_channels < 0) return (int)cudaErrorInvalidValue;
   Commit c{(int*)tags, (uint8_t*)valid, (uint8_t*)ref, (int*)clock,
            (int*)data, (int*)backing, (int*)stats, (int*)table,
            (int*)commit_seq, (const int*)free_stack, (int*)free_n,
            (uint8_t*)oob, (const uint8_t*)grow, (const int*)opcodes,
            (const int*)dlpns, (const int*)dppns, (const int*)old_dppns,
-           (int*)out, (uint8_t*)ok, (int*)blocks, n_sets, n_ways, n_entries,
+           (int*)out, (uint8_t*)ok, (int*)blocks, (int*)live, (int*)refcnt,
+           n_device, n_sets, n_ways, n_entries,
            n_backing, n_table, n_stack, n_lanes, next_pow2(n_lanes),
            next_pow2(2 * n_lanes), q_cap, n_blocks, n_channels,
            ShardStrides{s_tags, s_valid, s_ref, s_clock, s_data, s_backing,
                         s_stats, s_table, s_commit_seq, s_free_stack,
-                        s_free_n, s_oob}};
+                        s_free_n, s_oob, s_live, s_refcnt}};
   const int smem = fmmu_commit_smem_bytes(n_lanes);
   const int threads = n_lanes >= 1024 ? 1024 : (n_lanes + 31) / 32 * 32;
   if (n_channels == 0) {

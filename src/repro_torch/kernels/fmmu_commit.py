@@ -20,6 +20,12 @@ committing channel c's shard with the lanes it owns
 (``translate_sharded``, ``grow_sharded``: the reference's vmap over the
 channels). Its plain version loops over the channels, the chain on
 each shard's views.
+
+A ServingMapState's optional count lanes (``live``, ``refcnt``: the GC
+walk's and prefix sharing's per-device-block counts) are kept by the
+same launch when present: each write lane moves one count from its
+pre-batch block to its new one. An absent lane costs the launch
+nothing (a null pointer).
 """
 from __future__ import annotations
 
@@ -37,10 +43,11 @@ BIG = torch.iinfo(torch.int32).max
 SMEM_MAX = 232448 - 1024     # a block's shared memory, less the static part
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 20 + [_I] * 22 + [_P]
+_ARGTYPES = [_P] * 22 + [_I] * 25 + [_P]
 # the stacked state tensors whose per-shard strides a launch passes
 _SHARDED = ("tags", "valid", "ref", "clock", "data", "backing", "stats",
-            "table", "commit_seq", "free_stack", "free_n", "oob")
+            "table", "commit_seq", "free_stack", "free_n", "oob", "live",
+            "refcnt")
 
 __all__ = ["fmmu_commit", "fmmu_commit_ref", "smem_bytes", "LANE_CAP",
            "LAUNCHES"]
@@ -163,6 +170,8 @@ def fmmu_commit(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
     req(st.stats, "stats", i32, (4,))
     _build.require(dlpns, "dlpns", device=dev, dtype=i32, shape=(bq,))
     table = commit_seq = free_stack = free_n = oob = None
+    live = refcnt = None
+    n_device = 0
     if serving:
         table, commit_seq = ms.table, ms.commit_seq
         if table.dim() != len(lead) + 1:
@@ -170,6 +179,13 @@ def fmmu_commit(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
                              f"{tuple(table.shape)}")
         req(table, "table", i32, table.shape[len(lead):])
         req(commit_seq, "commit_seq", i32, ())
+        live, refcnt = ms.live, ms.refcnt
+        lanes = [(n, t) for n, t in (("live", live), ("refcnt", refcnt))
+                 if t is not None]
+        if lanes:
+            n_device = lanes[0][1].shape[-1]
+        for name, t in lanes:
+            req(t, name, i32, (n_device,))
     if grow_mode:
         free_stack, free_n, oob = ms.free_stack, ms.free_n, ms.oob
         _build.require(grow, "grow", device=dev, dtype=b8, shape=(bq,))
@@ -191,7 +207,8 @@ def fmmu_commit(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
     tensors = {"tags": st.tags, "valid": st.valid, "ref": st.ref,
                "clock": st.clock, "data": st.data, "backing": st.backing,
                "stats": st.stats, "table": table, "commit_seq": commit_seq,
-               "free_stack": free_stack, "free_n": free_n, "oob": oob}
+               "free_stack": free_stack, "free_n": free_n, "oob": oob,
+               "live": live, "refcnt": refcnt}
     strides = [tensors[n].stride(0) if stacked and tensors[n] is not None
                else 0 for n in _SHARDED]
 
@@ -203,8 +220,9 @@ def fmmu_commit(g: FMMUGeometry, ms, dlpns, *, opcodes=None, dppns=None,
         *(ptr(t) for t in (st.tags, st.valid, st.ref, st.clock, st.data,
                            st.backing, st.stats, table, commit_seq,
                            free_stack, free_n, oob, grow, opcodes, dlpns,
-                           dppns, old_dppns, out, ok, blocks)),
-        s, w, e, st.backing.shape[per],
+                           dppns, old_dppns, out, ok, blocks, live,
+                           refcnt)),
+        n_device, s, w, e, st.backing.shape[per],
         table.shape[per] if table is not None else 0,
         free_stack.shape[per] if free_stack is not None else 0,
         bq, q_cap, nb, lead[0] if stacked else 0, *strides,

@@ -67,12 +67,35 @@ OOB frame first; ``snapshot_state`` and ``restore_mapping`` (one batched
 UPDATE commit of every mapped page, one allocator re-push) are the
 manager's share of a snapshot and of recovery.
 
-Not ported yet (later slices): the channel mesh across devices, GC and
-prefix sharing (so a swap has no shared-block filter).
+GC and the CTP (``track_live``): the map state carries the ``live``
+lane, per device block the pages it holds live, kept by every map
+commit in the same launch. ``gc_collect`` is the paper's GCM walk: one
+lane read, per channel the fragmented erase block with the fewest live
+pages as victim, its live pages relocated with one COND_UPDATE commit
+and in-place row moves (``_relocate``, the swaps' and retirement's),
+the whole victim freed. A lane whose guard fails (the page died
+mid-walk) is skipped. ``prefetch_segments`` is the CTP: one LOOKUP
+commit pulls the CMT segments the next growth touches, each segment
+fetched once per frontier (``_pf_seen``).
+
+Prefix sharing (``track_refs``): the ``refcnt`` lane counts the dlpns
+mapping each device block. A radix tree of page-group path keys
+(chained crc32, ``_path_keys``) names the blocks holding a cached
+prompt prefix: ``match_prefix`` walks it, ``new_seq(shared=...)`` maps
+a new slot's leading pages at them in the admission's one commit,
+``register_prefix`` pins a prefilled prompt's pages, and
+``cow_writes`` relocates a shared page before a slot writes it (one
+COND_UPDATE commit and row copies). A share-managed block returns to
+the pool only at zero mapping references and no pin (``_unref``); a
+swap leaves it resident.
+
+Not ported yet (later slices): the channel mesh across devices.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -92,6 +115,10 @@ from repro_torch.paging.pool import BlockPool, OutOfBlocks
 XLATE_CALLS = COUNTERS.cell("kvm.xlate_calls")
 FULL_TABLE_CALLS = COUNTERS.cell("kvm.full_table_calls")
 ALLOC_SYNCS = COUNTERS.cell("kvm.alloc_syncs")
+# one bump per blocking device->host read of the GC / CTP / sharing
+# plane: a walk's lane read and its guard mask, a prefetch's two stats
+# reads, a copy-on-write's guard mask (the reference takes the same)
+HOST_READS = COUNTERS.cell("kvm.host_reads")
 
 # a retirement chain retires at most this many consecutive
 # schedule-failed replacement candidates; the last one is kept
@@ -106,8 +133,10 @@ def _ji(xs) -> List[int]:
 
 @dataclasses.dataclass
 class MapStats:
-    """Typed ``KVPageManager.hit_stats()`` result: the reference's map,
-    tier, fault and write counters that the port maintains."""
+    """Typed ``KVPageManager.hit_stats()`` result, the reference's
+    fields: map, tier, fault, GC/CTP, write-amplification and sharing
+    counters. ``flash_programs`` counts every device-tier program:
+    host writes, swap-ins, GC moves and copy-on-write copies."""
     hits: int = 0
     misses: int = 0
     fills: int = 0
@@ -121,9 +150,15 @@ class MapStats:
     swap_faults: int = 0
     program_faults: int = 0
     alloc_faults: int = 0
+    gc_moves: int = 0
+    victims_ch: List[int] = dataclasses.field(default_factory=list)
+    prefetch_hits: int = 0
+    prefetch_misses: int = 0
     host_writes: int = 0
     flash_programs: int = 0
     write_amp: float = 1.0
+    shared_maps: int = 0
+    cow_moves: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -132,6 +167,9 @@ class MapStats:
         if not any(f.name == key for f in dataclasses.fields(self)):
             raise KeyError(key)
         return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return any(f.name == key for f in dataclasses.fields(self))
 
 
 def _geometry(n_slots: int, max_pages: int,
@@ -158,6 +196,7 @@ class KVPageManager:
     def __init__(self, n_slots: int, max_pages: int, n_device_blocks: int,
                  n_host_blocks: int = 0, channels: int = 1, *,
                  faults: Optional["flt.FaultPlane"] = None,
+                 track_live: bool = False, track_refs: bool = False,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.n_slots = n_slots
@@ -165,7 +204,20 @@ class KVPageManager:
         self._n_dev = n_device_blocks
         self._n_host = n_host_blocks
         self.channels = int(channels)
+        # the optional count lanes: ``live`` (GC) and ``refcnt`` (prefix
+        # sharing), kept by every map commit when armed
+        self.track_live = bool(track_live)
+        self.track_refs = bool(track_refs)
+        if self.track_refs and self.channels > 1:
+            # one page index of every slot stripes to one channel, so a
+            # shared block and all its mappers share a channel
+            assert max_pages % self.channels == 0, \
+                (f"prefix sharing with {self.channels} channels needs "
+                 f"max_pages % channels == 0 (got {max_pages})")
         self.geom = _geometry(n_slots, max_pages, self.channels)
+        # the radix tree's capacity (the engine sets
+        # ``PrefixConfig.max_nodes``)
+        self.prefix_max_nodes = 4096
         # lanes each channel serviced (routed map lanes): the 1/C
         # translate-work split is read from these, not inferred
         self.channel_lanes = np.zeros(self.channels, np.int64)
@@ -175,14 +227,16 @@ class KVPageManager:
         """Fresh map state, pool and bookkeeping on the same geometry,
         with ``faults`` as the fault plane. Detaches the journal (the
         engine re-attaches it after a recovery)."""
+        lanes = dict(track_live=self.track_live, track_refs=self.track_refs,
+                     device=self.device)
         if self.channels > 1:
             self.state = fb.init_sharded_state(
                 self.geom, self.channels, self._n_dev, self._n_host,
-                n_lanes=self.n_slots, device=self.device)
+                n_lanes=self.n_slots, **lanes)
         else:
             self.state = fb.init_serving_state(
                 self.geom, self._n_dev, n_lanes=self.n_slots,
-                n_host_blocks=self._n_host, device=self.device)
+                n_host_blocks=self._n_host, **lanes)
         self.pool = BlockPool(self._n_dev, self._n_host,
                               n_channels=self.channels)
         self.channel_lanes[:] = 0
@@ -196,6 +250,28 @@ class KVPageManager:
         # consulted at the host commit points only, never on the device
         self.faults = faults
         self.journal: Optional["jl.Journal"] = None
+        # GC / CTP accounting, and the CTP's fetched segments
+        # ((channel, local segment) keys)
+        self.gc_moves = 0
+        self.victims_ch = [0] * self.channels
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self._pf_seen: set = set()
+        # prefix sharing, host side:
+        #   _nodes   (depth, chained crc32) -> (block, exact prefix): the
+        #            radix tree in path-key form, in LRU order;
+        #   _pinned  block -> node key: blocks the tree holds (a pin is
+        #            no mapping reference);
+        #   _ref     block -> dlpns mapping it, for exactly the
+        #            share-managed blocks (the free gate's truth);
+        #   _shared  slot -> {page: block}: the pages it must not write
+        #            in place (``cow_writes``'s set).
+        self._nodes: collections.OrderedDict = collections.OrderedDict()
+        self._pinned: Dict[int, Tuple[int, int]] = {}
+        self._ref: Dict[int, int] = {}
+        self._shared: Dict[int, Dict[int, int]] = {}
+        self.shared_maps = 0
+        self.cow_moves = 0
 
     # ----------------------------------------------------------- helpers
     def _dlpns(self, slot: int, n: int) -> np.ndarray:
@@ -285,24 +361,51 @@ class KVPageManager:
             [int(d) % self.channels for d in dlpns], host=host)
 
     # ----------------------------------------------------------- API
-    def new_seq(self, slot: int, n_pages: int) -> List[int]:
+    def new_seq(self, slot: int, n_pages: int,
+                shared: Optional[Sequence[int]] = None) -> List[int]:
         """Admit a sequence into `slot` with `n_pages` logical pages.
-        With a fault plane the fresh blocks' programs are checked after
-        the map commit and before prefill writes them: a bad one is
-        relocated map-only."""
+        ``shared`` (from ``match_prefix``) maps the leading pages at
+        those resident blocks instead of fresh ones, in the same commit
+        (the refcnt lane counts them up); only the rest allocate and
+        program. Shared pages must not be written in place
+        (``cow_writes``). With ``shared`` empty this is the plain
+        admission, journal record included. With a fault plane the
+        fresh blocks' programs are checked after the map commit and
+        before prefill writes them: a bad one is relocated map-only."""
         assert slot not in self.seq_pages, f"slot {slot} busy"
+        shared = [int(b) for b in shared or ()]
+        k = len(shared)
+        assert k <= n_pages, (k, n_pages)
+        assert k == 0 or self.track_refs, \
+            "shared admission needs track_refs=True (the refcnt lane)"
         dl = self._dlpns(slot, n_pages)
-        blocks = self._alloc_blocks(dl)
-        self.host_writes += len(blocks)
+        fresh = list(self._alloc_blocks(dl[k:])) if n_pages > k else []
+        blocks = shared + fresh
+        self.host_writes += len(fresh)   # shared pages program nothing
         self._alloc_dirty = True
         self._xlate(UPDATE, dl, blocks)
         self.seq_pages[slot] = list(blocks)
+        if k:
+            for b in shared:
+                self._ref[b] = self._ref.get(b, 0) + 1
+            self._shared[slot] = dict(enumerate(shared))
+            self.shared_maps += k
         if self.journal is not None:
-            self.journal.append(
-                jl.NEW_SEQ, {"slot": int(slot), "dl": _ji(dl),
-                             "blocks": _ji(blocks)},
-                programmed=zip(dl, blocks))
-        self._maybe_retire_programs(dl, blocks)
+            if k:
+                # the OOB frame carries every lane, the shared ones as
+                # metadata-only owners, so a torn record leaves no page
+                # hole for the scan
+                self.journal.append(
+                    jl.SHARE, {"slot": int(slot), "dl": _ji(dl),
+                               "blocks": _ji(blocks), "n_shared": k,
+                               "lanes": len(dl)},
+                    programmed=zip(dl, blocks))
+            else:
+                self.journal.append(
+                    jl.NEW_SEQ, {"slot": int(slot), "dl": _ji(dl),
+                                 "blocks": _ji(blocks)},
+                    programmed=zip(dl, blocks))
+        self._maybe_retire_programs(dl[k:], fresh)
         return list(self.seq_pages[slot])
 
     def extend_seq(self, slot: int, n_new: int) -> List[int]:
@@ -346,9 +449,20 @@ class KVPageManager:
         tiers, to the pool."""
         blocks = self.seq_pages.pop(slot)
         self._host_pages.pop(slot, None)
+        self._shared.pop(slot, None)
         dl = self._dlpns(slot, len(blocks))
         self._xlate(UPDATE, dl, np.full(len(blocks), NIL, np.int32))
-        self.pool.free(blocks)
+        if self._ref:
+            # the refcount gate, per block in lane order (the order of
+            # the plain bulk free and of the journal's replay)
+            for b in blocks:
+                self._unref(b)
+        else:
+            self.pool.free(blocks)
+        # the next occupant re-grows through the same dlpns: forget the
+        # slot's prefetched segments, or the CTP would skip them
+        for d in dl.tolist():
+            self._pf_seen.discard(self._segment(d))
         self._alloc_dirty = True
         if self.journal is not None:
             # no OOB frame: a free programs nothing
@@ -643,6 +757,359 @@ class KVPageManager:
         return np.asarray([self.pool.free_device_ch(c)
                            for c in range(self.channels)], np.int64)
 
+    # ------------------------------------------------------------ GC walk
+    def live_counts(self) -> np.ndarray:
+        """Live pages per device block ([n_device], the channel shards
+        summed): one read of the lane the map commits keep, so the walk
+        never probes or scans the map."""
+        assert self.track_live and self.state.live is not None, \
+            "GC needs track_live=True (the live lane)"
+        HOST_READS[0] += 1
+        # a copy: on the CPU ``.numpy()`` would alias the lane itself
+        return fb.live_vec(self.state).cpu().numpy().copy()
+
+    def _pick_victim(self, c: int, lv: np.ndarray,
+                     block_pages: int) -> Optional[List[int]]:
+        """Channel ``c``'s victim: among its whole erase blocks, the
+        fragmented one (some pages live, some dead) with the fewest live
+        pages, ties to the lowest id. Blocks touching retirement and
+        blocks holding a share-managed frame (several dlpns map it; one
+        relocation lane could move only one) are passed over. Returns
+        its frames or None."""
+        best = None
+        for frames in self.pool.erase_blocks(c, block_pages):
+            if any(self.pool.is_retired(f) for f in frames):
+                continue
+            if self._ref and any(f in self._ref for f in frames):
+                continue
+            nlive = int(sum(int(lv[f]) for f in frames))
+            if nlive == 0 or nlive >= len(frames):
+                continue
+            if best is None or nlive < best[0]:
+                best = (nlive, frames)
+        return None if best is None else best[1]
+
+    def gc_collect(self, pools=(), block_axis: int = 0, *,
+                   block_pages: int, budget: int) -> Tuple[int, int]:
+        """One budgeted GC victim walk (the paper's GCM): per channel
+        the victim erase block (``_pick_victim``, from the live lane),
+        its live pages relocated to destinations from the channel's own
+        free list outside the victim (``pool.alloc_gc``) with ONE
+        COND_UPDATE map commit for the whole walk, the rows moving in
+        place in each of ``pools`` (none: the map only, its lanes padded
+        to a power of two as the reference's), then the old frames
+        freed. ``budget`` caps the pages moved per call. A lane whose
+        guard fails (its page died mid-walk) is skipped and its
+        destination returned. Journaled as one GC record. Returns
+        (pages moved, victims reclaimed whole)."""
+        assert self.track_live, "GC needs track_live=True (the live lane)"
+        if budget <= 0:
+            return 0, 0
+        lv = self.live_counts()
+        mp = self.max_pages
+        rev: Dict[int, int] = {}
+        for s, pages in self.seq_pages.items():
+            for i, b in enumerate(pages):
+                if not BlockPool.is_host(b):
+                    rev[b] = s * mp + i
+        plan = []   # (channel, live frames in the victim, taken, dests)
+        left = int(budget)
+        for c in range(self.channels):
+            if left <= 0:
+                break
+            frames = self._pick_victim(c, lv, block_pages)
+            if frames is None:
+                continue
+            live_frames = [f for f in frames if int(lv[f]) > 0]
+            missing = [f for f in live_frames if f not in rev]
+            assert not missing, f"live counts name unmapped blocks {missing}"
+            take = live_frames[:left]
+            news = self.pool.alloc_gc(c, len(take), avoid=frames)
+            take = take[:len(news)]
+            if not take:
+                continue
+            left -= len(take)
+            plan.append((c, len(live_frames), take, news))
+        if not plan:
+            return 0, 0
+        self._alloc_dirty = True
+        dl = [rev[f] for _, _, take, _ in plan for f in take]
+        olds = [f for _, _, take, _ in plan for f in take]
+        news = [b for _, _, _, ns in plan for b in ns]
+        okh = self._guarded_move(dl, news, olds, pools, block_axis)
+        moves: List[Tuple[int, int, int]] = []
+        returned: List[int] = []
+        reclaimed = 0
+        i = 0
+        for c, n_live, take, ns in plan:
+            whole = len(take) == n_live
+            for f, nb in zip(take, ns):
+                if bool(okh[i]):
+                    d = rev[f]
+                    self.seq_pages[d // mp][d % mp] = nb
+                    moves.append((d, f, nb))
+                else:
+                    returned.append(nb)    # the page died mid-walk
+                    whole = False
+                i += 1
+            if whole:
+                self.victims_ch[c] += 1
+                reclaimed += 1
+        # applied olds, then the skipped lanes' destinations, in lane
+        # order: the journal's replay frees in this order too
+        self.pool.free([o for _, o, _ in moves] + returned)
+        self.gc_moves += len(moves)
+        if self.journal is not None:
+            self.journal.append(
+                jl.GC, {"moves": [[int(d), int(o), int(n)]
+                                  for d, o, n in moves],
+                        "returned": _ji(returned), "lanes": len(moves)},
+                programmed=[(d, n) for d, _, n in moves])
+        return len(moves), reclaimed
+
+    def _guarded_move(self, dl, news, olds, pools, block_axis) -> np.ndarray:
+        """A walk's or a copy-on-write's relocation: one COND_UPDATE
+        commit (``_relocate``), the rows moving in each of ``pools``, and
+        its guard mask read back (the one host read: a stale lane must
+        not apply). Without pools the map lanes are padded to a power
+        of two with inactive lanes, as the reference's map-only
+        dispatch."""
+        n = len(dl)
+        if not pools:
+            pad = (1 << (n - 1).bit_length()) - n
+            dl, news, olds = (list(dl) + [-1] * pad, list(news) + [0] * pad,
+                              list(olds) + [0] * pad)
+        ok = self._relocate(dl, news, olds, pools, block_axis)
+        HOST_READS[0] += 1
+        return ok.cpu().numpy()[:n]
+
+    # ----------------------------------------------------- prefix sharing
+    def refcounts(self) -> np.ndarray:
+        """Mapping references per device block ([n_device], the channel
+        shards summed): the refcnt lane, read back. The host's ``_ref``
+        is the free gate's truth; the lane is its device mirror."""
+        assert self.track_refs and self.state.refcnt is not None, \
+            "prefix sharing needs track_refs=True (the refcnt lane)"
+        return fb.refcount_vec(self.state).cpu().numpy().copy()
+
+    @staticmethod
+    def page_groups(tokens, page_size: int) -> List[tuple]:
+        """A prompt's page-sized token groups, the radix path's
+        alphabet; the last may be partial (still shareable: a divergent
+        write into it relocates first)."""
+        toks = [int(t) for t in tokens]
+        return [tuple(toks[i:i + page_size])
+                for i in range(0, len(toks), page_size)]
+
+    @staticmethod
+    def _path_keys(groups) -> List[Tuple[int, int]]:
+        """Node keys of every prefix of the page-group path:
+        (depth i+1, crc32 chained over groups[:i+1], each group as int64
+        bytes). A key depends on the whole prefix, so one flat dict is
+        the tree; nodes keep the exact prefix too, so a collision is a
+        miss, never a wrong share."""
+        keys = []
+        h = 0
+        for i, g in enumerate(groups):
+            h = zlib.crc32(np.asarray(g, np.int64).tobytes(), h)
+            keys.append((i + 1, h))
+        return keys
+
+    def match_prefix(self, groups) -> List[int]:
+        """The blocks of the longest cached prefix of a prompt's page
+        groups (maybe none), each holding that exact prefix's KV on the
+        device. Matched nodes move to the LRU end. A collision, a
+        retired or a host-tier block ends the match."""
+        if not self.track_refs:
+            return []
+        out: List[int] = []
+        pref: List[tuple] = []
+        for g, key in zip(groups, self._path_keys(groups)):
+            node = self._nodes.get(key)
+            if node is None:
+                break
+            block, exact = node
+            pref.append(tuple(g))
+            if exact != tuple(pref) or self.pool.is_retired(block) \
+                    or BlockPool.is_host(block):
+                break
+            self._nodes.move_to_end(key)
+            out.append(block)
+        return out
+
+    def register_prefix(self, slot: int, groups) -> int:
+        """Pin the slot's prefilled prompt pages into the radix tree
+        (first writer wins a key). A pinned block outlives its slot
+        until the tree lets go and no slot maps it, and joins the
+        slot's copy-on-write set: the tree's copy is written in place
+        by no one. Journaled as a SHARE pin. Returns the pages newly
+        pinned."""
+        if not self.track_refs or not groups:
+            return 0
+        pages = self.seq_pages.get(slot)
+        if pages is None:
+            return 0
+        mine = self._shared.setdefault(slot, {})
+        pinned: List[Tuple[int, int]] = []
+        for i, key in enumerate(self._path_keys(groups)):
+            if i >= len(pages):
+                break
+            if key in self._nodes:
+                continue
+            b = pages[i]
+            if BlockPool.is_host(b) or self.pool.is_retired(b) \
+                    or b in self._pinned:
+                continue
+            self._nodes[key] = (b, tuple(tuple(g) for g in groups[:i + 1]))
+            self._pinned[b] = key
+            if b not in self._ref:
+                self._ref[b] = 1               # the owner's mapping
+            mine[i] = b
+            pinned.append((i, b))
+        if not mine:
+            self._shared.pop(slot, None)
+        if pinned and self.journal is not None:
+            # no map change and no program: refcount bookkeeping only
+            self.journal.append(
+                jl.SHARE, {"op": "pin", "slot": int(slot),
+                           "pages": [int(p) for p, _ in pinned],
+                           "blocks": [int(b) for _, b in pinned],
+                           "lanes": 0})
+        self._prune_nodes()
+        return len(pinned)
+
+    def _prune_nodes(self):
+        """Hold the tree at ``prefix_max_nodes``: drop the least recently
+        matched nodes. Unpinning frees a block no slot maps; one still
+        mapped drains through the refcount gate."""
+        dropped: List[int] = []
+        while len(self._nodes) > self.prefix_max_nodes:
+            _, (b, _) = self._nodes.popitem(last=False)
+            self._pinned.pop(b, None)
+            if self._ref.get(b, 0) <= 0:
+                self._ref.pop(b, None)
+                self.pool.free([b])
+                self._alloc_dirty = True
+            dropped.append(b)
+        if dropped and self.journal is not None:
+            self.journal.append(
+                jl.SHARE, {"op": "unpin", "blocks": _ji(dropped),
+                           "lanes": 0})
+
+    def _unref(self, b: int):
+        """Drop one mapping reference: a share-managed block goes back
+        to the pool at zero references with no pin, any other at
+        once."""
+        n = self._ref.get(b)
+        if n is None:
+            self.pool.free([b])
+            return
+        self._ref[b] = n - 1
+        if n - 1 <= 0 and b not in self._pinned:
+            del self._ref[b]
+            self.pool.free([b])
+
+    def has_shared(self, slot: Optional[int] = None) -> bool:
+        """Any slot's (or this slot's) pages mapped at blocks it must not
+        write in place: the engine's cheap test before a COW scan."""
+        if slot is None:
+            return bool(self._shared)
+        return bool(self._shared.get(slot))
+
+    def cow_writes(self, fronts: Dict[int, int], pools=(),
+                   block_axis: int = 0) -> int:
+        """Copy-on-write: for each slot, every shared page at or after
+        its write frontier (the page its next token lands in) gets a
+        private block of its channel before the write commits: one
+        COND_UPDATE commit for the batch and the row copies in each of
+        ``pools``, then the shared block drops one reference. A stale
+        lane (its page died) is skipped and its destination returned.
+        Raises OutOfBlocks before any change when the pool cannot cover
+        the batch. Journaled as one COW record. Returns the pages
+        relocated."""
+        work: List[Tuple[int, int, int]] = []    # (slot, page, old)
+        for slot, wpage in fronts.items():
+            m = self._shared.get(slot)
+            if not m:
+                continue
+            for p in sorted(k for k in m if k >= wpage):
+                old = m[p]
+                if self.seq_pages[slot][p] != old:
+                    m.pop(p)     # moved elsewhere (GC, a retirement)
+                    continue
+                work.append((slot, p, old))
+        if not work:
+            return 0
+        dl = [s * self.max_pages + p for s, p, _ in work]
+        news = [int(b) for b in self._alloc_blocks(dl)]
+        olds = [o for _, _, o in work]
+        self._alloc_dirty = True
+        okh = self._guarded_move(dl, news, olds, pools, block_axis)
+        moves: List[Tuple[int, int, int, int]] = []
+        returned: List[int] = []
+        for (slot, page, old), nb, okl in zip(work, news, okh):
+            if bool(okl):
+                self.seq_pages[slot][page] = nb
+                self._shared[slot].pop(page, None)
+                if not self._shared[slot]:
+                    del self._shared[slot]
+                self._unref(old)
+                moves.append((slot, page, old, nb))
+            else:
+                returned.append(nb)
+        self.pool.free(returned)
+        self.cow_moves += len(moves)
+        if self.journal is not None and (moves or returned):
+            self.journal.append(
+                jl.COW, {"moves": [[int(s), int(p), int(o), int(nw)]
+                                   for s, p, o, nw in moves],
+                         "returned": _ji(returned), "lanes": len(moves)},
+                programmed=[(s * self.max_pages + p, nw)
+                            for s, p, _, nw in moves])
+        return len(moves)
+
+    # -------------------------------------------------------- CTP prefetch
+    def _segment(self, d: int) -> Tuple[int, int]:
+        """The (channel, channel-local CMT segment) of dlpn ``d``."""
+        c_n, ent = self.channels, self.geom.cmt_entries
+        return (d % c_n, (d // c_n) // ent) if c_n > 1 else (0, d // ent)
+
+    def prefetch_segments(self, dlpns) -> int:
+        """The paper's CTP from pre-commit knowledge: pull the CMT
+        segments the next growth's dlpns live in, one representative
+        dlpn per (channel, segment) not fetched before (``_pf_seen``:
+        growth advances monotonically, so each segment is fetched once
+        per frontier), as ONE LOOKUP commit padded to a power of two.
+        Accounting reads the CMT stats before and after (two host
+        reads): a prefetch miss was useful (the segment was cold), a
+        hit redundant. Returns the segments probed."""
+        dl = np.unique(np.asarray(dlpns, np.int32))
+        dl = dl[dl >= 0]
+        reps: List[int] = []
+        for d in dl.tolist():
+            key = self._segment(d)
+            if key not in self._pf_seen:
+                self._pf_seen.add(key)
+                reps.append(int(d))
+        n = len(reps)
+        if n == 0:
+            return 0
+        cap = 1 << (n - 1).bit_length()
+        before = self._cmt_hit_miss()
+        self._xlate(LOOKUP, reps + [-1] * (cap - n), np.zeros(cap, np.int32))
+        after = self._cmt_hit_miss()
+        self.prefetch_hits += after[0] - before[0]
+        self.prefetch_misses += after[1] - before[1]
+        return n
+
+    def _cmt_hit_miss(self) -> Tuple[int, int]:
+        HOST_READS[0] += 1
+        s = self.state.fmmu.stats
+        if s.dim() > 1:
+            s = s.sum(0, dtype=torch.int32)
+        h, m = s[:2].tolist()
+        return int(h), int(m)
+
     # ----------------------------------------------------------- swapping
     def _swap(self, out: bool, slot: int, pools: List[torch.Tensor],
               block_axis: int, check: bool) -> int:
@@ -654,14 +1121,17 @@ class KVPageManager:
         ``SwapFault`` raises before any change. Returns the number of
         pages moved."""
         blocks = self.seq_pages[slot]
-        moving = [b for b in blocks if BlockPool.is_host(b) != out]
+        # a share-managed block never changes tier: other slots (or the
+        # radix tree) read it on the device, so only private pages move
+        moving = [b for b in blocks
+                  if BlockPool.is_host(b) != out and b not in self._ref]
         if not moving:
             return 0
         if self.faults is not None and self.faults.swap_fails():
             raise flt.SwapFault(slot, SWAP_OUT if out else SWAP_IN,
                                 len(moving))
         dl = [slot * self.max_pages + i for i, b in enumerate(blocks)
-              if BlockPool.is_host(b) != out]
+              if BlockPool.is_host(b) != out and b not in self._ref]
         fresh = self._alloc_blocks(dl, host=out)
         self._alloc_dirty = True
         row = self.pool.host_row
@@ -727,6 +1197,11 @@ class KVPageManager:
                            for s, p in self.seq_pages.items()},
              "host_pages": {int(s): int(n)
                             for s, n in self._host_pages.items()}}
+        if self._ref or self._pinned:
+            # mapping refcounts and tree pins: the free gate's truth. The
+            # tree's content is a volatile cache and is not persisted
+            d["ref"] = {str(int(b)): int(n) for b, n in self._ref.items()}
+            d["pinned"] = sorted(int(b) for b in self._pinned)
         d.update(self.pool.state_dict())
         return d
 
@@ -749,6 +1224,14 @@ class KVPageManager:
                           for s, p in rec.seq_pages.items()}
         self._host_pages = {int(s): int(n)
                             for s, n in rec.host_pages.items()}
+        # refcounts come back; every recovered pin is released (the tree
+        # is volatile), a block no slot maps going straight back to the
+        # pool, in sorted order
+        self._ref = {int(b): int(n) for b, n in rec.ref.items()}
+        for b in sorted(int(x) for x in rec.pinned):
+            if self._ref.get(b, 0) <= 0:
+                self._ref.pop(b, None)
+                self.pool.free([b])
         dl: List[int] = []
         blocks: List[int] = []
         for s in sorted(self.seq_pages):
@@ -765,13 +1248,14 @@ class KVPageManager:
         """Map, tier and fault counters (a device->host read:
         diagnostics, not the hot path). A swap-in programs every page it
         brings back, so it counts as flash programs beside the host's
-        writes; retirement re-drives do not (fault recovery, not
-        amplification)."""
+        writes, and so do GC moves and copy-on-write copies; retirement
+        re-drives do not (fault recovery, not amplification)."""
         s = self.state.fmmu.stats.cpu()
         if self.channels > 1:
             s = s.sum(0, dtype=torch.int32)
         s = s.tolist()
-        flash = self.host_writes + self.pool.stats.swaps_in
+        flash = (self.host_writes + self.pool.stats.swaps_in
+                 + self.gc_moves + self.cow_moves)
         fired = self.faults.counts() if self.faults is not None else {}
         return MapStats(
             hits=s[0], misses=s[1], fills=s[2], updates=s[3],
@@ -785,9 +1269,13 @@ class KVPageManager:
             swap_faults=fired.get("swap", 0),
             program_faults=fired.get("program", 0),
             alloc_faults=fired.get("alloc", 0),
+            gc_moves=self.gc_moves, victims_ch=list(self.victims_ch),
+            prefetch_hits=self.prefetch_hits,
+            prefetch_misses=self.prefetch_misses,
             host_writes=self.host_writes, flash_programs=flash,
-            write_amp=flash / self.host_writes if self.host_writes else 1.0)
+            write_amp=flash / self.host_writes if self.host_writes else 1.0,
+            shared_maps=self.shared_maps, cow_moves=self.cow_moves)
 
 
 __all__ = ["KVPageManager", "MapStats", "XLATE_CALLS", "FULL_TABLE_CALLS",
-           "ALLOC_SYNCS"]
+           "ALLOC_SYNCS", "HOST_READS"]

@@ -20,8 +20,9 @@ The free list order is part of the state: the device-resident map
 mirrors it, and the equivalence tests compare it with the reference
 pool entry by entry, and ``state_dict``/``load_state`` carry it for the
 journal's snapshots. Bad-block retirement (``retire``) removes a block
-from service for good: ``free`` drops it. GC allocation comes with the
-slice that ports it.
+from service for good: ``free`` drops it. The GC walk groups each
+channel's device blocks into modeled erase blocks (``erase_blocks``)
+and pops its relocation destinations by value (``alloc_gc``).
 """
 from __future__ import annotations
 
@@ -161,6 +162,35 @@ class BlockPool:
         out = [lists[c].pop() for c in channels]
         self._bump_alloc(len(out))
         return out
+
+    def erase_blocks(self, channel: int,
+                     block_pages: int) -> List[List[int]]:
+        """The channel's whole erase blocks as lists of global device
+        block ids (frames): erase block e groups the channel's
+        tier-local frames [e*P, (e+1)*P), global ids
+        c + C*(e*P + j). A trailing partial group is never a GC
+        candidate. The one home of the grouping."""
+        c_n, p = self.n_channels, block_pages
+        assert p > 0
+        n_local = (self.n_device - channel + c_n - 1) // c_n
+        return [[channel + c_n * (e * p + j) for j in range(p)]
+                for e in range(n_local // p)]
+
+    def alloc_gc(self, channel: int, n: int, avoid=()) -> List[int]:
+        """Pop up to ``n`` relocation destinations from a channel's
+        device free list, skipping ``avoid`` (the victim's own frames),
+        scanning from the tail (the end ``alloc`` pops) and removing
+        the picked ids by value, so a journal replay that removes by id
+        reproduces the list's content and order. Fewer (or none) when
+        the channel lacks eligible blocks: GC never raises."""
+        avoid = set(avoid)
+        ch = self._free_dev_ch[channel]
+        picked = [b for b in reversed(ch) if b not in avoid][:n]
+        for b in picked:
+            ch.remove(b)
+        if picked:
+            self._bump_alloc(len(picked))
+        return picked
 
     def note_exhausted(self, channel: int, n: int = 1):
         """Count ``n`` pool-exhaustion events against ``channel``."""

@@ -1,4 +1,4 @@
-from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.config import GCConfig, PrefixConfig, ServeConfig
 from repro_torch.serving.engine import ServeEngine
 
-__all__ = ["ServeConfig", "ServeEngine"]
+__all__ = ["ServeConfig", "GCConfig", "PrefixConfig", "ServeEngine"]

@@ -1,10 +1,14 @@
 """Typed serving-engine configuration: port of ``ServeConfig``,
-``FaultPolicy`` and ``DurabilityConfig`` in ``repro/serving/config.py``.
+``GCConfig``, ``PrefixConfig``, ``FaultPolicy`` and ``DurabilityConfig``
+in ``repro/serving/config.py``.
 
-The field names and defaults are the reference's. Every setting whose
+The field names and defaults are the reference's. A setting whose
 machinery is not ported yet raises ``NotImplementedError`` at
 construction — it is never ignored: the channel mesh across devices
-(``use_mesh=True``), GC (``gc``) and prefix sharing (``prefix``).
+(``use_mesh=True``). ``gc`` (``GCConfig``) arms the GC/CTP plane and
+``prefix`` (``PrefixConfig``) copy-on-write prefix sharing; None leaves
+each off, and the map state then carries no ``live`` / ``refcnt``
+lane.
 ``channels > 1`` shards the FMMU map across that many channels on one
 device (``KVPageManager``). ``macro_k >= 2`` selects the K-step macro
 decode path (``serving/macro.py``); 0 or 1 is single-step.
@@ -26,7 +30,48 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Optional
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class GCConfig:
+    """The GC/CTP plane.
+
+    watermark: a victim walk runs after a round when some channel's
+        free device blocks are below this.
+    pages_per_boundary: the walk's relocation budget (COND_UPDATE lanes
+        per walk).
+    block_pages: pages per modeled erase block (``BlockPool
+        .erase_blocks``), the reclaim granularity.
+    prefetch: arm the CTP, which pulls the CMT segments the next K-step
+        run's growth touches ahead of it."""
+    watermark: int = 2
+    pages_per_boundary: int = 8
+    block_pages: int = 4
+    prefetch: bool = False
+
+    def __post_init__(self):
+        assert self.watermark >= 1, self.watermark
+        assert self.pages_per_boundary >= 1, self.pages_per_boundary
+        assert self.block_pages >= 1, self.block_pages
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixConfig:
+    """Copy-on-write prefix sharing: admission maps a prompt's cached
+    prefix pages at the blocks that hold them (a refcount bump, no
+    prefill for those pages); a slot's first write into a shared page
+    relocates it first.
+
+    min_tokens: prompts shorter than this are not shared.
+    max_nodes: the radix tree's capacity (least recently matched nodes
+        are pruned past it)."""
+    min_tokens: int = 16
+    max_nodes: int = 4096
+
+    def __post_init__(self):
+        assert self.min_tokens >= 1, self.min_tokens
+        assert self.max_nodes >= 1, self.max_nodes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,20 +117,19 @@ class ServeConfig:
     use_mesh: Optional[bool] = None
     faults: FaultPolicy = FaultPolicy()
     durability: DurabilityConfig = DurabilityConfig()
-    gc: Optional[Any] = None
-    prefix: Optional[Any] = None
+    gc: Optional[GCConfig] = None
+    prefix: Optional[PrefixConfig] = None
 
     def __post_init__(self):
-        unported = {
-            "use_mesh (the channel mesh across devices)": bool(
-                self.use_mesh),
-            "gc (GC/CTP plane)": self.gc is not None,
-            "prefix (prefix sharing)": self.prefix is not None,
-        }
-        bad = [name for name, on in unported.items() if on]
-        if bad:
+        if self.use_mesh:
             raise NotImplementedError(
-                "not ported to repro_torch yet: " + ", ".join(bad))
+                "not ported to repro_torch yet: use_mesh (the channel "
+                "mesh across devices)")
+        for name, cls in (("gc", GCConfig), ("prefix", PrefixConfig)):
+            v = getattr(self, name)
+            if v is not None and not isinstance(v, cls):
+                raise TypeError(f"{name}: a {cls.__name__} or None, not "
+                                f"{type(v).__name__}")
         if self.admit_tokens is not None and self.admit_tokens <= 0:
             raise ValueError(
                 f"admit_tokens={self.admit_tokens}: a non-positive budget "
@@ -113,4 +157,5 @@ for _alias, (_sub, _attr) in _ALIASES.items():
         lambda self, s=_sub, a=_attr: getattr(getattr(self, s), a)))
 
 
-__all__ = ["ServeConfig", "FaultPolicy", "DurabilityConfig"]
+__all__ = ["ServeConfig", "GCConfig", "PrefixConfig", "FaultPolicy",
+           "DurabilityConfig"]

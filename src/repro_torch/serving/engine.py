@@ -78,14 +78,34 @@ point appends a record (the page manager's, and SUBMIT / ADMIT / FINISH
 and requeues what was in flight. ``reset`` and ``recover`` keep the
 engine's tensors (caches zeroed in place) and its CUDA graphs.
 
-Not ported yet (later slices; ``ServeConfig`` rejects them): the
-channel mesh, GC and the CTP prefetch, prefix sharing. Without a host
-tier there is no preemption victim, so a slot whose page growth fails PAUSES
-until blocks free up, as in the reference. As in the reference, every
-slot runs through each decode step (token 0 on a paused or dead lane):
-its KV write is masked to the scratch block, but a mamba layer's state
-of a paused slot advances all the same (ROADMAP, reference
-divergences); so a model with mamba layers does not swap.
+GC (``gc``, ``GCConfig``): the map carries the ``live`` lane, and after
+a round's decode, when some channel's free device blocks are below the
+watermark, one budgeted victim walk relocates a fragmented erase
+block's live pages (``KVPageManager.gc_collect``: one COND_UPDATE
+commit and in-place row moves) and frees it. With ``prefetch`` the CTP
+pulls the CMT segments the next K-step run's growth touches before it
+(``prefetch_segments``).
+
+Prefix sharing (``prefix``, ``PrefixConfig``): the map carries the
+``refcnt`` lane. Admission walks the radix tree over the prompt's page
+groups; a cached prefix maps the new slot's leading pages at the
+blocks that hold it (one commit, no prefill) and the rest of the
+prompt, at least its last token, streams through decode as forced
+lanes. A prompt that completes (prefill, or its forced lanes drained)
+pins its pages into the tree. Before every round's dispatch each
+resident slot's shared pages at or past its write frontier are
+relocated copy-on-write (``cow_writes``: one COND_UPDATE commit and row
+copies). Both planes are attention-only: a model with mamba layers
+shares nothing, and its GC walk raises (``_pools``).
+
+Not ported yet (later slices; ``ServeConfig`` rejects it): the channel
+mesh. Without a host tier there is no preemption victim, so a slot
+whose page growth fails PAUSES until blocks free up, as in the
+reference. As in the reference, every slot runs through each decode
+step (token 0 on a paused or dead lane): its KV write is masked to the
+scratch block, but a mamba layer's state of a paused slot advances all
+the same (ROADMAP, reference divergences); so a model with mamba layers
+does not swap.
 """
 from __future__ import annotations
 
@@ -156,9 +176,18 @@ class ServeEngine:
         n_dev = config.n_device_blocks or (self.n_slots * self.max_pages)
         n_host = config.n_host_blocks
         self.channels = config.channels
+        # the GC/CTP plane arms the live lane, prefix sharing the refcnt
+        # lane; None leaves the map state without them
+        self.gc = config.gc
+        self.prefix = config.prefix
         self.kvm = KVPageManager(self.n_slots, self.max_pages, n_dev,
                                  n_host, channels=self.channels,
-                                 faults=fault_plane, device=self.device)
+                                 faults=fault_plane,
+                                 track_live=self.gc is not None,
+                                 track_refs=self.prefix is not None,
+                                 device=self.device)
+        if self.prefix is not None:
+            self.kvm.prefix_max_nodes = self.prefix.max_nodes
         # +1 scratch block past both tiers: unmapped table entries (dead
         # and swap-pending lanes) write their garbage KV there instead of
         # corrupting block 0
@@ -166,7 +195,7 @@ class ServeEngine:
         # prefix sharing only applies to pure paged-attention state: a
         # mamba layer's recurrent state is per-slot and
         # position-dependent, so a skipped prefill cannot be rebuilt
-        # from shared KV pages (ServeConfig rejects sharing for now)
+        # from shared KV pages
         self._share_model_ok = not any(
             self.cfg.layer_kind(j) == "mamba"
             for j in range(self.cfg.period))
@@ -212,7 +241,9 @@ class ServeEngine:
                         "macro_steps": 0, "macro_fallbacks": 0,
                         "swaps_out": 0, "swaps_in": 0, "swap_faults": 0,
                         "quarantines": 0, "watchdog_quarantines": 0,
-                        "requeues": 0, "recoveries": 0}
+                        "requeues": 0, "recoveries": 0, "gc_walks": 0,
+                        "gc_moves": 0, "gc_victims": 0, "shared_admits": 0,
+                        "shared_pages": 0, "cow_moves": 0}
         # the crash-consistency journal: durably finished outputs, the
         # rids ever admitted, and the device's committed lanes at attach
         self.journal: Optional[jl.Journal] = None
@@ -377,9 +408,11 @@ class ServeEngine:
     # ------------------------------------------------------------- steps
     def step(self, done: Dict[int, List[int]]) -> bool:
         """One scheduling round: admissions, the watchdog, the boundary
-        swap plan, then either one K-step macro step (swap-pending slots
-        masked) or one single decode step; every ``snapshot_every``-th
-        round ends with a journal snapshot."""
+        swap plan, the copy-on-write of shared pages the round will
+        write, then either one K-step macro step (swap-pending slots
+        masked) or one single decode step, then a GC walk when the pool
+        is below the watermark; every ``snapshot_every``-th round ends
+        with a journal snapshot."""
         self._admit()
         if not self.active:
             return bool(self.queue)
@@ -390,12 +423,18 @@ class ServeEngine:
                 return bool(self.queue)
         if self._macro_on and self.nonblocking_swap:
             self._swap_schedule()
+        # before any dispatch and before the K-step path's allocator
+        # sync, which must carry the copies' pops to the device stacks
+        if self.prefix is not None:
+            self._cow_boundary()
         if self._macro_eligible():
             self._macro_decode_step(done)
         else:
             if self._macro_on:
                 self.metrics["macro_fallbacks"] += 1
             self._decode_step(done)
+        if self.gc is not None:
+            self._gc_boundary()
         if self.journal is not None and self.snapshot_every \
                 and self._boundary % self.snapshot_every == 0:
             self._write_snapshot()
@@ -409,7 +448,11 @@ class ServeEngine:
         """Admit + prefill queued requests under a per-round token
         budget (``admit_tokens``). A prompt longer than the remaining
         budget is CHUNK-prefilled: its first chunk goes through prefill
-        now and the rest streams through decode as forced lanes."""
+        now and the rest streams through decode as forced lanes. With
+        prefix sharing, a prompt whose leading pages are cached maps
+        them (``match_prefix``, ``new_seq(shared=...)``) and skips
+        prefill: its context starts past them and the rest, at least
+        the last token, streams as forced lanes (no budget spent)."""
         if not self.queue:
             return
         budget = self.admit_tokens
@@ -422,11 +465,19 @@ class ServeEngine:
                 if budget <= 0:
                     return                  # token budget spent this round
                 chunk = min(chunk, budget)
+            groups = shared_blocks = None
+            if self._share_ok(req):
+                groups = self.kvm.page_groups(req.tokens, self.page)
+                shared_blocks = self.kvm.match_prefix(groups)
             # on-demand allocation: admission maps only the pages that
             # prefill writes; decode grows the mapping page by page
-            n_pages = max(1, min(-(-chunk // self.page), self.max_pages))
+            if shared_blocks:
+                n_pages = len(shared_blocks)
+            else:
+                n_pages = max(1, min(-(-chunk // self.page),
+                                     self.max_pages))
             try:
-                self.kvm.new_seq(slot, n_pages)
+                self.kvm.new_seq(slot, n_pages, shared=shared_blocks)
             except OutOfBlocks:
                 if not self._preempt(exclude=slot):
                     return
@@ -441,9 +492,74 @@ class ServeEngine:
                 self.journal.append(
                     jl.ADMIT, {"rid": req.rid, "slot": int(slot),
                                "lanes": 0})
-            self._do_prefill(req, chunk)
-            if budget is not None:
-                budget -= chunk
+            if shared_blocks:
+                # the cached prefix is the context; the last token stays
+                # out of the skip, so the last forced step gives the
+                # first output (its page goes private first: COW)
+                n_skip = min(sum(len(g) for g in
+                                 groups[:len(shared_blocks)]),
+                             len(req.tokens) - 1)
+                self.ctx_lens[slot] = n_skip
+                req.pending_prompt = list(req.tokens[n_skip:])
+                self.metrics["shared_admits"] += 1
+                self.metrics["shared_pages"] += len(shared_blocks)
+            else:
+                self._do_prefill(req, chunk)
+                if budget is not None:
+                    budget -= chunk
+
+    # ----------------------------------------------------- prefix sharing
+    def _share_ok(self, req: Request) -> bool:
+        """Sharing applies to prompts of at least ``min_tokens`` on an
+        attention-only model."""
+        return (self.prefix is not None and self._share_model_ok
+                and len(req.tokens) >= self.prefix.min_tokens)
+
+    def _register_prompt(self, req: Request):
+        """Pin a completed prompt's pages into the radix tree (keys
+        already cached are skipped): at every completion site, a full
+        prefill and the drain of its forced lanes in a single or a
+        K-step run."""
+        if self._share_ok(req):
+            self.kvm.register_prefix(
+                req.slot, self.kvm.page_groups(req.tokens, self.page))
+
+    def _cow_boundary(self):
+        """Make private, before this round's writes land, every shared
+        page at or past a resident slot's write frontier: one
+        COND_UPDATE commit and the row copies (``cow_writes``). A pool
+        too short for the copies preempts one victim to the host tier
+        and retries once (the write cannot wait)."""
+        kvm = self.kvm
+        if not kvm.has_shared():
+            return
+        fronts = {r.slot: int(self.ctx_lens[r.slot]) // self.page
+                  for r in self.active.values()
+                  if kvm.is_resident(r.slot) and kvm.has_shared(r.slot)}
+        if not fronts:
+            return
+        try:
+            n = kvm.cow_writes(fronts, self._pools(), block_axis=2)
+        except OutOfBlocks:
+            if not self._preempt(exclude=-1):
+                raise
+            n = kvm.cow_writes(fronts, self._pools(), block_axis=2)
+        self.metrics["cow_moves"] += n
+
+    def _gc_boundary(self):
+        """The watermark policy: when some channel's free device blocks
+        are below ``gc.watermark``, one budgeted victim walk
+        (``gc_collect``: one COND_UPDATE commit and the row moves), at
+        the boundary, never inside a decode dispatch."""
+        gc_cfg = self.gc
+        if bool((self.kvm.free_device_vec() >= gc_cfg.watermark).all()):
+            return
+        moved, victims = self.kvm.gc_collect(
+            self._pools(), block_axis=2, block_pages=gc_cfg.block_pages,
+            budget=gc_cfg.pages_per_boundary)
+        self.metrics["gc_walks"] += 1
+        self.metrics["gc_moves"] += moved
+        self.metrics["gc_victims"] += victims
 
     def _preempt(self, exclude: int) -> bool:
         """Swap the longest active sequence that still holds device
@@ -741,6 +857,7 @@ class ServeEngine:
             req.pending_prompt = list(req.tokens[n_chunk:])
             self.metrics["chunked_prefills"] += 1
         else:
+            self._register_prompt(req)
             HOST_SYNCS[0] += 1
             req.out.append(int(torch.argmax(logits[0])))
             req.t_first = time.perf_counter()
@@ -883,6 +1000,7 @@ class ServeEngine:
                 r.pending_prompt.pop(0)
                 if r.pending_prompt:
                     continue
+                self._register_prompt(r)   # the prompt drained here
             tok = int(next_tok[r.slot])
             self._emit(r, [tok])
             if len(r.out) >= r.max_new or tok == self.eos_id:
@@ -1020,6 +1138,8 @@ class ServeEngine:
             if p:
                 self.metrics["prefill_tokens"] += min(p, k)
                 del r.pending_prompt[:min(p, k)]
+                if not r.pending_prompt:
+                    self._register_prompt(r)   # drained in the run
                 outs = [int(t) for t in toks[p - 1:, s]] if p <= k else []
             else:
                 outs = [int(t) for t in toks[:, s]]
@@ -1078,6 +1198,14 @@ class ServeEngine:
         k = self.macro_k
         (tokens, alive, budget, npages, pend, fmask, ftok, emit,
          slot2req) = self._macro_lanes(residents, k)
+        # the CTP: the boundary knows the run's worst-case growth (the
+        # walk the scheduler and the replay run), so it pulls the CMT
+        # segments those dlpns live in ahead of the in-graph commits
+        if self.gc is not None and self.gc.prefetch and residents:
+            pgs, pdl, _ = self._growth_walk(lambda s: alive, npages,
+                                            self.ctx_lens)
+            if pgs.any():
+                self.kvm.prefetch_segments(pdl[pgs])
         # simple mode applies when no lane can finish mid-run: a forced
         # lane only emits K - (P-1) tokens, so its budget covers that
         gen = k - np.maximum(pend - 1, 0)
@@ -1171,6 +1299,10 @@ class ServeEngine:
         grow_sched, dl, _ = self._growth_walk(lambda s: alive, npages,
                                               self.ctx_lens)
         grow_seq = [int(s) for s in np.nonzero(grow_sched)[1]]
+        # the CTP: warm the CMT with the segments the pre-commit's own
+        # UPDATE lanes touch
+        if self.gc is not None and self.gc.prefetch and grow_sched.any():
+            self.kvm.prefetch_segments(dl[grow_sched])
         try:
             self.kvm.precommit_growth(
                 grow_seq, dlpns=[int(d) for d in dl[grow_sched]])

@@ -260,7 +260,10 @@ class MacroGraphs:
     them, and its residency flip update the static tensors in place).
     So no key holds residency: a swap or a rotation captures nothing.
     The one-channel program commits the map in place on the static
-    state too, so ``kvm.state`` keeps one storage across replays. The
+    state too, so ``kvm.state`` keeps one storage across replays; its
+    optional ``live`` / ``refcnt`` lanes are static tensors like the
+    rest, kept by the captured commits, and a GC walk, a copy-on-write
+    or a CTP prefetch between runs is one more eager commit on them. The
     channel-sharded program only reads the static table: its graphs hold
     no ``fmmu_commit`` node, and the boundary's pre-commit (one eager
     launch) writes the static state in place before the replay.

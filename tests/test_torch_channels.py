@@ -637,15 +637,17 @@ def test_mamba2_engine_at_two_channels_identical_to_jax(models):
 
 def test_serve_config_channels_and_use_mesh():
     """``channels > 1`` builds a sharded engine config, with a journal
-    too; ``use_mesh=True`` (the channel mesh across devices) still
-    raises, as do the other unported planes; the defaults are the
-    reference's."""
+    and prefix sharing too; ``use_mesh=True`` (the channel mesh across
+    devices) still raises; the defaults are the reference's."""
+    from repro_torch.serving import PrefixConfig
     assert ServeConfig(n_slots=2, max_ctx=32, channels=4).channels == 4
     assert ServeConfig(n_slots=2, max_ctx=32).use_mesh is \
         JServeConfig(n_slots=2, max_ctx=32).use_mesh
-    for kw in (dict(use_mesh=True), dict(channels=2, use_mesh=True),
-               dict(channels=2, journal_path="j.log", prefix=object())):
+    for kw in (dict(use_mesh=True), dict(channels=2, use_mesh=True)):
         with pytest.raises(NotImplementedError):
             ServeConfig(n_slots=2, max_ctx=32, **kw)
+    cfg = ServeConfig(n_slots=2, max_ctx=32, channels=2,
+                      journal_path="j.log", prefix=PrefixConfig())
+    assert cfg.prefix == PrefixConfig() and cfg.channels == 2
     assert ServeConfig(n_slots=2, max_ctx=32, channels=2,
                        journal_path="j.log").journal_path == "j.log"

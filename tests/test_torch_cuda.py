@@ -746,6 +746,116 @@ def test_fmmu_commit_grid_repeats_bit_identical(cuda):
             assert torch.equal(x, y), (it, i)
 
 
+# ------------------------------------ the commit with its count lanes
+def _arm(ms, rng, n_device=100):
+    """``ms`` with its ``live`` and ``refcnt`` lanes armed over
+    ``n_device`` device blocks (random counts; [C, n_device] on a
+    stacked state) and its backing, cached data and table holding ids
+    in [-1, n_device + 8): write lanes then unmap and map blocks both
+    inside and past the lanes."""
+    dev = ms.table.device
+    lead = tuple(ms.table.shape[:-1])
+
+    def ids(t):
+        return torch.from_numpy(rng.integers(-1, n_device + 8, tuple(
+            t.shape)).astype(np.int32)).to(dev)
+    lane = (lambda: torch.from_numpy(rng.integers(
+        0, 50, lead + (n_device,)).astype(np.int32)).to(dev))
+    fm = ms.fmmu._replace(backing=ids(ms.fmmu.backing),
+                          data=ids(ms.fmmu.data))
+    return ms._replace(fmmu=fm, table=ids(ms.table), live=lane(),
+                       refcnt=lane())
+
+
+@pytest.mark.parametrize("c_n", [1, 8])
+@pytest.mark.parametrize("bq", [8, 100, 1024])
+@pytest.mark.parametrize("mode", ["translate", "grow"])
+def test_armed_fmmu_commit_bit_exact(cuda, c_n, bq, mode):
+    """The commit with the ``live`` and ``refcnt`` lanes armed, three
+    commits in a row at one channel (the llama serving map) and at 8
+    (a paper map cut in 8): the kernel in place against the plain chain
+    on a clone, every state tensor (both lanes included) and output bit
+    for bit, one launch each. Translate mode mixes UPDATE and
+    COND_UPDATE lanes (about half the guards hold) with LOOKUPs; grow
+    mode pops from stacks of device ids in and past the lanes."""
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_commit as fc
+    rng = np.random.default_rng(c_n * 1000 + bq)
+    if c_n == 1:
+        g = FMMUGeometry(**GEOMETRIES["serving"])
+        ms = _commit_state(cuda, rng, g, n_stack=max(bq // 3, 1))
+        ms = ms._replace(free_stack=torch.from_numpy(rng.integers(
+            0, 108, max(bq // 3, 1)).astype(np.int32)).to(cuda))
+    else:
+        g, ms = _sharded_state(cuda, rng, c_n, n_stack=bq)
+        ms = ms._replace(free_stack=torch.from_numpy(
+            (rng.integers(0, 108 // c_n, (c_n, bq)) * c_n
+             + np.arange(c_n)[:, None]).astype(np.int32)).to(cuda))
+    ms = _arm(ms, rng)
+    ker, ref = fb.clone_state(ms), fb.clone_state(ms)
+    for it in range(3):
+        if c_n == 1:
+            op, dl, dp = (a.to(cuda) for a in _commit_lanes(
+                rng, g, ms.fmmu, bq, grow=mode == "grow"))
+        else:
+            op, dl, dp = (a.to(cuda) for a in _sharded_lanes(
+                rng, g, ms, bq, grow=mode == "grow"))
+        dp = torch.where(dp >= 0, dp % 108, dp)
+        n0 = fc.LAUNCHES[0]
+        if mode == "grow":
+            grow = torch.from_numpy(rng.random(bq) < 0.5).to(cuda)
+            if c_n == 1:
+                got = fb.serving_grow_(g, ker, grow, dl)
+                want = fb.serving_grow_(g, ref, grow, dl, impl="ref")
+            else:
+                got = fb.grow_sharded_(g, c_n, ker, grow, dl)
+                want = fb.grow_sharded_(g, c_n, ref, grow, dl, impl="ref")
+        else:
+            if c_n == 1:
+                out = fb.translate_serving(g, ref, torch.zeros_like(op), dl,
+                                           dp, dp, impl="ref")[1]
+                old = torch.where(torch.rand(bq, device=cuda) < 0.5, out, dp)
+                got = fb.translate_serving_(g, ker, op, dl, dp, old)
+                want = fb.translate_serving_(g, ref, op, dl, dp, old,
+                                             impl="ref")
+            else:
+                out = fb.translate_sharded(g, c_n, ref, torch.zeros_like(op),
+                                           dl, dp, dp, impl="ref")[1]
+                old = torch.where(torch.rand(bq, device=cuda) < 0.5, out, dp)
+                got = fb.translate_sharded_(g, c_n, ker, op, dl, dp, old)
+                want = fb.translate_sharded_(g, c_n, ref, op, dl, dp, old,
+                                             impl="ref")
+        assert fc.LAUNCHES[0] - n0 == 1
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y), (it, mode)
+        for i, (x, y) in enumerate(zip(fb.state_tensors(ker),
+                                       fb.state_tensors(ref))):
+            assert x.dtype == y.dtype and torch.equal(x, y), (it, i)
+    assert not torch.equal(ker.live, ms.live)      # the lanes moved
+    assert not torch.equal(ker.refcnt, ms.refcnt)
+
+
+def test_armed_fmmu_commit_repeats_bit_identical(cuda):
+    """One 4096-lane commit with both count lanes armed, launched 100
+    times on fresh copies of one state: every launch leaves the state
+    tensors (both lanes included) and outputs the plain chain leaves."""
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry(**GEOMETRIES["paper"])
+    rng = np.random.default_rng(4096)
+    ms = _arm(_commit_state(cuda, rng, g), rng, n_device=4000)
+    op, dl, dp = (a.to(cuda) for a in _commit_lanes(rng, g, ms.fmmu, 4096))
+    dp = torch.where(dp >= 0, dp % 4100, dp)
+    ref = fb.clone_state(ms)
+    want = list(fb.translate_serving_(g, ref, op, dl, dp, dp, impl="ref")) \
+        + fb.state_tensors(ref)
+    for it in range(100):
+        ker = fb.clone_state(ms)
+        got = list(fb.translate_serving_(g, ker, op, dl, dp, dp)) + \
+            fb.state_tensors(ker)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert torch.equal(x, y), (it, i)
+
+
 def test_sharded_manager_at_the_served_map_equals_the_cpu_chain(cuda):
     """The served channel map (8 slots x 128 pages over 8 channels,
     1024 device + 1024 host blocks): admissions, growth pre-commits,
@@ -1299,4 +1409,66 @@ def test_macro_retirement_moves_the_rows_the_graph_wrote(cuda):
     eng.kvm.retire_bad_blocks = spy
     got, _ = _serve(eng, MACRO_REQS)
     assert seen and moved
+    assert got == want
+
+
+# ------------------------------------------- GC and prefix sharing
+# the reference chaos GC shape (watermark 5: the walk moves pages at one
+# channel and at two) with prompts that share (three on one 8-token
+# prefix) and a tree of 2 nodes, whose pins leave the 12-block pool room
+# (chip_smoke.PARITY_PROMPTS)
+PLANE_REQS = [(list(range(1, 9)) + [30 + i] * 4, 16) for i in range(3)] + \
+    [(range(1 + i, 20 + i), 16) for i in range(3)]
+PLANE_SHAPE = dict(max_ctx=64, n_device_blocks=12, n_host_blocks=24,
+                   swap_patience=2)
+
+
+def _graph_kernel_nodes(graph, name):
+    """Kernel nodes of a kept CUDA graph whose function name holds
+    ``name``, through libcuda (``chip_smoke.graph_nodes``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.graph_nodes(graph, (name,))[1][name]
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_gc_and_prefix_engine_replays_match_eager_program(cuda, channels):
+    """An oversubscribed K-step engine with the GC/CTP plane and prefix
+    sharing armed on the card: every replay equals the eager program on
+    clones (``_check_replays``: K fmmu_commit launches a replay, the
+    count lanes included in the state compared); walks, copy-on-writes
+    and prefetches run eagerly between runs on the graphs' static state
+    and capture nothing (one capture per distinct variant); at one
+    channel each graph holds one fmmu_commit node a step (libcuda), at
+    two none (the pre-committed sharded path); the tokens equal an
+    engine with both planes off."""
+    from repro_torch.serving import GCConfig, PrefixConfig, macro
+    eng = _macro_engine(cuda, channels=channels, **PLANE_SHAPE,
+                        gc=GCConfig(5, 8, 2, prefetch=True),
+                        prefix=PrefixConfig(min_tokens=8, max_nodes=2))
+    seen = _check_replays(eng, cuda) if channels == 1 else []
+    if channels > 1:
+        run = eng._graphs.run
+
+        def spy(ms, buf, *key):
+            seen.append(key)
+            return run(ms, buf, *key)
+        eng._graphs.run = spy
+    c0 = macro.MACRO_CAPTURES[0]
+    got, _ = _serve(eng, PLANE_REQS)
+    m = eng.metrics
+    assert m["gc_moves"] and m["shared_admits"] and m["cow_moves"]
+    assert seen and macro.MACRO_CAPTURES[0] - c0 == len(set(seen))
+    assert eng._graphs.stats()["graphs"] == len(set(seen))
+    for graph in eng._graphs.graphs.values():
+        assert _graph_kernel_nodes(graph, "fmmu_commit") == \
+            (MACRO_K if channels == 1 else 0)
+    st = eng.kvm.state
+    assert st.live is not None and st.refcnt is not None
+    want, _ = _serve(_macro_engine(cuda, channels=channels, **PLANE_SHAPE),
+                     PLANE_REQS)
     assert got == want

@@ -561,7 +561,12 @@ def test_serve_config_fault_policy_and_durability():
             cfg.swap_backoff_cap, cfg.watchdog_rounds) == ("j", 3, 5, 2, 9)
     moved = dataclasses.replace(cfg, durability=TC.DurabilityConfig("k"))
     assert moved.journal_path == "k" and moved.snapshot_every == 8
-    for kw in (dict(gc=object()), dict(prefix=object()),
-               dict(use_mesh=True)):
-        with pytest.raises(NotImplementedError):
-            ServeConfig(n_slots=2, max_ctx=32, journal_path="j", **kw)
+    # GC and prefix sharing are ported: beside a journal they are
+    # accepted with the reference's defaults; the mesh still raises
+    for name, cls in (("gc", "GCConfig"), ("prefix", "PrefixConfig")):
+        got = getattr(ServeConfig(n_slots=2, max_ctx=32, journal_path="j",
+                                  **{name: getattr(TC, cls)()}), name)
+        assert dataclasses.asdict(got) == \
+            dataclasses.asdict(getattr(JC, cls)())
+    with pytest.raises(NotImplementedError):
+        ServeConfig(n_slots=2, max_ctx=32, journal_path="j", use_mesh=True)

@@ -18,8 +18,8 @@ and drains to the uncrashed tokens, and the journals are equal again
 after the drain. A second crash after the recovery replays cleanly. A
 journal written by either package recovers in the other and drains to
 the uncrashed tokens. ``reset`` keeps the engine's cache tensors.
-A GC, SHARE or COW record, or a snapshot with sharing refcounts, makes
-the port's ``replay`` raise. A journaled mamba2 engine recovers too."""
+GC, SHARE and COW records, and a snapshot with sharing refcounts,
+replay as in the reference. A journaled mamba2 engine recovers too."""
 import os
 import random
 import shutil
@@ -326,27 +326,72 @@ def test_journals_recover_across_packages(engines, tmp_path):
 
 
 def test_unported_records_raise(tmp_path):
-    """GC, SHARE and COW records (written by the reference's journal)
-    make the port's ``replay`` raise ``NotImplementedError`` naming the
-    ROADMAP item; so does a snapshot with sharing refcounts. The
-    reference replays the same prefix up to them."""
-    for kind in (JJ.GC, JJ.SHARE, JJ.COW):
-        d = str(tmp_path / f"k{kind}")
-        kvm = JKVM(2, 4, 8)
-        j = JJ.Journal(d)
-        j.snapshot(kvm.snapshot_state())
-        j.append(kind, {"moves": [], "returned": [], "op": "pin",
-                        "blocks": []})
-        j.close()
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TJ.replay(d)
-    d = str(tmp_path / "ref")
-    kvm = TKVM(2, 4, 8, device="cpu")
-    j = TJ.Journal(d)
-    j.snapshot(dict(kvm.snapshot_state(), ref={"3": 2}, pinned=[3]))
-    j.close()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TJ.replay(d)
+    """GC, SHARE (admission, pin, unpin) and COW records written by the
+    reference's journaled manager, and a snapshot holding sharing
+    refcounts and pins, replay in the port as in the reference: the
+    same page lists, free lists, counters, refcounts, pins and lanes,
+    at every cut of the record sequence (a snapshot taken mid-way
+    among them), and the torn last record's OOB scan alike."""
+    d = str(tmp_path / "j")
+    kvm = JKVM(4, 8, 32, 0, 2, track_live=True, track_refs=True)
+    kvm.prefix_max_nodes = 4
+    kvm.journal = JJ.Journal(d)
+    kvm.journal.snapshot(kvm.snapshot_state())
+    rng = random.Random(3)
+    for _ in range(20):                               # GC, on churn
+        kvm.new_seq(2, rng.randint(1, 5))
+        kvm.new_seq(3, rng.randint(1, 5))
+        kvm.free_seq(2)
+        moved = kvm.gc_collect(block_pages=2, budget=8)[1]
+        kvm.free_seq(3)
+        if moved:
+            break
+    g = kvm.page_groups(list(range(1, 29)), 8)
+    kvm.new_seq(0, len(g))
+    kvm.register_prefix(0, g)                         # SHARE pin
+    kvm.new_seq(1, 2, shared=kvm.match_prefix(g)[:2])   # SHARE admission
+    kvm.new_seq(2, 3)
+    kvm.journal.snapshot(kvm.snapshot_state())        # refcounts, pins
+    kvm.cow_writes({1: 1})                            # COW
+    kvm.free_seq(0)
+    kvm.free_seq(2)
+    g3 = kvm.page_groups(list(range(40, 88)), 8)
+    kvm.new_seq(3, len(g3))
+    kvm.register_prefix(3, g3)                        # pins and unpins
+    kvm.journal.close()
+    frames = JJ.read_frames(os.path.join(d, "journal.log"))[0]
+    kinds = [k for _, k, _ in frames]
+    assert {JJ.GC, JJ.SHARE, JJ.COW} <= set(kinds)
+    assert any(p.get("op") == "unpin" for _, k, p in frames
+               if k == JJ.SHARE)
+    fields = ("seq_pages", "host_pages", "free_dev_ch", "free_host_ch",
+              "retired", "stats", "ref", "pinned", "lanes", "last_seq",
+              "replayed", "torn", "oob_scan")
+    oframes = JJ.read_frames(os.path.join(d, "oob.log"))[0]
+    seqs = [sq for sq, _, _ in frames]
+    scans = shared = 0
+    for k in range(len(frames) + 1):
+        # records before k whole; record k's OOB frame landed and its
+        # record tore after 5 bytes (the OOB scan's case)
+        c = str(tmp_path / f"cut{k}")
+        shutil.copytree(d, c)
+        nxt = seqs[k] if k < len(frames) else seqs[-1]
+        with open(os.path.join(c, "journal.log"), "wb") as f:
+            for sq, kind, p in frames[:k]:
+                f.write(TJ._frame(sq, kind, p))
+            if k < len(frames):
+                f.write(TJ._frame(*frames[k])[:5])
+        with open(os.path.join(c, "oob.log"), "wb") as f:
+            for sq, kind, p in oframes:
+                if sq <= nxt:
+                    f.write(TJ._frame(sq, kind, p))
+        recs = [TJ.replay(c), JJ.replay(c)]
+        for name in fields:
+            assert getattr(recs[0], name) == getattr(recs[1], name), \
+                (k, name)
+        scans += recs[0].oob_scan
+        shared += bool(recs[0].ref)
+    assert scans and shared
 
 
 def test_mamba2_engine_recovers(tmp_path):

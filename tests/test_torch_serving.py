@@ -4,7 +4,10 @@ initialisation loaded through ``convert.params_from_jax``: the emitted
 greedy tokens must be identical — one request, two concurrent requests
 (isolation), growth that pauses and resumes without a host tier, and
 chunked admission. Also the engine's host-cost counters, its device
-rule and the rejection of settings that are not ported."""
+rule, the rejection of the one setting that is not ported (the channel
+mesh) and the GC and prefix configs."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -147,13 +150,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_mesh=True), dict(gc=object()),
-    dict(prefix=object()), dict(journal_path="j.log", gc=object())])
+    dict(use_mesh=True), dict(gc="gc"),
+    dict(prefix="prefix"), dict(journal_path="j.log", gc="gc")],
+    ids=["mesh_raises", "gc_accepted", "prefix_accepted",
+         "journal_and_gc_accepted"])
 def test_serve_config_rejects_unported_features(kw):
-    """The mesh, GC and prefix sharing raise; journaling is ported, but
-    not beside a GC plane."""
-    with pytest.raises(NotImplementedError):
-        ServeConfig(n_slots=2, max_ctx=32, **kw)
+    """Only the channel mesh across devices still raises. GC and prefix
+    sharing are ported: a ``GCConfig`` / ``PrefixConfig`` is accepted,
+    beside a journal too, with the reference's defaults, and anything
+    else in their place is a TypeError."""
+    from repro.serving import config as JC
+    from repro_torch.serving import GCConfig, PrefixConfig
+    if kw.get("use_mesh"):
+        with pytest.raises(NotImplementedError, match="use_mesh"):
+            ServeConfig(n_slots=2, max_ctx=32, **kw)
+        return
+    made = {"gc": GCConfig(), "prefix": PrefixConfig()}
+    cfg = ServeConfig(n_slots=2, max_ctx=32, **{
+        k: made.get(v, v) for k, v in kw.items()})
+    for name, ref in (("gc", JC.GCConfig()), ("prefix", JC.PrefixConfig())):
+        got = getattr(cfg, name)
+        if name in kw:
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+            with pytest.raises(TypeError):
+                ServeConfig(n_slots=2, max_ctx=32, **{name: object()})
+        else:
+            assert got is None
+    assert cfg.journal_path == kw.get("journal_path")
 
 
 def test_serve_config_accepts_swap_settings():
