@@ -41,7 +41,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                lanes onto mapped blocks + 4 fresh), a grow batch and a
                copy-on-write, one launch each, bit-exact on every state
                tensor and both lanes, timed beside the same commit with
-               the lanes off. Times the kernel,
+               the lanes off. head_dim 256 (gemma2-9b's) in both
+               attention kernels: flash at B=1 S=1000 H=16 KV=8, causal,
+               window 4096, softcap 50, bf16 (2e-2) and f32 (1e-4);
+               paged at B=8 H=16 KV=8 P=16 ctx 1024, bf16 (2e-2, its
+               (m, l) within 1e-3, repeats bit-identical); each timed
+               beside SDPA at the same shape. Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -169,6 +174,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                interleaved table equal to the one-channel path's after
                every batch; the paths' times are printed (the paper's
                FMMU-vs-software comparison, not a claim).
+  4b. fsm    — the paper's sequential FMMU packet engine (§4) at the
+               paper geometry (FMMUGeometry(): CMT 512x4x8, CTP 16x4
+               pages of 4096 entries, DTL 128, queues 1024, 1,048,576
+               logical pages, tppn_cap 16384; flash pages 256 MB on the
+               card), 512 requests outstanding, flash reads answered in
+               shuffled order. (a) 2,000 requests of each trace: the
+               fmmu_fsm kernel's run (one launch a call) against the
+               plain torch version on the card and on the CPU, every
+               state tensor bit-identical after every run and after
+               flush_all. (b) The long traces, the slice's main path:
+               hit-heavy (131,072 sequential dlpns) and miss-heavy
+               (40,000 uniform dlpns; sized so the ~0.35 programs a
+               request stay under tppn_cap, where the oracle asserts),
+               3:1 UPDATE to LOOKUP with a tenth COND_UPDATE from the
+               GCM queue: the response, flash-read and program streams
+               of every round, stats and resolve of every touched dlpn
+               equal the port's oracle copy's. Prints steps, steps/s
+               and us per request beside the oracle's and the plain
+               version's rates. (c) One run call from a miss-heavy
+               round timed (events) beside the plain version on the
+               card, with its byte bound.
   5. serve (SSM) — mamba2-1.3b at its published widths (48 layers,
                d 2048, bf16, page 16, 8 slots x 2048 ctx) serves 8
                requests of 64..1024 prompt tokens (chunk multiples and
@@ -180,14 +206,15 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                replayed, mamba_chunk_scan at prefill).
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
-(fmmu_lookup: the map phase's; the probe-only fmmu_translate runs on
-no path since fmmu_commit does its probe, and reports 0).
+(fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces;
+the probe-only fmmu_translate runs on no path since fmmu_commit does
+its probe, and reports 0).
 
 Output: the ptxas resource lines on stderr; on stdout, before the last
 line, one JSON line {"ptxas": [...]} (registers, spills and static
-shared memory of each attention and scan instantiation, with the paged
-kernel's launch plan at the serving shape), the card's name and power
-limit, one JSON line {"kernels": [...]} (launches from the macro
+shared memory of each commit, attention, scan and fsm instantiation,
+with the paged kernel's launch plan at the serving shape), the card's
+name and power limit, one JSON line {"kernels": [...]} (launches from the macro
 path's counted pass, launches_single_step from the single-step run,
 launches_serve_swap, launches_serve_channels and launches_serve_faults
 from the swap, channel and fault phases' counted passes,
@@ -198,13 +225,13 @@ pass and the prefix phase's counted sharing passes), one {"serve":
 {"serve_macro": {...}}, one {"serve_swap": {...}}, one
 {"serve_channels": {...}}, one {"serve_faults": {...}}, one
 {"serve_recover": {...}}, one {"serve_gc": {...}}, one
-{"serve_prefix": {...}}, one {"map": {...}}, one {"serve_ssm": {...}}
+{"serve_prefix": {...}}, one {"map": {...}}, one {"fsm": {...}},
+one {"serve_ssm": {...}}
 and one {"serve_ssm_macro": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 import math
@@ -317,7 +344,8 @@ def _demangle(names):
 
 
 def ptxas_resources(logs, kernels=("fmmu_commit", "paged_attention",
-                                   "flash_attention", "mamba_scan")):
+                                   "flash_attention", "mamba_scan",
+                                   "fmmu_fsm")):
     """Registers, spills and static shared memory of every instantiation
     of the named kernels, from nvcc's -Xptxas -v output."""
     entries, cur = [], None
@@ -1353,6 +1381,83 @@ def check_flash_attention(timer):
     }
 
 
+def check_attention_d256(timer, rng):
+    """head_dim 256 (gemma2-9b's) in both attention kernels: held
+    against the plain versions at the tolerances of the D = 64 checks,
+    timed beside SDPA at the same shape. Returns the extra keys of the
+    flash and paged rows."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    d = 256
+    # flash: B=1 S=1000 H=16 KV=8, causal, window 4096, softcap 50
+    s, h, kv = 1000, 16, 8
+    kw = dict(window=4096, softcap=50.0)
+    flash = {}
+    for dtype, tol, tag in ((torch.bfloat16, BF16_TOL, "bf16"),
+                            (torch.float32, F32_TOL, "f32")):
+        args = [torch.randn((1, s, n, d), device="cuda").to(dtype)
+                for n in (h, kv, kv)]
+        err = _max_err(flash_attention(*args, **kw),
+                       flash_attention_ref(*args, **kw))
+        if err > tol:
+            fail(f"flash_attention D=256 {tag}: max err {err}")
+        pairs = s * (s + 1) // 2
+        n_bytes = (2 if dtype == torch.bfloat16 else 4) * (
+            2 * s * h * d + 2 * s * kv * d)
+        b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs * h,
+                              "bfloat16" if tag == "bf16" else "float32")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in args)
+        flash.update({
+            f"max_abs_err_d256_{tag}": err,
+            f"ms_d256_{tag}": timer.ms(lambda: flash_attention(*args, **kw)),
+            f"plain_ms_d256_{tag}": timer.ms(
+                lambda: flash_attention_ref(*args, **kw), iters=5),
+            f"bound_ms_d256_{tag}": b_ms, f"bound_by_d256_{tag}": b_by,
+            f"library_ms_d256_{tag}": timer.ms(
+                lambda: _sdpa(qt, kt, vt, is_causal=True)),
+        })
+    flash["shape_d256"] = ("B=1 S=1000 H=16 KV=8 D=256 causal window 4096 "
+                           "softcap 50, bf16 and f32 (SDPA: causal, no "
+                           "softcap)")
+    # paged: B=8 H=16 KV=8 P=16 ctx=1024, bf16
+    b, h, kv, page, maxp, ctx = 8, 16, 8, 16, 64, 1024
+    nb = b * maxp + 1
+    q = torch.randn((b, h, d), device="cuda").to(torch.bfloat16)
+    kp = torch.randn((nb, page, kv, d), device="cuda").to(torch.bfloat16)
+    vp = torch.randn((nb, page, kv, d), device="cuda").to(torch.bfloat16)
+    table = torch.from_numpy(rng.permutation(nb)[:b * maxp].reshape(
+        b, maxp).astype(np.int32)).cuda()
+    ctx_t = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, table, ctx_t)
+    got, (m, l) = paged_attention(*args, return_stats=True)
+    want, (wm, wl) = paged_attention_ref(*args, return_stats=True)
+    err = _max_err(got, want)
+    if err > BF16_TOL or _max_err(m, wm) > 1e-3 or \
+            float(((l - wl).abs() / wl.clamp_min(1e-6)).max()) > 1e-3:
+        fail(f"paged_attention D=256 bf16: max err {err}")
+    again = paged_attention(*args, return_stats=True)
+    if not (torch.equal(got, again[0]) and torch.equal(m, again[1][0])):
+        fail("paged_attention D=256: repeated call differs")
+    n_bytes = 2 * b * ctx * kv * d * 2 + 2 * b * h * d * 2 + 4 * b * maxp \
+        + 4 * b
+    b_ms, b_by = bound_ms(n_bytes, 4 * b * h * d * ctx, "bfloat16")
+    kg = kp[table.long()].reshape(b, maxp * page, kv, d).transpose(1, 2)
+    vg = vp[table.long()].reshape(b, maxp * page, kv, d).transpose(1, 2)
+    kg, vg, q4 = kg.contiguous(), vg.contiguous(), q[:, :, None, :]
+    paged = {
+        "max_abs_err_d256": err,
+        "ms_d256": timer.ms(lambda: paged_attention(*args)),
+        "plain_ms_d256": timer.ms(lambda: paged_attention_ref(*args)),
+        "bound_ms_d256": b_ms, "bound_by_d256": b_by,
+        "library_ms_d256": timer.ms(lambda: _sdpa(q4, kg, vg)),
+        "shape_d256": "B=8 H=16 KV=8 D=256 P=16 ctx=1024 bf16 (SDPA over "
+                      "pre-gathered pages)",
+    }
+    return flash, paged
+
+
 def check_mamba_chunk_scan(timer):
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                                 mamba_chunk_scan_ref)
@@ -1809,54 +1914,19 @@ def events_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-class _KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
-    _fields_ = [("func", ctypes.c_void_p),
-                ("dims", ctypes.c_uint * 7),     # grid, block, shared bytes
-                ("kernel_params", ctypes.c_void_p),
-                ("extra", ctypes.c_void_p),
-                ("kern", ctypes.c_void_p),
-                ("ctx", ctypes.c_void_p)]
-
-
 def graph_nodes(graph, names=()):
     """What one replay of a captured CUDA graph launches, read through
-    libcuda's graph calls, independent of any profiler: ({node type: count}
-    over kernel, memcpy, memset and other nodes, {name: kernel nodes
-    whose function name holds it} for each of ``names``). The graph
-    must be kept after instantiation (``macro.capture`` keeps it)."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)):
-        fail("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
-        fail("cuGraphGetNodes failed")
-    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}
-    types: dict = {}
-    named = {name: 0 for name in names}
-    for node in nodes:
-        node = ctypes.c_void_p(node)
-        kind = ctypes.c_int(-1)
-        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)):
-            fail("cuGraphNodeGetType failed")
-        key = kinds.get(kind.value, "other")
-        types[key] = types.get(key, 0) + 1
-        if key != "kernel" or not names:
-            continue
-        p = _KernelNodeParams()
-        if cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)):
-            fail("cuGraphKernelNodeGetParams failed")
-        fname = ctypes.c_char_p()
-        err = (cuda.cuFuncGetName(ctypes.byref(fname),
-                                  ctypes.c_void_p(p.func)) if p.func else
-               cuda.cuKernelGetName(ctypes.byref(fname),
-                                    ctypes.c_void_p(p.kern)))
-        if err or not fname.value:
-            fail(f"no name for a kernel node of a graph (CUresult {err})")
-        for name in names:
-            named[name] += name in fname.value.decode()
-    return types, named
+    libcuda's graph calls, independent of any profiler: ({node type:
+    count} over kernel, memcpy, memset and other nodes, {name: kernel
+    nodes whose function name holds it} for each of ``names``). The
+    graph must be kept after instantiation (``macro.capture`` keeps
+    it). The reader is the port's (``kernels/_graph.py``), shared with
+    the GPU tests."""
+    from repro_torch.kernels import _graph
+    try:
+        return _graph.graph_nodes(graph, names)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def trace_kernels(fn):
@@ -3274,6 +3344,268 @@ def prefix_phase(cfg):
     return line
 
 
+# -------------------------------------------------------- the packet engine
+FSM_OUTSTANDING = 512      # SSDConfig.outstanding (repro/configs/fmmu_paper.py:50)
+FSM_MAX_STEPS = 1_000_000  # per run call, every unit alike
+FSM_PARITY_REQUESTS = 2000
+# (name, requests, sequential dlpns). Uniform dlpns program ~0.35
+# translation pages a request at the paper geometry (the oracle's count),
+# so the miss-heavy trace is cut to 40,000 requests: ~14,000 programs,
+# under tppn_cap = 16384, where the oracle asserts (the kernel drops the
+# page as the reference does; tests/test_torch_cuda.py holds that case)
+FSM_TRACES = (("hit_heavy", 131072, True), ("miss_heavy", 40000, False))
+FSM_SNAPSHOT_ROUND = 40    # the timed run: the miss-heavy state of round 40
+
+
+def fsm_requests(g, seed, n, sequential):
+    """The smoke's request mix: 3:1 UPDATE to LOOKUP, a tenth
+    COND_UPDATE from the GCM queue (half with the last value written as
+    the old one, so some win and some go stale), over sequential dlpns
+    (hit-heavy) or uniform dlpns over the logical space (miss-heavy)."""
+    from repro_torch.core.fmmu.types import (COND_UPDATE, LOOKUP, NIL,
+                                             UPDATE, Request)
+    rng = random.Random(seed)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    last, reqs = {}, []
+    for rid in range(n):
+        d = rid % n_pages if sequential else rng.randrange(n_pages)
+        u = rng.random()
+        v = rng.randrange(1 << 20)
+        if u < 0.1:
+            old = last.get(d, NIL) if rng.random() < 0.5 else \
+                rng.randrange(1 << 20)
+            reqs.append(Request(COND_UPDATE, d, v, old, rid, 1))
+        elif u < 0.775:
+            last[d] = v
+            reqs.append(Request(UPDATE, d, v, NIL, rid, 0))
+        else:
+            reqs.append(Request(LOOKUP, d, NIL, NIL, rid, 0))
+    return reqs
+
+
+def _fsm_push(unit, reqs):
+    if hasattr(unit, "push_requests"):
+        unit.push_requests(reqs)
+    else:
+        for r in reqs:
+            unit.push_request(r)
+
+
+def _fsm_answer(unit, reads):
+    if hasattr(unit, "push_flash_responses"):
+        unit.push_flash_responses(reads)
+    else:
+        for t, s, w in reads:
+            unit.push_flash_response(t, s, w)
+
+
+def fsm_drive(units, reqs, seed, compare_state=False, on_round=None):
+    """Drive every unit (engines, the oracle) with the same pushes in
+    lockstep rounds: up to FSM_OUTSTANDING requests in flight, one run
+    each a round, flash reads answered in one shuffled order. Each round
+    the step counts and drained streams must be equal (and, with
+    compare_state, every state tensor of the engines), and each kernel
+    run must be one fmmu_fsm launch. Returns per-unit run seconds (host
+    clock around run, which reads the step count once), steps, rounds."""
+    from collections import deque
+    from repro_torch.kernels import fmmu_fsm
+    rng = random.Random(seed)
+    pend, out, rounds = deque(reqs), 0, 0
+    run_s = [0.0] * len(units)
+    steps = 0
+    while True:
+        batch = [pend.popleft() for _ in range(min(len(pend),
+                                                   FSM_OUTSTANDING - out))]
+        out += len(batch)
+        for u in units:
+            _fsm_push(u, batch)
+        if on_round is not None:
+            on_round(rounds)
+        counts = []
+        for i, u in enumerate(units):
+            n0 = fmmu_fsm.LAUNCHES[0]
+            t0 = time.perf_counter()
+            counts.append(u.run(max_steps=FSM_MAX_STEPS))
+            run_s[i] += time.perf_counter() - t0
+            kernel = getattr(u, "kernel_impl", "ref") is None and \
+                u.device.type == "cuda"
+            if fmmu_fsm.LAUNCHES[0] - n0 != (1 if kernel else 0):
+                fail(f"fsm: {fmmu_fsm.LAUNCHES[0] - n0} fmmu_fsm launches "
+                     "for one run")
+        if len(set(counts)) != 1:
+            fail(f"fsm round {rounds}: step counts differ {counts}")
+        steps += counts[0]
+        drained = []
+        for u in units:
+            r, f, p = u.drain_outputs()
+            drained.append(([(x.req_id, x.kind, x.dppn, x.status)
+                             for x in r], [tuple(x) for x in f],
+                            [tuple(x) for x in p]))
+        if any(d != drained[0] for d in drained):
+            fail(f"fsm round {rounds}: output streams differ")
+        if compare_state:
+            engines = [u for u in units if hasattr(u, "state")]
+            for e in engines[1:]:
+                for name, x, y in zip(type(e.state)._fields,
+                                      engines[0].state, e.state):
+                    if not torch.equal(x, y.to(x.device)):
+                        fail(f"fsm round {rounds}: state {name} differs")
+        resps, fcs, _ = drained[0]
+        out -= len(resps)
+        rng.shuffle(fcs)
+        for u in units:
+            _fsm_answer(u, fcs)
+        rounds += 1
+        if not pend and not units[0].pending_work() and not fcs:
+            break
+    return run_s, steps, rounds
+
+
+def _fsm_timed_run(g, snapshot, impl, iters):
+    """(median ms, steps, end state) of one run call from ``snapshot``,
+    a fresh copy each time; CUDA events around the call."""
+    from repro_torch.core.fmmu import state as S
+    from repro_torch.kernels.fmmu_fsm import fmmu_fsm_run
+    times, n, st = [], 0, None
+    for _ in range(iters):
+        st = S.clone_state(snapshot)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        n = int(fmmu_fsm_run(g, st, FSM_MAX_STEPS, False, impl=impl))
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), n, st
+
+
+def fsm_phase():
+    """The paper's sequential FMMU packet engine at the paper geometry:
+    the kernel's run against the plain version on the card (bit for bit
+    on every state tensor after every run and after flush_all) and on the
+    CPU, then two long traces against the port's oracle copy (streams,
+    stats and resolve of every touched dlpn equal), then one run call
+    timed. Returns (the fsm line, the kernels row)."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.core.fmmu import state as S
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    from repro_torch.core.fmmu.oracle import FMMUOracle
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry()
+    line = {"geometry": "paper (FMMUGeometry()): CMT 512x4x8, CTP 16x4 "
+                        "pages of 4096, DTL 128, queues 1024, MSHRs 8/64, "
+                        "n_tvpns 256 (1,048,576 pages), tppn_cap 16384",
+            "outstanding": FSM_OUTSTANDING}
+
+    # 1. kernel vs the plain version on the card (and on the CPU)
+    parity = {}
+    for name, seq in (("miss_heavy", False), ("hit_heavy", True)):
+        reqs = fsm_requests(g, SEED + 1, FSM_PARITY_REQUESTS, seq)
+        kern = FMMUEngine(g)
+        ref = FMMUEngine(g, kernel_impl="ref")
+        cpu = FMMUEngine(g, device="cpu")
+        t0 = time.perf_counter()
+        run_s, steps, rounds = fsm_drive([kern, ref, cpu], reqs, SEED + 2,
+                                         compare_state=True)
+        for e in (kern, ref, cpu):
+            e.flush_all()
+        for name_f, x, y, z in zip(S.FMMUState._fields, kern.state,
+                                   ref.state, cpu.state):
+            if not (torch.equal(x, y) and torch.equal(x.cpu(), z)):
+                fail(f"fsm parity {name}: {name_f} differs after flush_all")
+        parity[name] = {
+            "requests": len(reqs), "rounds": rounds, "steps": steps,
+            "kernel_steps_per_s": steps / run_s[0],
+            "plain_card_steps_per_s": steps / run_s[1],
+            "plain_cpu_steps_per_s": steps / run_s[2],
+            "stats_after_flush_all": kern.stats(),
+            "s": time.perf_counter() - t0}
+        print(f"fsm parity {name}: {steps} steps, kernel == plain (card, "
+              f"cpu) after every run and flush_all", file=sys.stderr)
+        del kern, ref, cpu
+    line["parity"] = parity
+
+    # 2. the long traces against the oracle copy: the slice's main path
+    snap = {}
+    COUNTERS.reset()
+    traces = {}
+    for name, n, seq in FSM_TRACES:
+        reqs = fsm_requests(g, SEED + 3, n, seq)
+        kern, oracle = FMMUEngine(g), FMMUOracle(g)
+
+        def on_round(r, kern=kern, name=name):
+            if name == "miss_heavy" and r == FSM_SNAPSHOT_ROUND:
+                snap["state"] = S.clone_state(kern.state)
+
+        t0 = time.perf_counter()
+        run_s, steps, rounds = fsm_drive([kern, oracle], reqs, SEED + 4,
+                                         on_round=on_round)
+        if kern.stats() != oracle.stats:
+            fail(f"fsm {name}: stats differ {kern.stats()} {oracle.stats}")
+        touched = sorted({r.dlpn for r in reqs})
+        got = kern.resolve_many(touched).tolist()
+        if got != [oracle.resolve(d) for d in touched]:
+            fail(f"fsm {name}: resolve differs from the oracle's")
+        st = kern.stats()
+        traces[name] = {
+            "requests": n, "rounds": rounds, "steps": steps,
+            "kernel_run_s": run_s[0], "steps_per_s": steps / run_s[0],
+            "us_per_request": run_s[0] / n * 1e6,
+            "oracle_run_s": run_s[1],
+            "oracle_steps_per_s": steps / run_s[1],
+            "touched_dlpns": len(touched), "tppn_next":
+                int(kern.state.tppn_next), "stats": st,
+            "s": time.perf_counter() - t0}
+        print(f"fsm {name}: {n} requests, {steps} steps, "
+              f"{steps / run_s[0]:.0f} steps/s (oracle "
+              f"{steps / run_s[1]:.0f}), streams, stats and resolve equal",
+              file=sys.stderr)
+        del kern, oracle
+    launches = COUNTERS.launches().get("fmmu_fsm", 0)
+    if launches <= 0:
+        fail("fmmu_fsm was not launched on the long traces")
+    line["traces"] = traces
+    line["launches"] = launches
+
+    # 3. one run call timed: the miss-heavy state of one round
+    base = snap["state"]
+    ms, steps, end = _fsm_timed_run(g, base, None, 5)
+    plain_ms, plain_steps, plain_end = _fsm_timed_run(g, base, "ref", 1)
+    if plain_steps != steps or any(not torch.equal(x, y) for x, y in
+                                   zip(end, plain_end)):
+        fail("fsm timed run: kernel and plain version differ")
+    d_stats = (end.stats - base.stats).tolist()
+    fills = int(base.qtail[S.Q_FC_RESP] - base.qhead[S.Q_FC_RESP]) - \
+        int(end.qtail[S.Q_FC_RESP] - end.qhead[S.Q_FC_RESP])
+    page = 4 * g.entries_per_tp
+    # the least a run moves: each step pops one packet and writes at
+    # most one, each program reads a CTP page and writes a flash page,
+    # each flash response's fill reads a flash page and writes a CTP page
+    n_bytes = steps * 2 * 4 * g.pkt_width + \
+        (d_stats[S.STAT_NAMES.index("programs")] + fills) * 2 * page
+    b_ms, b_by = bound_ms(n_bytes, 0, "int32")
+    line["timed_run"] = {"steps": steps, "ms": ms, "plain_ms": plain_ms,
+                         "ns_per_step": ms * 1e6 / steps,
+                         "plain_ns_per_step": plain_ms * 1e6 / steps,
+                         "bytes": n_bytes, "fills": fills,
+                         "stats_delta": dict(zip(S.STAT_NAMES, d_stats))}
+    row = {
+        "name": "fmmu_fsm", "route": "cuda",
+        "source": "src/repro_torch/csrc/fmmu_fsm.cu",
+        "replaces": "src/repro/core/fmmu/engine.py:671",
+        "replaces_what": "the reference's run, a lax.while_loop over "
+                         "step (not a pallas_call)",
+        "launches": launches, "launches_path": "fsm phase, long traces",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"paper geometry, one run call of {steps} steps from "
+                 f"round {FSM_SNAPSHOT_ROUND} of the miss-heavy trace "
+                 f"({fills} flash fills queued)",
+    }
+    return line, row
+
+
 MODELS = {
     # the 1020-token prompt reaches 1024 tokens (65 pages) at step 4 of
     # its first K-step run, so the macro-vs-single-step check spans a
@@ -3354,6 +3686,10 @@ def main() -> int:
         check_fmmu_translate(timer, rng), check_fmmu_commit(timer, rng),
         check_paged_attention(timer, rng), check_flash_attention(timer),
         check_fmmu_lookup(timer, rng), check_mamba_chunk_scan(timer))}
+    # head_dim 256 in both attention kernels
+    flash_d256, paged_d256 = check_attention_d256(timer, rng)
+    rows["flash_attention"].update(flash_d256)
+    rows["paged_attention"].update(paged_d256)
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
     # the channel grid: one launch of C blocks, C in {2, 8, 32}
@@ -3463,6 +3799,12 @@ def main() -> int:
         launches_path="none: the probe runs inside fmmu_commit")
     print(f"map: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
+    # 4b. the sequential packet engine (fmmu_fsm): its launches are the
+    # long traces'
+    t0 = time.perf_counter()
+    fsm_line, rows["fmmu_fsm"] = fsm_phase()
+    print(f"fsm: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
     # 5. mamba2-1.3b serving, single-step then macro (mamba_chunk_scan at
     # prefill, fmmu_commit)
     mamba = model_phases("mamba2-1.3b")
@@ -3501,7 +3843,10 @@ def main() -> int:
                         "bound_by")) + \
         ("launches_serve_channels", "launches_serve_faults",
          "launches_serve_recover", "launches_serve_gc",
-         "launches_serve_prefix")
+         "launches_serve_prefix", "shape_d256", "replaces_what") + tuple(
+             f"{k}_d256{t}" for t in ("", "_bf16", "_f32")
+             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms"))
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
@@ -3513,6 +3858,7 @@ def main() -> int:
     print(json.dumps({"serve_gc": serve_gc}))
     print(json.dumps({"serve_prefix": serve_prefix}))
     print(json.dumps({"map": map_line}))
+    print(json.dumps({"fsm": fsm_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Load the reference's parameters into the port.
+"""Load the reference's parameters and states into the port.
 
 ``params_from_jax`` takes the pytree of ``repro.models.Model.init``
 already converted to numpy (``jax.tree.map(np.asarray, params)``) and
@@ -7,6 +7,10 @@ they are: ``wq`` [d,H,hd], ``wo`` [H,hd,d], a Mamba2 mixer's
 projections, conv and its float32 ``A_log``/``D``/``dt_bias``, stack
 leaves [n_periods, ...] per intra-period index j. This module needs
 numpy only; the caller owns the JAX side.
+
+``fsm_state_from_jax`` and ``fsm_state_to_numpy`` carry the sequential
+packet engine's state across the packages field by field, so both
+engines can start from one mid-trace state.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.fmmu.state import FMMUState
 from repro_torch.device import resolve_device
 
 
@@ -49,3 +54,23 @@ def params_from_jax(params_np: Any, cfg: ArchConfig,
         raise ValueError(f"stack layout does not match {cfg.name}: "
                          f"expected {cfg.period} x [{n_p}, ...]")
     return params
+
+
+def fsm_state_from_jax(st, device: Union[str, torch.device] = "cuda"
+                       ) -> FMMUState:
+    """A reference ``FMMUState`` (its 43 leaves as JAX or numpy arrays,
+    in the reference's field order) -> the port's, int32 on ``device``."""
+    fields = getattr(st, "_fields", FMMUState._fields)
+    if tuple(fields) != FMMUState._fields:
+        raise ValueError(f"FMMUState fields differ: {fields}")
+    dev = resolve_device(device)
+    return FMMUState(*(torch.from_numpy(
+        np.array(a, dtype=np.int32, copy=True)).to(dev) for a in st))
+
+
+def fsm_state_to_numpy(st: FMMUState):
+    """The port's state -> a tuple of int32 numpy arrays in the
+    reference's field order (``repro...state.FMMUState(*map(jnp.asarray,
+    ...))`` rebuilds the reference's state)."""
+    return tuple(t.detach().cpu().numpy().astype(np.int32, copy=True)
+                 for t in st)

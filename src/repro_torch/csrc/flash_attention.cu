@@ -30,7 +30,9 @@
 //   nqt + 1 KV tiles and no block is left running alone at the end.
 // - f32: `flash_attention_f32_kernel`, on the CUDA cores: TF32 tensor
 //   cores would not meet the f32 tolerance (1e-4). One thread per query
-//   row, K/V staged as f32, the softmax rescaled when a row's max grows.
+//   row (four at D = 256, where a row's q and accumulator, 512 floats,
+//   would spill from registers), K/V staged as f32, the softmax rescaled
+//   when a row's max grows.
 // Both: KV tiles wholly past the causal frontier or below the window
 // are never loaded (the Pallas kernel's skipped grid steps), positions
 // >= Skv are masked (prompts need no padding), and a row with no valid
@@ -44,33 +46,48 @@
 // K/V tiles.
 #include "common.cuh"
 
-// ---- the float32 body: CUDA cores, one thread per query row ----------
-constexpr int kBQ = 64;  // query rows per block, one per thread
+// ---- the float32 body: CUDA cores, TPR threads per query row ----------
+constexpr int kBQ = 64;  // query rows per block
+
+// threads per query row: one, or four at D = 256. A row's threads hold
+// every TPR-th element of its q and accumulator (so their shared-memory
+// reads of one K/V row fall in distinct banks) and sum the dot products
+// by shuffles within the row's group of lanes
+template <int D>
+__host__ __device__ constexpr int f32_tpr() { return D >= 256 ? 4 : 1; }
 
 template <typename T, int D>
-__global__ void flash_attention_f32_kernel(
+__global__ void __launch_bounds__(kBQ * f32_tpr<D>())
+    flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
     int KV, float scale, float softcap, int window, int causal,
     int q_offset) {
-  constexpr int BK = D <= 64 ? 64 : 32;
+  constexpr int TPR = f32_tpr<D>();
+  constexpr int DP = D / TPR;       // elements of a row a thread holds
+  constexpr int NT = kBQ * TPR;     // threads
+  // 2 x BK x D floats of static shared memory, under the 48 KB cap
+  constexpr int BK = D <= 64 ? 64 : D <= 128 ? 32 : 16;
   __shared__ float ks[BK][D];
   __shared__ float vs[BK][D];
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int r0 = blockIdx.x * kBQ;
-  const int row = r0 + threadIdx.x;
+  const int row = r0 + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;   // holds elements part + TPR * i
+  const unsigned group = ((1u << TPR) - 1u)
+                         << ((threadIdx.x & 31) & ~(TPR - 1));
   const bool live_row = row < Sq;
   const int qpos = q_offset + row;
 
-  float qr[D], acc[D];
+  float qr[DP], acc[DP];
   if (live_row) {
     const T* qp = q + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f32(qp[d]) * scale;
+    for (int i = 0; i < DP; ++i) qr[i] = to_f32(qp[part + TPR * i]) * scale;
   }
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int i = 0; i < DP; ++i) acc[i] = 0.f;
   float m = REPRO_NEG_INF, l = 0.f;
 
   // KV tiles this q tile can see
@@ -87,7 +104,7 @@ __global__ void flash_attention_f32_kernel(
     const int k0 = kt * BK;
     const int nk = min(BK, Skv - k0);
     __syncthreads();  // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < nk * D; idx += kBQ) {
+    for (int idx = threadIdx.x; idx < nk * D; idx += NT) {
       const int t = idx / D, d = idx - t * D;
       const size_t off = (((size_t)b * Skv + k0 + t) * KV + kvh) * D + d;
       ks[t][d] = to_f32(k[off]);
@@ -100,26 +117,29 @@ __global__ void flash_attention_f32_kernel(
     for (int t = t_lo; t <= t_hi; ++t) {
       float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) s += qr[d] * ks[t][d];
+      for (int i = 0; i < DP; ++i) s += qr[i] * ks[t][part + TPR * i];
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) s += __shfl_xor_sync(group, s, o);
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       if (s > m) {
         const float a = expf(m - s);
         l *= a;
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] *= a;
+        for (int i = 0; i < DP; ++i) acc[i] *= a;
         m = s;
       }
       const float p = expf(s - m);
       l += p;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += p * vs[t][d];
+      for (int i = 0; i < DP; ++i) acc[i] += p * vs[t][part + TPR * i];
     }
   }
   if (live_row) {
     T* op = out + (((size_t)b * Sq + row) * H + h) * D;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
+    for (int i = 0; i < DP; ++i)
+      op[part + TPR * i] = from_f32<T>(acc[i] * inv);
   }
 }
 
@@ -164,6 +184,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   constexpr int NKS = D / 16;   // k-steps of Q K^T
   constexpr int NDT = D / 8;    // 8-wide column tiles of the output
   constexpr float kLog2e = 1.4426950408889634f;
+  // the Q fragments stay in registers up to D = 128; at D = 256 the
+  // 16x256 f32 output tile alone takes 128 registers a thread, so they
+  // are read from shared memory (Q stays there for the tile) each k-step
+  constexpr bool kQInRegs = D <= 128;
   static_assert(NDT % 2 == 0, "pairs of 8-wide output tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
@@ -202,7 +226,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     for (int dt = 0; dt < NDT; ++dt)
       o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
     float mrow[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, lrow[2] = {0.f, 0.f};
-    uint32_t qf[NKS][4];
+    uint32_t qf[kQInRegs ? NKS : 1][4];
 
     if (kt_lo <= kt_hi) {
       tc_load_rows<BQ, D>(qs, qb, r0, Sq, (size_t)H * D, tid);
@@ -223,11 +247,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
         cp_async_wait<0>();
       }
       __syncthreads();
-      if (kt == kt_lo) {
+      if (kQInRegs && kt == kt_lo) {
 #pragma unroll
         for (int s = 0; s < NKS; ++s)
-          ldsm_x4(qf[s], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                  * LD + s * 16 + (lane >> 4) * 8);
+          ldsm_x4(qf[kQInRegs ? s : 0],
+                  qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                      s * 16 + (lane >> 4) * 8);
       }
       const T* kts = ks + st * BK * LD;
       const T* vts = vs + st * BK * LD;
@@ -239,13 +264,18 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
         sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
       for (int s = 0; s < NKS; ++s) {
+        if constexpr (!kQInRegs)
+          ldsm_x4(qf[0], qs + (warp * 16 + (lane & 7) +
+                               ((lane >> 3) & 1) * 8) * LD +
+                             s * 16 + (lane >> 4) * 8);
+        const uint32_t* qa = qf[kQInRegs ? s : 0];
 #pragma unroll
         for (int np = 0; np < NNT / 2; ++np) {
           uint32_t bb[4];
           ldsm_x4(bb, kts + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                           s * 16 + ((lane >> 3) & 1) * 8);
-          Mma<T>::run(sc[2 * np], qf[s], bb[0], bb[1]);
-          Mma<T>::run(sc[2 * np + 1], qf[s], bb[2], bb[3]);
+          Mma<T>::run(sc[2 * np], qa, bb[0], bb[1]);
+          Mma<T>::run(sc[2 * np + 1], qa, bb[2], bb[3]);
         }
       }
 
@@ -343,7 +373,8 @@ static int launch_d(const void* q, const void* k, const void* v, void* out,
                     float softcap, int window, int causal,
                     cudaStream_t stream) {
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_f32_kernel<T, D><<<grid, kBQ, 0, stream>>>(
+  constexpr int threads = kBQ * f32_tpr<D>();
+  flash_attention_f32_kernel<T, D><<<grid, threads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, H, KV, scale,
       softcap, window, causal, Skv - Sq);
   return (int)cudaGetLastError();
@@ -399,6 +430,9 @@ static int launch(const void* q, const void* k, const void* v, void* out,
                                     softcap, window, causal, stream);
     case 128:
       return launch_body<T, TC, 128>(q, k, v, out, B, Sq, Skv, H, KV, scale,
+                                     softcap, window, causal, stream);
+    case 256:
+      return launch_body<T, TC, 256>(q, k, v, out, B, Sq, Skv, H, KV, scale,
                                      softcap, window, causal, stream);
   }
   return (int)cudaErrorInvalidValue;

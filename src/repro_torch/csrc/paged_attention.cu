@@ -92,10 +92,14 @@ __host__ __device__ constexpr int tile_rows() {
 
 // resident blocks per SM asked of the register allocator: 4 (128
 // registers each) where the state fits without spilling, fewer for the
-// wider states
+// wider states. At D = 256 shared memory holds the count down anyway
+// (two 32-row stages of K and V: 64 KB in bf16 / f16, 128 KB in f32,
+// plus the GC x D merge area), so the registers get 2 blocks (1 in f32)
 template <typename T, int D, int GC>
 __host__ __device__ constexpr int min_blocks() {
-  return GC >= 8 ? 2 : (D >= 128 || sizeof(T) == 4) ? 3 : 4;
+  return D >= 256 ? (sizeof(T) == 4 ? 1 : 2)
+         : GC >= 8 ? 2
+         : (D >= 128 || sizeof(T) == 4) ? 3 : 4;
 }
 
 template <typename T, int D, int GC>
@@ -428,6 +432,10 @@ int launch_t(int D, int gc, const void* q, const void* k_pool,
                              n_split, pps, scale, softcap, window, s);
     case 128:
       return launch_d<T, 128>(gc, q, k_pool, v_pool, table, ctx_lens, out,
+                              m_out, l_out, part, counters, B, H, KV, P, maxp,
+                              n_split, pps, scale, softcap, window, s);
+    case 256:
+      return launch_d<T, 256>(gc, q, k_pool, v_pool, table, ctx_lens, out,
                               m_out, l_out, part, counters, B, H, KV, P, maxp,
                               n_split, pps, scale, softcap, window, s);
   }

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("fmmu_translate", "fmmu_commit", "fmmu_lookup",
-           "paged_attention", "flash_attention", "mamba_scan")
+           "paged_attention", "flash_attention", "mamba_scan", "fmmu_fsm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -20,7 +20,7 @@ from repro_torch.kernels.ref import attention_naive
 
 LAUNCHES = COUNTERS.cell("kernel.flash_attention")
 flash_attention_ref = attention_naive
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]

@@ -42,7 +42,7 @@ from repro_torch.kernels.ref import paged_attention_naive
 
 LAUNCHES = COUNTERS.cell("kernel.paged_attention")
 paged_attention_ref = paged_attention_naive
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 BLOCKS_PER_SM = 4          # split target: ~4 resident blocks on every SM
 MIN_SPLIT_TOKENS = 64      # one K/V tile: a split shorter is all overhead
 PLAN_TOKENS = 1024         # the context length the split length is set for

@@ -36,61 +36,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def _device_events(fn, tries):
-    """The device events (FunctionEvents) of one ``fn()`` under
-    torch.profiler. In some states of a process the profiler drops one
-    kernel record of a profile (a one-kernel profile then records
-    nothing; PERF.md §7), so ``fn()`` runs between two spin kernels
-    that are left out of the result. A profile that still records
-    nothing is taken again after a pause that doubles (10 ms first),
-    ``tries`` times in all. [] if every profile came back empty."""
-    import time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for k in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(2000)
-            fn()
-            torch.cuda._sleep(2000)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and "spin_kernel" not in e.name]
-        if events:
-            return events
-        _TRACE_LOG.append((k, len(prof.events())))
-        time.sleep(0.01 * 2 ** k)
-    return []
-
-
-_TRACE_LOG = []    # (attempt, events of any kind) of each empty profile
-
-
-@pytest.fixture(scope="module", autouse=True)
-def cupti_warm():
-    """Profile once before any test of this file runs device work, and
-    fail early, with what the profiles recorded, if the profiler
-    records nothing on this card."""
-    if torch.cuda.is_available():
-        x = torch.zeros(1, device="cuda")
-        assert _device_events(lambda: x.add_(1), tries=10), \
-            f"CUPTI records nothing: {_TRACE_LOG}"
-    yield
-
-
-@pytest.fixture
-def device_trace(cuda):
-    """``trace(fn)``: the device events of one ``fn()`` under
-    torch.profiler, between spin kernels that are left out; a profile
-    that records no device event is retaken (it says nothing about the
-    kernels): up to 8 profiles, ~2.5 s."""
-    return lambda fn: _device_events(fn, tries=8)
+def _graph_kernels(fn):
+    """(graph, its kernel nodes' demangled function names) of one
+    ``fn()`` captured into a kept CUDA graph after an eager warm-up:
+    what one replay launches, read through libcuda, independent of any
+    profiler (``macro.capture`` takes the capture's counts back out)."""
+    from repro_torch.kernels._graph import kernel_names
+    from repro_torch.serving.macro import capture
+    fn()
+    graph, _ = capture(fn)
+    return graph, kernel_names(graph)
 
 
 @pytest.mark.parametrize("sq,skv,h,kv,d", [
     (128, 128, 4, 4, 32), (128, 128, 4, 2, 64), (64, 192, 2, 1, 32),
-    (256, 256, 2, 2, 128), (100, 100, 4, 2, 16)])
+    (256, 256, 2, 2, 128), (100, 100, 4, 2, 16), (130, 130, 4, 2, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(cuda, sq, skv, h, kv, d, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -109,7 +69,7 @@ def test_flash_attention_kernel(cuda, sq, skv, h, kv, d, dtype):
 
 @pytest.mark.parametrize("b,h,kv,d,page,maxp", [
     (2, 4, 4, 32, 16, 8), (3, 8, 2, 64, 8, 6), (1, 4, 1, 128, 32, 4),
-    (2, 8, 2, 16, 256, 2)])
+    (2, 8, 2, 16, 256, 2), (3, 8, 2, 256, 16, 20), (2, 16, 2, 256, 16, 6)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel(cuda, b, h, kv, d, page, maxp, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -193,23 +153,29 @@ def test_paged_attention_repeats_bit_identical_counters_zero(cuda):
     assert int(pa._COUNTER_BUFS[args[0].device].abs().sum()) == 0
 
 
-def test_paged_attention_one_launch_per_call(cuda, device_trace):
-    """One kernel on the device per call, split combine included."""
+def test_paged_attention_one_launch_per_call(cuda):
+    """One kernel on the device per call, split combine included: the
+    call's CUDA graph holds one node, and its replay gives the eager
+    call's output."""
     args = _paged_inputs(cuda, 8, 32, 8, 64, 16, 64, torch.bfloat16)
     ctx = torch.full((8,), 1024, dtype=torch.int32, device=cuda)
     paged_attention(*args, ctx)                # counters allocated once
     torch.cuda.synchronize()
     n0 = COUNTERS.launches()["paged_attention"]
-    paged_attention(*args, ctx)
+    want = paged_attention(*args, ctx)
     assert COUNTERS.launches()["paged_attention"] - n0 == 1
-    kernels = [e.name for e in device_trace(
-        lambda: paged_attention(*args, ctx))]
+    got = []
+    graph, kernels = _graph_kernels(lambda: got.append(
+        paged_attention(*args, ctx)))
     assert len(kernels) == 1 and "paged_attention" in kernels[0], kernels
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[-1], want)
 
 
 @pytest.mark.parametrize("sq,skv", [(100, 100), (37, 200), (130, 130),
                                     (64, 64)])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_attention_tensor_core_body(cuda, sq, skv, d, dtype):
     """The bf16/f16 body: Sq < Skv (right-aligned causal), S not a
@@ -367,13 +333,14 @@ def test_mamba_chunk_scan_repeats_bit_identical(cuda, dtype):
 @pytest.mark.parametrize("dtype,body", [
     (torch.float32, "mamba_scan_kernel"),
     (torch.bfloat16, "mamba_scan_tc_kernel")])
-def test_mamba_chunk_scan_routes_by_dtype(cuda, dtype, body, device_trace):
+def test_mamba_chunk_scan_routes_by_dtype(cuda, dtype, body):
     """f32 goes through the CUDA-core recurrence, bf16 through the
-    tensor-core body: one device kernel per call, named for its body."""
+    tensor-core body: one device kernel per call, named for its body
+    (the call's CUDA graph, read through libcuda)."""
     args, s0 = _scan_model_inputs(cuda, 1, 200, 4, 64, 128, dtype, True)
     _scan_held(args, s0, dtype)
-    names = [e.name for e in device_trace(
-        lambda: mamba_chunk_scan(*args, chunk=256, initial_state=s0))]
+    _, names = _graph_kernels(
+        lambda: mamba_chunk_scan(*args, chunk=256, initial_state=s0))
     kernels = [n for n in names if "mamba" in n]
     assert len(kernels) == 1 and f"{body}<" in kernels[0], names
 
@@ -543,11 +510,11 @@ def test_fmmu_commit_repeats_bit_identical(cuda, geom, bq, mode):
             assert torch.equal(x, y), (it, i)
 
 
-def test_masked_serving_grow_commit_leaves_state_bit_identical(
-        cuda, device_trace):
+def test_masked_serving_grow_commit_leaves_state_bit_identical(cuda):
     """What the K-step graph runs on a step without a page boundary: a
     grow commit with every lane masked changes no tensor of the state,
-    and it is one launch on the device."""
+    and it is one launch on the device (the call's CUDA graph holds one
+    node, read through libcuda; its replay changes no tensor either)."""
     from repro_torch.core.fmmu.types import FMMUGeometry
     from repro_torch.kernels import fmmu_commit as fc
     g = FMMUGeometry(**GEOMETRIES["serving"])
@@ -560,9 +527,10 @@ def test_masked_serving_grow_commit_leaves_state_bit_identical(
     n0 = fc.LAUNCHES[0]
     blocks, ok = fb.serving_grow_(g, ms, grow, dl)
     assert fc.LAUNCHES[0] - n0 == 1
-    kernels = [e.name for e in device_trace(
-        lambda: fb.serving_grow_(g, ms, grow, dl))]
+    graph, kernels = _graph_kernels(lambda: fb.serving_grow_(g, ms, grow, dl))
     assert len(kernels) == 1 and "fmmu_commit" in kernels[0], kernels
+    graph.replay()
+    torch.cuda.synchronize()
     assert not ok.any() and (blocks == -1).all()
     for x, y in zip(fb.state_tensors(ms), fb.state_tensors(before)):
         assert x.dtype == y.dtype and torch.equal(x, y)
@@ -1472,3 +1440,144 @@ def test_gc_and_prefix_engine_replays_match_eager_program(cuda, channels):
     want, _ = _serve(_macro_engine(cuda, channels=channels, **PLANE_SHAPE),
                      PLANE_REQS)
     assert got == want
+
+
+# ---------------------------------------------------- the FMMU packet engine
+def _fsm_requests(g, seed, n, sequential=False):
+    """A trace of the smoke's mix: 3:1 UPDATE to LOOKUP, a tenth
+    COND_UPDATE from the GCM queue (half of them with the last value
+    written as the old one), over uniform or sequential dlpns."""
+    import random
+    from repro_torch.core.fmmu.types import (COND_UPDATE, LOOKUP, NIL,
+                                             UPDATE, Request)
+    rng = random.Random(seed)
+    n_pages = g.n_tvpns * g.entries_per_tp
+    last, reqs = {}, []
+    for rid in range(n):
+        d = rid % n_pages if sequential else rng.randrange(n_pages)
+        u = rng.random()
+        v = rng.randrange(1 << 20)
+        if u < 0.1:
+            old = last.get(d, NIL) if rng.random() < 0.5 else \
+                rng.randrange(1 << 20)
+            reqs.append(Request(COND_UPDATE, d, v, old, rid, 1))
+        elif u < 0.775:
+            last[d] = v
+            reqs.append(Request(UPDATE, d, v, NIL, rid, 0))
+        else:
+            reqs.append(Request(LOOKUP, d, NIL, NIL, rid, 0))
+    return reqs
+
+
+def _fsm_lockstep(engines, g, reqs, seed, outstanding):
+    """Drive every engine with the same pushes (up to ``outstanding``
+    requests in flight, flash reads answered in shuffled order), one
+    ``run`` a round, until quiescent; after every run the step counts
+    and every state tensor must be equal, and each kernel run must be
+    one fmmu_fsm launch. Ends with flush_all, compared the same way."""
+    import random
+    from collections import deque
+    from repro_torch.kernels import fmmu_fsm
+    rng = random.Random(seed)
+    pend, out = deque(reqs), 0
+
+    def equal(tag):
+        base = engines[0].state
+        for e in engines[1:]:
+            for name, x, y in zip(type(base)._fields, base, e.state):
+                assert torch.equal(x, y), (tag, name)
+
+    rounds = 0
+    while True:
+        while pend and out < outstanding:
+            r = pend.popleft()
+            for e in engines:
+                e.push_request(r)
+            out += 1
+        steps = []
+        for e in engines:
+            n0 = fmmu_fsm.LAUNCHES[0]
+            steps.append(e.run())
+            assert fmmu_fsm.LAUNCHES[0] - n0 == \
+                (0 if e.kernel_impl == "ref" else 1)
+        assert len(set(steps)) == 1, steps
+        equal(f"round {rounds}")
+        drained = [e.drain_outputs() for e in engines]
+        assert all(d == drained[0] for d in drained)
+        resps, fcs, _ = drained[0]
+        out -= len(resps)
+        fcs = list(fcs)
+        rng.shuffle(fcs)
+        for e in engines:
+            for t, s, w in fcs:
+                e.push_flash_response(t, s, w)
+        rounds += 1
+        if not pend and not engines[0].pending_work() and not fcs:
+            break
+    for e in engines:
+        e.flush_all()
+    equal("flush_all")
+    return rounds
+
+
+FSM_GEOMETRIES = {
+    "small": dict(cmt_sets=4, cmt_ways=2, cmt_entries=4, ctp_sets=2,
+                  ctp_ways=2, entries_per_tp=16, n_tvpns=8, dtl_entries=4,
+                  queue_cap=2048, mshr_cap=4, ctp_mshr_cap=4, tppn_cap=4096),
+    "small_tppn_overflow": dict(cmt_sets=4, cmt_ways=2, cmt_entries=4,
+                                ctp_sets=2, ctp_ways=2, entries_per_tp=16,
+                                n_tvpns=8, dtl_entries=4, queue_cap=2048,
+                                mshr_cap=2, ctp_mshr_cap=2, tppn_cap=8),
+    "paper": {},
+}
+
+
+@pytest.mark.parametrize("geom,n,outstanding", [
+    ("small", 600, 64), ("small_tppn_overflow", 300, 16),
+    ("paper", 150, 150)])
+def test_fmmu_fsm_kernel_equals_plain_on_the_card(cuda, geom, n,
+                                                  outstanding):
+    """The kernel's run (one launch a call) against the plain step loop
+    on the card, bit for bit on all 43 state tensors after every run
+    and after flush_all; at the small geometry, and past tppn_cap
+    (dropped programs, clamped reads) and at the paper geometry."""
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry(**FSM_GEOMETRIES[geom])
+    kern = FMMUEngine(g, device=cuda)
+    ref = FMMUEngine(g, device=cuda, kernel_impl="ref")
+    _fsm_lockstep([kern, ref], g, _fsm_requests(g, 1, n), 2, outstanding)
+    if geom == "small_tppn_overflow":
+        assert int(kern.state.tppn_next) > g.tppn_cap
+        assert int(kern.state.gtd.max()) >= g.tppn_cap
+
+
+def test_fmmu_fsm_run_and_flush_all_never_step_in_torch(cuda, monkeypatch):
+    """On a CUDA state, run and flush_all go through the kernel alone
+    (every plain entry raises if called); a run's launch does not sync
+    the host (the caller reads the step count once)."""
+    from repro_torch.core.fmmu import engine as E
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_fsm
+    g = FMMUGeometry(**FSM_GEOMETRIES["small"])
+    eng = E.FMMUEngine(g, device=cuda)
+    for r in _fsm_requests(g, 3, 200):
+        eng.push_request(r)
+    eng.run()                                    # built and loaded once
+
+    def boom(*a, **k):
+        raise AssertionError("plain torch step on a CUDA state")
+    for name in ("step", "run", "force_flush_one", "force_wb"):
+        monkeypatch.setattr(E, name, boom)
+    torch.cuda.synchronize()
+    n0 = fmmu_fsm.LAUNCHES[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps = fmmu_fsm.fmmu_fsm_run(g, eng.state, 100_000, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fmmu_fsm.LAUNCHES[0] - n0 == 1 and int(steps) > 0
+    eng.flush_all()
+    assert fmmu_fsm.LAUNCHES[0] - n0 > 1
+    assert int(eng.state.cmt_dirty) == 0 and int(eng.state.ctp_dirty) == 0
+    assert not eng.pending_work()

@@ -133,10 +133,30 @@ def chaos_schedule(seed: int, channels: int) -> dict:
 def shared_jax_programs():
     """JAX page managers and engines of one configuration share their
     compiled programs (see ``test_torch_swap.py``), so the cases trace
-    each shape once."""
+    each shape once. A manager's own jits (the sharded commit, the
+    retranslation, the allocator push, the swap / retirement / GC / COW
+    closures) are functions of its geometry, channels, mesh and slot
+    grid alone, so managers with the same ones share them too."""
     mp = pytest.MonkeyPatch()
     mp.setattr(JB, "make_jitted",
                functools.lru_cache(maxsize=None)(JB.make_jitted))
+    kvm_shared = {}
+    kvm_init = JKVM.__init__
+
+    def shared_kvm_init(self, *args, **kwargs):
+        kvm_init(self, *args, **kwargs)
+        key = (self.geom, self.channels, self.mesh is None, self.n_slots,
+               self.max_pages)
+        programs = kvm_shared.setdefault(key, {})
+        for name in ("_serve_sharded", "_retrans_fn", "_set_alloc",
+                     "_swap_jits"):
+            if not hasattr(self, name):
+                continue
+            if name in programs:
+                setattr(self, name, programs[name])
+            else:
+                programs[name] = getattr(self, name)
+    mp.setattr(JKVM, "__init__", shared_kvm_init)
     shared = {}
     init = JServeEngine.__init__
 

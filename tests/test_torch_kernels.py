@@ -58,6 +58,7 @@ def _np(x):
     (128, 128, 4, 2, 64),     # GQA
     (64, 192, 2, 1, 32),      # cross-length (right-aligned causal)
     (256, 256, 2, 2, 128),
+    (128, 128, 2, 1, 256),    # head_dim 256 (gemma2-9b)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_ref_vs_pallas(sq, skv, h, kv, d, dtype):
@@ -128,6 +129,7 @@ def _paged_inputs(rng, b, h, kv, d, page, maxp, dtype, ctx=None):
     (2, 4, 4, 32, 16, 8),
     (3, 8, 2, 64, 8, 6),      # GQA
     (1, 4, 1, 128, 32, 4),
+    (2, 4, 2, 256, 16, 4),    # head_dim 256 (gemma2-9b)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_ref_vs_pallas(b, h, kv, d, page, maxp, dtype):
@@ -456,6 +458,12 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "assert 'repro_torch.kernels.fmmu_commit' in mods\n"
+        "for m in ('repro_torch.core.fmmu.oracle',\n"
+        "          'repro_torch.core.fmmu.state',\n"
+        "          'repro_torch.core.fmmu.engine',\n"
+        "          'repro_torch.kernels.fmmu_fsm',\n"
+        "          'repro_torch.kernels._graph'):\n"
+        "    assert m in mods, m\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
