@@ -46,7 +46,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                window 4096, softcap 50, bf16 (2e-2) and f32 (1e-4);
                paged at B=8 H=16 KV=8 P=16 ctx 1024, bf16 (2e-2, its
                (m, l) within 1e-3, repeats bit-identical); each timed
-               beside SDPA at the same shape. Times the kernel,
+               beside SDPA at the same shape. The served models'
+               attention shapes (check_attention_served): head_dim 128
+               at G = 2, 6 (dbrx), 7 (arctic), 8 (qwen2) and 16 (glm4),
+               paged at B=8 P=16 ctx 1024 (within 2e-2, (m, l) 1e-3,
+               repeats bit-identical) and flash at B=1 S=1000 causal;
+               head_dim 256 with gemma2's window active (ctx / S 6144,
+               window 4096, softcap 50), paged at B=8 and flash at
+               B=1; each bf16, timed beside SDPA. Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -204,6 +211,15 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                greedy tokens with the kernels as with kernel_impl="ref".
   5b. serve (SSM, macro) — as 3b for mamba2-1.3b (fmmu_commit
                replayed, mamba_chunk_scan at prefill).
+  6. serve (other families) — as 3 and 3b, at published widths, for
+               gemma2-9b (42 layers) and glm4-9b (40), and with depth
+               cut to fit 80 GB for qwen2-72b (16 of 80 layers),
+               dbrx-132b (4 of 40) and arctic-480b (2 of 35; its f32
+               parity engine 1 layer): fmmu_commit, paged and flash
+               attention launched on each, f32 kernel-vs-ref tokens
+               equal, macro tokens equal the single-step tokens. MoE
+               lines also read the dispatch's share of a steady macro
+               step (moe_dispatch_reading).
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
 (fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces;
@@ -226,13 +242,17 @@ pass and the prefix phase's counted sharing passes), one {"serve":
 {"serve_channels": {...}}, one {"serve_faults": {...}}, one
 {"serve_recover": {...}}, one {"serve_gc": {...}}, one
 {"serve_prefix": {...}}, one {"map": {...}}, one {"fsm": {...}},
-one {"serve_ssm": {...}}
-and one {"serve_ssm_macro": {...}}; the last line is
+one {"serve_ssm": {...}},
+one {"serve_ssm_macro": {...}}, and a {"serve_<model>": {...}} and a
+{"serve_macro_<model>": {...}} for each model of phase 6 (gemma2_9b,
+glm4_9b, qwen2_72b, dbrx_132b, arctic_480b; their launches also in the
+kernel rows as launches_<model>); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1458,6 +1478,125 @@ def check_attention_d256(timer, rng):
     return flash, paged
 
 
+# the served models' attention shapes: (tag, H, KV) at head_dim 128
+GQA_SHAPES = (("d128_g2", 16, 8), ("d128_g6", 48, 8), ("d128_g7", 56, 8),
+              ("d128_g8", 64, 8), ("d128_g16", 32, 2))
+WINDOW_CTX, WINDOW, WINDOW_SOFTCAP = 6144, 4096, 50.0   # gemma2's local layers
+SERVED_TAGS = tuple(t for t, _, _ in GQA_SHAPES) + ("d256_window",)
+
+
+def _paged_row(timer, rng, tag, b, h, kv, d, ctx, page=16, window=0,
+               softcap=0.0):
+    """Paged attention at one shape, bf16, every lane at ``ctx``: held
+    against the plain version (out within 2e-2, (m, l) within 1e-3, two
+    repeats bit-identical), timed beside SDPA over the pre-gathered live
+    pages (the window's, no softcap) and its bound (the bytes and
+    products of the live keys). Returns the row's keys for ``tag``."""
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    maxp = -(-ctx // page)
+    nb = b * maxp + 1
+    q = torch.randn((b, h, d), device="cuda").to(torch.bfloat16)
+    kp = torch.randn((nb, page, kv, d), device="cuda").to(torch.bfloat16)
+    vp = torch.randn((nb, page, kv, d), device="cuda").to(torch.bfloat16)
+    table = torch.from_numpy(rng.permutation(nb)[:b * maxp].reshape(
+        b, maxp).astype(np.int32)).cuda()
+    ctx_t = torch.full((b,), ctx, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, table, ctx_t)
+    kw = dict(window=window, softcap=softcap)
+    got, (m, l) = paged_attention(*args, return_stats=True, **kw)
+    want, (wm, wl) = paged_attention_ref(*args, return_stats=True, **kw)
+    err = _max_err(got, want)
+    if err > BF16_TOL or _max_err(m, wm) > 1e-3 or \
+            float(((l - wl).abs() / wl.clamp_min(1e-6)).max()) > 1e-3:
+        fail(f"paged_attention {tag}: max err {err}")
+    for _ in range(2):
+        again, (m2, l2) = paged_attention(*args, return_stats=True, **kw)
+        if not (torch.equal(got, again) and torch.equal(m, m2)
+                and torch.equal(l, l2)):
+            fail(f"paged_attention {tag}: repeated call differs")
+    live = min(ctx, window) if window else ctx
+    n_bytes = 2 * b * live * kv * d * 2 + 2 * b * h * d * 2 + 4 * b * maxp \
+        + 4 * b
+    b_ms, b_by = bound_ms(n_bytes, 4 * b * h * d * live, "bfloat16")
+    kg = kp[table.long()].reshape(b, maxp * page, kv, d)[:, ctx - live:ctx]
+    vg = vp[table.long()].reshape(b, maxp * page, kv, d)[:, ctx - live:ctx]
+    kg, vg = (t.transpose(1, 2).contiguous() for t in (kg, vg))
+    q4 = q[:, :, None, :]
+    return {f"max_abs_err_{tag}": err,
+            f"ms_{tag}": timer.ms(lambda: paged_attention(*args, **kw)),
+            f"plain_ms_{tag}": timer.ms(
+                lambda: paged_attention_ref(*args, **kw), iters=5),
+            f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
+            f"library_ms_{tag}": timer.ms(lambda: _sdpa(q4, kg, vg))}
+
+
+def _flash_row(timer, tag, s, h, kv, d, window=0, softcap=0.0):
+    """Flash attention at one causal prefill shape, bf16, B=1: held
+    against the plain version within 2e-2, timed beside SDPA (the same
+    causal band as a mask when windowed, no softcap) and its bound (the
+    bytes of q, k, v and out; the products of the live (q, k) pairs).
+    Returns the row's keys for ``tag``."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    args = [torch.randn((1, s, n, d), device="cuda").to(torch.bfloat16)
+            for n in (h, kv, kv)]
+    kw = dict(window=window, softcap=softcap)
+    err = _max_err(flash_attention(*args, **kw),
+                   flash_attention_ref(*args, **kw))
+    if err > BF16_TOL:
+        fail(f"flash_attention {tag}: max err {err}")
+    w = window or s
+    pairs = sum(min(i + 1, w) for i in range(s))
+    n_bytes = 2 * (2 * s * h * d + 2 * s * kv * d)
+    b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs * h, "bfloat16")
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in args)
+    if window:
+        i = torch.arange(s, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+
+        def lib():
+            return _sdpa(qt, kt, vt, attn_mask=band)
+    else:
+        def lib():
+            return _sdpa(qt, kt, vt, is_causal=True)
+    return {f"max_abs_err_{tag}": err,
+            f"ms_{tag}": timer.ms(lambda: flash_attention(*args, **kw)),
+            f"plain_ms_{tag}": timer.ms(
+                lambda: flash_attention_ref(*args, **kw), iters=5),
+            f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
+            f"library_ms_{tag}": timer.ms(lib)}
+
+
+def check_attention_served(timer, rng):
+    """Both attention kernels at the served models' shapes: head_dim 128
+    at G = 2, 6 (dbrx), 7 (arctic; paged's head chunk of 8 partly
+    empty), 8 (qwen2) and 16 (glm4; two chunks), paged at B=8 P=16 ctx
+    1024 and flash at B=1 S=1000 causal; and gemma2's head_dim 256 with
+    its local window active, ctx / S 6144 > window 4096, softcap 50
+    (paged at B=8 H=16 KV=8, flash at H=16 KV=8). Returns the extra keys
+    of the flash and paged rows."""
+    flash, paged = {}, {}
+    for tag, h, kv in GQA_SHAPES:
+        paged.update(_paged_row(timer, rng, tag, 8, h, kv, 128, 1024))
+        flash.update(_flash_row(timer, tag, 1000, h, kv, 128))
+    win = dict(window=WINDOW, softcap=WINDOW_SOFTCAP)
+    paged.update(_paged_row(timer, rng, "d256_window", 8, 16, 8, 256,
+                            WINDOW_CTX, **win))
+    flash.update(_flash_row(timer, "d256_window", WINDOW_CTX, 16, 8, 256,
+                            **win))
+    shapes = ", ".join(f"{t}: H={h} KV={kv} D=128" for t, h, kv in GQA_SHAPES)
+    paged["shape_served"] = (
+        f"B=8 P=16 ctx=1024 bf16, {shapes}; d256_window: B=8 H=16 KV=8 "
+        f"D=256 ctx={WINDOW_CTX} window {WINDOW} softcap {WINDOW_SOFTCAP:g} "
+        "(SDPA over the live pages, no softcap)")
+    flash["shape_served"] = (
+        f"B=1 S=1000 causal bf16, {shapes}; d256_window: S={WINDOW_CTX} "
+        f"H=16 KV=8 D=256 window {WINDOW} softcap {WINDOW_SOFTCAP:g} (SDPA: "
+        "the band as a mask, no softcap)")
+    return flash, paged
+
+
 def check_mamba_chunk_scan(timer):
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                                 mamba_chunk_scan_ref)
@@ -1778,6 +1917,23 @@ def build_engine(cfg, rt, macro_k=0, **config):
         n_slots=8, max_ctx=2048, macro_k=macro_k, **config), device="cuda")
 
 
+def param_gib(params) -> float:
+    """GiB held by a parameter tree's tensors."""
+    if isinstance(params, dict):
+        return sum(param_gib(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_gib(v) for v in params)
+    return params.numel() * params.element_size() / 2**30
+
+
+def free_engine() -> None:
+    """Return a dropped engine's memory to the card: its graphs and
+    buffers may sit in reference cycles, so collect them first (the
+    next engine of a cut 80 GB model needs the room)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_prompts(cfg, lens):
     """The serving phases' prompts: seeded token ids of ``lens``."""
     prng = np.random.default_rng(SEED + 1)
@@ -1829,19 +1985,20 @@ def profile_decode_step(eng, prompts):
             "top_kernels_ms": {k[:70]: v for k, v in top}}
 
 
-def serve_phase(cfg, lens, kernels):
+def serve_phase(cfg, lens, kernels, parity_layers=2):
     """Serve 8 requests of ``lens`` prompt tokens x 32 new tokens at the
     config's published widths (bf16, page 16, 8 slots x 2048 ctx), with
     every launch count zeroed just before and read just after; fails
     unless each request returns 32 tokens and each of ``kernels`` was
-    launched. Then a 2-layer f32 engine must give the same greedy
-    tokens with the kernels as with kernel_impl="ref". Returns the
-    serve line (with the run's launch counts)."""
+    launched. Then a ``parity_layers``-layer f32 engine must give the
+    same greedy tokens with the kernels as with kernel_impl="ref".
+    Returns the serve line (with the run's launch counts)."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.models import Runtime
     rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                  page_size=16)
     eng = build_engine(cfg, rt)
+    weights_gib = param_gib(eng.params)
     prompts = serve_prompts(cfg, lens)
     run_requests(eng, [prompts[0][:16]], 2)        # warm-up
     eng.metrics = {k: 0 for k in eng.metrics}
@@ -1864,7 +2021,8 @@ def serve_phase(cfg, lens, kernels):
     decode_toks = sum(len(out[r.rid]) - 1 for r in reqs)
     steps = eng.metrics["decode_steps"]
     line = {
-        "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
+        "model": cfg.name, "n_layers": cfg.n_layers,
+        "weights_gib": weights_gib, "dtype": "bfloat16", "page_size": 16,
         "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
         "wall_s": wall, "ttft_ms_median": statistics.median(ttft),
         "ttft_ms_max": ttft[-1], "decode_tok_s": decode_toks / decode_s,
@@ -1876,10 +2034,10 @@ def serve_phase(cfg, lens, kernels):
         "launches": launches}
     line["profiled_decode_step"] = profile_decode_step(eng, prompts)
     del eng
-    torch.cuda.empty_cache()
+    free_engine()
 
     # the kernels against their plain versions end to end: 2 layers, f32
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=parity_layers)
     short = [p[:n // 4] for p, n in zip(prompts, lens)]
     toks = {}
     for impl in (None, "ref"):
@@ -1889,9 +2047,11 @@ def serve_phase(cfg, lens, kernels):
         e2 = build_engine(cfg2, rt32)
         toks[impl], _, _ = run_requests(e2, short, 16)
         del e2
-        torch.cuda.empty_cache()
+        free_engine()
     if list(toks[None].values()) != list(toks["ref"].values()):
-        fail(f"2-layer f32 {cfg.name}: kernel tokens differ from ref tokens")
+        fail(f"{parity_layers}-layer f32 {cfg.name}: kernel tokens differ "
+             "from ref tokens")
+    line["ref_parity_layers"] = parity_layers
     line["ref_parity_tokens"] = sum(len(v) for v in toks["ref"].values())
     return line, [out[r.rid] for r in reqs]
 
@@ -2094,7 +2254,7 @@ def commit_in_graph(eng):
     return line
 
 
-def macro_phase(cfg, lens, single_tokens, replayed, eager):
+def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
     """Serve the single-step phase's requests through the K-step macro
     path (macro_k=8: one CUDA graph replay per K tokens). A first pass
     captures every graph the run needs; the counts are zeroed just
@@ -2104,10 +2264,11 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
     sync per K tokens (plus one sync per prefill); each kernel of
     ``replayed`` shows its launches from the replays (fmmu_commit: one
     per step, plus one per admission and free) and each of
-    ``eager`` (prefill) was launched. Then a 2-layer f32 macro engine
-    must give the same greedy tokens with the kernels as with
-    kernel_impl="ref". Returns the phase's line and its launch
-    counts."""
+    ``eager`` (prefill) was launched. Then a ``parity_layers``-layer f32
+    macro engine must give the same greedy tokens with the kernels as
+    with kernel_impl="ref". On an MoE model the line also holds the
+    dispatch's share of a steady step (``moe_dispatch_reading``).
+    Returns the phase's line and its launch counts."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.models import Runtime
     rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
@@ -2183,11 +2344,14 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
         "launches": launches}
     line["commit_in_graph"] = commit_in_graph(eng)
     line["profiled_macro_step"] = profile_macro_step(eng, prompts, replayed)
+    if cfg.moe is not None:
+        line["moe_dispatch"] = moe_dispatch_reading(
+            eng, line["profiled_macro_step"]["replay_ms_events"])
     del eng
-    torch.cuda.empty_cache()
+    free_engine()
 
     # the kernels against their plain versions in macro mode: 2 layers
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=parity_layers)
     short = [p[:n // 4] for p, n in zip(prompts, lens)]
     toks2 = {}
     for impl in (None, "ref"):
@@ -2197,14 +2361,68 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager):
         e2 = build_engine(cfg2, rt32, macro_k=MACRO_K)
         toks2[impl], _, _ = run_requests(e2, short, 16)
         if e2.metrics["macro_steps"] <= 0:
-            fail(f"2-layer f32 {cfg.name}: no macro step ran")
+            fail(f"{parity_layers}-layer f32 {cfg.name}: no macro step ran")
         del e2
-        torch.cuda.empty_cache()
+        free_engine()
     if list(toks2[None].values()) != list(toks2["ref"].values()):
-        fail(f"2-layer f32 {cfg.name} macro: kernel tokens differ from ref "
-             "tokens")
+        fail(f"{parity_layers}-layer f32 {cfg.name} macro: kernel tokens "
+             "differ from ref tokens")
+    line["ref_parity_layers"] = parity_layers
     line["ref_parity_tokens"] = sum(len(v) for v in toks2["ref"].values())
     return line
+
+
+def moe_dispatch_reading(eng, step_ms):
+    """What the MoE dispatch costs in a steady K-step macro step: the
+    first MoE layer at the decode shape (n_slots tokens, the serving
+    capacity), each part captured alone into a CUDA graph and its replay
+    timed by events: the dispatch (routing, top-k, the sort, counts and
+    capacity cut, the buffer gather, the gather-back and combine), the
+    expert products, and the whole layer (arctic: with its dense
+    residual). ``dispatch_share``: the dispatch's ms times the MoE
+    layers and K, over the steady step graph's replay ms. A reading,
+    not a gate."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serving import macro
+    cfg, rt = eng.cfg, eng.rt
+    m, cd, t = cfg.moe, rt.compute_dtype, eng.n_slots
+    j = next(j for j in range(cfg.period) if cfg.is_moe_layer(j))
+    ffn = layer_params(eng.params["stack"], j, 0)["ffn"]
+    p = ffn["moe"]
+    cf = rt.capacity_factor if rt.capacity_factor is not None \
+        else m.capacity_factor
+    cap = moe._capacity(t, m.n_experts, m.top_k, cf)
+    x = torch.randn((t, cfg.d_model), device="cuda").to(cd)
+    dsp = moe.route(x, p["router"], m.top_k, cap)
+    buf = moe.gather_rows(x, dsp, cap, m.n_experts, cd)
+    y = moe.experts(buf, p["wg"], p["wu"], p["wd"], cfg.act, cd)
+
+    def dispatch():
+        d = moe.route(x, p["router"], m.top_k, cap)
+        moe.gather_rows(x, d, cap, m.n_experts, cd)
+        moe.combine(y, d, t, m.top_k)
+
+    def products():
+        moe.experts(buf, p["wg"], p["wu"], p["wd"], cfg.act, cd)
+
+    def layer():
+        moe.apply_moe(p, x, cfg, rt, dense_params=ffn.get("dense"))
+    ms = {}
+    for name, fn in (("dispatch", dispatch), ("expert_products", products),
+                     ("layer", layer)):
+        macro.uncounted(fn)                               # warm-up
+        graph, _ = macro.capture(fn)
+        ms[f"{name}_ms"] = events_ms(graph.replay, 20)
+        del graph
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    dropped = int((~dsp.keep).sum())
+    return {**ms, "tokens": t, "capacity": cap, "moe_layers": n_moe,
+            "slots_dropped_here": dropped,
+            "expert_weight_gib_a_layer":
+            3 * m.n_experts * cfg.d_model * m.d_ff
+            * torch.finfo(cd).bits / 8 / 2**30,
+            "dispatch_share": ms["dispatch_ms"] * n_moe * MACRO_K / step_ms}
 
 
 # ------------------------------------------------------------ serve swap
@@ -3606,35 +3824,69 @@ def fsm_phase():
     return line, row
 
 
+SERVE_LENS = [64, 128, 256, 384, 512, 640, 768, 1020]
+ATTENTION_PATH = dict(
+    single=("fmmu_commit", "paged_attention", "flash_attention"),
+    replayed=("fmmu_commit", "paged_attention"),
+    eager=("flash_attention",))
 MODELS = {
     # the 1020-token prompt reaches 1024 tokens (65 pages) at step 4 of
     # its first K-step run, so the macro-vs-single-step check spans a
     # page-bucket change (64 -> 128 pages) inside a run
-    "llama3.2-1b": dict(
-        lens=[64, 128, 256, 384, 512, 640, 768, 1020],
-        single=("fmmu_commit", "paged_attention", "flash_attention"),
-        replayed=("fmmu_commit", "paged_attention"),
-        eager=("flash_attention",)),
+    "llama3.2-1b": dict(lens=SERVE_LENS, **ATTENTION_PATH),
     "mamba2-1.3b": dict(
         lens=[64, 200, 256, 384, 512, 700, 768, 1024],
         single=("mamba_chunk_scan", "fmmu_commit"),
         replayed=("fmmu_commit",), eager=("mamba_chunk_scan",)),
+    # the other families at published widths; depth is cut only where
+    # the bf16 weights would not fit the card's 80 GB beside the engine
+    "gemma2-9b": dict(lens=SERVE_LENS, **ATTENTION_PATH),
+    "glm4-9b": dict(lens=SERVE_LENS, **ATTENTION_PATH),
+    "qwen2-72b": dict(
+        lens=SERVE_LENS, **ATTENTION_PATH, n_layers=16,
+        cut="80 layers hold 145 GB of bf16 weights; 16 layers hold 33 GB"),
+    "dbrx-132b": dict(
+        lens=SERVE_LENS, **ATTENTION_PATH, n_layers=4,
+        cut="40 layers hold 263 GB of bf16 weights (6.5 GB a layer); 4 "
+            "layers hold 28.5 GB, and its f32 parity engine 2 layers"),
+    "arctic-480b": dict(
+        lens=SERVE_LENS, **ATTENTION_PATH, n_layers=2, parity_layers=1,
+        cut="35 layers hold 953 GB of bf16 weights (27.2 GB a layer); 2 "
+            "layers hold 55.4 GB, and its f32 parity engine (56 GB) 1 "
+            "layer"),
 }
+NEW_MODELS = ("gemma2-9b", "glm4-9b", "qwen2-72b", "dbrx-132b",
+              "arctic-480b")
+
+
+def _tag(name: str) -> str:
+    """A model's name as a key: gemma2-9b -> gemma2_9b."""
+    return re.sub(r"[^0-9a-z]", "_", name)
 
 
 def model_phases(name: str) -> dict:
     """Both serving phases of one model: single-step, then the K-step
-    macro path (the main path). Returns their lines."""
+    macro path (the main path), at the model's published widths and at
+    its depth or the cut in ``MODELS``. Returns their lines."""
     from repro_torch.configs import get_arch
     cfg, spec = get_arch(name), MODELS[name]
+    full_layers = cfg.n_layers
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    parity = spec.get("parity_layers", 2)
     t0 = time.perf_counter()
-    serve, single = serve_phase(cfg, spec["lens"], spec["single"])
-    print(f"serve {name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    serve, single = serve_phase(cfg, spec["lens"], spec["single"], parity)
+    serve["phase_s"] = time.perf_counter() - t0
+    print(f"serve {name}: {serve['phase_s']:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     serve_macro = macro_phase(cfg, spec["lens"], single, spec["replayed"],
-                              spec["eager"])
-    print(f"serve macro {name}: {time.perf_counter() - t0:.1f} s",
+                              spec["eager"], parity)
+    serve_macro["phase_s"] = time.perf_counter() - t0
+    print(f"serve macro {name}: {serve_macro['phase_s']:.1f} s",
           file=sys.stderr)
+    for line in (serve, serve_macro):
+        line["published_layers"] = full_layers
+        line["depth_cut"] = spec.get("cut")
     if cfg.ssm is not None:
         for line, n_pre in ((serve, serve["prefills"]),
                             (serve_macro, len(spec["lens"]))):
@@ -3690,6 +3942,11 @@ def main() -> int:
     flash_d256, paged_d256 = check_attention_d256(timer, rng)
     rows["flash_attention"].update(flash_d256)
     rows["paged_attention"].update(paged_d256)
+    # the served models' shapes: head_dim 128 at G = 2 / 6 / 7 / 8 / 16,
+    # and head_dim 256 with gemma2's window active
+    flash_served, paged_served = check_attention_served(timer, rng)
+    rows["flash_attention"].update(flash_served)
+    rows["paged_attention"].update(paged_served)
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
     # the channel grid: one launch of C blocks, C in {2, 8, 32}
@@ -3814,6 +4071,15 @@ def main() -> int:
     rows["mamba_chunk_scan"]["launches"] = \
         serve_ssm_macro["launches"]["mamba_chunk_scan"]
 
+    # 6. the other dense decoders and the MoE decoders, single-step then
+    # macro (fmmu_commit, paged and flash attention)
+    others = {}
+    for name in NEW_MODELS:
+        others[name] = model_phases(name)
+        for kern in MODELS[name]["single"]:
+            rows[kern][f"launches_{_tag(name)}"] = \
+                others[name]["serve_macro"]["launches"][kern]
+
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "launches_single_step", "launches_serve_swap",
@@ -3846,7 +4112,11 @@ def main() -> int:
          "launches_serve_prefix", "shape_d256", "replaces_what") + tuple(
              f"{k}_d256{t}" for t in ("", "_bf16", "_f32")
              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                       "bound_by", "library_ms"))
+                       "bound_by", "library_ms")) + tuple(
+             f"{k}_{t}" for t in SERVED_TAGS
+             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms")) + ("shape_served",) + \
+        tuple(f"launches_{_tag(n)}" for n in NEW_MODELS)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
@@ -3861,6 +4131,10 @@ def main() -> int:
     print(json.dumps({"fsm": fsm_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))
+    for name in NEW_MODELS:
+        print(json.dumps({f"serve_{_tag(name)}": others[name]["serve"]}))
+        print(json.dumps({f"serve_macro_{_tag(name)}":
+                          others[name]["serve_macro"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,29 @@
-"""Architecture configuration: the port's own copy of the dense-decoder
-and pure-SSM parts of ``repro/configs/base.py`` (``SSMConfig``,
-``ArchConfig``, ``smoke_config``).
+"""Architecture configuration: the port's own copy of the dense-decoder,
+MoE and pure-SSM parts of ``repro/configs/base.py`` (``MoEConfig``,
+``SSMConfig``, ``ArchConfig``, ``smoke_config``).
 
-Only what the ported serving paths read is kept; MoE, hybrid, encoder
-and frontend fields come with the slices that port them.
+Only what the ported serving paths read is kept; hybrid, encoder and
+frontend fields come with the slices that port them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden size
+    every: int = 1               # layer i is MoE iff i % every == moe_offset
+    moe_offset: int = 0
+    dense_residual: bool = False  # arctic: dense FFN beside the experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +44,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | ssm in the port so far
+    family: str                  # dense | moe | ssm in the port so far
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +63,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     post_norms: bool = False
     act: str = "silu"            # 'silu' (SwiGLU) | 'gelu' (GeGLU)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     source: str = ""
 
@@ -66,7 +80,10 @@ class ArchConfig:
     @property
     def period(self) -> int:
         """Length of the repeating layer super-block."""
-        return len(self.layer_pattern) if self.layer_pattern else 1
+        p = len(self.layer_pattern) if self.layer_pattern else 1
+        if self.moe is not None and self.moe.every > 1:
+            p = math.lcm(p, self.moe.every)
+        return p
 
     def layer_kind(self, i: int) -> str:
         """'attn' | 'mamba' for the mixer at layer i."""
@@ -78,11 +95,19 @@ class ArchConfig:
             return self.layer_pattern[i % len(self.layer_pattern)]
         return "global"
 
+    def is_moe_layer(self, i: int) -> bool:
+        m = self.moe
+        return m is not None and (i % m.every) == m.moe_offset
+
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family config for CPU tests: the reference's
-    ``smoke_config`` restricted to the dense and SSM fields."""
+    ``smoke_config`` restricted to the dense, MoE and SSM fields."""
     period = cfg.period
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2), d_ff=64)
     ssm = None
     if cfg.ssm is not None:
         ssm = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=32)
@@ -100,5 +125,6 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=512,
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window else 0,
+        moe=moe,
         ssm=ssm,
     )

@@ -4,9 +4,10 @@
 already converted to numpy (``jax.tree.map(np.asarray, params)``) and
 returns the port's parameter dict. The layouts and dtypes are kept as
 they are: ``wq`` [d,H,hd], ``wo`` [H,hd,d], a Mamba2 mixer's
-projections, conv and its float32 ``A_log``/``D``/``dt_bias``, stack
-leaves [n_periods, ...] per intra-period index j. This module needs
-numpy only; the caller owns the JAX side.
+projections, conv and its float32 ``A_log``/``D``/``dt_bias``, an MoE
+layer's float32 router [d,E] and experts ``wg``/``wu`` [E,d,ff], ``wd``
+[E,ff,d], stack leaves [n_periods, ...] per intra-period index j. This
+module needs numpy only; the caller owns the JAX side.
 
 ``fsm_state_from_jax`` and ``fsm_state_to_numpy`` carry the sequential
 packet engine's state across the packages field by field, so both
@@ -53,7 +54,26 @@ def params_from_jax(params_np: Any, cfg: ArchConfig,
             lp["ln1"].shape[0] != n_p for lp in params["stack"]):
         raise ValueError(f"stack layout does not match {cfg.name}: "
                          f"expected {cfg.period} x [{n_p}, ...]")
+    for j, lp in enumerate(params["stack"]):
+        if cfg.is_moe_layer(j):
+            _check_moe(lp.get("ffn", {}).get("moe"), cfg, n_p, j)
     return params
+
+
+def _check_moe(leaves, cfg: ArchConfig, n_p: int, j: int):
+    """An MoE layer's leaves have the reference's shapes, the router
+    its float32."""
+    m = cfg.moe
+    d, e, ff = cfg.d_model, m.n_experts, m.d_ff
+    want = {"router": (n_p, d, e), "wg": (n_p, e, d, ff),
+            "wu": (n_p, e, d, ff), "wd": (n_p, e, ff, d)}
+    got = {k: tuple(v.shape) for k, v in (leaves or {}).items()}
+    if got != want:
+        raise ValueError(f"{cfg.name} layer {j}: MoE leaves {got}, "
+                         f"expected {want}")
+    if leaves["router"].dtype != torch.float32:
+        raise ValueError(f"{cfg.name} layer {j}: the router is "
+                         f"{leaves['router'].dtype}, expected float32")
 
 
 def fsm_state_from_jax(st, device: Union[str, torch.device] = "cuda"

@@ -17,6 +17,7 @@ class Runtime:
     param_dtype: torch.dtype = torch.float32
     kernel_impl: Optional[str] = None   # ops impl selector (None / "ref")
     page_size: int = 256                # tokens per KV page
+    capacity_factor: Optional[float] = None   # MoE capacity; None: config's
 
 
 def init_dense(gen: torch.Generator, shape, d_in: int, dtype, device):

@@ -1,4 +1,4 @@
-"""Top-level Model for the paged-serving path (dense and pure-SSM
+"""Top-level Model for the paged-serving path (dense, MoE and pure-SSM
 decoders): port of ``repro/models/model.py`` (``init``, ``_embed``,
 ``_logits``, ``prefill``, ``decode_step``, ``build_model``).
 
@@ -11,13 +11,15 @@ initialisation for the equivalence tests.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Dict, Optional, Union
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, ssm, transformer
+from repro_torch.models import common, moe, ssm, transformer
 from repro_torch.models.common import Runtime
 
 
@@ -60,13 +62,18 @@ class Model:
                         bv=torch.zeros((n_p, kv, hd), dtype=dt, device=dev))
             if cfg.post_norms:
                 layer["post1"] = torch.zeros((n_p, d), dtype=dt, device=dev)
-            if cfg.d_ff:
+            ffn: Dict[str, Any] = {}
+            if cfg.is_moe_layer(j):
+                ffn["moe"] = moe.init_moe(g, cfg, n_p, dt, dev)
+            if cfg.d_ff and (not ffn or cfg.moe.dense_residual):
                 ff = cfg.d_ff
-                layer["ln2"] = torch.zeros((n_p, d), dtype=dt, device=dev)
-                layer["ffn"] = {"dense": {
+                ffn["dense"] = {
                     "wg": common.init_dense(g, (n_p, d, ff), d, dt, dev),
                     "wu": common.init_dense(g, (n_p, d, ff), d, dt, dev),
-                    "wd": common.init_dense(g, (n_p, ff, d), ff, dt, dev)}}
+                    "wd": common.init_dense(g, (n_p, ff, d), ff, dt, dev)}
+            if ffn:
+                layer["ln2"] = torch.zeros((n_p, d), dtype=dt, device=dev)
+                layer["ffn"] = ffn
                 if cfg.post_norms:
                     layer["post2"] = torch.zeros((n_p, d), dtype=dt,
                                                  device=dev)
@@ -85,7 +92,10 @@ class Model:
 
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.rt.compute_dtype)
+        x = params["embed"][tokens.long()].to(self.rt.compute_dtype)
+        if self.cfg.name.startswith("gemma"):
+            x = x * _embed_scale(self.cfg.d_model, x.dtype)
+        return x
 
     def _logits(self, params, x):
         cd = self.rt.compute_dtype
@@ -116,6 +126,13 @@ class Model:
             ctx_lens=ctx_lens, block_table=block_table)
         x = common.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._logits(params, x), caches
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """gemma's embedding scale, sqrt(d_model) rounded to the compute
+    dtype first, as the reference multiplies by it."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
 def build_model(cfg: ArchConfig, rt: Optional[Runtime] = None, *,

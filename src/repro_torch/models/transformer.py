@@ -1,6 +1,7 @@
 """Decoder stack for the paged-serving path (dense attention and Mamba2
-layers): port of ``repro/models/transformer.py`` (``stack_forward``
-with cache collection, ``init_decode_caches``, ``stack_decode``).
+mixers, dense or MoE FFNs): port of ``repro/models/transformer.py``
+(``stack_forward`` with cache collection, ``init_decode_caches``,
+``stack_decode``).
 
 Parameters keep the reference's stacked layout: ``params`` is a list
 over the intra-period index j of dicts whose leaves carry a leading
@@ -19,7 +20,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.models import attention, common, mlp, ssm
+from repro_torch.models import attention, common, mlp, moe, ssm
 from repro_torch.models.common import Runtime
 
 
@@ -43,11 +44,19 @@ def kind_index(cfg):
 
 
 def _ffn(lp, x, cfg, rt: Runtime):
-    """The layer's FFN residual branch, when it has one."""
+    """The layer's FFN residual branch, when it has one: the experts
+    (with arctic's dense residual beside them) on an MoE layer, whose
+    aux loss the serving path drops as the reference's does, else the
+    dense MLP."""
     if "ffn" not in lp:
         return x
     h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y = mlp.apply_mlp(lp["ffn"]["dense"], h, cfg, rt)
+    ffn = lp["ffn"]
+    if "moe" in ffn:
+        y, _ = moe.apply_moe(ffn["moe"], h, cfg, rt,
+                             dense_params=ffn.get("dense"))
+    else:
+        y = mlp.apply_mlp(ffn["dense"], h, cfg, rt)
     if cfg.post_norms:
         y = common.rms_norm(y, lp["post2"], cfg.norm_eps)
     return x + y

@@ -996,7 +996,8 @@ def test_macro_graph_replay_matches_eager_program(cuda):
     assert [len(done[r]) for r in rids] == [n for _, n in MACRO_REQS]
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b", "gemma2-9b",
+                                  "dbrx-132b", "arctic-480b"])
 def test_macro_capture_changes_no_state_and_steady_state_captures_nothing(
         cuda, arch):
     """Capturing a new variant leaves the map state, caches and counters
@@ -1040,6 +1041,20 @@ def test_macro_capture_changes_no_state_and_steady_state_captures_nothing(
     assert eng.metrics["macro_fallbacks"] == 0
     torch.testing.assert_close(eng.kvm.block_tables(),
                                eng.kvm.retranslate_tables(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "arctic-480b"])
+def test_moe_macro_replays_match_eager_program(cuda, arch):
+    """An MoE model's K-step graphs (the routing, sort, capacity cut and
+    scatter of every layer captured with the step): every replay equals
+    one eager run of the same program bit for bit (``_check_replays``),
+    over all four (simple, forced) variants."""
+    eng = _macro_engine(cuda, arch, admit_tokens=12)
+    seen = _check_replays(eng, cuda)
+    out, _ = _serve(eng, MACRO_REQS)
+    assert {(s, f) for s, f, _ in seen} == {(True, True), (True, False),
+                                            (False, True), (False, False)}
+    assert [len(t) for t in out] == [n for _, n in MACRO_REQS]
 
 
 def test_macro_capture_never_grows_the_ticket_buffer(cuda, monkeypatch):
@@ -1581,3 +1596,147 @@ def test_fmmu_fsm_run_and_flush_all_never_step_in_torch(cuda, monkeypatch):
     assert fmmu_fsm.LAUNCHES[0] - n0 > 1
     assert int(eng.state.cmt_dirty) == 0 and int(eng.state.ctp_dirty) == 0
     assert not eng.pending_work()
+
+
+# ------------------------------------------- GQA groups and the MoE layer
+@pytest.mark.parametrize("h,kv", [(16, 8), (48, 8), (56, 8), (64, 8),
+                                  (32, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_the_served_gqa_groups(cuda, h, kv, dtype):
+    """head_dim 128 at G = 2, 6 (dbrx), 7 (arctic), 8 (qwen2) and 16
+    (glm4): paged attention's head chunk of 8 runs partly empty at 6 and
+    7 and twice at 16; flash attention maps a query head to its KV head
+    by H / KV. Both against their plain versions, paged with (m, l) and
+    repeats bit-identical."""
+    d, page, maxp, b = 128, 16, 24, 4
+    args = _paged_inputs(cuda, b, h, kv, d, page, maxp, dtype, seed=h + kv)
+    ctx = torch.tensor([1, 100, 257, maxp * page], dtype=torch.int32,
+                       device=cuda)
+    for kw in (dict(), dict(window=40, softcap=50.0)):
+        got, m, l = _check_paged(args, ctx, dtype, **kw)
+        again, (m2, l2) = paged_attention(*args, ctx, return_stats=True,
+                                          **kw)
+        assert torch.equal(got, again) and torch.equal(m, m2) \
+            and torch.equal(l, l2)
+    g = torch.Generator(device=cuda).manual_seed(h)
+    q, k, v = (torch.randn((1, 300, n, d), generator=g, device=cuda).to(dtype)
+               for n in (h, kv, kv))
+    for kw in (dict(), dict(window=64, softcap=50.0)):
+        torch.testing.assert_close(
+            flash_attention(q, k, v, **kw).float(),
+            flash_attention_ref(q, k, v, **kw).float(), atol=TOL[dtype],
+            rtol=TOL[dtype])
+
+
+def _moe_cfg(arch, d=256, ff=256):
+    """``arch``'s MoE (its experts and top-k) at narrow widths."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(
+        cfg, n_layers=2, d_model=d, d_ff=ff, vocab_size=1024,
+        moe=dataclasses.replace(cfg.moe, d_ff=ff))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "arctic-480b"])
+def test_apply_moe_on_the_card_matches_the_cpu(cuda, arch):
+    """apply_moe on the card against the plain CPU result of the same
+    weights and tokens (float32, at the default capacity, which drops
+    slots here): the same slots kept, the outputs within 1e-4, and
+    repeats on the card bit-identical, in float32 and bfloat16."""
+    from repro_torch.models import Runtime, build_model, moe
+    from repro_torch.models.transformer import layer_params
+    cfg = _moe_cfg(arch)
+    rt = Runtime(compute_dtype=torch.float32, param_dtype=torch.float32)
+    m = build_model(cfg, rt, device="cpu")
+    ffn = layer_params(m.init(torch.Generator().manual_seed(0))["stack"],
+                       0, 0)["ffn"]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((5, 8, cfg.d_model), generator=g) \
+        + torch.randn(cfg.d_model, generator=g)
+
+    def on(tree, dtype=torch.float32):
+        """``tree`` on the card in ``dtype``, the router in float32."""
+        return {k: on(v, dtype) if isinstance(v, dict)
+                else v.to(cuda, torch.float32 if k == "router" else dtype)
+                for k, v in tree.items()}
+
+    want, want_aux = moe.apply_moe(ffn["moe"], x, cfg, rt,
+                                   dense_params=ffn.get("dense"))
+    cap = moe._capacity(40, cfg.moe.n_experts, cfg.moe.top_k,
+                        cfg.moe.capacity_factor)
+    keep = moe.route(x.view(40, -1), ffn["moe"]["router"], cfg.moe.top_k,
+                     cap).keep
+    assert not keep.all()
+    gffn = on(ffn)
+    got, aux = moe.apply_moe(gffn["moe"], x.to(cuda), cfg, rt,
+                             dense_params=gffn.get("dense"))
+    assert torch.equal(moe.route(x.view(40, -1).to(cuda),
+                                 gffn["moe"]["router"], cfg.moe.top_k,
+                                 cap).keep.cpu(), keep)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+    for dtype in (torch.float32, torch.bfloat16):
+        rtd = Runtime(compute_dtype=dtype, param_dtype=dtype)
+        p = on(ffn, dtype)
+        xd = x.to(cuda, dtype)
+        first = moe.apply_moe(p["moe"], xd, cfg, rtd,
+                              dense_params=p.get("dense"))[0]
+        for _ in range(3):
+            assert torch.equal(first, moe.apply_moe(
+                p["moe"], xd, cfg, rtd, dense_params=p.get("dense"))[0])
+
+
+def test_moe_decode_step_graph_replay_equals_eager_without_host_sync(cuda):
+    """A dbrx-shaped MoE decode step (16 experts, top-4, 8 lanes: 4 slots
+    an expert for 32, G = 6 at head_dim 128, bf16): run eagerly and
+    captured into a CUDA graph under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the sort, top-k,
+    counts, capacity cut and scatter sync nothing), the replay's logits
+    and pools equal the eager step's bit for bit, twice."""
+    import dataclasses
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.models import transformer as ttr
+    from repro_torch.serving.macro import capture
+    cfg = dataclasses.replace(_moe_cfg("dbrx-132b", d=768, ff=512),
+                              n_heads=6, n_kv_heads=1, head_dim=128)
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    m = build_model(cfg, rt, device=cuda)
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    b, maxp = 8, 8
+    nb = b * maxp + 1
+    g = torch.Generator(device=cuda).manual_seed(1)
+    caches0 = ttr.init_decode_caches(cfg, rt, b, nb, torch.bfloat16,
+                                     device=cuda)
+    for c in caches0.values():
+        c.copy_(torch.randn(c.shape, generator=g, device=cuda))
+    table = torch.randperm(nb, generator=g, device=cuda)[:b * maxp].reshape(
+        b, maxp).to(torch.int32)
+    ctx = torch.randint(1, maxp * 16 - 1, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (b,), generator=g, device=cuda,
+                         dtype=torch.int32)
+
+    def step(caches):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return m.decode_step(params, toks, caches, ctx_lens=ctx,
+                                 block_table=table)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eager = {k: v.clone() for k, v in caches0.items()}
+    want = step(eager)
+    step({k: v.clone() for k, v in caches0.items()})        # warm-up
+    static = {k: v.clone() for k, v in caches0.items()}
+    out = []
+    graph, _ = capture(lambda: out.append(step(static)))
+    for _ in range(2):
+        for k, v in static.items():
+            v.copy_(caches0[k])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want)
+        for k in static:
+            assert torch.equal(static[k], eager[k]), k
