@@ -202,6 +202,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                version's rates. (c) One run call from a miss-heavy
                round timed (events) beside the plain version on the
                card, with its byte bound.
+  4c. ssd    — the paper's SSD model (the port's SSDSim at PAPER_SSD:
+               16 GB, 16 channels x 8 ways, 512 outstanding; scheme
+               fmmu; precondition_sequential, then run_closed_loop) on
+               the card's host, three cells: 4 KB random read (20,000
+               commands), the WebSearch and MSR_proj surrogates (8,000
+               each, seed 0). Each result is held against the
+               reference's (SSD_REFERENCE: cmds, stats and cache
+               exactly, elapsed_us within 1e-9 relative). Each cell's
+               map accesses, recorded in call order by wrapping the
+               instance's map_access (a read a LOOKUP, a write an UPDATE
+               with the dppn just written), go through the packet engine
+               on the card beside the oracle copy (fsm_drive: 512 in
+               flight, flash reads answered in shuffled order, streams
+               and stats equal, one fmmu_fsm launch a run), twice: from a
+               cold engine (an empty GTD: a CTP miss reads no flash),
+               then after a warm-up that gives the GTD one page a TVPN
+               as the preconditioned map has (256 UPDATEs, then
+               flush_all: a CTP miss reads flash). Prints the sim's IOPS, util_ftl
+               and translations demanded per simulated second beside
+               the engine's requests/s and steps/s on the card (host
+               clock around run), their ratio and the engine's hits and
+               misses beside FMMUCache's.
   5. serve (SSM) — mamba2-1.3b at its published widths (48 layers,
                d 2048, bf16, page 16, 8 slots x 2048 ctx) serves 8
                requests of 64..1024 prompt tokens (chunk multiples and
@@ -222,7 +244,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                step (moe_dispatch_reading).
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
-(fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces;
+(fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces,
+and launches_ssd the ssd phase's;
 the probe-only fmmu_translate runs on no path since fmmu_commit does
 its probe, and reports 0).
 
@@ -242,6 +265,7 @@ pass and the prefix phase's counted sharing passes), one {"serve":
 {"serve_channels": {...}}, one {"serve_faults": {...}}, one
 {"serve_recover": {...}}, one {"serve_gc": {...}}, one
 {"serve_prefix": {...}}, one {"map": {...}}, one {"fsm": {...}},
+one {"ssd": {...}},
 one {"serve_ssm": {...}},
 one {"serve_ssm_macro": {...}}, and a {"serve_<model>": {...}} and a
 {"serve_macro_<model>": {...}} for each model of phase 6 (gemma2_9b,
@@ -3823,6 +3847,203 @@ def fsm_phase():
     }
     return line, row
 
+# ---------------------------------------------------------- the SSD model
+# The paper's SSD (PAPER_SSD: 16 GB, 16 channels x 8 ways, 512
+# outstanding) with the FMMU scheme, fig11_synthetic.run_one's pattern:
+# precondition_sequential, then run_closed_loop. (cell, commands)
+SSD_CELLS = (("sim_randread4k", 20000), ("sim_websearch", 8000),
+             ("sim_msr_proj", 8000))
+# The reference's result for each cell (src/repro/core/sim/ssd.py on the
+# CPU, the same seeds): cmds, stats and cache are held exactly,
+# elapsed_us within SSD_ELAPSED_RTOL relative.
+SSD_REFERENCE = {
+    "sim_randread4k": {
+        "elapsed_us": 18821.573151850327, "cmds": 20000,
+        "stats": {"reads": 20000, "writes": 0, "gc_moves": 0, "erases": 0,
+                  "tp_reads": 6956, "tp_programs": 13,
+                  "host_bytes": 81920000},
+        "cache": {"hit": 291, "miss": 19709, "flushes": 13,
+                  "tp_reads": 14800, "tp_programs": 13,
+                  "exec_cycles": 3963072.0}},
+    "sim_websearch": {
+        "elapsed_us": 12239.51659540786, "cmds": 8000,
+        "stats": {"reads": 9413, "writes": 4, "gc_moves": 0, "erases": 0,
+                  "tp_reads": 1225, "tp_programs": 17,
+                  "host_bytes": 105574400},
+        "cache": {"hit": 4117, "miss": 5300, "flushes": 17,
+                  "tp_reads": 3051, "tp_programs": 17,
+                  "exec_cycles": 1205464.0}},
+    "sim_msr_proj": {
+        "elapsed_us": 58702.58, "cmds": 8000,
+        "stats": {"reads": 1261, "writes": 16870, "gc_moves": 0,
+                  "erases": 0, "tp_reads": 1292, "tp_programs": 829,
+                  "host_bytes": 272205824},
+        "cache": {"hit": 12795, "miss": 5336, "flushes": 526,
+                  "tp_reads": 1824, "tp_programs": 829,
+                  "exec_cycles": 1734848.0}},
+}
+SSD_ELAPSED_RTOL = 1e-9
+SSD_STREAM_CAP = 40000     # FSM_TRACES' miss-heavy cut (tppn_cap)
+
+
+def ssd_workload(cfg, name):
+    from repro_torch.core.sim import workloads as W
+    if name == "sim_randread4k":
+        return W.rand_read_4k(cfg)
+    spec = {"sim_websearch": W.WEBSEARCH, "sim_msr_proj": W.MSR_PROJ}[name]
+    return W.trace_surrogate(cfg, spec, seed=0)
+
+
+def ssd_sim(name, n_cmds, cfg=None):
+    """One cell of the port's SSD model with the fmmu scheme, its map
+    accesses recorded in call order by wrapping the instance's
+    map_access (no hook in SSDSim): a read becomes a LOOKUP of its dlpn,
+    a write an UPDATE of its dlpn with the dppn the sim has just written
+    there (host and GC paths alike). The warm-up gives an engine's GTD
+    one translation page a TVPN: an UPDATE of each TVPN's first dlpn to
+    its preconditioned dppn. Returns (result, stream, warm-up, host s)."""
+    from repro_torch.configs.fmmu_paper import PAPER_SSD
+    from repro_torch.core.fmmu.types import LOOKUP, NIL, UPDATE, Request
+    from repro_torch.core.sim.ssd import SSDSim
+    cfg = cfg or PAPER_SSD
+    sim = SSDSim(cfg, scheme="fmmu")
+    t0 = time.perf_counter()
+    sim.precondition_sequential()
+    pre_s = time.perf_counter() - t0
+    ept = cfg.entries_per_tp
+    warm = [Request(UPDATE, t * ept, int(sim.map[t * ept]), NIL, t, 0)
+            for t in range(cfg.logical_pages // ept)]
+    stream = []
+    map_access = sim.map_access
+
+    def recorded(dlpn, write, done):
+        stream.append(Request(UPDATE, dlpn, int(sim.map[dlpn]), NIL,
+                              len(stream), 0) if write else
+                      Request(LOOKUP, dlpn, NIL, NIL, len(stream), 0))
+        map_access(dlpn, write, done)
+
+    sim.map_access = recorded
+    t0 = time.perf_counter()
+    res = sim.run_closed_loop(ssd_workload(cfg, name), n_cmds)
+    return res, stream, warm, {"precondition_s": pre_s,
+                               "run_s": time.perf_counter() - t0}
+
+
+def ssd_hold(name, res):
+    """The port's result against the reference's constants."""
+    want = SSD_REFERENCE[name]
+    for key in ("cmds", "stats", "cache"):
+        if res[key] != want[key]:
+            fail(f"ssd {name}: {key} {res[key]} differs from the "
+                 f"reference's {want[key]}")
+    if abs(res["elapsed_us"] - want["elapsed_us"]) > \
+            SSD_ELAPSED_RTOL * want["elapsed_us"]:
+        fail(f"ssd {name}: elapsed_us {res['elapsed_us']!r} against the "
+             f"reference's {want['elapsed_us']!r}")
+
+
+def ssd_drive(units, stream, seed, warm=None):
+    """The recorded stream through fsm_drive (512 in flight, flash reads
+    answered in shuffled order, streams equal every round, one fmmu_fsm
+    launch a kernel run), after the warm-up if one is given (then
+    flush_all on every unit, its programs equal). Returns the stream's
+    fsm_drive reading, the units' stats over the stream alone (equal)
+    and the programs of the warm-up."""
+    if len(stream) > SSD_STREAM_CAP:
+        fail(f"ssd: a stream of {len(stream)} requests, past "
+             f"{SSD_STREAM_CAP}")
+
+    def stats(u):
+        return dict(u.stats() if callable(u.stats) else u.stats)
+
+    if warm:
+        fsm_drive(units, warm, seed)
+        progs = []
+        for u in units:
+            u.flush_all()
+            progs.append([tuple(x) for x in u.drain_outputs()[2]])
+        if any(p != progs[0] for p in progs):
+            fail("ssd warm-up: flush_all's programs differ")
+    before = [stats(u) for u in units]
+    run_s, steps, rounds = fsm_drive(units, stream, seed + 1)
+    delta = [{k: v - b[k] for k, v in stats(u).items()}
+             for u, b in zip(units, before)]
+    if any(d != delta[0] for d in delta):
+        fail(f"ssd: stats differ {delta}")
+    return run_s, steps, rounds, delta[0], before[0]["programs"]
+
+
+# the engine cold (an empty GTD: a CTP miss fills unmapped entries with
+# no flash read), then with the GTD warmed as the preconditioned SSD's
+# map is (every TVPN on flash: a CTP miss reads its page)
+SSD_ENGINE_STARTS = ("cold", "warm_gtd")
+
+
+def ssd_phase():
+    """The paper's SSD model (the port's SSDSim at PAPER_SSD, fmmu) on the
+    card's host: each cell held against the reference's constants, its
+    recorded translation stream driven through the packet engine on the
+    card (fmmu_fsm) in lockstep with the oracle copy, from each of
+    SSD_ENGINE_STARTS. Returns the ssd line."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    from repro_torch.core.fmmu.oracle import FMMUOracle
+    from repro_torch.core.fmmu.types import LOOKUP, FMMUGeometry
+    g = FMMUGeometry()
+    line = {"config": "PAPER_SSD (16 GB, 16 ch x 8 ways, V2 NAND, 512 "
+                      "outstanding), scheme fmmu; engine FMMUGeometry()",
+            "cells": {}}
+    launches = 0
+    for i, (name, n) in enumerate(SSD_CELLS):
+        t0 = time.perf_counter()
+        res, stream, warm, sim_s = ssd_sim(name, n)
+        ssd_hold(name, res)
+        writes = sum(r.kind != LOOKUP for r in stream)
+        demand = len(stream) / (res["elapsed_us"] / 1e6)
+        cell = line["cells"][name] = {
+            "commands": n, "sim": {k: res[k] for k in (
+                "elapsed_us", "iops", "gbps", "util_ftl", "util_chip",
+                "util_bus", "util_host")},
+            "sim_host_s": sim_s, "stats": res["stats"],
+            "cache": res["cache"],
+            "translations": len(stream), "reads": len(stream) - writes,
+            "writes": writes,
+            "demand_translations_per_sim_s": demand}
+        for start in SSD_ENGINE_STARTS:
+            kern, oracle = FMMUEngine(g, device="cuda"), FMMUOracle(g)
+            COUNTERS.reset()
+            run_s, steps, rounds, st, warm_progs = ssd_drive(
+                [kern, oracle], stream, SEED + 10 + 2 * i,
+                warm if start == "warm_gtd" else None)
+            n_launch = COUNTERS.launches().get("fmmu_fsm", 0)
+            if n_launch <= 0:
+                fail(f"ssd {name} {start}: fmmu_fsm was not launched")
+            launches += n_launch
+            served = len(stream) / run_s[0]
+            cell[start] = {
+                "warm_up_requests": len(warm) if start == "warm_gtd" else 0,
+                "warm_up_programs": warm_progs,
+                "rounds": rounds, "steps": steps,
+                "kernel_run_s": run_s[0], "requests_per_s": served,
+                "steps_per_s": steps / run_s[0],
+                "us_per_step": run_s[0] / steps * 1e6,
+                "oracle_run_s": run_s[1],
+                "oracle_requests_per_s": len(stream) / run_s[1],
+                "served_over_demand": served / demand,
+                "launches": n_launch, "stats": st}
+            print(f"ssd {name} ({start}): iops {res['iops']:.0f}, util_ftl "
+                  f"{res['util_ftl']:.3f}, demand {demand:.0f} "
+                  f"translations/s (simulated), engine {served:.0f} "
+                  f"requests/s on the card ({served / demand:.4f} of "
+                  f"demand); hits {st['hit']} / misses {st['miss']} "
+                  f"(FMMUCache {res['cache']['hit']} / "
+                  f"{res['cache']['miss']}); streams equal the oracle's",
+                  file=sys.stderr)
+            del kern, oracle
+        cell["s"] = time.perf_counter() - t0
+    line["launches"] = launches
+    return line
+
 
 SERVE_LENS = [64, 128, 256, 384, 512, 640, 768, 1020]
 ATTENTION_PATH = dict(
@@ -4061,6 +4282,11 @@ def main() -> int:
     t0 = time.perf_counter()
     fsm_line, rows["fmmu_fsm"] = fsm_phase()
     print(f"fsm: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    # 4c. the paper's SSD model: its translation streams through fmmu_fsm
+    t0 = time.perf_counter()
+    ssd_line = ssd_phase()
+    rows["fmmu_fsm"]["launches_ssd"] = ssd_line["launches"]
+    print(f"ssd: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
     # 5. mamba2-1.3b serving, single-step then macro (mamba_chunk_scan at
     # prefill, fmmu_commit)
@@ -4109,7 +4335,8 @@ def main() -> int:
                         "bound_by")) + \
         ("launches_serve_channels", "launches_serve_faults",
          "launches_serve_recover", "launches_serve_gc",
-         "launches_serve_prefix", "shape_d256", "replaces_what") + tuple(
+         "launches_serve_prefix", "launches_ssd", "shape_d256",
+         "replaces_what") + tuple(
              f"{k}_d256{t}" for t in ("", "_bf16", "_f32")
              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")) + tuple(
@@ -4129,6 +4356,7 @@ def main() -> int:
     print(json.dumps({"serve_prefix": serve_prefix}))
     print(json.dumps({"map": map_line}))
     print(json.dumps({"fsm": fsm_line}))
+    print(json.dumps({"ssd": ssd_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))
     for name in NEW_MODELS:

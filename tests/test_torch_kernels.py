@@ -445,7 +445,9 @@ def test_dispatch_follows_tensor_device_and_impl():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of repro_torch imports with jax and repro blocked."""
+    """Every module of repro_torch imports with jax and repro blocked,
+    and a 200-command fmmu sim of the SSD model runs so (its map unit's
+    pipelined path is where a function-level import would show)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
@@ -462,8 +464,23 @@ def test_port_imports_neither_jax_nor_repro():
         "          'repro_torch.core.fmmu.state',\n"
         "          'repro_torch.core.fmmu.engine',\n"
         "          'repro_torch.kernels.fmmu_fsm',\n"
-        "          'repro_torch.kernels._graph'):\n"
+        "          'repro_torch.kernels._graph',\n"
+        "          'repro_torch.configs.fmmu_paper',\n"
+        "          'repro_torch.core.ftl.mapcache',\n"
+        "          'repro_torch.core.sim.ssd'):\n"
         "    assert m in mods, m\n"
+        "from repro_torch.configs import PAPER_SSD\n"
+        "from repro_torch.core.sim.ssd import SSDSim\n"
+        "from repro_torch.core.sim.workloads import rand_read_4k\n"
+        "import dataclasses\n"
+        "cfg = dataclasses.replace(PAPER_SSD, capacity_gb=1, channels=4,\n"
+        "                          ways=2)\n"
+        "sim = SSDSim(cfg, scheme='fmmu')\n"
+        "sim.precondition_sequential()\n"
+        "res = sim.run_closed_loop(rand_read_4k(cfg), 200, outstanding=128)\n"
+        "assert res['cmds'] == 200 and res['util_ftl'] > 0, res\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
