@@ -53,7 +53,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                repeats bit-identical) and flash at B=1 S=1000 causal;
                head_dim 256 with gemma2's window active (ctx / S 6144,
                window 4096, softcap 50), paged at B=8 and flash at
-               B=1; each bf16, timed beside SDPA. Times the kernel,
+               B=1; each bf16, timed beside SDPA. Segment ids in the
+               flash kernel (check_flash_segments): seamless's
+               cross-attention at decode (B=8 Sq=1 Skv=512 H=16 D=64,
+               per-lane valid frames, one lane with none) and at
+               prefill (Sq=64), its encoder's shape (S=512,
+               bidirectional, packed segments), head_dim 128 GQA with
+               packed causal segments (S=1000 H=32 KV=8), each in f32
+               (1e-4) and bf16 (2e-2) with a row without a valid key
+               exactly 0, and llava's 3,900-position prefill (bf16);
+               each timed in bf16 beside SDPA given the same boolean
+               mask (llava's: causal). Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -242,6 +252,19 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                equal, macro tokens equal the single-step tokens. MoE
                lines also read the dispatch's share of a steady macro
                step (moe_dispatch_reading).
+  7. serve (encoder-decoder, VLM) — as 6, at published widths and full
+               depth: seamless-m4t-large-v2 (24 encoder + 24 decoder
+               layers; its 8 requests carry 96..512 seeded source frames,
+               src_cap 512, before 4..64 decoder tokens) and
+               llava-next-mistral-7b (32 layers; 2,880 seeded patch
+               embeddings before the llama prompts, max_ctx 4096). Macro
+               tokens equal the single-step tokens; the 2-layer f32
+               parity engines (seamless: 2 encoder + 2 decoder layers)
+               give the same tokens with the kernels as with
+               kernel_impl="ref"; seamless's graphs count 24 flash
+               launches a step (its cross-attention), read from every
+               graph's counter delta and, for the profiled steps, from
+               the replayed graph's kernel nodes.
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
 (fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces,
@@ -268,9 +291,10 @@ pass and the prefix phase's counted sharing passes), one {"serve":
 one {"ssd": {...}},
 one {"serve_ssm": {...}},
 one {"serve_ssm_macro": {...}}, and a {"serve_<model>": {...}} and a
-{"serve_macro_<model>": {...}} for each model of phase 6 (gemma2_9b,
-glm4_9b, qwen2_72b, dbrx_132b, arctic_480b; their launches also in the
-kernel rows as launches_<model>); the last line is
+{"serve_macro_<model>": {...}} for each model of phases 6 and 7
+(gemma2_9b, glm4_9b, qwen2_72b, dbrx_132b, arctic_480b,
+seamless_m4t_large_v2, llava_next_mistral_7b; their launches also in
+the kernel rows as launches_<model>); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -1621,6 +1645,108 @@ def check_attention_served(timer, rng):
     return flash, paged
 
 
+# the encoder-decoder and VLM slice's attention shapes: (tag, B, Sq, Skv,
+# H, KV, D, kwargs, segment kind). seamless-m4t-large-v2's
+# cross-attention at decode (8 lanes, one query each, 512 source frames,
+# per-lane valid lengths with one lane at 0, the dead-lane row) and at
+# prefill (64 decoder tokens), its encoder (512 frames, bidirectional;
+# segments: four packed runs), head_dim 128 GQA with packed causal
+# segments, and llava-next-mistral-7b's prefill (2,880 patch embeddings
+# + 1,020 tokens, causal, no segments)
+SEG_LENS = [512, 1, 96, 200, 0, 333, 480, 511]
+SEG_SHAPES = (
+    ("seg_decode_cross", 8, 1, 512, 16, 16, 64,
+     dict(causal=False, bidirectional=True), "valid"),
+    ("seg_prefill_cross", 1, 64, 512, 16, 16, 64,
+     dict(causal=False, bidirectional=True), "valid"),
+    ("seg_encoder", 1, 512, 512, 16, 16, 64,
+     dict(causal=False, bidirectional=True), "packed"),
+    ("seg_d128_packed", 1, 1000, 1000, 32, 8, 128, {}, "packed"),
+    ("llava_prefill", 1, 3900, 3900, 32, 8, 128, {}, None),
+)
+SEG_TAGS = tuple(t[0] for t in SEG_SHAPES)
+
+
+def _seg_ids(kind, b, sq, skv):
+    """(seg_q, seg_k) int32 on the card: ``valid``: every query in
+    segment 1, key j in 1 while j < the lane's length (SEG_LENS, or 480
+    for one lane); ``packed``: runs of 3/8, 1/8, 1/4 and the rest of the
+    sequence (Sq == Skv)."""
+    if kind == "valid":
+        lens = SEG_LENS if b == len(SEG_LENS) else [480] * b
+        ks = (torch.arange(skv, device="cuda")[None, :]
+              < torch.tensor(lens, device="cuda")[:, None]).to(torch.int32)
+        return torch.ones((b, sq), dtype=torch.int32, device="cuda"), ks
+    cuts = torch.tensor([3 * skv // 8, skv // 2, 3 * skv // 4],
+                        device="cuda")
+    ids = (torch.arange(skv, device="cuda")[:, None] >= cuts).sum(-1)
+    ids = ids.to(torch.int32)[None].expand(b, skv).contiguous()
+    return ids, ids
+
+
+def check_flash_segments(timer):
+    """Segment ids in the flash kernel, at SEG_SHAPES: each held against
+    the plain version in f32 (1e-4) and bf16 (2e-2), a row with no valid
+    key exactly 0 in both; then in bf16 the kernel, its plain version
+    and SDPA given the same boolean mask timed, with the bound from the
+    bytes of q, k, v, out and the ids and the products of the (q, k)
+    pairs the mask keeps (this run's ids). llava's prefill has no
+    segments: SDPA runs it causal. Returns the flash row's extra keys."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    row = {}
+    for tag, b, sq, skv, h, kv, d, kw, kind in SEG_SHAPES:
+        segs = _seg_ids(kind, b, sq, skv) if kind else None
+        mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device="cuda")
+        if not kw.get("bidirectional"):
+            i = torch.arange(skv, device="cuda")
+            mask &= (i[None, :] <= i[-sq:, None])[None, None]
+        if segs is not None:
+            mask &= (segs[0][:, None, :, None] == segs[1][:, None, None, :])
+        empty = ~mask.any(-1)[:, 0]                       # [B, Sq]
+        for dtype, tol, dt in ((torch.float32, F32_TOL, "f32"),
+                               (torch.bfloat16, BF16_TOL, "bf16")):
+            if dt == "f32" and sq * skv > 10 ** 6:
+                continue      # llava's prefill: bf16, the served type
+            args = [torch.randn((b, s, n, d), device="cuda").to(dtype)
+                    for s, n in ((sq, h), (skv, kv), (skv, kv))]
+            got = flash_attention(*args, segment_ids=segs, **kw)
+            want = flash_attention_ref(*args, segment_ids=segs, **kw)
+            err = _max_err(got, want)
+            if err > tol or got[empty].abs().sum() or \
+                    want[empty].abs().sum():
+                fail(f"flash_attention {tag} {dt}: max err {err}")
+            row[f"max_abs_err_{tag}_{dt}"] = err
+        n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kv * d) + (
+            4 * b * (sq + skv) if segs is not None else 0)
+        pairs = int(mask.sum())
+        b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs * h, "bfloat16")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in args)
+        if segs is None:
+            def lib():
+                return _sdpa(qt, kt, vt, is_causal=True)
+        else:
+            def lib():
+                return _sdpa(qt, kt, vt, attn_mask=mask)
+        row.update({
+            f"ms_{tag}": timer.ms(lambda: flash_attention(
+                *args, segment_ids=segs, **kw)),
+            f"plain_ms_{tag}": timer.ms(lambda: flash_attention_ref(
+                *args, segment_ids=segs, **kw), iters=5),
+            f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
+            f"library_ms_{tag}": timer.ms(lib),
+            f"pairs_{tag}": pairs})
+    row["shape_segments"] = "; ".join(
+        f"{t}: B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} "
+        f"{'bidirectional' if kw else 'causal'} "
+        f"{('ids ' + k) if k else 'no ids'}"
+        for t, b, sq, skv, h, kv, d, kw, k in SEG_SHAPES) + (
+        f" (valid: lane lengths {SEG_LENS} at B=8, 480 at B=1; packed: "
+        "four runs; SDPA given the same boolean mask, llava_prefill "
+        "is_causal; timed in bf16)")
+    return row
+
+
 def check_mamba_chunk_scan(timer):
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                                 mamba_chunk_scan_ref)
@@ -1932,13 +2058,14 @@ def map_phase(n_batches=64, max_blocks=16):
 
 
 # ----------------------------------------------------------------- serve
-def build_engine(cfg, rt, macro_k=0, **config):
+def build_engine(cfg, rt, macro_k=0, max_ctx=2048, **config):
     from repro_torch.models import build_model
     from repro_torch.serving import ServeConfig, ServeEngine
     m = build_model(cfg, rt, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(SEED))
     return ServeEngine(m, params, config=ServeConfig(
-        n_slots=8, max_ctx=2048, macro_k=macro_k, **config), device="cuda")
+        n_slots=8, max_ctx=max_ctx, macro_k=macro_k, **config),
+        device="cuda")
 
 
 def param_gib(params) -> float:
@@ -1965,13 +2092,38 @@ def serve_prompts(cfg, lens):
             for n in lens]
 
 
-def run_requests(eng, prompts, max_new):
+def serve_extras(cfg, spec):
+    """Each request's embeddings (``submit`` keywords) for a model of
+    ``MODELS``: an encoder-decoder's seeded source frames of
+    ``spec["src_lens"]``, a VLM's seeded ``prefix_len`` patch
+    embeddings, 0.02 * N(0, 1) as the reference's stubs draw them, f32
+    on the card; None for a token-only model."""
+    n = len(spec["lens"])
+    if not (cfg.n_enc_layers or cfg.prefix_len):
+        return None
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    if cfg.n_enc_layers:
+        return [{"src_emb": 0.02 * torch.randn((s, cfg.d_model), generator=g,
+                                               device="cuda")}
+                for s in spec["src_lens"]]
+    return [{"prefix_emb": 0.02 * torch.randn((cfg.prefix_len, cfg.d_model),
+                                              generator=g, device="cuda")}
+            for _ in range(n)]
+
+
+def submit_all(eng, prompts, max_new, extras=None):
+    """Submit every prompt (with its ``extras`` keywords); the Requests."""
+    reqs = []
+    for p, x in zip(prompts, extras or [{}] * len(prompts)):
+        eng.submit(p, max_new=max_new, **x)
+        reqs.append(eng.queue[-1])
+    return reqs
+
+
+def run_requests(eng, prompts, max_new, extras=None):
     """Submit all prompts at once, run to completion. Returns
     ({rid: tokens}, [Request], wall seconds)."""
-    reqs = []
-    for p in prompts:
-        eng.submit(p, max_new=max_new)
-        reqs.append(eng.queue[-1])
+    reqs = submit_all(eng, prompts, max_new, extras)
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
@@ -1979,14 +2131,13 @@ def run_requests(eng, prompts, max_new):
     return {r.rid: done[r.rid] for r in reqs}, reqs, wall
 
 
-def profile_decode_step(eng, prompts):
+def profile_decode_step(eng, prompts, extras=None):
     """Device busy time, idle share and the top kernels of one steady
     decode step (8 resident slots, no admission, no page growth), from
     torch.profiler around one ServeEngine.step()."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for p in prompts:
-        eng.submit(p, max_new=8)
+    submit_all(eng, prompts, 8, extras)
     done: dict = {}
     eng.step(done)               # admission + prefill + first decode step
     eng.step(done)
@@ -2009,26 +2160,35 @@ def profile_decode_step(eng, prompts):
             "top_kernels_ms": {k[:70]: v for k, v in top}}
 
 
-def serve_phase(cfg, lens, kernels, parity_layers=2):
-    """Serve 8 requests of ``lens`` prompt tokens x 32 new tokens at the
-    config's published widths (bf16, page 16, 8 slots x 2048 ctx), with
-    every launch count zeroed just before and read just after; fails
-    unless each request returns 32 tokens and each of ``kernels`` was
-    launched. Then a ``parity_layers``-layer f32 engine must give the
-    same greedy tokens with the kernels as with kernel_impl="ref".
-    Returns the serve line (with the run's launch counts)."""
+def _parity_cfg(cfg, layers):
+    """The kernel-vs-ref parity engines' depth: ``layers`` decoder
+    layers, and as many encoder layers where the model has an encoder."""
+    return dataclasses.replace(cfg, n_layers=layers,
+                               n_enc_layers=min(cfg.n_enc_layers, layers))
+
+
+def serve_phase(cfg, lens, kernels, parity_layers=2, extras=None,
+                max_ctx=2048):
+    """Serve 8 requests of ``lens`` prompt tokens (with their ``extras``
+    embeddings) x 32 new tokens at the config's published widths (bf16,
+    page 16, 8 slots x ``max_ctx``), with every launch count zeroed just
+    before and read just after; fails unless each request returns 32
+    tokens and each of ``kernels`` was launched. Then a
+    ``parity_layers``-layer f32 engine must give the same greedy tokens
+    with the kernels as with kernel_impl="ref". Returns the serve line
+    (with the run's launch counts)."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.models import Runtime
     rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                  page_size=16)
-    eng = build_engine(cfg, rt)
+    eng = build_engine(cfg, rt, max_ctx=max_ctx)
     weights_gib = param_gib(eng.params)
     prompts = serve_prompts(cfg, lens)
-    run_requests(eng, [prompts[0][:16]], 2)        # warm-up
+    run_requests(eng, [prompts[0][:16]], 2, extras and extras[:1])  # warm-up
     eng.metrics = {k: 0 for k in eng.metrics}
     COUNTERS.reset()                     # every count to 0 just before
     torch.cuda.reset_peak_memory_stats()
-    out, reqs, wall = run_requests(eng, prompts, 32)
+    out, reqs, wall = run_requests(eng, prompts, 32, extras)
     launches = COUNTERS.launches()       # ... and read just after
     counts = COUNTERS.snapshot()
     for r in reqs:
@@ -2046,8 +2206,9 @@ def serve_phase(cfg, lens, kernels, parity_layers=2):
     steps = eng.metrics["decode_steps"]
     line = {
         "model": cfg.name, "n_layers": cfg.n_layers,
+        "n_enc_layers": cfg.n_enc_layers,
         "weights_gib": weights_gib, "dtype": "bfloat16", "page_size": 16,
-        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "n_slots": 8, "max_ctx": max_ctx, "prompt_lens": lens, "max_new": 32,
         "wall_s": wall, "ttft_ms_median": statistics.median(ttft),
         "ttft_ms_max": ttft[-1], "decode_tok_s": decode_toks / decode_s,
         "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
@@ -2056,20 +2217,20 @@ def serve_phase(cfg, lens, kernels, parity_layers=2):
         "host_syncs": counts.get("engine.host_syncs", 0),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches}
-    line["profiled_decode_step"] = profile_decode_step(eng, prompts)
+    line["profiled_decode_step"] = profile_decode_step(eng, prompts, extras)
     del eng
     free_engine()
 
     # the kernels against their plain versions end to end: 2 layers, f32
-    cfg2 = dataclasses.replace(cfg, n_layers=parity_layers)
+    cfg2 = _parity_cfg(cfg, parity_layers)
     short = [p[:n // 4] for p, n in zip(prompts, lens)]
     toks = {}
     for impl in (None, "ref"):
         rt32 = Runtime(compute_dtype=torch.float32,
                        param_dtype=torch.float32, page_size=16,
                        kernel_impl=impl)
-        e2 = build_engine(cfg2, rt32)
-        toks[impl], _, _ = run_requests(e2, short, 16)
+        e2 = build_engine(cfg2, rt32, max_ctx=max_ctx)
+        toks[impl], _, _ = run_requests(e2, short, 16, extras)
         del e2
         free_engine()
     if list(toks[None].values()) != list(toks["ref"].values()):
@@ -2189,7 +2350,7 @@ def _step_reading(kern, delta, graph, replayed):
                                 for n in replayed)}
 
 
-def profile_macro_step(eng, prompts, replayed):
+def profile_macro_step(eng, prompts, replayed, extras=None):
     """One steady K-step macro step (8 resident slots, no admission, no
     retirement, graphs already captured), then the next, which retires
     all 8 requests (8 frees, each one eager map commit), each under
@@ -2200,8 +2361,7 @@ def profile_macro_step(eng, prompts, replayed):
     launch counts (``trace_agrees``: its hand-kernel launches equal the
     counted ones), the top kernels and fmmu_commit's share. Then the
     steady step's graph replayed alone, timed by CUDA events."""
-    for p in prompts:
-        eng.submit(p, max_new=1 + 4 * MACRO_K)   # simple runs only
+    submit_all(eng, prompts, 1 + 4 * MACRO_K, extras)   # simple runs only
     done: dict = {}
     eng.step(done)               # admission + prefill + first macro step
     torch.cuda.synchronize()
@@ -2278,7 +2438,8 @@ def commit_in_graph(eng):
     return line
 
 
-def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
+def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2,
+                extras=None, max_ctx=2048):
     """Serve the single-step phase's requests through the K-step macro
     path (macro_k=8: one CUDA graph replay per K tokens). A first pass
     captures every graph the run needs; the counts are zeroed just
@@ -2287,7 +2448,9 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
     the timed pass captures nothing and makes one dispatch and one host
     sync per K tokens (plus one sync per prefill); each kernel of
     ``replayed`` shows its launches from the replays (fmmu_commit: one
-    per step, plus one per admission and free) and each of
+    per step, plus one per admission and free; flash_attention: one per
+    decoder layer and step in every graph, the cross-attention, plus its
+    prefills' encoder, self- and cross-attention) and each of
     ``eager`` (prefill) was launched. Then a ``parity_layers``-layer f32
     macro engine must give the same greedy tokens with the kernels as
     with kernel_impl="ref". On an MoE model the line also holds the
@@ -2297,16 +2460,16 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
     from repro_torch.models import Runtime
     rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                  page_size=16)
-    eng = build_engine(cfg, rt, macro_k=MACRO_K)
+    eng = build_engine(cfg, rt, macro_k=MACRO_K, max_ctx=max_ctx)
     prompts = serve_prompts(cfg, lens)
     t0 = time.perf_counter()
-    first, _, _ = run_requests(eng, prompts, 32)     # captures the graphs
+    first, _, _ = run_requests(eng, prompts, 32, extras)   # captures graphs
     first_s = time.perf_counter() - t0
     graphs = eng._graphs.stats()
     eng.metrics = {k: 0 for k in eng.metrics}
     COUNTERS.reset()                     # every count to 0 just before
     torch.cuda.reset_peak_memory_stats()
-    out, reqs, wall = run_requests(eng, prompts, 32)
+    out, reqs, wall = run_requests(eng, prompts, 32, extras)
     launches = COUNTERS.launches()       # ... and read just after
     counts = COUNTERS.snapshot()
     toks = [out[r.rid] for r in reqs]
@@ -2331,10 +2494,19 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
              f"K tokens, or host-side map work in steady state: {counts}, "
              f"{m}")
     want = {"fmmu_commit": MACRO_K * dispatches + 2 * n_req}
+    n_attn = sum(cfg.layer_kind(j) == "attn" for j in range(cfg.n_layers))
     if "paged_attention" in replayed:
-        n_attn = sum(cfg.layer_kind(j) == "attn"
-                     for j in range(cfg.n_layers))
         want["paged_attention"] = MACRO_K * dispatches * n_attn
+    n_cross = cfg.n_layers if cfg.n_enc_layers else 0
+    if "flash_attention" in replayed:
+        # the graphs: one cross-attention launch a decoder layer a step
+        for key, d in eng._graphs.deltas.items():
+            if d.get("kernel.flash_attention", 0) != MACRO_K * n_cross:
+                fail(f"{cfg.name}: graph {key} counts "
+                     f"{d.get('kernel.flash_attention', 0)} flash launches"
+                     f" a replay, expected {MACRO_K * n_cross}")
+        want["flash_attention"] = MACRO_K * dispatches * n_cross + n_req * (
+            cfg.n_enc_layers + n_attn + n_cross)
     for name in replayed:
         if launches.get(name, 0) != want[name]:
             fail(f"{name}: {launches.get(name, 0)} launches counted on the "
@@ -2347,7 +2519,7 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
     decode_toks = sum(len(t) - 1 for t in toks)
     line = {
         "model": cfg.name, "dtype": "bfloat16", "page_size": 16,
-        "n_slots": 8, "max_ctx": 2048, "prompt_lens": lens, "max_new": 32,
+        "n_slots": 8, "max_ctx": max_ctx, "prompt_lens": lens, "max_new": 32,
         "macro_k": MACRO_K, "wall_s": wall,
         "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": ttft[-1],
         "decode_tok_s": decode_toks / decode_s,
@@ -2367,7 +2539,10 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches}
     line["commit_in_graph"] = commit_in_graph(eng)
-    line["profiled_macro_step"] = profile_macro_step(eng, prompts, replayed)
+    if n_cross:
+        line["flash_launches_a_step_in_graphs"] = n_cross
+    line["profiled_macro_step"] = profile_macro_step(eng, prompts, replayed,
+                                                     extras)
     if cfg.moe is not None:
         line["moe_dispatch"] = moe_dispatch_reading(
             eng, line["profiled_macro_step"]["replay_ms_events"])
@@ -2375,15 +2550,15 @@ def macro_phase(cfg, lens, single_tokens, replayed, eager, parity_layers=2):
     free_engine()
 
     # the kernels against their plain versions in macro mode: 2 layers
-    cfg2 = dataclasses.replace(cfg, n_layers=parity_layers)
+    cfg2 = _parity_cfg(cfg, parity_layers)
     short = [p[:n // 4] for p, n in zip(prompts, lens)]
     toks2 = {}
     for impl in (None, "ref"):
         rt32 = Runtime(compute_dtype=torch.float32,
                        param_dtype=torch.float32, page_size=16,
                        kernel_impl=impl)
-        e2 = build_engine(cfg2, rt32, macro_k=MACRO_K)
-        toks2[impl], _, _ = run_requests(e2, short, 16)
+        e2 = build_engine(cfg2, rt32, macro_k=MACRO_K, max_ctx=max_ctx)
+        toks2[impl], _, _ = run_requests(e2, short, 16, extras)
         if e2.metrics["macro_steps"] <= 0:
             fail(f"{parity_layers}-layer f32 {cfg.name}: no macro step ran")
         del e2
@@ -4075,9 +4250,25 @@ MODELS = {
         cut="35 layers hold 953 GB of bf16 weights (27.2 GB a layer); 2 "
             "layers hold 55.4 GB, and its f32 parity engine (56 GB) 1 "
             "layer"),
+    # the encoder-decoder and the VLM at full depth and published widths:
+    # seamless's 8 requests carry 96..512 seeded source frames (src_cap
+    # 512 at max_ctx 2048) before 4..64 decoder tokens; its graphs hold
+    # the segmented flash kernel (the cross-attention, one launch a
+    # decoder layer a step). llava's carry 2,880 seeded patch embeddings
+    # before the llama prompts (up to 3,900 prefill positions), max_ctx
+    # 4096
+    "seamless-m4t-large-v2": dict(
+        lens=[4, 8, 12, 16, 24, 32, 48, 64],
+        src_lens=[96, 160, 224, 288, 352, 416, 480, 512],
+        single=("fmmu_commit", "paged_attention", "flash_attention"),
+        replayed=("fmmu_commit", "paged_attention", "flash_attention"),
+        eager=("flash_attention",)),
+    "llava-next-mistral-7b": dict(lens=SERVE_LENS, max_ctx=4096,
+                                  **ATTENTION_PATH),
 }
 NEW_MODELS = ("gemma2-9b", "glm4-9b", "qwen2-72b", "dbrx-132b",
               "arctic-480b")
+EMBED_MODELS = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 
 
 def _tag(name: str) -> str:
@@ -4095,19 +4286,25 @@ def model_phases(name: str) -> dict:
     if "n_layers" in spec:
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     parity = spec.get("parity_layers", 2)
+    extras = serve_extras(cfg, spec)
+    max_ctx = spec.get("max_ctx", 2048)
     t0 = time.perf_counter()
-    serve, single = serve_phase(cfg, spec["lens"], spec["single"], parity)
+    serve, single = serve_phase(cfg, spec["lens"], spec["single"], parity,
+                                extras, max_ctx)
     serve["phase_s"] = time.perf_counter() - t0
     print(f"serve {name}: {serve['phase_s']:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     serve_macro = macro_phase(cfg, spec["lens"], single, spec["replayed"],
-                              spec["eager"], parity)
+                              spec["eager"], parity, extras, max_ctx)
     serve_macro["phase_s"] = time.perf_counter() - t0
     print(f"serve macro {name}: {serve_macro['phase_s']:.1f} s",
           file=sys.stderr)
     for line in (serve, serve_macro):
         line["published_layers"] = full_layers
         line["depth_cut"] = spec.get("cut")
+        if extras:
+            line["embeddings"] = {k: [int(x[k].shape[0]) for x in extras]
+                                  for k in extras[0]}
     if cfg.ssm is not None:
         for line, n_pre in ((serve, serve["prefills"]),
                             (serve_macro, len(spec["lens"]))):
@@ -4168,6 +4365,9 @@ def main() -> int:
     flash_served, paged_served = check_attention_served(timer, rng)
     rows["flash_attention"].update(flash_served)
     rows["paged_attention"].update(paged_served)
+    # segment ids in the flash kernel: the encoder-decoder's cross- and
+    # encoder attention, packed segments at head_dim 128; llava's prefill
+    rows["flash_attention"].update(check_flash_segments(timer))
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
     # the channel grid: one launch of C blocks, C in {2, 8, 32}
@@ -4299,8 +4499,11 @@ def main() -> int:
 
     # 6. the other dense decoders and the MoE decoders, single-step then
     # macro (fmmu_commit, paged and flash attention)
+    # 7. the encoder-decoder and the VLM, single-step then macro
+    # (fmmu_commit, paged attention; flash attention at prefill and, for
+    # the encoder-decoder, in the graphs as the cross-attention)
     others = {}
-    for name in NEW_MODELS:
+    for name in NEW_MODELS + EMBED_MODELS:
         others[name] = model_phases(name)
         for kern in MODELS[name]["single"]:
             rows[kern][f"launches_{_tag(name)}"] = \
@@ -4343,7 +4546,12 @@ def main() -> int:
              f"{k}_{t}" for t in SERVED_TAGS
              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")) + ("shape_served",) + \
-        tuple(f"launches_{_tag(n)}" for n in NEW_MODELS)
+        tuple(f"launches_{_tag(n)}" for n in NEW_MODELS + EMBED_MODELS) + \
+        tuple(f"{k}_{t}" for t in SEG_TAGS
+              for k in ("ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms", "pairs")) + \
+        tuple(f"max_abs_err_{t}_{d}" for t in SEG_TAGS
+              for d in ("f32", "bf16")) + ("shape_segments",)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
@@ -4359,7 +4567,7 @@ def main() -> int:
     print(json.dumps({"ssd": ssd_line}))
     print(json.dumps({"serve_ssm": serve_ssm}))
     print(json.dumps({"serve_ssm_macro": serve_ssm_macro}))
-    for name in NEW_MODELS:
+    for name in NEW_MODELS + EMBED_MODELS:
         print(json.dumps({f"serve_{_tag(name)}": others[name]["serve"]}))
         print(json.dumps({f"serve_macro_{_tag(name)}":
                           others[name]["serve_macro"]}))

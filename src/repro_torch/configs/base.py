@@ -1,9 +1,11 @@
 """Architecture configuration: the port's own copy of the dense-decoder,
-MoE and pure-SSM parts of ``repro/configs/base.py`` (``MoEConfig``,
-``SSMConfig``, ``ArchConfig``, ``smoke_config``).
+MoE, pure-SSM, encoder-decoder and VLM parts of
+``repro/configs/base.py`` (``MoEConfig``, ``SSMConfig``,
+``ArchConfig``, ``smoke_config``).
 
-Only what the ported serving paths read is kept; hybrid, encoder and
-frontend fields come with the slices that port them.
+Only what the ported serving paths read is kept; the hybrid fields
+(``attn_every`` / ``attn_offset``) come with the slice that ports them,
+and a hybrid or audio family raises.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +46,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | ssm in the port so far
+    family: str                  # dense | moe | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -65,6 +67,9 @@ class ArchConfig:
     act: str = "silu"            # 'silu' (SwiGLU) | 'gelu' (GeGLU)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    n_enc_layers: int = 0        # encoder-decoder: encoder depth
+    frontend: str = ""           # '' | 'audio' | 'vision' (a stub)
+    prefix_len: int = 0          # frames/patches prepended by the stub
     source: str = ""
 
     def __post_init__(self):
@@ -102,7 +107,7 @@ class ArchConfig:
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family config for CPU tests: the reference's
-    ``smoke_config`` restricted to the dense, MoE and SSM fields."""
+    ``smoke_config`` restricted to the ported fields."""
     period = cfg.period
     moe = None
     if cfg.moe is not None:
@@ -127,4 +132,6 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window else 0,
         moe=moe,
         ssm=ssm,
+        n_enc_layers=2 if cfg.n_enc_layers else 0,
+        prefix_len=8 if cfg.prefix_len else 0,
     )

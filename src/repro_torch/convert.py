@@ -6,8 +6,10 @@ returns the port's parameter dict. The layouts and dtypes are kept as
 they are: ``wq`` [d,H,hd], ``wo`` [H,hd,d], a Mamba2 mixer's
 projections, conv and its float32 ``A_log``/``D``/``dt_bias``, an MoE
 layer's float32 router [d,E] and experts ``wg``/``wu`` [E,d,ff], ``wd``
-[E,ff,d], stack leaves [n_periods, ...] per intra-period index j. This
-module needs numpy only; the caller owns the JAX side.
+[E,ff,d], stack leaves [n_periods, ...] per intra-period index j; an
+encoder-decoder's ``enc_stack`` / ``enc_norm`` and each decoder layer's
+``cross_ln`` / ``cross`` block. This module needs numpy only; the
+caller owns the JAX side.
 
 ``fsm_state_from_jax`` and ``fsm_state_to_numpy`` carry the sequential
 packet engine's state across the packages field by field, so both
@@ -57,7 +59,54 @@ def params_from_jax(params_np: Any, cfg: ArchConfig,
     for j, lp in enumerate(params["stack"]):
         if cfg.is_moe_layer(j):
             _check_moe(lp.get("ffn", {}).get("moe"), cfg, n_p, j)
+        _check_cross(lp, cfg, n_p, j)
+    _check_encoder(params, cfg)
     return params
+
+
+def _attn_shapes(cfg: ArchConfig, n_p: int):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": (n_p, d, h, hd), "wk": (n_p, d, kv, hd),
+            "wv": (n_p, d, kv, hd), "wo": (n_p, h, hd, d)}
+
+
+def _check_cross(lp, cfg: ArchConfig, n_p: int, j: int):
+    """A decoder layer holds a bias-free cross block and its norm iff
+    the model has an encoder, at the reference's shapes."""
+    if not cfg.n_enc_layers:
+        if "cross" in lp or "cross_ln" in lp:
+            raise ValueError(f"{cfg.name} layer {j}: cross-attention "
+                             "leaves on a model without an encoder")
+        return
+    got = {k: tuple(v.shape) for k, v in lp.get("cross", {}).items()}
+    want = _attn_shapes(cfg, n_p)
+    ln = tuple(lp["cross_ln"].shape) if "cross_ln" in lp else None
+    if got != want or ln != (n_p, cfg.d_model):
+        raise ValueError(f"{cfg.name} layer {j}: cross leaves {got}, "
+                         f"cross_ln {ln}, expected {want}, "
+                         f"{(n_p, cfg.d_model)}")
+
+
+def _check_encoder(params, cfg: ArchConfig):
+    """``enc_stack`` (one period of n_enc_layers, attention and a dense
+    MLP a layer) and ``enc_norm`` iff the model has an encoder."""
+    if not cfg.n_enc_layers:
+        if "enc_stack" in params or "enc_norm" in params:
+            raise ValueError(f"{cfg.name}: encoder leaves on a model "
+                             "without an encoder")
+        return
+    n_e, d = cfg.n_enc_layers, cfg.d_model
+    enc = params.get("enc_stack")
+    if enc is None or len(enc) != 1 or \
+            tuple(params.get("enc_norm", torch.empty(0)).shape) != (d,):
+        raise ValueError(f"{cfg.name}: expected enc_stack of one period "
+                         "and enc_norm [d]")
+    got = {k: tuple(v.shape) for k, v in enc[0]["mixer"].items()
+           if k.startswith("w")}
+    if got != _attn_shapes(cfg, n_e) or tuple(enc[0]["ln1"].shape) != \
+            (n_e, d):
+        raise ValueError(f"{cfg.name}: encoder attention leaves {got}, "
+                         f"expected {_attn_shapes(cfg, n_e)}")
 
 
 def _check_moe(leaves, cfg: ArchConfig, n_p: int, j: int):

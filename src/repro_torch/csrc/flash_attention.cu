@@ -6,6 +6,13 @@
 // [B,Skv,KV,D] -> [B,Sq,H,D], causal masking right-aligned (query row i
 // sits at position i + Skv - Sq), optional window, softcap and
 // bidirectional attention, KV head = h // (H/KV), float32 statistics.
+// Optional segment ids seg_q [B,Sq] / seg_k [B,Skv] (int32; null: no
+// mask) restrict query row i to keys j with seg_q[i] == seg_k[j]: packed
+// sequences, and cross-attention's valid source frames (the decoder's
+// cross-attention runs here on every decode step, Sq = 1). The Pallas
+// kernel raises on segments and the reference sends them to its blocked
+// jnp lowering (repro/kernels/ops.py:36-52); here they are one more term
+// of the same mask, and no KV tile is skipped because of them.
 //
 // What bounds it: arithmetic. Causal prefill does ~2*Sq*Skv*D
 // multiply-adds per head (about half of them masked away by the tile
@@ -36,7 +43,7 @@
 // Both: KV tiles wholly past the causal frontier or below the window
 // are never loaded (the Pallas kernel's skipped grid steps), positions
 // >= Skv are masked (prompts need no padding), and a row with no valid
-// key (only possible when Sq > Skv) returns 0.
+// key (Sq > Skv, or no key of its segment) returns 0.
 //
 // What is left: wgmma with TMA loads and a producer warp. mma.sync
 // issues one 16x8x16 product per instruction per warp and bounds this
@@ -60,9 +67,10 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
     flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
-    int KV, float scale, float softcap, int window, int causal,
-    int q_offset) {
+    const T* __restrict__ v, T* __restrict__ out,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Sq,
+    int Skv, int H, int KV, float scale, float softcap, int window,
+    int causal, int q_offset) {
   constexpr int TPR = f32_tpr<D>();
   constexpr int DP = D / TPR;       // elements of a row a thread holds
   constexpr int NT = kBQ * TPR;     // threads
@@ -70,6 +78,7 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
   constexpr int BK = D <= 64 ? 64 : D <= 128 ? 32 : 16;
   __shared__ float ks[BK][D];
   __shared__ float vs[BK][D];
+  __shared__ int segs[BK];          // the tile's key segment ids
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int r0 = blockIdx.x * kBQ;
@@ -79,6 +88,10 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
                          << ((threadIdx.x & 31) & ~(TPR - 1));
   const bool live_row = row < Sq;
   const int qpos = q_offset + row;
+  // the row's segment (one value for the TPR threads of a row, so the
+  // skip below keeps their shuffles converged)
+  const int* sk = seg_k ? seg_k + (size_t)b * Skv : nullptr;
+  const int seg_row = sk && live_row ? seg_q[(size_t)b * Sq + row] : 0;
 
   float qr[DP], acc[DP];
   if (live_row) {
@@ -110,11 +123,14 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
       ks[t][d] = to_f32(k[off]);
       vs[t][d] = to_f32(v[off]);
     }
+    if (sk)
+      for (int t = threadIdx.x; t < nk; t += NT) segs[t] = sk[k0 + t];
     __syncthreads();
     if (!live_row) continue;
     const int t_lo = max(0, k_lo - k0);
     const int t_hi = min(nk - 1, k_hi - k0);
     for (int t = t_lo; t <= t_hi; ++t) {
+      if (sk && segs[t] != seg_row) continue;
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < DP; ++i) s += qr[i] * ks[t][part + TPR * i];
@@ -175,9 +191,10 @@ __device__ __forceinline__ void tc_load_rows(T* dst, const T* src, int row0,
 template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
-    int KV, float scale, float softcap, int window, int causal,
-    int q_offset) {
+    const T* __restrict__ v, T* __restrict__ out,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Sq,
+    int Skv, int H, int KV, float scale, float softcap, int window,
+    int causal, int q_offset) {
   constexpr int BQ = kTcBQ, BK = kTcBK;
   constexpr int NNT = BK / 8;   // 8-wide key tiles of S
   constexpr int LD = D + 8;     // padded shared row (elements)
@@ -201,6 +218,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   const T* qb = q + ((size_t)b * Sq * H + h) * D;
   const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;
   const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
+  const int* sk = seg_k ? seg_k + (size_t)b * Skv : nullptr;
 
   // q tiles p and nqt-1-p: under causal masking every block then walks
   // nqt + 1 KV tiles, so the blocks finish together
@@ -220,6 +238,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const int lo_pos = window > 0 ? max(0, q_offset + r0 - window + 1) : 0;
     const int kt_lo = lo_pos / BK;
     const int kt_hi = hi_pos < 0 ? -1 : hi_pos / BK;
+    // segment ids of this thread's two rows (g8 and g8 + 8)
+    int seg_row[2] = {0, 0};
+    if (sk) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + warp * 16 + g8 + 8 * i;
+        seg_row[i] = row < Sq ? seg_q[(size_t)b * Sq + row] : 0;
+      }
+    }
 
     float o[NDT][4];
 #pragma unroll
@@ -283,7 +310,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
       // rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3) of the warp's 16
       const int k0 = kt * BK;
       const int qp0 = q_offset + r0 + warp * 16 + g8;
-      const bool need_mask = k0 + BK > Skv ||
+      const bool need_mask = sk != nullptr || k0 + BK > Skv ||
                              (causal && k0 + BK - 1 > q_offset + r0) ||
                              (window > 0 && k0 < q_offset + r0 + BQ - window);
       float mx[2] = {mrow[0], mrow[1]};
@@ -298,7 +325,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
             const int kp = k0 + nt * 8 + 2 * t4 + (e & 1);
             const int qp = qp0 + (e >> 1) * 8;
             const bool ok = kp < Skv && (!causal || kp <= qp) &&
-                            (window <= 0 || kp > qp - window);
+                            (window <= 0 || kp > qp - window) &&
+                            (!sk || __ldg(sk + kp) == seg_row[e >> 1]);
             if (!ok) x = REPRO_MASKED;
           }
           sc[nt][e] = x;
@@ -367,24 +395,30 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   }
 }
 
+// the launchers' common arguments past the element type and head_dim
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  const int *seg_q, *seg_k;
+  int B, Sq, Skv, H, KV;
+  float scale, softcap;
+  int window, causal;
+  cudaStream_t stream;
+};
+
 template <typename T, int D>
-static int launch_d(const void* q, const void* k, const void* v, void* out,
-                    int B, int Sq, int Skv, int H, int KV, float scale,
-                    float softcap, int window, int causal,
-                    cudaStream_t stream) {
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+static int launch_d(const Args& a) {
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
   constexpr int threads = kBQ * f32_tpr<D>();
-  flash_attention_f32_kernel<T, D><<<grid, threads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, H, KV, scale,
-      softcap, window, causal, Skv - Sq);
+  flash_attention_f32_kernel<T, D><<<grid, threads, 0, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
+      a.seg_k, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
+      a.causal, a.Skv - a.Sq);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-static int launch_tc_d(const void* q, const void* k, const void* v,
-                       void* out, int B, int Sq, int Skv, int H, int KV,
-                       float scale, float softcap, int window, int causal,
-                       cudaStream_t stream) {
+static int launch_tc_d(const Args& a) {
   constexpr size_t smem = tc_smem_bytes<T, D>();
   if (smem > 48 * 1024) {  // above the default cap: opt in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -392,67 +426,49 @@ static int launch_tc_d(const void* q, const void* k, const void* v,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int nqt = (Sq + kTcBQ - 1) / kTcBQ;
-  dim3 grid((nqt + 1) / 2, H, B);  // two q tiles per block
-  flash_attention_tc_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, H, KV, scale,
-      softcap, window, causal, Skv - Sq);
+  const int nqt = (a.Sq + kTcBQ - 1) / kTcBQ;
+  dim3 grid((nqt + 1) / 2, a.H, a.B);  // two q tiles per block
+  flash_attention_tc_kernel<T, D><<<grid, kTcThreads, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
+      a.seg_k, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
+      a.causal, a.Skv - a.Sq);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool TC, int D>
-static int launch_body(const void* q, const void* k, const void* v,
-                       void* out, int B, int Sq, int Skv, int H, int KV,
-                       float scale, float softcap, int window, int causal,
-                       cudaStream_t stream) {
+static int launch_body(const Args& a) {
   if constexpr (TC)
-    return launch_tc_d<T, D>(q, k, v, out, B, Sq, Skv, H, KV, scale, softcap,
-                             window, causal, stream);
+    return launch_tc_d<T, D>(a);
   else
-    return launch_d<T, D>(q, k, v, out, B, Sq, Skv, H, KV, scale, softcap,
-                          window, causal, stream);
+    return launch_d<T, D>(a);
 }
 
 template <typename T, bool TC>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int Sq, int Skv, int H, int KV, int D, float scale,
-                  float softcap, int window, int causal,
-                  cudaStream_t stream) {
+static int launch(const Args& a, int D) {
   switch (D) {
-    case 16:
-      return launch_body<T, TC, 16>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                    softcap, window, causal, stream);
-    case 32:
-      return launch_body<T, TC, 32>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                    softcap, window, causal, stream);
-    case 64:
-      return launch_body<T, TC, 64>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                    softcap, window, causal, stream);
-    case 128:
-      return launch_body<T, TC, 128>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                     softcap, window, causal, stream);
-    case 256:
-      return launch_body<T, TC, 256>(q, k, v, out, B, Sq, Skv, H, KV, scale,
-                                     softcap, window, causal, stream);
+    case 16: return launch_body<T, TC, 16>(a);
+    case 32: return launch_body<T, TC, 32>(a);
+    case 64: return launch_body<T, TC, 64>(a);
+    case 128: return launch_body<T, TC, 128>(a);
+    case 256: return launch_body<T, TC, 256>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
-    int Skv, int H, int KV, int D, float scale, float softcap, int window,
-    int causal, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+    const void* q, const void* k, const void* v, void* out,
+    const void* seg_q, const void* seg_k, int B, int Sq, int Skv, int H,
+    int KV, int D, float scale, float softcap, int window, int causal,
+    int dtype, void* stream) {
+  if ((seg_q == nullptr) != (seg_k == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, out, (const int*)seg_q, (const int*)seg_k, B, Sq,
+               Skv, H, KV, scale, softcap, window, causal,
+               (cudaStream_t)stream};
   switch (dtype) {
-    case kF32:
-      return launch<float, false>(q, k, v, out, B, Sq, Skv, H, KV, D, scale,
-                                  softcap, window, causal, s);
-    case kBF16:
-      return launch<__nv_bfloat16, true>(q, k, v, out, B, Sq, Skv, H, KV, D,
-                                         scale, softcap, window, causal, s);
-    case kF16:
-      return launch<__half, true>(q, k, v, out, B, Sq, Skv, H, KV, D, scale,
-                                  softcap, window, causal, s);
+    case kF32: return launch<float, false>(a, D);
+    case kBF16: return launch<__nv_bfloat16, true>(a, D);
+    case kF16: return launch<__half, true>(a, D);
   }
   return (int)cudaErrorInvalidValue;
 }

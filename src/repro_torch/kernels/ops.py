@@ -32,14 +32,16 @@ def _use_ref(impl: Optional[str]) -> bool:
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     segment_ids=None, bidirectional=False, impl=None):
-    if segment_ids is not None:
-        raise NotImplementedError("segment_ids is not ported")
+    """``segment_ids`` = (seg_q [B,Sq], seg_k [B,Skv]) int32: the
+    kernel masks them itself (the reference sends them to its blocked
+    lowering)."""
     if _use_ref(impl):
         return ref.attention_naive(q, k, v, causal=causal, window=window,
-                                   softcap=softcap,
+                                   softcap=softcap, segment_ids=segment_ids,
                                    bidirectional=bidirectional)
     return fa.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=softcap, bidirectional=bidirectional)
+                              softcap=softcap, segment_ids=segment_ids,
+                              bidirectional=bidirectional)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, ctx_lens, *,

@@ -13,10 +13,13 @@ fewer heads (GQA), grouped as kv head = h // (H // KV); softmax
 statistics in float32.
 
 One documented divergence from the jnp oracles: a query row with no
-valid key (a decode lane with ``ctx_lens == 0``) returns 0 with stats
+valid key (a decode lane with ``ctx_lens == 0``, a cross-attention lane
+with no valid source frame, a causal row past Skv) returns 0 with stats
 m = -1e30, l = 0 — what the Pallas kernels return, since they skip every
 masked page — where the jnp oracles return the mean of the masked
-values. The serving engine never passes such a row.
+values (their -1e30 is finite). The CUDA kernels return 0 too. The
+serving engine passes such a row only on a masked (dead or paused)
+lane, whose source mask it zeroes and whose token it discards.
 """
 from __future__ import annotations
 
@@ -44,9 +47,12 @@ def _masked_softmax_weights(logits: torch.Tensor, mask: torch.Tensor):
 
 # ======================================================================
 def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    bidirectional=False):
+                    segment_ids=None, bidirectional=False):
     """q [B,Sq,H,D]; k,v [B,Skv,KV,D] -> [B,Sq,H,D]. fp32 math;
-    causal masking is right-aligned (query i sits at i + Skv - Sq)."""
+    causal masking is right-aligned (query i sits at i + Skv - Sq).
+    ``segment_ids`` = (seg_q [B,Sq], seg_k [B,Skv]) integer ids: query
+    row i sees key j only where seg_q[i] == seg_k[j] (packed sequences;
+    cross-attention's valid source frames)."""
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // kv, dim=2)
@@ -60,7 +66,11 @@ def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
         mask &= kpos <= qpos
     if window and window > 0:
         mask &= kpos > qpos - window
-    p, _, l = _masked_softmax_weights(logits, mask[None, None])
+    mask = mask[None, None]
+    if segment_ids is not None:
+        seg_q, seg_k = segment_ids
+        mask = mask & (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+    p, _, l = _masked_softmax_weights(logits, mask)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     out = out / l.clamp_min(1e-30).transpose(1, 2)[..., None]
     return out.to(q.dtype)

@@ -1,12 +1,22 @@
 """Top-level Model for the paged-serving path (dense, MoE and pure-SSM
-decoders): port of ``repro/models/model.py`` (``init``, ``_embed``,
-``_logits``, ``prefill``, ``decode_step``, ``build_model``).
+decoders, the encoder-decoder and the VLM): port of
+``repro/models/model.py`` (``_src_len``, ``_prefix_len``, ``init``,
+``_embed``, ``_fuse_inputs``, ``_encode``, ``_logits``, ``prefill``,
+``decode_step``, ``build_model``).
 
 Parameters are a plain dict of tensors in the reference's pytree
 layout (``embed`` [V,d], ``stack`` = list over j of dicts with
 [n_periods, ...] leaves, ``final_norm`` [d], ``head`` [d,V] when
-untied), so ``convert.params_from_jax`` can load the reference's own
+untied; an encoder-decoder's ``enc_stack`` and ``enc_norm`` beside
+them and a ``cross_ln`` / ``cross`` block in each decoder layer), so
+``convert.params_from_jax`` can load the reference's own
 initialisation for the equivalence tests.
+
+The modality frontends are stubs, as in the reference: a VLM request
+carries its patch embeddings (``prefix_emb`` [B,P,d], placed before the
+token embeddings, positions over the whole), an encoder-decoder request
+its frame embeddings (``src_emb`` [B,Ssrc,d], with ``src_valid``
+[B,Ssrc] marking the frames cross-attention may see).
 """
 from __future__ import annotations
 
@@ -19,8 +29,65 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, moe, ssm, transformer
+from repro_torch.models import attention, common, moe, ssm, transformer
 from repro_torch.models.common import Runtime
+
+
+def _src_len(cfg: ArchConfig, seq_len: int) -> int:
+    """Source frames an encoder-decoder's serving slot holds at
+    ``seq_len`` context (the engine's ``src_cap``)."""
+    return max(128, seq_len // 4) if cfg.n_enc_layers else 0
+
+
+def _prefix_len(cfg: ArchConfig, seq_len: int) -> int:
+    return min(cfg.prefix_len, seq_len // 2) if cfg.prefix_len else 0
+
+
+def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder stack's config: the model's widths at the encoder's
+    depth, dense, one layer kind."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_enc_layers, moe=None,
+                               layer_pattern=())
+
+
+def _init_stack(g: torch.Generator, cfg: ArchConfig, dt, dev, *,
+                cross: bool = False):
+    """Stacked layer parameters: a list over the intra-period index j of
+    dicts with [n_periods, ...] leaves (a decoder layer of an
+    encoder-decoder also holds ``cross_ln`` and a bias-free ``cross``
+    attention block)."""
+    d = cfg.d_model
+    n_p = cfg.n_layers // cfg.period
+    stack = []
+    for j in range(cfg.period):
+        layer: Dict[str, Any] = {
+            "ln1": torch.zeros((n_p, d), dtype=dt, device=dev)}
+        if cfg.layer_kind(j) == "mamba":
+            layer["mixer"] = ssm.init_ssm(g, cfg, n_p, dt, dev)
+        else:
+            layer["mixer"] = attention.init_attention(g, cfg, n_p, dt, dev)
+        if cfg.post_norms:
+            layer["post1"] = torch.zeros((n_p, d), dtype=dt, device=dev)
+        if cross:
+            layer["cross_ln"] = torch.zeros((n_p, d), dtype=dt, device=dev)
+            layer["cross"] = attention.init_attention(g, cfg, n_p, dt, dev,
+                                                      cross=True)
+        ffn: Dict[str, Any] = {}
+        if cfg.is_moe_layer(j):
+            ffn["moe"] = moe.init_moe(g, cfg, n_p, dt, dev)
+        if cfg.d_ff and (not ffn or cfg.moe.dense_residual):
+            ff = cfg.d_ff
+            ffn["dense"] = {
+                "wg": common.init_dense(g, (n_p, d, ff), d, dt, dev),
+                "wu": common.init_dense(g, (n_p, d, ff), d, dt, dev),
+                "wd": common.init_dense(g, (n_p, ff, d), ff, dt, dev)}
+        if ffn:
+            layer["ln2"] = torch.zeros((n_p, d), dtype=dt, device=dev)
+            layer["ffn"] = ffn
+            if cfg.post_norms:
+                layer["post2"] = torch.zeros((n_p, d), dtype=dt, device=dev)
+        stack.append(layer)
+    return stack
 
 
 @dataclasses.dataclass
@@ -35,49 +102,8 @@ class Model:
         device, with the reference's shapes and scales."""
         cfg, dt, dev = self.cfg, self.rt.param_dtype, self.device
         g = generator
-        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        n_p = cfg.n_layers // cfg.period
-        stack = []
-        for j in range(cfg.period):
-            layer: Dict[str, Any] = {
-                "ln1": torch.zeros((n_p, d), dtype=dt, device=dev)}
-            if cfg.layer_kind(j) == "mamba":
-                layer["mixer"] = ssm.init_ssm(g, cfg, n_p, dt, dev)
-            else:
-                dense = common.init_dense
-                layer["mixer"] = {
-                    "wq": dense(g, (n_p, d, h * hd), d, dt, dev).reshape(
-                        n_p, d, h, hd),
-                    "wk": dense(g, (n_p, d, kv * hd), d, dt, dev).reshape(
-                        n_p, d, kv, hd),
-                    "wv": dense(g, (n_p, d, kv * hd), d, dt, dev).reshape(
-                        n_p, d, kv, hd),
-                    "wo": dense(g, (n_p, h * hd, d), h * hd, dt,
-                                dev).reshape(n_p, h, hd, d),
-                }
-                if cfg.qkv_bias:
-                    layer["mixer"].update(
-                        bq=torch.zeros((n_p, h, hd), dtype=dt, device=dev),
-                        bk=torch.zeros((n_p, kv, hd), dtype=dt, device=dev),
-                        bv=torch.zeros((n_p, kv, hd), dtype=dt, device=dev))
-            if cfg.post_norms:
-                layer["post1"] = torch.zeros((n_p, d), dtype=dt, device=dev)
-            ffn: Dict[str, Any] = {}
-            if cfg.is_moe_layer(j):
-                ffn["moe"] = moe.init_moe(g, cfg, n_p, dt, dev)
-            if cfg.d_ff and (not ffn or cfg.moe.dense_residual):
-                ff = cfg.d_ff
-                ffn["dense"] = {
-                    "wg": common.init_dense(g, (n_p, d, ff), d, dt, dev),
-                    "wu": common.init_dense(g, (n_p, d, ff), d, dt, dev),
-                    "wd": common.init_dense(g, (n_p, ff, d), ff, dt, dev)}
-            if ffn:
-                layer["ln2"] = torch.zeros((n_p, d), dtype=dt, device=dev)
-                layer["ffn"] = ffn
-                if cfg.post_norms:
-                    layer["post2"] = torch.zeros((n_p, d), dtype=dt,
-                                                 device=dev)
-            stack.append(layer)
+        d = cfg.d_model
+        stack = _init_stack(g, cfg, dt, dev, cross=bool(cfg.n_enc_layers))
         embed = torch.randn((cfg.vocab_size, d), generator=g,
                             dtype=torch.float32, device=dev)
         params: Dict[str, Any] = {
@@ -88,6 +114,9 @@ class Model:
         if not cfg.tie_embeddings:
             params["head"] = common.init_dense(g, (d, cfg.vocab_size), d,
                                                dt, dev)
+        if cfg.n_enc_layers:
+            params["enc_stack"] = _init_stack(g, _enc_cfg(cfg), dt, dev)
+            params["enc_norm"] = torch.zeros((d,), dtype=dt, device=dev)
         return params
 
     # ------------------------------------------------------------------
@@ -96,6 +125,36 @@ class Model:
         if self.cfg.name.startswith("gemma"):
             x = x * _embed_scale(self.cfg.d_model, x.dtype)
         return x
+
+    def _fuse_inputs(self, params, batch):
+        """tokens (+ prefix embeddings before them) -> x [B,S,d],
+        positions [B,S] over the whole."""
+        x = self._embed(params, batch["tokens"])
+        if batch.get("prefix_emb") is not None:
+            pre = batch["prefix_emb"].to(self.rt.compute_dtype)
+            x = torch.cat([pre, x], dim=1)
+        b, s = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        return x, positions
+
+    def _encode(self, params, batch):
+        """The encoder stack over ``src_emb`` (bidirectional and
+        unmasked, as in the reference), then ``enc_norm`` -> (enc_out,
+        src_valid); (None, None) without an encoder."""
+        if not self.cfg.n_enc_layers:
+            return None, None
+        enc_cfg = _enc_cfg(self.cfg)
+        src = batch["src_emb"].to(self.rt.compute_dtype)
+        b, s = src.shape[:2]
+        pos = torch.arange(s, device=src.device)[None, :].expand(b, s)
+        enc_out, _ = transformer.stack_forward(
+            params["enc_stack"], src, enc_cfg, self.rt, positions=pos,
+            bidirectional=True)
+        enc_out = common.rms_norm(enc_out, params["enc_norm"],
+                                  enc_cfg.norm_eps)
+        return enc_out, batch.get("src_valid")
 
     def _logits(self, params, x):
         cd = self.rt.compute_dtype
@@ -106,24 +165,29 @@ class Model:
         return common.softcap(logits.float(), self.cfg.final_softcap)
 
     # ------------------------------------------------------------------
-    def prefill(self, params, tokens):
-        """tokens [B,S] -> (last_logits [B,V] fp32, collected caches
+    def prefill(self, params, batch):
+        """``batch``: the reference's keys (``tokens`` [B,S]; optional
+        ``prefix_emb``, ``src_emb``, ``src_valid``, ``positions``), or a
+        token tensor alone -> (last_logits [B,V] fp32, collected caches
         for the paging layer)."""
-        x = self._embed(params, tokens)
-        b, s = x.shape[:2]
-        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        if isinstance(batch, torch.Tensor):
+            batch = {"tokens": batch}
+        x, positions = self._fuse_inputs(params, batch)
+        enc_out, src_valid = self._encode(params, batch)
         x, caches = transformer.stack_forward(
             params["stack"], x, self.cfg, self.rt, positions=positions,
-            collect_caches=True)
+            enc_out=enc_out, src_valid=src_valid, collect_caches=True)
         x = common.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._logits(params, x[:, -1]), caches
 
-    def decode_step(self, params, tokens, caches, *, ctx_lens, block_table):
-        """tokens [B] -> (logits [B,V] fp32, caches updated in place)."""
+    def decode_step(self, params, tokens, caches, *, ctx_lens, block_table,
+                    src_valid=None):
+        """tokens [B] -> (logits [B,V] fp32, caches updated in place);
+        ``src_valid`` [B,Ssrc] masks an encoder-decoder's source frames."""
         x = self._embed(params, tokens)
         x, caches = transformer.stack_decode(
             params["stack"], x, caches, self.cfg, self.rt,
-            ctx_lens=ctx_lens, block_table=block_table)
+            ctx_lens=ctx_lens, block_table=block_table, src_valid=src_valid)
         x = common.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._logits(params, x), caches
 

@@ -1,5 +1,6 @@
-"""Decoder stack for the paged-serving path (dense attention and Mamba2
-mixers, dense or MoE FFNs): port of ``repro/models/transformer.py``
+"""Decoder and encoder stacks for the paged-serving path (dense
+attention and Mamba2 mixers, dense or MoE FFNs, decoder cross-attention
+over an encoder's output): port of ``repro/models/transformer.py``
 (``stack_forward`` with cache collection, ``init_decode_caches``,
 ``stack_decode``).
 
@@ -11,8 +12,11 @@ Decode caches are indexed as the reference indexes them: the paged KV
 pools [n_periods, len(attn_js), NB, P, KV, hd] (absent without an
 attention layer), and per-slot SSM state, conv [n_periods,
 len(ssm_js), n_slots, K-1, di+2N] in the compute dtype and ssm
-[n_periods, len(ssm_js), n_slots, nh, hd, N] in float32. ``a_of`` and
-``s_of`` map j to its index among the attention / mamba layers.
+[n_periods, len(ssm_js), n_slots, nh, hd, N] in float32, and an
+encoder-decoder's per-slot cross-attention K/V, cross_k / cross_v
+[n_periods, period, n_slots, src_len, KV, hd], written once at prefill.
+``a_of`` and ``s_of`` map j to its index among the attention / mamba
+layers.
 """
 from __future__ import annotations
 
@@ -62,15 +66,23 @@ def _ffn(lp, x, cfg, rt: Runtime):
     return x + y
 
 
+def _cross(lp, x, kv, cfg, rt: Runtime, src_valid):
+    """The decoder layer's cross-attention residual branch."""
+    h = common.rms_norm(x, lp["cross_ln"], cfg.norm_eps)
+    return x + attention.cross_forward(lp["cross"], h, kv, cfg, rt,
+                                       src_valid=src_valid)
+
+
 def _apply_layer_full(lp, x, cfg, rt: Runtime, j: int, *, positions,
-                      collect):
+                      bidirectional, enc_out, src_valid, collect):
     """One layer over the full sequence. Returns (x, collected)."""
     col: Dict[str, Any] = {}
     h = common.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.layer_kind(j) == "attn":
         y, (k, v) = attention.attn_forward(
             lp["mixer"], h, cfg, rt, positions=positions,
-            kind=cfg.attn_kind(j), return_kv=True)
+            kind=cfg.attn_kind(j), bidirectional=bidirectional,
+            return_kv=True)
         if collect:
             col["kv"] = (k, v)
     else:
@@ -80,23 +92,36 @@ def _apply_layer_full(lp, x, cfg, rt: Runtime, j: int, *, positions,
             col["ssm"] = state
     if cfg.post_norms:
         y = common.rms_norm(y, lp["post1"], cfg.norm_eps)
-    return _ffn(lp, x + y, cfg, rt), col
+    x = x + y
+    if enc_out is not None and "cross" in lp:
+        kv = attention.cross_kv(lp["cross"], enc_out, cfg, rt)
+        x = _cross(lp, x, kv, cfg, rt, src_valid)
+        if collect:
+            col["cross_kv"] = kv
+    return _ffn(lp, x, cfg, rt), col
 
 
 def stack_forward(params, x, cfg, rt: Runtime, *, positions,
+                  bidirectional=False, enc_out=None, src_valid=None,
                   collect_caches=False):
     """Full stack. Returns (x, caches or None); caches is a list over j
     of {"kv": (k, v)} with leaves [n_periods, B, S, KV, hd] or
     {"ssm": (conv_state, ssm_state)} with leaves [n_periods, B, K-1, C]
-    and [n_periods, B, nh, hd, N], the reference's collected layout."""
+    and [n_periods, B, nh, hd, N], plus {"cross_kv": (k, v)} with
+    leaves [n_periods, B, Ssrc, KV, hd] on a decoder layer given
+    ``enc_out``: the reference's collected layout. ``bidirectional``
+    runs the encoder's unmasked self-attention; ``src_valid`` [B,Ssrc]
+    masks the cross-attention's source frames."""
     period = cfg.period
     n_periods = cfg.n_layers // period
     cols: List[List[Dict[str, Any]]] = [[] for _ in range(period)]
     for p in range(n_periods):
         for j in range(period):
-            x, col = _apply_layer_full(layer_params(params, j, p), x, cfg,
-                                       rt, j, positions=positions,
-                                       collect=collect_caches)
+            x, col = _apply_layer_full(
+                layer_params(params, j, p), x, cfg, rt, j,
+                positions=positions, bidirectional=bidirectional,
+                enc_out=enc_out, src_valid=src_valid,
+                collect=collect_caches)
             cols[j].append(col)
     if not collect_caches:
         return x, None
@@ -108,9 +133,10 @@ def stack_forward(params, x, cfg, rt: Runtime, *, positions,
 
 
 def init_decode_caches(cfg, rt: Runtime, batch: int, n_blocks: int, dtype,
-                       *, device: torch.device):
+                       *, device: torch.device, src_len: int = 0):
     """Paged KV pools and per-slot SSM states, stacked [n_periods,
-    L_kind, ...]."""
+    L_kind, ...], and an encoder-decoder's per-slot cross K/V of
+    ``src_len`` frames [n_periods, period, batch, src_len, KV, hd]."""
     a_of, s_of = kind_index(cfg)
     n_periods = cfg.n_layers // cfg.period
     caches: Dict[str, torch.Tensor] = {}
@@ -129,14 +155,20 @@ def init_decode_caches(cfg, rt: Runtime, batch: int, n_blocks: int, dtype,
         caches["ssm"] = torch.zeros(
             (n_periods, len(s_of), batch, nh, s.head_dim, s.d_state),
             dtype=torch.float32, device=device)
+    if cfg.n_enc_layers and src_len:
+        shape = (n_periods, cfg.period, batch, src_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        caches["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        caches["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return caches
 
 
 def stack_decode(params, x, caches, cfg, rt: Runtime, *, ctx_lens,
-                 block_table):
+                 block_table, src_valid=None):
     """One decode step through the stack. x [B,d]; block_table [B,MAXP]
     shared across layers; the pools and SSM states in ``caches`` update
-    in place."""
+    in place; a decoder layer with a cross block attends to its slot's
+    cross K/V under ``src_valid`` [B,Ssrc]."""
     a_of, s_of = kind_index(cfg)
     for p in range(cfg.n_layers // cfg.period):
         for j in range(cfg.period):
@@ -159,5 +191,9 @@ def stack_decode(params, x, caches, cfg, rt: Runtime, *, ctx_lens,
                 caches["ssm"][p, si] = ss
             if cfg.post_norms:
                 y = common.rms_norm(y, lp["post1"], cfg.norm_eps)
-            x = _ffn(lp, x + y, cfg, rt)
+            x = x + y
+            if "cross" in lp:
+                kv = (caches["cross_k"][p, j], caches["cross_v"][p, j])
+                x = _cross(lp, x[:, None, :], kv, cfg, rt, src_valid)[:, 0]
+            x = _ffn(lp, x, cfg, rt)
     return x, caches

@@ -2,7 +2,8 @@
 FMMU page manager owning logical->physical KV translation. Port of the
 single-step and K-step macro paths of ``repro/serving/engine.py``, its
 host tier with the non-blocking swap pipeline and its channel-sharded
-map, for dense and pure-SSM models.
+map, for dense, MoE and pure-SSM decoders, the encoder-decoder and the
+VLM.
 
 Prefill (the flash-attention kernel, or the mamba_chunk_scan kernel
 for an SSM layer) writes each request's KV into the pool blocks named
@@ -98,6 +99,18 @@ relocated copy-on-write (``cow_writes``: one COND_UPDATE commit and row
 copies). Both planes are attention-only: a model with mamba layers
 shares nothing, and its GC walk raises (``_pools``).
 
+Embeddings (``submit(..., src_emb=, prefix_emb=)``): a VLM request's
+patch embeddings prefill before its tokens, and admission maps their
+pages too; an encoder-decoder request's frame embeddings run through
+the encoder at prefill, and each decoder layer's cross K/V go into the
+slot's cross caches, padded to ``src_cap`` frames. Decode masks them by
+``src_valid`` [n_slots, src_cap] (a device tensor written in place at
+prefill, which the K-step graphs read at a fixed address) times the
+step's live lanes; the cross-attention is the flash kernel with segment
+ids, one launch a decoder layer and step. Requests with embeddings
+share no prefix, and a journaled engine refuses them (the journal
+persists token prompts only), as in the reference.
+
 Not ported yet (later slices; ``ServeConfig`` rejects it): the channel
 mesh. Without a host tier there is no preemption victim, so a slot
 whose page growth fails PAUSES until blocks free up, as in the
@@ -124,7 +137,7 @@ from repro_torch.core.faults import FaultPlane, SwapFault
 from repro_torch.core.fmmu import batch as fb
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, _src_len
 from repro_torch.paging.kv_manager import KVPageManager
 from repro_torch.paging.pool import OutOfBlocks
 from repro_torch.serving import macro
@@ -144,6 +157,8 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     slot: int = -1
+    src_emb: Optional[torch.Tensor] = None      # [S_src, d] on the device
+    prefix_emb: Optional[torch.Tensor] = None   # [P, d] on the device
     # chunked admission: prompt tokens not yet fed to the model — they
     # stream through the decode path as forced lanes
     pending_prompt: List[int] = dataclasses.field(default_factory=list)
@@ -199,9 +214,18 @@ class ServeEngine:
         self._share_model_ok = not any(
             self.cfg.layer_kind(j) == "mamba"
             for j in range(self.cfg.period))
+        # an encoder-decoder slot's source frames: src_cap of them in
+        # its cross caches, src_lens valid; src_valid is their mask on
+        # the device (None without an encoder), written in place at
+        # prefill, so the K-step graphs read it at one address
+        self.src_cap = _src_len(self.cfg, config.max_ctx)
+        self.src_lens = np.zeros(self.n_slots, np.int32)
+        self.src_valid = (torch.zeros((self.n_slots, self.src_cap),
+                                      dtype=torch.int32, device=self.device)
+                          if self.cfg.n_enc_layers else None)
         self.caches = transformer.init_decode_caches(
             self.cfg, self.rt, self.n_slots, self.scratch_block + 1,
-            self.rt.compute_dtype, device=self.device)
+            self.rt.compute_dtype, device=self.device, src_len=self.src_cap)
         self.ctx_lens = np.zeros(self.n_slots, np.int32)
         self.active: Dict[int, Request] = {}
         self.eos_id = config.eos_id
@@ -256,10 +280,31 @@ class ServeEngine:
             self.attach_journal(config.durability.journal_path)
 
     # ------------------------------------------------------------- API
-    def submit(self, tokens: List[int], max_new: int = 16) -> int:
+    def submit(self, tokens: List[int], max_new: int = 16, *,
+               src_emb=None, prefix_emb=None) -> int:
+        """Queue a request: its prompt ``tokens``, and an
+        encoder-decoder's frame embeddings ``src_emb`` [S_src, d]
+        (S_src <= ``src_cap``; required there) or a VLM's patch
+        embeddings ``prefix_emb`` [P, d] (tensors or arrays)."""
+        if self.journal is not None and (src_emb is not None
+                                         or prefix_emb is not None):
+            raise ValueError("journaled serving persists token prompts "
+                             "only: no src_emb / prefix_emb")
+        src_emb, prefix_emb = (
+            None if e is None else torch.as_tensor(e, device=self.device)
+            for e in (src_emb, prefix_emb))
+        if self.cfg.n_enc_layers:
+            if src_emb is None or not 0 < src_emb.shape[0] <= self.src_cap:
+                raise ValueError(
+                    f"{self.cfg.name}: a request needs src_emb of 1.."
+                    f"{self.src_cap} frames (src_cap at max_ctx "
+                    f"{self.config.max_ctx})")
+        elif src_emb is not None:
+            raise ValueError(f"{self.cfg.name} has no encoder: src_emb")
         rid = self._rid
         self._rid += 1
         self.queue.append(Request(rid, list(tokens), max_new,
+                                  src_emb=src_emb, prefix_emb=prefix_emb,
                                   t_submit=time.perf_counter()))
         if self.journal is not None:
             self.journal.append(jl.SUBMIT,
@@ -286,6 +331,9 @@ class ServeEngine:
         for c in self.caches.values():
             c.zero_()
         self.ctx_lens[:] = 0
+        self.src_lens[:] = 0
+        if self.src_valid is not None:
+            self.src_valid.zero_()
         self.active = {}
         self.queue = deque()
         self._rid = 0
@@ -470,11 +518,14 @@ class ServeEngine:
                 groups = self.kvm.page_groups(req.tokens, self.page)
                 shared_blocks = self.kvm.match_prefix(groups)
             # on-demand allocation: admission maps only the pages that
-            # prefill writes; decode grows the mapping page by page
+            # prefill writes (the prefix embeddings' too); decode grows
+            # the mapping page by page
+            n_prefix = (req.prefix_emb.shape[0]
+                        if req.prefix_emb is not None else 0)
             if shared_blocks:
                 n_pages = len(shared_blocks)
             else:
-                n_pages = max(1, min(-(-chunk // self.page),
+                n_pages = max(1, min(-(-(chunk + n_prefix) // self.page),
                                      self.max_pages))
             try:
                 self.kvm.new_seq(slot, n_pages, shared=shared_blocks)
@@ -510,9 +561,12 @@ class ServeEngine:
 
     # ----------------------------------------------------- prefix sharing
     def _share_ok(self, req: Request) -> bool:
-        """Sharing applies to prompts of at least ``min_tokens`` on an
-        attention-only model."""
+        """Sharing applies to plain token prompts of at least
+        ``min_tokens`` on an attention-only model: prefix or source
+        embeddings carry per-request state the shared pages do not
+        hold."""
         return (self.prefix is not None and self._share_model_ok
+                and req.prefix_emb is None and req.src_emb is None
                 and len(req.tokens) >= self.prefix.min_tokens)
 
     def _register_prompt(self, req: Request):
@@ -846,13 +900,28 @@ class ServeEngine:
         """Prefill the first ``n_chunk`` prompt tokens (default: all)."""
         n_chunk = len(req.tokens) if n_chunk is None else n_chunk
         self.metrics["prefill_tokens"] += n_chunk
-        toks = torch.tensor(req.tokens[:n_chunk], dtype=torch.long,
-                            device=self.device)[None]
+        batch = {"tokens": torch.tensor(req.tokens[:n_chunk],
+                                        dtype=torch.long,
+                                        device=self.device)[None]}
+        n_prefix = 0
+        if req.prefix_emb is not None:
+            batch["prefix_emb"] = req.prefix_emb[None]
+            n_prefix = req.prefix_emb.shape[0]
+        if req.src_emb is not None:
+            batch["src_emb"] = req.src_emb[None]
+            batch["src_valid"] = torch.ones(
+                (1, req.src_emb.shape[0]), dtype=torch.int32,
+                device=self.device)
         row = self.kvm.block_tables()[req.slot]   # device slice, no sync
-        logits, cols = self.m.prefill(self.params, toks)
+        logits, cols = self.m.prefill(self.params, batch)
         _scatter_prefill(self.cfg, self.rt, self.caches, cols, row,
                          req.slot, self.scratch_block)
-        self.ctx_lens[req.slot] = n_chunk
+        self.ctx_lens[req.slot] = n_chunk + n_prefix
+        if req.src_emb is not None:
+            n_src = req.src_emb.shape[0]
+            self.src_lens[req.slot] = n_src
+            self.src_valid[req.slot] = (torch.arange(
+                self.src_cap, device=self.device) < n_src).to(torch.int32)
         if n_chunk < len(req.tokens):
             req.pending_prompt = list(req.tokens[n_chunk:])
             self.metrics["chunked_prefills"] += 1
@@ -898,12 +967,18 @@ class ServeEngine:
         """One decode step on the device, shared by the single-step path
         and the K-step program: the flat table is reshaped and sliced to
         the live-page bucket, dead slots are masked to the scratch block
-        with zeroed ctx, ``caches`` update in place, and greedy tokens
+        with zeroed ctx and no valid source frame (so every masked lane
+        computes the same garbage: their scratch-block writes do not
+        race; the rows with no valid key are these, and their tokens
+        are discarded), ``caches`` update in place, and greedy tokens
         come out."""
         tables = self._mask_tables(self._table_grid(table, pages), live)
+        src_valid = None
+        if self.src_valid is not None:
+            src_valid = self.src_valid * live[:, None]
         logits, _ = self.m.decode_step(
             params, tokens, caches, ctx_lens=torch.where(live, ctx_lens, 0),
-            block_table=tables)
+            block_table=tables, src_valid=src_valid)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     def _grow_pages(self, residents) -> List[Request]:
@@ -1352,13 +1427,16 @@ class ServeEngine:
 def _scatter_prefill(cfg, rt, caches, cols, table_row, slot: int,
                      scratch_block: int):
     """Write one request's prefill caches (B=1) in place: KV into its
-    pool blocks, conv/SSM states into its slot. cols: per-period-index
-    list of {"kv": (k, v)} with leaves [n_periods, 1, S, KV, hd] or
-    {"ssm": (conv, state)} with leaves [n_periods, 1, K-1, C] and
-    [n_periods, 1, nh, hd, N]. The reference's KV scatter drops rows
-    outside the pool (``mode="drop"``); here such rows (NIL, never
-    produced at admission) are routed to the scratch block instead,
-    which holds garbage by design."""
+    pool blocks, conv/SSM states and cross K/V into its slot (the cross
+    K/V zero-padded to the caches' src_cap frames, as the reference
+    pads). cols: per-period-index list of {"kv": (k, v)} with leaves
+    [n_periods, 1, S, KV, hd] or {"ssm": (conv, state)} with leaves
+    [n_periods, 1, K-1, C] and [n_periods, 1, nh, hd, N], and
+    {"cross_kv": (k, v)} with leaves [n_periods, 1, S_src, KV, hd].
+    The reference's KV scatter drops rows outside the pool
+    (``mode="drop"``); here such rows (NIL, never produced at admission)
+    are routed to the scratch block instead, which holds garbage by
+    design."""
     a_of, s_of = transformer.kind_index(cfg)
     page = rt.page_size
     for j in range(cfg.period):
@@ -1383,4 +1461,10 @@ def _scatter_prefill(cfg, rt, caches, cols, table_row, slot: int,
             si = s_of[j]
             caches["conv"][:, si, slot] = conv[:, 0].to(caches["conv"].dtype)
             caches["ssm"][:, si, slot] = state[:, 0]
+        if "cross_kv" in col:
+            n_src = col["cross_kv"][0].shape[2]
+            for name, t in zip(("cross_k", "cross_v"), col["cross_kv"]):
+                caches[name][:, j, slot, :n_src] = t[:, 0].to(
+                    caches[name].dtype)
+                caches[name][:, j, slot, n_src:] = 0
     return caches

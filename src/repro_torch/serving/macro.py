@@ -254,10 +254,12 @@ class MacroGraphs:
     Static addresses: every graph reads one packed input buffer and one
     static copy of the map state, and writes one output buffer; the
     caches and parameters are the engine's own tensors (the caches
-    update in place). Before a replay the inputs are copied in, and so
-    is every map-state tensor that an eager op replaced since the last
-    replay (an allocator re-sync; eager map commits, a swap's among
-    them, and its residency flip update the static tensors in place).
+    update in place), and so is an encoder-decoder's ``src_valid``
+    mask, written in place at prefill between runs, never inside one.
+    Before a replay the inputs are copied in, and so is every map-state
+    tensor that an eager op replaced since the last replay (an
+    allocator re-sync; eager map commits, a swap's among them, and its
+    residency flip update the static tensors in place).
     So no key holds residency: a swap or a rotation captures nothing.
     The one-channel program commits the map in place on the static
     state too, so ``kvm.state`` keeps one storage across replays; its

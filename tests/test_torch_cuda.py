@@ -1740,3 +1740,187 @@ def test_moe_decode_step_graph_replay_equals_eager_without_host_sync(cuda):
         assert torch.equal(out[0], want)
         for k in static:
             assert torch.equal(static[k], eager[k]), k
+
+
+# ------------------------------------------- segments in the flash kernel
+def _valid_ids(lens, s, dev):
+    return (torch.arange(s, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+
+
+def _packed_ids(b, s, g, dev):
+    """Packed segment ids [b, s]: four runs of seeded lengths a row."""
+    cuts = torch.stack([torch.randperm(s - 1, generator=g,
+                                       device=dev)[:3].sort().values + 1
+                        for _ in range(b)])
+    pos = torch.arange(s, device=dev)[None, :, None]
+    return (pos >= cuts[:, None, :]).sum(-1).to(torch.int32)
+
+
+# (tag, B, Sq, Skv, H, KV, D, kwargs, segment ids): the decoder's
+# cross-attention at decode (one query, per-lane valid frames, one lane
+# with none) and at prefill, the encoder's shape with packed segments,
+# and head_dim 128 GQA with packed causal segments and a window
+SEG_SHAPES = (
+    ("decode_cross", 8, 1, 512, 16, 16, 64, dict(causal=False,
+     bidirectional=True), lambda dev, g: (
+        torch.ones((8, 1), dtype=torch.int32, device=dev),
+        _valid_ids([512, 1, 96, 200, 0, 333, 480, 511], 512, dev))),
+    ("prefill_cross", 1, 64, 512, 16, 16, 64, dict(causal=False,
+     bidirectional=True), lambda dev, g: (
+        torch.ones((1, 64), dtype=torch.int32, device=dev),
+        _valid_ids([480], 512, dev))),
+    ("encoder_packed", 2, 512, 512, 16, 16, 64, dict(causal=False,
+     bidirectional=True), lambda dev, g: (_packed_ids(2, 512, g, dev),) * 2),
+    ("d128_packed", 2, 300, 300, 8, 2, 128, dict(window=64),
+     lambda dev, g: (_packed_ids(2, 300, g, dev),) * 2),
+)
+
+
+@pytest.mark.parametrize("shape", SEG_SHAPES, ids=[s[0] for s in SEG_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_segments(cuda, shape, dtype):
+    """The segmented kernel against the plain version at the slice's
+    shapes, one launch a call, and a row with no valid key exactly 0 (in
+    both)."""
+    _, b, sq, skv, h, kv, d, kw, ids = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, skv, kv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, skv, kv, d), generator=g, device=cuda).to(dtype)
+    segs = ids(cuda, g)
+    n0 = COUNTERS.launches().get("flash_attention", 0)
+    got = flash_attention(q, k, v, segment_ids=segs, **kw)
+    assert COUNTERS.launches()["flash_attention"] - n0 == 1
+    want = flash_attention_ref(q, k, v, segment_ids=segs, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    empty = segs[1].sum(dim=1) == 0 if sq == 1 else \
+        torch.zeros(b, dtype=torch.bool, device=cuda)
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    assert torch.equal(want[empty], torch.zeros_like(want[empty]))
+
+
+def test_flash_attention_segments_rejects_bad_ids(cuda):
+    q = torch.zeros((1, 8, 4, 16), device=cuda)
+    ones = torch.ones((1, 8), dtype=torch.int32, device=cuda)
+    for bad in ((ones.long(), ones), (ones, ones[:, :4]),
+                (ones, ones.cpu())):
+        with pytest.raises(ValueError):
+            flash_attention(q, q, q, segment_ids=bad)
+
+
+def _embed_engine(cuda, arch, dtype, macro_k):
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    m = build_model(smoke_config(get_arch(arch)),
+                    Runtime(compute_dtype=dtype, param_dtype=dtype,
+                            page_size=8), device=cuda)
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    return ServeEngine(m, params, config=ServeConfig(
+        n_slots=4, max_ctx=128, macro_k=macro_k, admit_tokens=12),
+        device=cuda)
+
+
+def _embed_requests(eng, cuda):
+    """MACRO_REQS with seeded source frames (encoder-decoder) or 8
+    prefix embeddings on every other request (VLM)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d, rids = eng.cfg.d_model, []
+    for i, (t, n) in enumerate(MACRO_REQS):
+        kw = {}
+        if eng.cfg.n_enc_layers:
+            kw["src_emb"] = 0.02 * torch.randn((16 + 9 * i, d), generator=g,
+                                               device=cuda)
+        elif i % 2 == 0:
+            kw["prefix_emb"] = 0.02 * torch.randn((8, d), generator=g,
+                                                  device=cuda)
+        rids.append(eng.submit(list(t), max_new=n, **kw))
+    return rids
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_embedding_engine_replays_match_eager_program(cuda, arch):
+    """An encoder-decoder's and a VLM's K-step graphs: every replay
+    equals one eager run of the same program bit for bit
+    (``_check_replays``), over all four (simple, forced) variants; the
+    encoder-decoder's graphs hold the segmented flash kernel, one launch
+    a decoder layer and step; the tokens equal a single-step engine's
+    (bf16)."""
+    eng = _embed_engine(cuda, arch, torch.float32, MACRO_K)
+    seen = _check_replays(eng, cuda)
+    rids = _embed_requests(eng, cuda)
+    done = eng.run()
+    assert {(s, f) for s, f, _ in seen} == {(True, True), (True, False),
+                                            (False, True), (False, False)}
+    n_cross = eng.cfg.n_layers if eng.cfg.n_enc_layers else 0
+    for delta in eng._graphs.deltas.values():
+        assert delta.get("kernel.flash_attention", 0) == MACRO_K * n_cross
+    assert [len(done[r]) for r in rids] == [n for _, n in MACRO_REQS]
+    toks = {}
+    for k in (0, MACRO_K):
+        e = _embed_engine(cuda, arch, torch.bfloat16, k)
+        rids = _embed_requests(e, cuda)
+        out = e.run()
+        toks[k] = [out[r] for r in rids]
+    assert toks[0] == toks[MACRO_K]
+
+
+def test_cross_attention_decode_step_graph_without_host_sync(cuda):
+    """A seamless-shaped decode step (bf16, 8 lanes, per-lane valid
+    frames, one lane with none) run eagerly and captured into a CUDA
+    graph under ``torch.cuda.set_sync_debug_mode("error")``: the replay's
+    logits and caches equal the eager step's bit for bit, and the graph
+    holds one flash kernel node a decoder layer (the cross-attention)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.kernels._graph import kernel_names
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.models import transformer as ttr
+    from repro_torch.serving.macro import capture
+    cfg = smoke_config(get_arch("seamless-m4t-large-v2"))
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                 page_size=16)
+    m = build_model(cfg, rt, device=cuda)
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    b, maxp, src = 8, 8, 128
+    nb = b * maxp + 1
+    g = torch.Generator(device=cuda).manual_seed(1)
+    caches0 = ttr.init_decode_caches(cfg, rt, b, nb, torch.bfloat16,
+                                     device=cuda, src_len=src)
+    for c in caches0.values():
+        c.copy_(torch.randn(c.shape, generator=g, device=cuda))
+    table = torch.randperm(nb, generator=g, device=cuda)[:b * maxp].reshape(
+        b, maxp).to(torch.int32)
+    ctx = torch.randint(1, maxp * 16 - 1, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (b,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    valid = _valid_ids([128, 1, 0, 50, 77, 128, 3, 100], src, cuda)
+
+    def step(caches):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return m.decode_step(params, toks, caches, ctx_lens=ctx,
+                                 block_table=table, src_valid=valid)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eager = {k: v.clone() for k, v in caches0.items()}
+    want = step(eager)
+    step({k: v.clone() for k, v in caches0.items()})        # warm-up
+    static = {k: v.clone() for k, v in caches0.items()}
+    out = []
+    graph, _ = capture(lambda: out.append(step(static)))
+    names = kernel_names(graph)
+    assert sum("flash_attention" in n for n in names) == cfg.n_layers
+    for _ in range(2):
+        for k, v in static.items():
+            v.copy_(caches0[k])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want)
+        for k in static:
+            assert torch.equal(static[k], eager[k]), k

@@ -10,31 +10,24 @@ within 2e-5, and ``ServeEngine`` greedy tokens identical to the JAX
 engine's, single-step and ``macro_k=4``. One JAX model per arch serves
 the module (its jitted prefill and decode are traced once a shape), and
 its engines share their compiled programs (``shared_jax_programs``)."""
-import functools
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_pairs import pair, share_jax_programs  # noqa: E402
+from _torch_pairs import shapes as _shapes  # noqa: E402
 from repro.configs import get_arch as j_get_arch  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
-from repro.core.fmmu import batch as JB  # noqa: E402
-from repro.models import Runtime as JRuntime  # noqa: E402
-from repro.models import build_model as j_build  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
 from repro.serving.config import ServeConfig as JServeConfig  # noqa: E402
 from repro.serving.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.counters import COUNTERS  # noqa: E402
-from repro_torch.models import Runtime, build_model  # noqa: E402
 from repro_torch.serving import ServeConfig, ServeEngine  # noqa: E402
 
 TOL = 2e-5
-PAGE = 8
 ARCHS = ("gemma2-9b", "glm4-9b", "qwen2-72b")
 FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "head_dim", "d_ff", "vocab_size", "qkv_bias", "use_rope",
@@ -43,68 +36,18 @@ FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "period", "source")
 
 
-def _pair(arch):
-    jm = j_build(j_smoke(j_get_arch(arch)),
-                 JRuntime(compute_dtype=jnp.float32, param_dtype=jnp.float32,
-                          remat="none", page_size=PAGE))
-    cfg = smoke_config(get_arch(arch))
-    tm = build_model(cfg, Runtime(compute_dtype=torch.float32,
-                                  param_dtype=torch.float32, page_size=PAGE),
-                     device="cpu")
-    jp = jm.init(jax.random.key(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
-    return jm, jp, tm, tp, jax.jit(jm.prefill), jax.jit(jm.decode_step)
-
-
-def _engine_key(eng):
-    return (id(eng.m), eng.page, eng.n_slots, eng.max_pages,
-            eng.scratch_block, eng.eos_id, eng.channels, eng.kvm.geom)
-
-
 @pytest.fixture(scope="module", autouse=True)
 def shared_jax_programs():
     """JAX engines of one model and configuration share one set of
-    compiled programs: the page manager's jitted map commits are a
-    function of its geometry alone (``make_jitted``), prefill and the
-    single decode step read only what ``_engine_key`` holds when they
-    are traced (so the single-step and K-step engines share them), and
-    the K-step programs that and ``macro_k``."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(JB, "make_jitted",
-               functools.lru_cache(maxsize=None)(JB.make_jitted))
-    shared = {}
-    init = JServeEngine.__init__
-
-    def shared_init(self, *args, **kwargs):
-        init(self, *args, **kwargs)
-        key = _engine_key(self)
-        for name, k in (("_prefill", key), ("_decode", key),
-                        ("_macro", key + (self.macro_k,)),
-                        ("_macro_simple", key + (self.macro_k,))):
-            programs = shared.setdefault(k, {})
-            if name in programs:
-                setattr(self, name, programs[name])
-            else:
-                programs[name] = getattr(self, name)
-    mp.setattr(JServeEngine, "__init__", shared_init)
+    compiled programs (``_torch_pairs.share_jax_programs``)."""
+    mp = share_jax_programs()
     yield
     mp.undo()
 
 
 @pytest.fixture(scope="module")
 def pairs():
-    return functools.lru_cache(maxsize=None)(_pair)
-
-
-def _shapes(tree, path=""):
-    """{path: shape} of a nested dict/list of arrays or tensors."""
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _shapes(v, f"{path}/{k}").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in _shapes(v, f"{path}/{i}").items()}
-    return {path: tuple(tree.shape)}
+    return pair
 
 
 def _close(t, j):

@@ -104,11 +104,27 @@ def test_flash_attention_ref_unaligned_seq_vs_pallas():
 
 
 def test_flash_attention_segment_ids_raise():
+    """Segment ids are ported: through the wrapper and ``ops`` they
+    match the reference's dispatch (its blocked lowering, the path the
+    reference takes for every segmented call) within f32 2e-5, and ids
+    whose shapes are not [B,Sq] / [B,Skv] raise."""
     t = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         flash_attention(t, t, t, segment_ids=(t, t))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError):
         ops.flash_attention(t, t, t, segment_ids=(t, t))
+    rng = np.random.default_rng(3)
+    q, tq = _both(rng.standard_normal((2, 64, 4, 16)))
+    k, tk = _both(rng.standard_normal((2, 64, 2, 16)))
+    v, tv = _both(rng.standard_normal((2, 64, 2, 16)))
+    ids, tids = _both(np.repeat(np.arange(4, dtype=np.int32), 16)[None]
+                      .repeat(2, 0))
+    want = jref.flash_attention_blocked(q, k, v, segment_ids=(ids, ids),
+                                        q_chunk=32, kv_chunk=32)
+    for fn in (flash_attention, ops.flash_attention):
+        got = fn(tq, tk, tv, segment_ids=(tids, tids))
+        np.testing.assert_allclose(_np(got), _np(want), atol=TOL["float32"],
+                                   rtol=TOL["float32"])
 
 
 # ----------------------------------------------------------------------

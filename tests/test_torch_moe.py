@@ -20,11 +20,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_pairs import pair, share_jax_programs  # noqa: E402
 from repro.configs import ArchConfig as JArchConfig  # noqa: E402
 from repro.configs import MoEConfig as JMoEConfig  # noqa: E402
 from repro.configs import get_arch as j_get_arch  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
-from repro.core.fmmu import batch as JB  # noqa: E402
 from repro.models import Runtime as JRuntime  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
@@ -42,7 +42,6 @@ from repro_torch.models import transformer as ttr  # noqa: E402
 from repro_torch.serving import ServeConfig, ServeEngine  # noqa: E402
 
 TOL = 2e-5
-PAGE = 8
 ARCHS = ("dbrx-132b", "arctic-480b")
 FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "head_dim", "d_ff", "vocab_size", "qkv_bias", "rope_theta",
@@ -51,55 +50,18 @@ MOE_FIELDS = ("n_experts", "top_k", "d_ff", "every", "moe_offset",
               "dense_residual", "capacity_factor", "router_aux_weight")
 
 
-def _pair(arch):
-    jm = j_build(j_smoke(j_get_arch(arch)),
-                 JRuntime(compute_dtype=jnp.float32, param_dtype=jnp.float32,
-                          remat="none", page_size=PAGE))
-    cfg = smoke_config(get_arch(arch))
-    tm = build_model(cfg, Runtime(compute_dtype=torch.float32,
-                                  param_dtype=torch.float32, page_size=PAGE),
-                     device="cpu")
-    jp = jm.init(jax.random.key(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
-    return jm, jp, tm, tp, jax.jit(jm.prefill), jax.jit(jm.decode_step)
-
-
-def _engine_key(eng):
-    return (id(eng.m), eng.page, eng.n_slots, eng.max_pages,
-            eng.scratch_block, eng.eos_id, eng.channels, eng.kvm.geom)
-
-
 @pytest.fixture(scope="module", autouse=True)
 def shared_jax_programs():
     """JAX engines of one model and configuration share one set of
-    compiled programs (as in ``test_torch_families.py``): the jitted map
-    commits by geometry, prefill and the single decode step by
-    ``_engine_key``, the K-step programs by that and ``macro_k``."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(JB, "make_jitted",
-               functools.lru_cache(maxsize=None)(JB.make_jitted))
-    shared = {}
-    init = JServeEngine.__init__
-
-    def shared_init(self, *args, **kwargs):
-        init(self, *args, **kwargs)
-        key = _engine_key(self)
-        for name, k in (("_prefill", key), ("_decode", key),
-                        ("_macro", key + (self.macro_k,)),
-                        ("_macro_simple", key + (self.macro_k,))):
-            programs = shared.setdefault(k, {})
-            if name in programs:
-                setattr(self, name, programs[name])
-            else:
-                programs[name] = getattr(self, name)
-    mp.setattr(JServeEngine, "__init__", shared_init)
+    compiled programs (``_torch_pairs.share_jax_programs``)."""
+    mp = share_jax_programs()
     yield
     mp.undo()
 
 
 @pytest.fixture(scope="module")
 def pairs():
-    return functools.lru_cache(maxsize=None)(_pair)
+    return pair
 
 
 def _shapes(tree, path=""):

@@ -231,7 +231,7 @@ def test_configs_match_reference_and_unported_families_raise():
             assert getattr(tc.ssm, f) == getattr(jc.ssm, f), f
         assert [tc.layer_kind(i) for i in range(tc.n_layers)] == \
             [jc.layer_kind(i) for i in range(jc.n_layers)]
-    for fam in ("hybrid", "encdec", "vlm", "audio"):
+    for fam in ("hybrid", "audio"):
         with pytest.raises(NotImplementedError):
             ArchConfig(name="x", family=fam, n_layers=2, d_model=8,
                        n_heads=2, n_kv_heads=2, d_ff=8, vocab_size=8)
