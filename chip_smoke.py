@@ -63,7 +63,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                (1e-4) and bf16 (2e-2) with a row without a valid key
                exactly 0, and llava's 3,900-position prefill (bf16);
                each timed in bf16 beside SDPA given the same boolean
-               mask (llava's: causal). Times the kernel,
+               mask (llava's: causal). The flash kernel's backward
+               (check_flash_attention_bwd, training): at the training
+               shape (B=8 S=1024 H=32 KV=8 D=64 causal, with the packed
+               segment ids of one make_batch call), the same without
+               ids, and D=128 at S=1000, in f32 (1e-4), bf16 (2e-2) and
+               f16 (1e-2) on max |got - want| / max(1, |want|) of dq,
+               dk and dv, against the plain version on the forward
+               kernel's (out, lse), the lse against attention_lse within
+               1e-4, a repeat bit-identical; timed in bf16 beside SDPA's
+               backward (given the same mask with ids), and the forward
+               timed with its lse beside without. Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -265,6 +275,24 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                launches a step (its cross-attention), read from every
                graph's counter delta and, for the profiled steps, from
                the replayed graph's kernel nodes.
+  8. train   — llama3.2-1b at published widths and full depth (16
+               layers, 1.24 B f32 parameters and AdamW moments, bf16
+               compute, seeded weights, remat="dots") trained 30 steps
+               on packed synthetic batches (8 x 1024 tokens; AdamW lr
+               1e-3, warm-up 5, decay 30) through training.train: every
+               loss finite, the mean of the last 5 below the first, 16
+               flash_attention_bwd and 32 flash_attention launches a step
+               (16 more forward ones as the backward recomputes each
+               period). Prints per-step loss, lr and grad_norm, the
+               median step ms, tokens/s, the model-FLOPs share of the
+               bf16 peak (mfu, a reading) and peak memory. Then (b) a
+               2-layer full-width f32 trainer with the kernels and with
+               kernel_impl="ref": step 1's loss within 1e-5 relative,
+               every gradient leaf within 1e-4 of its max |value|, three
+               steps' losses within 1e-3; (c) a smoke-size trainer
+               checkpointed at step 3 and restored (tensors equal bit
+               for bit), its next 3 losses within 1e-5 relative of the
+               uninterrupted run's.
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
 (fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces,
@@ -294,7 +322,9 @@ one {"serve_ssm_macro": {...}}, and a {"serve_<model>": {...}} and a
 {"serve_macro_<model>": {...}} for each model of phases 6 and 7
 (gemma2_9b, glm4_9b, qwen2_72b, dbrx_132b, arctic_480b,
 seamless_m4t_large_v2, llava_next_mistral_7b; their launches also in
-the kernel rows as launches_<model>); the last line is
+the kernel rows as launches_<model>), one {"train": {...}} (the
+backward's launches are the train phase's; the forward row's
+launches_train); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -412,8 +442,8 @@ def _demangle(names):
 
 
 def ptxas_resources(logs, kernels=("fmmu_commit", "paged_attention",
-                                   "flash_attention", "mamba_scan",
-                                   "fmmu_fsm")):
+                                   "flash_attention", "flash_attention_bwd",
+                                   "mamba_scan", "fmmu_fsm")):
     """Registers, spills and static shared memory of every instantiation
     of the named kernels, from nvcc's -Xptxas -v output."""
     entries, cur = [], None
@@ -1745,6 +1775,141 @@ def check_flash_segments(timer):
         "four runs; SDPA given the same boolean mask, llava_prefill "
         "is_causal; timed in bf16)")
     return row
+
+
+# the flash kernel's backward (training): (tag, B, S, H, KV, D, ids):
+# the training shape (llama3.2-1b's attention at 8 x 1024 packed tokens,
+# with the segment ids of one make_batch call), the same without ids,
+# and head_dim 128 at S = 1000
+BWD_SHAPES = (("train", 8, 1024, 32, 8, 64, True),
+              ("train_noids", 8, 1024, 32, 8, 64, False),
+              ("d128", 1, 1000, 32, 8, 128, False))
+BWD_TOL = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
+           torch.float16: F16_TOL}
+
+
+def train_batch(step=0):
+    """One packed batch of the train phase's data (8 x 1024 tokens of
+    llama3.2-1b's vocabulary)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    return make_batch(DataConfig(vocab_size=TRAIN["vocab"],
+                                 seq_len=TRAIN["seq_len"],
+                                 global_batch=TRAIN["batch"], pack=True),
+                      step)
+
+
+def _grad_err(got, want) -> float:
+    """Max of |got - want| / max(1, |want|): absolute below 1, relative
+    above, where bf16's spacing (0.0625 at 8) passes the 2e-2 of an
+    absolute check (the gradients reach ~9 at these inputs; the forward's
+    outputs stay below ~3)."""
+    w = want.float()
+    return float(((got.float() - w).abs() / w.abs().clamp_min(1.0)).max())
+
+
+def check_flash_attention_bwd(timer):
+    """The backward kernel at BWD_SHAPES, in f32 (1e-4), bf16 (2e-2)
+    and f16 (1e-2): the forward kernel's (out, lse) with lse held
+    against ``attention_lse`` within 1e-4, then (dq, dk, dv) against
+    ``flash_attention_bwd_ref`` on the same (out, lse), and a repeat bit
+    for bit. In bf16 it is timed beside the plain version, SDPA's
+    backward (autograd.grad of F.scaled_dot_product_attention with
+    enable_gqa, causal, or given the same boolean mask with ids; its
+    forward outside the timing) and its bound: the 5 products over this
+    run's visible pairs at the bf16 peak, or the bytes of q, k, v, o, dO
+    read and dq, dk, dv written. Returns (the backward's row, the forward
+    row's extra keys: its time with lse beside without at the training
+    shape)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
+    from repro_torch.kernels.ref import attention_lse
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:83",
+           "replaces_what": "the gradient of this function, which the "
+                            "reference takes with jax.grad through "
+                            "ref.flash_attention_blocked (the Pallas "
+                            "kernel has no backward)"}
+    fwd_row = {}
+    ids = torch.from_numpy(train_batch()["segment_ids"]).cuda()
+    for tag, b, s, h, kv, d, with_ids in BWD_SHAPES:
+        segs = (ids, ids) if with_ids else None
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None])[None, None].expand(b, 1, s, s)
+        if with_ids:
+            mask = mask & (ids[:, None, :, None] == ids[:, None, None, :])
+        pairs = int(mask.sum())
+        for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
+                          (torch.float16, "f16")):
+            q, do = (torch.randn((b, s, h, d), device="cuda").to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn((b, s, kv, d), device="cuda").to(dtype)
+                    for _ in range(2))
+            out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                           with_lse=True)
+            _, want_lse = attention_lse(q, k, v, segment_ids=segs)
+            lse_err = _max_err(lse, want_lse)
+            if lse_err > 1e-4:
+                fail(f"flash_attention lse {tag} {dt}: max err {lse_err}")
+            args = (q, k, v, out, lse, do)
+            got = flash_attention_bwd(*args, segment_ids=segs)
+            want = flash_attention_bwd_ref(*args, segment_ids=segs)
+            errs = [_grad_err(g, w) for g, w in zip(got, want)]
+            if max(errs) > BWD_TOL[dtype]:
+                fail(f"flash_attention_bwd {tag} {dt}: errors (dq, dk, "
+                     f"dv) {errs}")
+            again = flash_attention_bwd(*args, segment_ids=segs)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash_attention_bwd {tag} {dt}: repeat differs")
+            sfx = f"{tag}_{dt}"
+            row[f"err_{sfx}"] = max(errs)
+            row[f"max_abs_err_{sfx}"] = max(_max_err(g, w)
+                                            for g, w in zip(got, want))
+            row[f"lse_err_{sfx}"] = lse_err
+            del got, want, again, want_lse
+        # timed in bf16, the training path's type
+        q, k, v, do = (a.to(torch.bfloat16) for a in (q, k, v, do))
+        out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                       with_lse=True)
+        args = (q, k, v, out, lse, do)
+        n_bytes = 2 * (3 * b * s * h * d + 2 * b * s * kv * d) + \
+            2 * (b * s * h * d + 2 * b * s * kv * d)
+        b_ms, b_by = bound_ms(n_bytes, 5 * 2 * d * pairs * h, "bfloat16")
+        qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True)
+                      for a in (q, k, v))
+        lib_out = _sdpa(qt, kt, vt, attn_mask=mask) if with_ids else \
+            _sdpa(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        row.update({
+            f"ms_{tag}": timer.ms(lambda: flash_attention_bwd(
+                *args, segment_ids=segs)),
+            f"plain_ms_{tag}": timer.ms(lambda: flash_attention_bwd_ref(
+                *args, segment_ids=segs), iters=3, warmup=1),
+            f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
+            f"library_ms_{tag}": timer.ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True)),
+            f"pairs_{tag}": pairs})
+        if tag == "train":
+            fwd_row = {
+                "ms_lse_train": timer.ms(lambda: flash_attention_fwd(
+                    q, k, v, segment_ids=segs, with_lse=True)),
+                "ms_nolse_train": timer.ms(lambda: flash_attention_fwd(
+                    q, k, v, segment_ids=segs))}
+        del lib_out, qt, kt, vt, args, out, lse, mask
+        free_engine()
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        row[key] = row[f"{key}_train"]
+    row["max_abs_err"] = row["max_abs_err_train_bf16"]
+    row["shape"] = "; ".join(
+        f"{t}: B={b} S={s} H={h} KV={kv} D={d} causal"
+        f"{' packed ids (make_batch step 0)' if ids_ else ''}"
+        for t, b, s, h, kv, d, ids_ in BWD_SHAPES) + (
+        " (top-level numbers: train in bf16; err_*: max |got - want| / "
+        "max(1, |want|) over dq, dk, dv; max_abs_err_*: max |got - want|)")
+    fwd_row["shape_lse"] = ("ms_lse_train / ms_nolse_train: the forward at "
+                            "the training shape in bf16 with its lse "
+                            "written and without")
+    return row, fwd_row
 
 
 def check_mamba_chunk_scan(timer):
@@ -4220,6 +4385,232 @@ def ssd_phase():
     return line
 
 
+# phase 8: llama3.2-1b trained at published widths and full depth on
+# packed synthetic batches (launch/train.py's optimizer settings)
+TRAIN = dict(arch="llama3.2-1b", vocab=128256, seq_len=1024, batch=8,
+             steps=30, lr=1e-3, warmup_steps=5, decay_steps=30)
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_STEPS = 3
+RESUME = dict(seq_len=128, batch=4, ckpt_step=3, steps=6)
+
+
+def _train_flops(cfg, batch) -> float:
+    """Model FLOPs of one training step (forward and backward, no
+    recomputation): 6 per parameter of every weight product and token
+    (the tied head included), and 12 * H * D per visible (query, key)
+    pair and layer for attention (2 products forward, 4 backward)."""
+    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * ff
+    n_mm = cfg.n_layers * per_layer + d * cfg.vocab_size
+    tokens = batch["tokens"].size
+    pairs = 0
+    for ids in batch["segment_ids"]:
+        _, counts = np.unique(ids, return_counts=True)
+        pairs += int((counts * (counts + 1) // 2).sum())
+    return 6.0 * n_mm * tokens + 12.0 * h * hd * pairs * cfg.n_layers
+
+
+def _train_parity(cfg, opt_cfg):
+    """(b) A 2-layer full-width f32 trainer with the kernels and with
+    kernel_impl="ref" from one seeded state on the phase's batches:
+    step 1's loss within 1e-5 relative, every gradient leaf within 1e-4
+    of that leaf's max |value|, three steps' losses within 1e-3
+    relative (AdamW's first updates are sign-like: a near-zero
+    gradient's roundoff can move a weight by up to 2 lr)."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training.train_loop import make_train_step, to_device
+    from repro_torch.training.tree import leaves
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_PARITY_LAYERS)
+    runs = {}
+    COUNTERS.reset()
+    for impl in (None, "ref"):
+        m = build_model(cfg, Runtime(compute_dtype=torch.float32,
+                                     param_dtype=torch.float32,
+                                     remat="dots", kernel_impl=impl),
+                        device="cuda")
+        step, init = make_train_step(m, opt_cfg)
+        state = init(torch.Generator(device="cuda").manual_seed(SEED))
+        loss, _ = m.loss_fn(state.params,
+                            to_device(train_batch(0), m.device))
+        grads = torch.autograd.grad(loss, leaves(state.params))
+        losses = []
+        for s in range(TRAIN_PARITY_STEPS):
+            state, met = step(state, train_batch(s))
+            losses.append(float(met["loss"]))
+        runs[impl] = (loss.item(), grads, losses)
+        del m, state, loss, grads
+        free_engine()
+    n_bwd = COUNTERS.launches().get("flash_attention_bwd", 0)
+    if n_bwd != TRAIN_PARITY_LAYERS * (1 + TRAIN_PARITY_STEPS):
+        fail(f"train parity: {n_bwd} flash_attention_bwd launches, "
+             f"expected {TRAIN_PARITY_LAYERS} a backward pass")
+    (l_k, g_k, ls_k), (l_r, g_r, ls_r) = runs[None], runs["ref"]
+    loss_rel = abs(l_k - l_r) / abs(l_r)
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(g_k, g_r))
+    steps_rel = max(abs(a - b) / abs(b) for a, b in zip(ls_k, ls_r))
+    if loss_rel > 1e-5 or grad_rel > 1e-4 or steps_rel > 1e-3:
+        fail(f"train parity: loss {loss_rel}, grads {grad_rel}, "
+             f"3 steps {steps_rel} (kernels {ls_k}, ref {ls_r})")
+    return {"layers": TRAIN_PARITY_LAYERS, "bwd_launches": n_bwd,
+            "loss_rel_err": loss_rel,
+            "grad_rel_err": grad_rel, "steps_rel_err": steps_rel,
+            "losses_kernel": ls_k, "losses_ref": ls_r}
+
+
+def _train_resume(cfg, opt_cfg):
+    """(c) A smoke-size trainer on the card checkpointed at step 3 and
+    restored: the restored tensors equal the saved state bit for bit,
+    and the 3 steps run after the restore give the uninterrupted run's
+    losses within 1e-5 relative (the embedding's gather backward sums
+    with atomics on the card, so bits are not asked)."""
+    import tempfile
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, data_iter
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_loop import TrainerConfig, train
+    from repro_torch.training.tree import leaves
+    m = build_model(smoke_config(cfg), Runtime(), device="cuda")
+    dcfg = DataConfig(vocab_size=m.cfg.vocab_size, seq_len=RESUME["seq_len"],
+                      global_batch=RESUME["batch"], pack=True)
+    n, k = RESUME["steps"], RESUME["ckpt_step"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        _, whole = train(m, data_iter(dcfg, prefetch=False), opt_cfg,
+                         TrainerConfig(total_steps=n, log_every=1,
+                                       ckpt_every=0), seed=SEED)
+        saved, _ = train(m, data_iter(dcfg, prefetch=False), opt_cfg,
+                         TrainerConfig(total_steps=k, log_every=1,
+                                       ckpt_every=k, ckpt_dir=d,
+                                       async_ckpt=False), seed=SEED)
+        got, step = CheckpointManager(d).restore(saved.tree())
+        same = step == k and all(
+            torch.equal(a, b.detach()) and a.dtype == b.dtype
+            for a, b in zip(leaves(got), leaves(saved.tree())))
+        if not same:
+            fail("train resume: the restored state differs from the saved")
+        it = data_iter(dcfg, prefetch=False)
+        for _ in range(k):
+            next(it)
+        _, resumed = train(m, it, opt_cfg,
+                           TrainerConfig(total_steps=n, log_every=1,
+                                         ckpt_every=0, ckpt_dir=d),
+                           seed=SEED + 1)
+    want = [l for s, l in whole["history"] if s >= k]
+    got_l = [l for _, l in resumed["history"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got_l, want))
+    if len(got_l) != n - k or rel > 1e-5:
+        fail(f"train resume: losses {got_l} against {want}")
+    return {"arch": m.cfg.name, "ckpt_step": k, "steps": n,
+            "restored_bitwise": True, "resumed_losses": got_l,
+            "uninterrupted_losses": want, "loss_rel_err": rel}
+
+
+def train_phase():
+    """8. llama3.2-1b trained at published widths and full depth: bf16
+    compute, f32 parameters and AdamW moments, seeded weights,
+    remat="dots", packed batches (DataConfig(128256, 1024, 8)), AdamW
+    (lr 1e-3, warm-up 5, decay 30), 30 steps through ``train`` (the
+    loop the launcher calls). Counts are zeroed just before the run and read
+    just after. Gates: every loss finite, the mean of the last 5 below
+    the first, 16 flash_attention_bwd launches a step and 32 forward
+    launches (16, and 16 again when the backward recomputes each
+    period). Then (b) the f32 kernel-vs-ref parity and (c) the
+    checkpoint resume. Returns the phase's line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.data.pipeline import DataConfig, data_iter
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainerConfig, train
+    from repro_torch.training.tree import leaves
+    cfg = get_arch(TRAIN["arch"])
+    opt_cfg = opt.AdamWConfig(lr=TRAIN["lr"],
+                              warmup_steps=TRAIN["warmup_steps"],
+                              decay_steps=TRAIN["decay_steps"])
+    model = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
+                                     param_dtype=torch.float32,
+                                     remat="dots"), device="cuda")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                      global_batch=TRAIN["batch"], pack=True)
+    it = data_iter(dcfg)
+    steps, stamps = [], []
+
+    def on_step(step, metrics):
+        stamps.append(time.perf_counter())
+        n = COUNTERS.launches()
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "lr": float(metrics["lr"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "fwd": n.get("flash_attention", 0),
+                      "bwd": n.get("flash_attention_bwd", 0)})
+
+    free_engine()
+    torch.cuda.reset_peak_memory_stats()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    try:
+        state, summary = train(model, it, opt_cfg,
+                               TrainerConfig(total_steps=TRAIN["steps"],
+                                             log_every=1, ckpt_every=0),
+                               seed=SEED, on_step=on_step)
+    finally:
+        it.close()
+    launches = COUNTERS.launches()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in leaves(state.params))
+    del state
+    free_engine()
+    losses = [s["loss"] for s in steps]
+    per_step = [(b["fwd"] - a["fwd"], b["bwd"] - a["bwd"])
+                for a, b in zip([{"fwd": 0, "bwd": 0}] + steps, steps)]
+    n_attn = cfg.n_layers
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    if not statistics.mean(losses[-5:]) < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    if any(b != n_attn for _, b in per_step):
+        fail(f"train: flash_attention_bwd launches a step {per_step}")
+    if any(f != 2 * n_attn for f, _ in per_step):
+        fail(f"train: flash_attention launches a step {per_step}")
+    # steady steps: the first pays the kernels' loads and the allocator
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    med_ms = statistics.median(step_ms)
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    flops = _train_flops(cfg, train_batch(0))
+    line = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "compute_dtype": "bfloat16", "param_dtype": "float32",
+        "remat": "dots", "seq_len": TRAIN["seq_len"],
+        "batch": TRAIN["batch"], "pack": True, "steps": TRAIN["steps"],
+        "optimizer": dataclasses.asdict(opt_cfg),
+        "losses": losses, "lr": [s["lr"] for s in steps],
+        "grad_norm": [s["grad_norm"] for s in steps],
+        "step_ms_median": med_ms, "step_ms": step_ms,
+        "tokens_per_s": tokens / (med_ms / 1e3),
+        "model_flops_per_step": flops,
+        "mfu": flops / (med_ms / 1e3) / PEAK_OPS["bfloat16"],
+        "peak_mem_gib": peak / 2 ** 30, "run_s": run_s,
+        "flash_fwd_launches_per_step": 2 * n_attn,
+        "flash_bwd_launches_per_step": n_attn,
+        "flash_fwd_launches_note": f"{n_attn} forward + {n_attn} "
+                                   "recomputed by the backward under "
+                                   "remat='dots'",
+        "launches": launches,
+        "stragglers": len(summary["stragglers"]),
+        "mean_step_s": summary["mean_step_s"],
+    }
+    del model
+    free_engine()
+    line["parity_f32"] = _train_parity(cfg, opt_cfg)
+    line["resume"] = _train_resume(cfg, opt_cfg)
+    return line
+
+
 SERVE_LENS = [64, 128, 256, 384, 512, 640, 768, 1020]
 ATTENTION_PATH = dict(
     single=("fmmu_commit", "paged_attention", "flash_attention"),
@@ -4368,6 +4759,9 @@ def main() -> int:
     # segment ids in the flash kernel: the encoder-decoder's cross- and
     # encoder attention, packed segments at head_dim 128; llava's prefill
     rows["flash_attention"].update(check_flash_segments(timer))
+    # the flash kernel's backward (training) and the forward's lse
+    rows["flash_attention_bwd"], fwd_lse = check_flash_attention_bwd(timer)
+    rows["flash_attention"].update(fwd_lse)
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
     # the channel grid: one launch of C blocks, C in {2, 8, 32}
@@ -4509,6 +4903,18 @@ def main() -> int:
             rows[kern][f"launches_{_tag(name)}"] = \
                 others[name]["serve_macro"]["launches"][kern]
 
+    # 8. llama3.2-1b training at published widths and full depth
+    # (flash_attention forward and its backward kernel)
+    t0 = time.perf_counter()
+    train_line = train_phase()
+    train_line["phase_s"] = time.perf_counter() - t0
+    print(f"train: {train_line['phase_s']:.1f} s", file=sys.stderr)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        rows[name]["launches_train"] = train_line["launches"].get(name, 0)
+    rows["flash_attention_bwd"]["launches"] = \
+        rows["flash_attention_bwd"]["launches_train"]
+    rows["flash_attention_bwd"]["launches_path"] = "train phase"
+
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "launches_single_step", "launches_serve_swap",
@@ -4539,7 +4945,14 @@ def main() -> int:
         ("launches_serve_channels", "launches_serve_faults",
          "launches_serve_recover", "launches_serve_gc",
          "launches_serve_prefix", "launches_ssd", "shape_d256",
-         "replaces_what") + tuple(
+         "replaces_what", "launches_train", "ms_lse_train",
+         "ms_nolse_train", "shape_lse") + tuple(
+             f"{k}_{t}" for t, *_ in BWD_SHAPES
+             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "pairs")) + tuple(
+             f"{k}_{t}_{d}" for t, *_ in BWD_SHAPES
+             for d in ("f32", "bf16", "f16")
+             for k in ("err", "max_abs_err", "lse_err")) + tuple(
              f"{k}_d256{t}" for t in ("", "_bf16", "_f32")
              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")) + tuple(
@@ -4571,6 +4984,7 @@ def main() -> int:
         print(json.dumps({f"serve_{_tag(name)}": others[name]["serve"]}))
         print(json.dumps({f"serve_macro_{_tag(name)}":
                           others[name]["serve_macro"]}))
+    print(json.dumps({"train": dict(train_line, card=smi)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

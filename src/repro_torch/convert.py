@@ -11,6 +11,10 @@ encoder-decoder's ``enc_stack`` / ``enc_norm`` and each decoder layer's
 ``cross_ln`` / ``cross`` block. This module needs numpy only; the
 caller owns the JAX side.
 
+``train_state_from_jax`` takes a reference ``TrainState``'s parameters
+and optimizer state (numpy leaves) and returns the port's, so both
+trainers can start from one state.
+
 ``fsm_state_from_jax`` and ``fsm_state_to_numpy`` carry the sequential
 packet engine's state across the packages field by field, so both
 engines can start from one mid-trace state.
@@ -25,6 +29,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fmmu.state import FMMUState
 from repro_torch.device import resolve_device
+from repro_torch.training import optimizer as opt
+from repro_torch.training.train_loop import TrainState, trainable
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -62,6 +68,22 @@ def params_from_jax(params_np: Any, cfg: ArchConfig,
         _check_cross(lp, cfg, n_p, j)
     _check_encoder(params, cfg)
     return params
+
+
+def train_state_from_jax(params_np: Any, opt_np: Any, cfg: ArchConfig,
+                         device: Union[str, torch.device] = "cuda"):
+    """A reference train state -> the port's ``TrainState``:
+    ``params_np`` the parameter pytree and ``opt_np`` the ``OptState``
+    (or its ``_asdict()``), numpy leaves. The parameters require grad;
+    the moments keep their float32 and the step its int32."""
+    dev = resolve_device(device)
+    o = opt_np._asdict() if hasattr(opt_np, "_asdict") else dict(opt_np)
+    params = trainable(params_from_jax(params_np, cfg, dev))
+    state = opt.OptState(
+        step=torch.tensor(int(np.asarray(o["step"])), dtype=torch.int32,
+                          device=dev),
+        mu=_convert(o["mu"], dev), nu=_convert(o["nu"], dev))
+    return TrainState(params, state)
 
 
 def _attn_shapes(cfg: ArchConfig, n_p: int):

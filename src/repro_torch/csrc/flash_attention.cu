@@ -44,6 +44,11 @@
 // are never loaded (the Pallas kernel's skipped grid steps), positions
 // >= Skv are masked (prompts need no padding), and a row with no valid
 // key (Sq > Skv, or no key of its segment) returns 0.
+// Optional lse [B,H,Sq] float32 (null on every serving call): the row's
+// log-sum-exp m + log(l) of the scaled, softcapped logits, -inf for a
+// row with no valid key, which the training path saves for the
+// backward kernel (flash_attention_bwd.cu). Both bodies hold m and l in
+// registers at the end of the row, so it costs one store a row.
 //
 // What is left: wgmma with TMA loads and a producer warp. mma.sync
 // issues one 16x8x16 product per instruction per warp and bounds this
@@ -68,9 +73,9 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
     flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out,
-    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Sq,
-    int Skv, int H, int KV, float scale, float softcap, int window,
-    int causal, int q_offset) {
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    float* __restrict__ lse, int Sq, int Skv, int H, int KV, float scale,
+    float softcap, int window, int causal, int q_offset) {
   constexpr int TPR = f32_tpr<D>();
   constexpr int DP = D / TPR;       // elements of a row a thread holds
   constexpr int NT = kBQ * TPR;     // threads
@@ -156,6 +161,9 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
 #pragma unroll
     for (int i = 0; i < DP; ++i)
       op[part + TPR * i] = from_f32<T>(acc[i] * inv);
+    if (lse && part == 0)
+      lse[((size_t)b * H + h) * Sq + row] =
+          l > 0.f ? m + logf(l) : REPRO_MASKED;
   }
 }
 
@@ -192,9 +200,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out,
-    const int* __restrict__ seg_q, const int* __restrict__ seg_k, int Sq,
-    int Skv, int H, int KV, float scale, float softcap, int window,
-    int causal, int q_offset) {
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    float* __restrict__ lse, int Sq, int Skv, int H, int KV, float scale,
+    float softcap, int window, int causal, int q_offset) {
   constexpr int BQ = kTcBQ, BK = kTcBK;
   constexpr int NNT = BK / 8;   // 8-wide key tiles of S
   constexpr int LD = D + 8;     // padded shared row (elements)
@@ -386,6 +394,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
       const float inv = 1.f / fmaxf(li, 1e-30f);
       const int row = r0 + warp * 16 + g8 + 8 * i;
       if (row >= Sq) continue;
+      if (lse && t4 == 0)   // m is in log2 units
+        lse[((size_t)b * H + h) * Sq + row] =
+            li > 0.f ? (mrow[i] + log2f(li)) * 0.6931471805599453f
+                     : REPRO_MASKED;
       uint32_t* op = reinterpret_cast<uint32_t*>(
           out + (((size_t)b * Sq + row) * H + h) * D + 2 * t4);
 #pragma unroll
@@ -400,6 +412,7 @@ struct Args {
   const void *q, *k, *v;
   void* out;
   const int *seg_q, *seg_k;
+  float* lse;
   int B, Sq, Skv, H, KV;
   float scale, softcap;
   int window, causal;
@@ -412,7 +425,7 @@ static int launch_d(const Args& a) {
   constexpr int threads = kBQ * f32_tpr<D>();
   flash_attention_f32_kernel<T, D><<<grid, threads, 0, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
-      a.seg_k, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
+      a.seg_k, a.lse, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
       a.causal, a.Skv - a.Sq);
   return (int)cudaGetLastError();
 }
@@ -430,7 +443,7 @@ static int launch_tc_d(const Args& a) {
   dim3 grid((nqt + 1) / 2, a.H, a.B);  // two q tiles per block
   flash_attention_tc_kernel<T, D><<<grid, kTcThreads, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
-      a.seg_k, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
+      a.seg_k, a.lse, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
       a.causal, a.Skv - a.Sq);
   return (int)cudaGetLastError();
 }
@@ -457,14 +470,14 @@ static int launch(const Args& a, int D) {
 
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
-    const void* seg_q, const void* seg_k, int B, int Sq, int Skv, int H,
-    int KV, int D, float scale, float softcap, int window, int causal,
-    int dtype, void* stream) {
+    const void* seg_q, const void* seg_k, void* lse, int B, int Sq, int Skv,
+    int H, int KV, int D, float scale, float softcap, int window,
+    int causal, int dtype, void* stream) {
   if ((seg_q == nullptr) != (seg_k == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, (const int*)seg_q, (const int*)seg_k, B, Sq,
-               Skv, H, KV, scale, softcap, window, causal,
-               (cudaStream_t)stream};
+  const Args a{q, k, v, out, (const int*)seg_q, (const int*)seg_k,
+               (float*)lse, B, Sq, Skv, H, KV, scale, softcap, window,
+               causal, (cudaStream_t)stream};
   switch (dtype) {
     case kF32: return launch<float, false>(a, D);
     case kBF16: return launch<__nv_bfloat16, true>(a, D);

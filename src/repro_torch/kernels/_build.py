@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("fmmu_translate", "fmmu_commit", "fmmu_lookup",
-           "paged_attention", "flash_attention", "mamba_scan", "fmmu_fsm")
+           "paged_attention", "flash_attention", "flash_attention_bwd",
+           "mamba_scan", "fmmu_fsm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -125,3 +126,20 @@ def require(t: torch.Tensor, name: str, *, device: torch.device,
             f"{name}: expected a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
             f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be recorded by
+    autograd: its output, written through a raw pointer, would carry no
+    gradient and the inputs' gradients would silently miss its share."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or with inputs that do not require grad "
+            "(kernel_impl='ref' differentiates the plain version)")

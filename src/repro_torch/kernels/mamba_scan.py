@@ -51,6 +51,7 @@ def mamba_chunk_scan(x, dt, A, B, C, D, *, chunk=256, initial_state=None):
     if x.device.type == "cpu":
         return mamba_chunk_scan_ref(x, dt, A, B, C, D, chunk=chunk,
                                     initial_state=initial_state)
+    _build.refuse_grad("mamba_chunk_scan", x, dt, A, B, C, D, initial_state)
     dev = x.device
     bt, s, h, p = x.shape
     n = B.shape[-1]

@@ -7,7 +7,12 @@ reference:
           follows the device of the tensors; a CUDA tensor never falls
           back to the plain version.
   "ref" — the plain torch version on any device (the card's greedy
-          parity check runs the engine both ways).
+          parity check runs the engine both ways), differentiated by
+          autograd.
+
+Under autograd on a CUDA tensor, flash attention differentiates through
+its backward kernel; the scan and paged attention have no backward yet
+and raise rather than return a result without a gradient.
 """
 from __future__ import annotations
 

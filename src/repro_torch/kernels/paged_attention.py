@@ -123,6 +123,7 @@ def paged_attention(q, k_pool, v_pool, block_table, ctx_lens, *,
         return paged_attention_ref(q, k_pool, v_pool, block_table,
                                    ctx_lens, softcap=softcap, window=window,
                                    return_stats=return_stats)
+    _build.refuse_grad("paged_attention", q, k_pool, v_pool)
     dev = q.device
     b, h, d = q.shape
     nb, p, kv, _ = k_pool.shape

@@ -2,7 +2,10 @@
 counterparts of ``attention_naive``, ``paged_attention_naive``,
 ``combine_partial_attention``, ``mamba_chunk_scan_naive``,
 ``mamba_chunk_scan_blocked``, ``mamba_decode_step``, ``fmmu_lookup_ref``
-and ``fmmu_translate_ref`` in ``repro/kernels/ref.py``.
+and ``fmmu_translate_ref`` in ``repro/kernels/ref.py``; and for the
+flash kernel's backward, which the reference takes with ``jax.grad``
+through its blocked lowering, ``attention_lse`` (the forward with the
+row log-sum-exp it saves) and ``flash_attention_bwd_ref``.
 
 They run on any device. The kernel wrappers use them for CPU tensors,
 ``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
@@ -46,19 +49,15 @@ def _masked_softmax_weights(logits: torch.Tensor, mask: torch.Tensor):
 
 
 # ======================================================================
-def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    segment_ids=None, bidirectional=False):
-    """q [B,Sq,H,D]; k,v [B,Skv,KV,D] -> [B,Sq,H,D]. fp32 math;
-    causal masking is right-aligned (query i sits at i + Skv - Sq).
-    ``segment_ids`` = (seg_q [B,Sq], seg_k [B,Skv]) integer ids: query
-    row i sees key j only where seg_q[i] == seg_k[j] (packed sequences;
-    cross-attention's valid source frames)."""
+def _attention_logits(q, k, *, causal, window, softcap, segment_ids,
+                      bidirectional):
+    """Scaled fp32 logits before and after the softcap [B,H,Sq,Skv] and
+    the mask of the (query, key) pairs a row may see."""
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // kv, dim=2)
-    vf = v.float().repeat_interleave(h // kv, dim=2)
     qf = q.float() * (1.0 / math.sqrt(d))
-    logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kf), softcap)
+    raw = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -70,10 +69,72 @@ def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
     if segment_ids is not None:
         seg_q, seg_k = segment_ids
         mask = mask & (seg_q[:, None, :, None] == seg_k[:, None, None, :])
-    p, _, l = _masked_softmax_weights(logits, mask)
+    return raw, _softcap(raw, softcap), mask
+
+
+def attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  segment_ids=None, bidirectional=False):
+    """``attention_naive`` that also returns the row log-sum-exp
+    (fp32 [B,H,Sq], in the scaled, softcapped logit domain): what the
+    flash kernel's forward writes for its backward. A row with no valid
+    key gets -inf (and output 0)."""
+    h, kv = q.shape[2], k.shape[2]
+    _, logits, mask = _attention_logits(
+        q, k, causal=causal, window=window, softcap=softcap,
+        segment_ids=segment_ids, bidirectional=bidirectional)
+    vf = v.float().repeat_interleave(h // kv, dim=2)
+    p, m, l = _masked_softmax_weights(logits, mask)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     out = out / l.clamp_min(1e-30).transpose(1, 2)[..., None]
-    return out.to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, -math.inf))
+    return out.to(q.dtype), lse
+
+
+def attention_naive(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    segment_ids=None, bidirectional=False):
+    """q [B,Sq,H,D]; k,v [B,Skv,KV,D] -> [B,Sq,H,D]. fp32 math;
+    causal masking is right-aligned (query i sits at i + Skv - Sq).
+    ``segment_ids`` = (seg_q [B,Sq], seg_k [B,Skv]) integer ids: query
+    row i sees key j only where seg_q[i] == seg_k[j] (packed sequences;
+    cross-attention's valid source frames)."""
+    return attention_lse(q, k, v, causal=causal, window=window,
+                         softcap=softcap, segment_ids=segment_ids,
+                         bidirectional=bidirectional)[0]
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
+                            window=0, softcap=0.0, segment_ids=None,
+                            bidirectional=False):
+    """The gradient of ``attention_naive`` from its saved output and
+    row log-sum-exp: P is recomputed from ``lse``, delta =
+    rowsum(dout * out), dS = P * (dP - delta) times the softcap's
+    derivative 1 - (s/cap)^2, and (dq, dk, dv) in the inputs' dtypes,
+    dk and dv summed over each KV head's group of query heads. A row
+    with no valid key (lse -inf, output 0) contributes nothing."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    _, logits, mask = _attention_logits(
+        q, k, causal=causal, window=window, softcap=softcap,
+        segment_ids=segment_ids, bidirectional=bidirectional)
+    live = mask & torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(logits - lse[..., None]),
+                    torch.zeros_like(logits))
+    dof, vf = dout.float(), v.float().repeat_interleave(g, dim=2)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)      # [B,H,Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap and softcap > 0.0:
+        ds = ds * (1.0 - (logits / softcap) ** 2)
+    kf = k.float().repeat_interleave(g, dim=2)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, skv, kv, g, d).sum(3)
+    dv = dv.reshape(b, skv, kv, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ======================================================================

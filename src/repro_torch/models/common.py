@@ -4,10 +4,12 @@ reference's layouts."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +20,9 @@ class Runtime:
     kernel_impl: Optional[str] = None   # ops impl selector (None / "ref")
     page_size: int = 256                # tokens per KV page
     capacity_factor: Optional[float] = None   # MoE capacity; None: config's
+    # training only (Model.loss_fn); serving never reads them
+    remat: str = "dots"                 # 'none' | 'dots' | 'full'
+    zloss: float = 0.0
 
 
 def init_dense(gen: torch.Generator, shape, d_in: int, dtype, device):
@@ -74,3 +79,38 @@ def activation(x, kind: str):
     if kind == "gelu":
         return F.gelu(x, approximate="tanh")
     return F.silu(x)
+
+
+# ----------------------------------------------------------------------
+REMATS = ("none", "dots", "full")
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The 'dots' policy: keep the outputs of the weight products
+    (``aten.mm`` / ``aten.addmm``: a [B*S, d] activation times a 2-D
+    weight, the reference's dots without batch dimensions) and recompute
+    everything else, the attention kernel included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, name: str):
+    """``fn`` wrapped for rematerialisation under policy ``name``, the
+    counterpart of ``jax.checkpoint(fn, policy=remat_policy(name))``:
+    'none' returns ``fn``; 'full' saves only its inputs and recomputes
+    the body in the backward pass; 'dots' also keeps the weight
+    products' outputs."""
+    if name not in REMATS:
+        raise ValueError(f"remat {name!r}: expected one of {REMATS}")
+    if name == "none":
+        return fn
+    kw = {}
+    if name == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts,
+            _save_weight_products)
+
+    def wrapped(*args):
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped

@@ -1,8 +1,8 @@
-"""Top-level Model for the paged-serving path (dense, MoE and pure-SSM
-decoders, the encoder-decoder and the VLM): port of
+"""Top-level Model for the paged-serving and training paths (dense, MoE
+and pure-SSM decoders, the encoder-decoder and the VLM): port of
 ``repro/models/model.py`` (``_src_len``, ``_prefix_len``, ``init``,
-``_embed``, ``_fuse_inputs``, ``_encode``, ``_logits``, ``prefill``,
-``decode_step``, ``build_model``).
+``_embed``, ``_fuse_inputs``, ``_encode``, ``_logits``, ``loss_fn``,
+``prefill``, ``decode_step``, ``build_model``).
 
 Parameters are a plain dict of tensors in the reference's pytree
 layout (``embed`` [V,d], ``stack`` = list over j of dicts with
@@ -149,7 +149,7 @@ class Model:
         src = batch["src_emb"].to(self.rt.compute_dtype)
         b, s = src.shape[:2]
         pos = torch.arange(s, device=src.device)[None, :].expand(b, s)
-        enc_out, _ = transformer.stack_forward(
+        enc_out, _, _ = transformer.stack_forward(
             params["enc_stack"], src, enc_cfg, self.rt, positions=pos,
             bidirectional=True)
         enc_out = common.rms_norm(enc_out, params["enc_norm"],
@@ -165,6 +165,40 @@ class Model:
         return common.softcap(logits.float(), self.cfg.final_softcap)
 
     # ------------------------------------------------------------------
+    def loss_fn(self, params, batch):
+        """Train loss, the reference's line for line. batch: tokens
+        [B,S], labels [B,S] (-1 = masked), optional positions,
+        segment_ids (packed documents), prefix_emb, src_emb, src_valid.
+        Returns (loss, metrics: nll, aux_loss, tokens, [zloss], loss),
+        float32 scalars on the model's device."""
+        x, positions = self._fuse_inputs(params, batch)
+        enc_out, src_valid = self._encode(params, batch)
+        x, aux, _ = transformer.stack_forward(
+            params["stack"], x, self.cfg, self.rt, positions=positions,
+            segment_ids=batch.get("segment_ids"), enc_out=enc_out,
+            src_valid=src_valid)
+        x = common.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        labels = batch["labels"]
+        if batch.get("prefix_emb") is not None:   # loss on the text tail
+            x = x[:, -labels.shape[1]:]
+        logits = self._logits(params, x)
+        mask = (labels >= 0).float()
+        safe = labels.clamp_min(0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        nll = (lse - gold) * mask
+        ntok = mask.sum().clamp_min(1.0)
+        loss = nll.sum() / ntok
+        metrics = {"nll": loss, "aux_loss": aux, "tokens": ntok}
+        if self.rt.zloss:
+            zl = self.rt.zloss * ((lse * mask) ** 2).sum() / ntok
+            loss = loss + zl
+            metrics["zloss"] = zl
+        loss = loss + aux
+        metrics["loss"] = loss
+        return loss, metrics
+
+    # ------------------------------------------------------------------
     def prefill(self, params, batch):
         """``batch``: the reference's keys (``tokens`` [B,S]; optional
         ``prefix_emb``, ``src_emb``, ``src_valid``, ``positions``), or a
@@ -174,7 +208,7 @@ class Model:
             batch = {"tokens": batch}
         x, positions = self._fuse_inputs(params, batch)
         enc_out, src_valid = self._encode(params, batch)
-        x, caches = transformer.stack_forward(
+        x, _, caches = transformer.stack_forward(
             params["stack"], x, self.cfg, self.rt, positions=positions,
             enc_out=enc_out, src_valid=src_valid, collect_caches=True)
         x = common.rms_norm(x, params["final_norm"], self.cfg.norm_eps)

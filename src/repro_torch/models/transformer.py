@@ -1,8 +1,9 @@
-"""Decoder and encoder stacks for the paged-serving path (dense
-attention and Mamba2 mixers, dense or MoE FFNs, decoder cross-attention
-over an encoder's output): port of ``repro/models/transformer.py``
-(``stack_forward`` with cache collection, ``init_decode_caches``,
-``stack_decode``).
+"""Decoder and encoder stacks for the paged-serving and training paths
+(dense attention and Mamba2 mixers, dense or MoE FFNs, decoder
+cross-attention over an encoder's output): port of
+``repro/models/transformer.py`` (``stack_forward`` with cache
+collection, packed segment ids, the MoE aux loss and rematerialisation
+per period, ``init_decode_caches``, ``stack_decode``).
 
 Parameters keep the reference's stacked layout: ``params`` is a list
 over the intra-period index j of dicts whose leaves carry a leading
@@ -49,21 +50,22 @@ def kind_index(cfg):
 
 def _ffn(lp, x, cfg, rt: Runtime):
     """The layer's FFN residual branch, when it has one: the experts
-    (with arctic's dense residual beside them) on an MoE layer, whose
-    aux loss the serving path drops as the reference's does, else the
-    dense MLP."""
+    (with arctic's dense residual beside them) on an MoE layer, else the
+    dense MLP. Returns (x, aux): the MoE aux loss, or None (decode drops
+    it, as the reference's does)."""
     if "ffn" not in lp:
-        return x
+        return x, None
     h = common.rms_norm(x, lp["ln2"], cfg.norm_eps)
     ffn = lp["ffn"]
+    aux = None
     if "moe" in ffn:
-        y, _ = moe.apply_moe(ffn["moe"], h, cfg, rt,
-                             dense_params=ffn.get("dense"))
+        y, aux = moe.apply_moe(ffn["moe"], h, cfg, rt,
+                               dense_params=ffn.get("dense"))
     else:
         y = mlp.apply_mlp(ffn["dense"], h, cfg, rt)
     if cfg.post_norms:
         y = common.rms_norm(y, lp["post2"], cfg.norm_eps)
-    return x + y
+    return x + y, aux
 
 
 def _cross(lp, x, kv, cfg, rt: Runtime, src_valid):
@@ -74,15 +76,17 @@ def _cross(lp, x, kv, cfg, rt: Runtime, src_valid):
 
 
 def _apply_layer_full(lp, x, cfg, rt: Runtime, j: int, *, positions,
-                      bidirectional, enc_out, src_valid, collect):
-    """One layer over the full sequence. Returns (x, collected)."""
+                      segment_ids, bidirectional, enc_out, src_valid,
+                      collect):
+    """One layer over the full sequence. Returns (x, aux or None,
+    collected)."""
     col: Dict[str, Any] = {}
     h = common.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.layer_kind(j) == "attn":
         y, (k, v) = attention.attn_forward(
             lp["mixer"], h, cfg, rt, positions=positions,
-            kind=cfg.attn_kind(j), bidirectional=bidirectional,
-            return_kv=True)
+            kind=cfg.attn_kind(j), segment_ids=segment_ids,
+            bidirectional=bidirectional, return_kv=True)
         if collect:
             col["kv"] = (k, v)
     else:
@@ -98,38 +102,56 @@ def _apply_layer_full(lp, x, cfg, rt: Runtime, j: int, *, positions,
         x = _cross(lp, x, kv, cfg, rt, src_valid)
         if collect:
             col["cross_kv"] = kv
-    return _ffn(lp, x, cfg, rt), col
+    x, aux = _ffn(lp, x, cfg, rt)
+    return x, aux, col
 
 
 def stack_forward(params, x, cfg, rt: Runtime, *, positions,
-                  bidirectional=False, enc_out=None, src_valid=None,
-                  collect_caches=False):
-    """Full stack. Returns (x, caches or None); caches is a list over j
-    of {"kv": (k, v)} with leaves [n_periods, B, S, KV, hd] or
+                  segment_ids=None, bidirectional=False, enc_out=None,
+                  src_valid=None, collect_caches=False):
+    """Full stack. Returns (x, aux, caches or None): ``aux`` the float32
+    sum of the MoE layers' aux losses (0 without one); caches is a list
+    over j of {"kv": (k, v)} with leaves [n_periods, B, S, KV, hd] or
     {"ssm": (conv_state, ssm_state)} with leaves [n_periods, B, K-1, C]
     and [n_periods, B, nh, hd, N], plus {"cross_kv": (k, v)} with
     leaves [n_periods, B, Ssrc, KV, hd] on a decoder layer given
     ``enc_out``: the reference's collected layout. ``bidirectional``
     runs the encoder's unmasked self-attention; ``src_valid`` [B,Ssrc]
-    masks the cross-attention's source frames."""
+    masks the cross-attention's source frames; ``segment_ids`` [B,S]
+    masks attention across packed documents.
+
+    Under autograd each period's body runs rematerialised by
+    ``rt.remat`` (``common.remat``), as the reference checkpoints its
+    scanned body; serving (no input requiring grad) runs it as it is."""
     period = cfg.period
     n_periods = cfg.n_layers // period
     cols: List[List[Dict[str, Any]]] = [[] for _ in range(period)]
-    for p in range(n_periods):
+
+    def body(x, aux, p):
         for j in range(period):
-            x, col = _apply_layer_full(
+            x, aux_j, col = _apply_layer_full(
                 layer_params(params, j, p), x, cfg, rt, j,
-                positions=positions, bidirectional=bidirectional,
-                enc_out=enc_out, src_valid=src_valid,
-                collect=collect_caches)
-            cols[j].append(col)
+                positions=positions, segment_ids=segment_ids,
+                bidirectional=bidirectional, enc_out=enc_out,
+                src_valid=src_valid, collect=collect_caches)
+            if aux_j is not None:
+                aux = aux + aux_j
+            if collect_caches:
+                cols[j].append(col)
+        return x, aux
+
+    if not collect_caches and torch.is_grad_enabled() and x.requires_grad:
+        body = common.remat(body, rt.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in range(n_periods):
+        x, aux = body(x, aux, p)
     if not collect_caches:
-        return x, None
+        return x, aux, None
     stacked = [{key: tuple(torch.stack([c[key][i] for c in cj])
                            for i in range(2))
                 for key in cj[0]}
                for cj in cols]
-    return x, stacked
+    return x, aux, stacked
 
 
 def init_decode_caches(cfg, rt: Runtime, batch: int, n_blocks: int, dtype,
@@ -195,5 +217,5 @@ def stack_decode(params, x, caches, cfg, rt: Runtime, *, ctx_lens,
             if "cross" in lp:
                 kv = (caches["cross_k"][p, j], caches["cross_v"][p, j])
                 x = _cross(lp, x[:, None, :], kv, cfg, rt, src_valid)[:, 0]
-            x = _ffn(lp, x, cfg, rt)
+            x, _ = _ffn(lp, x, cfg, rt)
     return x, caches

@@ -1924,3 +1924,172 @@ def test_cross_attention_decode_step_graph_without_host_sync(cuda):
         assert torch.equal(out[0], want)
         for k in static:
             assert torch.equal(static[k], eager[k]), k
+
+
+# ---------------------------------------------------------------------
+# the flash attention backward kernel (training)
+BWD_VARIANTS = (
+    ("causal", dict(), False), ("window_softcap", dict(window=40,
+                                                       softcap=20.0), False),
+    ("ids", dict(), True), ("bidirectional_ids",
+                            dict(causal=False, bidirectional=True), True),
+)
+
+
+def _bwd_case(cuda, b, sq, skv, h, kv, d, dtype, kw, ids, seed=21):
+    from repro_torch.kernels.ref import attention_lse
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, skv, kv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, skv, kv, d), generator=g, device=cuda).to(dtype)
+    do = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype)
+    segs = (_packed_ids(b, sq, g, cuda),) * 2 if ids else None
+    out, lse = attention_lse(q, k, v, segment_ids=segs, **kw)
+    return q, k, v, out.contiguous(), lse, do, segs
+
+
+@pytest.mark.parametrize("d,g", [(16, 1), (32, 4), (64, 4), (64, 8),
+                                 (128, 1), (128, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_bwd_kernel(cuda, d, g, dtype):
+    """The backward kernel against ``flash_attention_bwd_ref`` on the
+    same (out, lse): causal, window + softcap, packed ids, bidirectional
+    with ids; one launch a call."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref)
+    kv = 2
+    for _, kw, ids in BWD_VARIANTS:
+        args = _bwd_case(cuda, 2, 150, 150, g * kv, kv, d, dtype, kw, ids)
+        n0 = COUNTERS.launches().get("flash_attention_bwd", 0)
+        got = flash_attention_bwd(*args[:6], segment_ids=args[6], **kw)
+        assert COUNTERS.launches()["flash_attention_bwd"] - n0 == 1
+        want = flash_attention_bwd_ref(*args[:6], segment_ids=args[6], **kw)
+        for x, y in zip(got, want):
+            assert x.dtype == dtype
+            torch.testing.assert_close(x.float(), y.float(), atol=TOL[dtype],
+                                       rtol=TOL[dtype])
+
+
+def test_flash_attention_bwd_rows_without_keys_and_d256(cuda):
+    """Sq > Skv (causal rows before the first key: lse -inf, zero dq),
+    and head_dim 256 (gemma2's) in f32 and bf16."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref)
+    args = _bwd_case(cuda, 2, 80, 48, 4, 2, 64, torch.float32, {}, False)
+    got = flash_attention_bwd(*args[:6])
+    want = flash_attention_bwd_ref(*args[:6])
+    assert torch.isinf(args[4][:, :, :32]).all()
+    assert not got[0][:, :32].abs().sum()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+    for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(window=50, softcap=50.0)
+        args = _bwd_case(cuda, 1, 130, 130, 4, 2, 256, dtype, kw, True)
+        got = flash_attention_bwd(*args[:6], segment_ids=args[6], **kw)
+        want = flash_attention_bwd_ref(*args[:6], segment_ids=args[6], **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x.float(), y.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_attention_bwd_repeats_bit_identical(cuda):
+    """No float atomics: 100 calls at a packed GQA shape give the same
+    bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    args = _bwd_case(cuda, 2, 300, 300, 32, 8, 64, torch.bfloat16, {}, True)
+    first = flash_attention_bwd(*args[:6], segment_ids=args[6])
+    for _ in range(100):
+        again = flash_attention_bwd(*args[:6], segment_ids=args[6])
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_fwd_lse(cuda):
+    """The forward's lse against ``attention_lse`` (both bodies), and
+    serving's output unchanged by asking for it."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ref import attention_lse
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for kw, ids in ((dict(), True), (dict(window=30, softcap=10.0),
+                                         False)):
+            q, k, v, _, want, _, segs = _bwd_case(
+                cuda, 2, 140, 140, 8, 2, 64, dtype, kw, ids)
+            out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                           with_lse=True, **kw)
+            torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+            assert torch.equal(out, flash_attention_fwd(
+                q, k, v, segment_ids=segs, **kw))
+
+
+def test_flash_attention_grads_on_cuda_equal_cpu(cuda):
+    """``ops.flash_attention`` under autograd on the card (forward and
+    backward kernels) against autograd of the plain version on the
+    CPU, f32 and bf16, packed ids and GQA."""
+    from repro_torch.kernels import ops
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, _, do, segs = _bwd_case(cuda, 2, 200, 200, 8, 2, 64,
+                                            dtype, {}, True)
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            xs = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+            sg = tuple(s.to(dev) for s in segs)
+            n0 = COUNTERS.launches().get("flash_attention_bwd", 0)
+            out = ops.flash_attention(*xs, segment_ids=sg)
+            grads.append([out] + list(torch.autograd.grad(out, xs,
+                                                          do.to(dev))))
+            n1 = COUNTERS.launches().get("flash_attention_bwd", 0)
+            assert n1 - n0 == (1 if dev.type == "cuda" else 0)
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a.float().cpu(), b.float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_train_step_flash_launch_counts(cuda):
+    """One smoke llama train step on the card (bf16 compute, remat
+    'dots'): per layer one forward launch, one more when the backward
+    recomputes the period, and one backward launch; loss finite."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    cfg = smoke_config(get_arch("llama3.2-1b"))
+    for remat, fwd_per_layer in (("dots", 2), ("none", 1)):
+        m = build_model(cfg, Runtime(remat=remat), device=cuda)
+        step, init = make_train_step(m, opt.AdamWConfig(lr=1e-3))
+        state = init(torch.Generator(device=cuda).manual_seed(0))
+        batch = make_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=128, global_batch=2), 0)
+        COUNTERS.reset()
+        state, metrics = step(state, batch)
+        n = COUNTERS.launches()
+        assert torch.isfinite(metrics["loss"])
+        assert n["flash_attention"] == fwd_per_layer * cfg.n_layers
+        assert n["flash_attention_bwd"] == cfg.n_layers
+
+
+def test_scan_and_paged_refuse_grad(cuda):
+    """The kernels without a backward raise under autograd on the card
+    instead of returning a result that carries no gradient; under
+    no_grad they run."""
+    from repro_torch.kernels import ops
+    x = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
+    dt = torch.rand((1, 64, 2), device=cuda)
+    a = -torch.rand(2, device=cuda)
+    bc = torch.randn((1, 64, 16), device=cuda)
+    with pytest.raises(NotImplementedError):
+        ops.mamba_chunk_scan(x, dt, a, bc, bc, torch.ones(2, device=cuda),
+                             chunk=32)
+    with torch.no_grad():
+        ops.mamba_chunk_scan(x, dt, a, bc, bc, torch.ones(2, device=cuda),
+                             chunk=32)
+    q = torch.randn((2, 4, 16), device=cuda, requires_grad=True)
+    pool = torch.randn((5, 8, 2, 16), device=cuda)
+    table = torch.arange(4, dtype=torch.int32, device=cuda).reshape(2, 2)
+    ctx = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        ops.paged_attention(q, pool, pool, table, ctx)
+    ops.paged_attention(q.detach(), pool, pool, table, ctx)
+    # the plain versions stay differentiable (impl="ref")
+    out = ops.paged_attention(q, pool, pool, table, ctx, impl="ref")
+    assert out.requires_grad

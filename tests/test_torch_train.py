@@ -1,0 +1,426 @@
+"""The port's training path against the JAX package, on the CPU in
+float32 at ``smoke_config`` size, with the reference's initialisation
+loaded through ``convert``: ``Model.loss_fn`` (value, metrics and every
+gradient leaf against ``jax.value_and_grad``), AdamW and its schedule,
+``make_train_step`` over three steps, gradient accumulation, the remat
+policies, the reference's learning test, and the flash attention
+backward's plain version (and the autograd Function that carries the
+CUDA kernel) against autograd and ``jax.grad``. One jitted JAX
+``value_and_grad`` per model configuration serves the module."""
+import functools
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as j_get_arch  # noqa: E402
+from repro.configs import smoke_config as j_smoke  # noqa: E402
+from repro.data.pipeline import DataConfig, make_batch  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import Runtime as JRuntime  # noqa: E402
+from repro.models import build_model as j_build  # noqa: E402
+from repro.training import optimizer as jopt  # noqa: E402
+from repro.training.train_loop import TrainState as JTrainState  # noqa: E402
+from repro.training.train_loop import make_train_step as j_make  # noqa: E402
+from repro_torch.configs import get_arch, smoke_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.convert import train_state_from_jax  # noqa: E402
+from repro_torch.data.pipeline import data_iter  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import Runtime, build_model  # noqa: E402
+from repro_torch.training import optimizer as opt  # noqa: E402
+from repro_torch.training.train_loop import (  # noqa: E402
+    TrainerConfig, TrainState, make_train_step, to_device, train, trainable)
+from repro_torch.training.tree import leaves  # noqa: E402
+
+# float32 on both sides: the loss and every gradient leaf agree to
+# summation order (measured ~1e-6 relative); a gradient leaf is held
+# within GRAD_TOL of its own largest magnitude
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4
+SEQ, BATCH = 32, 4
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch, zloss=0.0, remat="none"):
+    """(jitted JAX value_and_grad of loss_fn, JAX params, port model,
+    port params) for one smoke configuration, once per process."""
+    jm = j_build(j_smoke(j_get_arch(arch)),
+                 JRuntime(compute_dtype=jnp.float32, param_dtype=jnp.float32,
+                          remat="none", zloss=zloss))
+    tm = build_model(smoke_config(get_arch(arch)),
+                     Runtime(compute_dtype=torch.float32,
+                             param_dtype=torch.float32, remat=remat,
+                             zloss=zloss), device="cpu")
+    jp = jm.init(jax.random.key(0))
+    tp = trainable(params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg,
+                                   "cpu"))
+    vg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))
+    return vg, jp, tm, tp
+
+
+def _batch(vocab, pack, seed=0):
+    return make_batch(DataConfig(vocab_size=vocab, seq_len=SEQ,
+                                 global_batch=BATCH, pack=pack), seed)
+
+
+def _port_loss_grads(tm, tp, batch):
+    loss, metrics = tm.loss_fn(tp, to_device(batch, tm.device))
+    grads = torch.autograd.grad(loss, leaves(tp), allow_unused=True)
+    return loss, metrics, grads
+
+
+def _hold_grads(tgrads, jgrads):
+    for i, (t, j) in enumerate(zip(tgrads, jax.tree.leaves(jgrads))):
+        j = np.asarray(j)
+        t = np.zeros_like(j) if t is None else t.detach().numpy()
+        scale = max(float(np.abs(j).max()), 1e-12)
+        err = float(np.abs(t - j).max())
+        assert err <= GRAD_TOL * scale, (i, err, scale)
+
+
+@pytest.mark.parametrize("arch,pack,zloss", [
+    ("llama3.2-1b", True, 0.0), ("llama3.2-1b", False, 0.0),
+    ("gemma2-9b", True, 0.0), ("llama3.2-1b", True, 1e-4)])
+def test_loss_and_grads_match_jax(arch, pack, zloss):
+    vg, jp, tm, tp = _pair(arch, zloss)
+    batch = _batch(tm.cfg.vocab_size, pack)
+    (jloss, jmet), jgrads = vg(jp, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+    loss, metrics, grads = _port_loss_grads(tm, tp, batch)
+    assert set(metrics) == set(jmet)
+    for k in metrics:
+        np.testing.assert_allclose(float(metrics[k].detach()),
+                                   float(jmet[k]), rtol=LOSS_RTOL,
+                                   atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    if zloss:
+        assert float(metrics["zloss"]) > 0
+    _hold_grads(grads, jgrads)
+
+
+def test_moe_loss_and_aux_match_jax():
+    """dbrx-132b's loss and aux_loss values (the MoE aux loss that the
+    stack now returns)."""
+    vg, jp, tm, tp = _pair("dbrx-132b")
+    batch = _batch(tm.cfg.vocab_size, True)
+    (jloss, jmet), _ = vg(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        loss, metrics = tm.loss_fn(tp, to_device(batch, tm.device))
+    assert float(jmet["aux_loss"]) > 0
+    for k in ("loss", "nll", "aux_loss", "tokens"):
+        np.testing.assert_allclose(float(metrics[k]), float(jmet[k]),
+                                   rtol=LOSS_RTOL, err_msg=k)
+
+
+# ----------------------------------------------------------------------
+def _opt_trees(rng):
+    shapes = {"w": (3, 4), "b": (4,), "s": [{"x": (2, 2, 3)}, {"x": (5,)}]}
+
+    def draw(scale):
+        def one(s):
+            if isinstance(s, dict):
+                return {k: one(v) for k, v in s.items()}
+            if isinstance(s, list):
+                return [one(v) for v in s]
+            return (scale * rng.standard_normal(s)).astype(np.float32)
+        return one(shapes)
+    return draw(1.0), [draw(3.0) for _ in range(5)]
+
+
+def test_adamw_and_schedule_match_jax():
+    """Five AdamW steps with clipping active (every gradient's norm
+    above grad_clip) and weight decay on the >= 2-D leaves; lr and
+    grad_norm each step, params and moments at the end, within 1e-6."""
+    cfg = dict(lr=0.05, warmup_steps=2, decay_steps=4, grad_clip=1.0,
+               weight_decay=0.1)
+    p_np, g_nps = _opt_trees(np.random.default_rng(0))
+    jcfg, tcfg = jopt.AdamWConfig(**cfg), opt.AdamWConfig(**cfg)
+    jupdate = jax.jit(functools.partial(jopt.adamw_update, jcfg))
+    jp = jax.tree.map(jnp.asarray, p_np)
+    js = jopt.init_opt_state(jp)
+    tp = params_from_tree(p_np)
+    ts = opt.init_opt_state(tp)
+    for g_np in g_nps:
+        jp, js, jm = jupdate(jp, jax.tree.map(jnp.asarray, g_np), js)
+        tp, ts, tm = opt.adamw_update(tcfg, tp, params_from_tree(g_np), ts)
+        assert float(jm["grad_norm"]) > cfg["grad_clip"]
+        for k in ("lr", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-6)
+    assert int(ts.step) == int(js.step) == 5
+    for t, j in zip(leaves([tp, ts.mu, ts.nu]),
+                    jax.tree.leaves([jp, js.mu, js.nu])):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
+                                   atol=1e-7)
+    for s in range(0, 7):
+        np.testing.assert_allclose(float(opt.schedule(tcfg, s)),
+                                   float(jopt.schedule(jcfg, s)), rtol=1e-6)
+
+
+def params_from_tree(tree):
+    if isinstance(tree, dict):
+        return {k: params_from_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_tree(v) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True))
+
+
+def test_adamw_reference_math():
+    """``tests/test_training.py``'s AdamW case on the port."""
+    cfg = opt.AdamWConfig(lr=0.1, b1=0.9, b2=0.99, eps=1e-8,
+                          weight_decay=0.0, grad_clip=0.0,
+                          warmup_steps=0, decay_steps=10 ** 9)
+    params = {"w": torch.tensor([1.0, 2.0])}
+    p2, _, _ = opt.adamw_update(cfg, params, {"w": torch.tensor([0.5, -0.5])},
+                                opt.init_opt_state(params))
+    mhat = 0.1 * 0.5 / (1 - 0.9)
+    vhat = 0.01 * 0.25 / (1 - 0.99)
+    want = 1.0 - 0.1 * mhat / (np.sqrt(vhat) + 1e-8)
+    np.testing.assert_allclose(float(p2["w"][0]), want, rtol=1e-5)
+
+
+# ----------------------------------------------------------------------
+def test_train_step_three_steps_match_jax():
+    """Both packages' make_train_step from one state over three packed
+    batches: each step's loss within 1e-5 relative, the final params
+    within 1e-4 of each leaf's largest magnitude (AdamW's first steps
+    are sign-like, so a near-zero gradient's roundoff can move a weight
+    by up to 2 lr)."""
+    cfg = dict(lr=1e-3, warmup_steps=1, decay_steps=10)
+    vg, jp0, tm, _ = _pair("llama3.2-1b")
+    jm = j_build(j_smoke(j_get_arch("llama3.2-1b")),
+                 JRuntime(compute_dtype=jnp.float32, param_dtype=jnp.float32,
+                          remat="none"))
+    jstep, _, _ = j_make(jm, jopt.AdamWConfig(**cfg))
+    jstep = jax.jit(jstep)
+    jstate = JTrainState(jp0, jopt.init_opt_state(jp0))
+    tstate = train_state_from_jax(
+        jax.tree.map(np.asarray, jp0),
+        jax.tree.map(np.asarray, jstate.opt_state), tm.cfg, "cpu")
+    tstep, _ = make_train_step(tm, opt.AdamWConfig(**cfg))
+    for s in range(3):
+        batch = _batch(tm.cfg.vocab_size, True, seed=s)
+        jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+        tstate, tmet = tstep(tstate, batch)
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tmet["lr"]), float(jmet["lr"]),
+                                   rtol=1e-6)
+    for t, j in zip(leaves(tstate.params), jax.tree.leaves(jstate.params)):
+        j = np.asarray(j)
+        assert np.abs(t.detach().numpy() - j).max() <= \
+            1e-4 * np.abs(j).max()
+    assert int(tstate.opt_state.step) == int(jstate.opt_state.step) == 3
+
+
+def _fresh(tm, seed=0):
+    return trainable(tm.init(torch.Generator().manual_seed(seed)))
+
+
+def test_grad_accum_equivalence():
+    """``tests/test_training.py``'s case on the port: one step of 4
+    micro-batches equals one of the whole batch within 2e-5."""
+    tm = _pair("llama3.2-1b")[2]
+    cfg = opt.AdamWConfig(lr=1e-3, grad_clip=0.0, weight_decay=0.0)
+    batch = make_batch(DataConfig(vocab_size=tm.cfg.vocab_size, seq_len=32,
+                                  global_batch=8, pack=False), 0)
+    outs = []
+    for ga in (1, 4):
+        step, _ = make_train_step(tm, cfg, grad_accum=ga)
+        params = _fresh(tm)
+        st, _ = step(opt_state_of(params), batch)
+        outs.append(st.params)
+    for a, b in zip(leaves(outs[0]), leaves(outs[1])):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=2e-5, rtol=2e-5)
+
+
+def opt_state_of(params):
+    return TrainState(params, opt.init_opt_state(params))
+
+
+class _MMCount(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_policies_same_loss_and_grads():
+    """'none', 'dots' and 'full' give the same loss and gradients (bit
+    for bit on the CPU: the same ops recomputed); the backward pass of
+    'dots' runs as many weight products as 'none' (they were saved)
+    and 'full' more (the forward's are recomputed)."""
+    batch = _batch(512, True)
+    out, mms = {}, {}
+    for remat in ("none", "dots", "full"):
+        tm = build_model(smoke_config(get_arch("llama3.2-1b")),
+                         Runtime(compute_dtype=torch.float32, remat=remat),
+                         device="cpu")
+        tp = _fresh(tm)
+        loss, _ = tm.loss_fn(tp, to_device(batch, tm.device))
+        with _MMCount() as c:
+            grads = torch.autograd.grad(loss, leaves(tp))
+        out[remat], mms[remat] = (loss, grads), c.n
+    for remat in ("dots", "full"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        for a, b in zip(out[remat][1], out["none"][1]):
+            assert torch.equal(a, b)
+    assert mms["dots"] == mms["none"] < mms["full"]
+
+
+def test_loss_decreases_60_steps():
+    """``tests/test_training.py``'s learning test on the port."""
+    tm = _pair("llama3.2-1b")[2]
+    dcfg = DataConfig(vocab_size=tm.cfg.vocab_size, seq_len=64,
+                      global_batch=8, pack=False)
+    _, summary = train(
+        tm, data_iter(dcfg, prefetch=False),
+        opt.AdamWConfig(lr=1e-2, weight_decay=0.0, warmup_steps=10,
+                        decay_steps=100),
+        TrainerConfig(total_steps=60, log_every=10, ckpt_every=0))
+    hist = summary["history"]
+    assert hist[-1][1] < hist[0][1] - 1.0, f"no learning: {hist}"
+
+
+# ----------------------------------------------------------------------
+# the flash attention backward's plain version
+BWD_CASES = {
+    "causal": dict(h=4, kv=4, sq=24, skv=24, kw=dict()),
+    "window": dict(h=4, kv=2, sq=24, skv=24, kw=dict(window=5)),
+    "softcap": dict(h=4, kv=2, sq=24, skv=24, kw=dict(softcap=3.0)),
+    "packed": dict(h=4, kv=1, sq=24, skv=24, kw=dict(), segs=True),
+    "bidirectional": dict(h=2, kv=1, sq=16, skv=24,
+                          kw=dict(causal=False, bidirectional=True)),
+    "gqa_g2_window_softcap": dict(h=4, kv=2, sq=20, skv=20,
+                                  kw=dict(window=7, softcap=2.0), segs=True),
+    "no_key_rows": dict(h=4, kv=2, sq=24, skv=16, kw=dict()),
+}
+BWD_TOL = 2e-5      # float32, summation order
+
+
+def _bwd_inputs(case, seed=0):
+    c = BWD_CASES[case]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, c["sq"], c["h"], 16)).astype(np.float32)
+    k = rng.standard_normal((2, c["skv"], c["kv"], 16)).astype(np.float32)
+    v = rng.standard_normal((2, c["skv"], c["kv"], 16)).astype(np.float32)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    segs = None
+    if c.get("segs"):
+        ids = np.cumsum(rng.random((2, c["skv"])) < 0.2, axis=1)
+        segs = (ids.astype(np.int32), ids.astype(np.int32))
+    # rows with no valid key (causal rows before the first key): the
+    # port gives 0 there and the jnp oracle the mean of v; their dout is
+    # zeroed so both backward passes agree on every other gradient
+    qpos = np.arange(c["sq"]) + c["skv"] - c["sq"]
+    causal = c["kw"].get("causal", True)
+    if causal:
+        do[:, qpos < 0] = 0.0
+    return q, k, v, do, segs, c["kw"]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _autograd_ref(q, k, v, do, segs, kw):
+    qt, kt, vt = (_t(x).requires_grad_(True) for x in (q, k, v))
+    sg = None if segs is None else tuple(_t(s) for s in segs)
+    out = ref.attention_naive(qt, kt, vt, segment_ids=sg, **kw)
+    return torch.autograd.grad(out, (qt, kt, vt), _t(do))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bwd(name, kw_items):
+    """Jitted (q, k, v, dout, segs) -> (dq, dk, dv) of the reference's
+    ``name`` (the blocked lowering in chunks of 8)."""
+    fn = getattr(jref, name)
+    if name == "flash_attention_blocked":
+        fn = functools.partial(fn, q_chunk=8, kv_chunk=8)
+    kw = dict(kw_items)
+
+    def grads(q, k, v, do, segs):
+        _, pull = jax.vjp(lambda a, b, c: fn(a, b, c, segment_ids=segs,
+                                             **kw), q, k, v)
+        return pull(do)
+    return jax.jit(grads)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_ref_matches_autograd_and_jax(case):
+    q, k, v, do, segs, kw = _bwd_inputs(case)
+    sg = None if segs is None else tuple(_t(s) for s in segs)
+    out, lse = ref.attention_lse(_t(q), _t(k), _t(v), segment_ids=sg, **kw)
+    got = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), out, lse, _t(do),
+                                      segment_ids=sg, **kw)
+    want = _autograd_ref(q, k, v, do, segs, kw)
+    jsegs = None if segs is None else tuple(jnp.asarray(s) for s in segs)
+    for name in ("attention_naive", "flash_attention_blocked"):
+        pulled = _jax_bwd(name, tuple(sorted(kw.items())))(
+            *map(jnp.asarray, (q, k, v, do)), jsegs)
+        for g, j, t in zip(got, pulled, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(j),
+                                       atol=BWD_TOL, rtol=BWD_TOL)
+            np.testing.assert_allclose(g.numpy(), t.numpy(),
+                                       atol=BWD_TOL, rtol=BWD_TOL)
+    if case == "no_key_rows":
+        dead = np.arange(q.shape[1]) + k.shape[1] - q.shape[1] < 0
+        assert torch.isinf(lse[:, :, dead]).all()
+        assert not got[0][:, dead].abs().sum()
+        assert not out[:, dead].abs().sum()
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa_g2_window_softcap",
+                                  "no_key_rows"])
+def test_flash_attention_fn_plain(case):
+    """The autograd Function that carries the CUDA kernels, driven with
+    the plain forward and backward, against autograd of
+    ``attention_naive``: output and (dq, dk, dv)."""
+    q, k, v, do, segs, kw = _bwd_inputs(case, seed=1)
+    qt, kt, vt = (_t(x).requires_grad_(True) for x in (q, k, v))
+    sq, sk = (None, None) if segs is None else tuple(_t(s) for s in segs)
+    opts = dict(causal=kw.get("causal", True), window=kw.get("window", 0),
+                softcap=kw.get("softcap", 0.0),
+                bidirectional=kw.get("bidirectional", False))
+    out = fa.FlashAttentionFn.apply(qt, kt, vt, sq, sk, opts, fa._plain_fwd,
+                                    fa.flash_attention_bwd_ref)
+    got = torch.autograd.grad(out, (qt, kt, vt), _t(do))
+    sg = None if segs is None else (sq, sk)
+    torch.testing.assert_close(
+        out, ref.attention_naive(_t(q), _t(k), _t(v), segment_ids=sg, **kw),
+        atol=0, rtol=0)
+    for g, w in zip(got, _autograd_ref(q, k, v, do, segs, kw)):
+        torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+def test_flash_bwd_wrapper_on_cpu_is_plain():
+    """On CPU tensors ``flash_attention_bwd`` is the plain version and
+    launches nothing; the lse of a masked-softcap row is finite."""
+    from repro_torch.core.counters import COUNTERS
+    q, k, v, do, _, kw = _bwd_inputs("softcap")
+    out, lse = ref.attention_lse(_t(q), _t(k), _t(v), **kw)
+    assert torch.isfinite(lse).all()
+    before = COUNTERS.launches()
+    a = fa.flash_attention_bwd(_t(q), _t(k), _t(v), out, lse, _t(do), **kw)
+    b = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), out, lse, _t(do),
+                                    **kw)
+    assert COUNTERS.launches() == before
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    _, logits, mask = ref._attention_logits(
+        _t(q), _t(k), causal=True, window=0, softcap=kw["softcap"],
+        segment_ids=None, bidirectional=False)
+    want = torch.logsumexp(logits.masked_fill(~mask, -math.inf), dim=-1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
