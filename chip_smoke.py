@@ -473,6 +473,15 @@ def ptxas_resources(logs, kernels=("fmmu_commit", "paged_attention",
     return entries
 
 
+def tc_registers(logs, kernel):
+    """{instantiation: registers} of a kernel's tensor-core bodies, from
+    nvcc's -Xptxas -v output (name and template arguments)."""
+    return {re.sub(r"^(?:void )?([\w:]+<[^()]*>)\(.*$", r"\1", e["kernel"]):
+            e["registers"]
+            for e in ptxas_resources(logs, (kernel,))
+            if "_tc_kernel<" in e["kernel"] and "registers" in e}
+
+
 def _max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() \
         else 0.0
@@ -1777,13 +1786,16 @@ def check_flash_segments(timer):
     return row
 
 
-# the flash kernel's backward (training): (tag, B, S, H, KV, D, ids):
-# the training shape (llama3.2-1b's attention at 8 x 1024 packed tokens,
-# with the segment ids of one make_batch call), the same without ids,
-# and head_dim 128 at S = 1000
-BWD_SHAPES = (("train", 8, 1024, 32, 8, 64, True),
-              ("train_noids", 8, 1024, 32, 8, 64, False),
-              ("d128", 1, 1000, 32, 8, 128, False))
+# the flash kernel's backward (training): (tag, B, S, H, KV, D, ids,
+# mask options): the training shape (llama3.2-1b's attention at 8 x 1024
+# packed tokens, with the segment ids of one make_batch call), the same
+# without ids, head_dim 128 at S = 1000, and gemma2-9b's head_dim 256
+# with its window and softcap (the window covers the 1000 positions)
+BWD_SHAPES = (("train", 8, 1024, 32, 8, 64, True, {}),
+              ("train_noids", 8, 1024, 32, 8, 64, False, {}),
+              ("d128", 1, 1000, 32, 8, 128, False, {}),
+              ("d256_window", 1, 1000, 16, 8, 256, False,
+               dict(window=4096, softcap=50.0)))
 BWD_TOL = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
            torch.float16: F16_TOL}
 
@@ -1815,11 +1827,11 @@ def check_flash_attention_bwd(timer):
     for bit. In bf16 it is timed beside the plain version, SDPA's
     backward (autograd.grad of F.scaled_dot_product_attention with
     enable_gqa, causal, or given the same boolean mask with ids; its
-    forward outside the timing) and its bound: the 5 products over this
-    run's visible pairs at the bf16 peak, or the bytes of q, k, v, o, dO
-    read and dq, dk, dv written. Returns (the backward's row, the forward
-    row's extra keys: its time with lse beside without at the training
-    shape)."""
+    forward outside the timing; no softcap) and its bound: the 5
+    products over this run's visible pairs at the bf16 peak, or the
+    bytes of q, k, v, o, dO read and dq, dk, dv written. Returns (the
+    backward's row, the forward row's extra keys: its time with lse
+    beside without at the training shape)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
     from repro_torch.kernels.ref import attention_lse
@@ -1832,10 +1844,13 @@ def check_flash_attention_bwd(timer):
                             "kernel has no backward)"}
     fwd_row = {}
     ids = torch.from_numpy(train_batch()["segment_ids"]).cuda()
-    for tag, b, s, h, kv, d, with_ids in BWD_SHAPES:
+    for tag, b, s, h, kv, d, with_ids, kw in BWD_SHAPES:
         segs = (ids, ids) if with_ids else None
         i = torch.arange(s, device="cuda")
-        mask = (i[None, :] <= i[:, None])[None, None].expand(b, 1, s, s)
+        mask = (i[None, :] <= i[:, None])
+        if kw.get("window"):
+            mask = mask & (i[None, :] > i[:, None] - kw["window"])
+        mask = mask[None, None].expand(b, 1, s, s)
         if with_ids:
             mask = mask & (ids[:, None, :, None] == ids[:, None, None, :])
         pairs = int(mask.sum())
@@ -1846,19 +1861,19 @@ def check_flash_attention_bwd(timer):
             k, v = (torch.randn((b, s, kv, d), device="cuda").to(dtype)
                     for _ in range(2))
             out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
-                                           with_lse=True)
-            _, want_lse = attention_lse(q, k, v, segment_ids=segs)
+                                           with_lse=True, **kw)
+            _, want_lse = attention_lse(q, k, v, segment_ids=segs, **kw)
             lse_err = _max_err(lse, want_lse)
             if lse_err > 1e-4:
                 fail(f"flash_attention lse {tag} {dt}: max err {lse_err}")
             args = (q, k, v, out, lse, do)
-            got = flash_attention_bwd(*args, segment_ids=segs)
-            want = flash_attention_bwd_ref(*args, segment_ids=segs)
+            got = flash_attention_bwd(*args, segment_ids=segs, **kw)
+            want = flash_attention_bwd_ref(*args, segment_ids=segs, **kw)
             errs = [_grad_err(g, w) for g, w in zip(got, want)]
             if max(errs) > BWD_TOL[dtype]:
                 fail(f"flash_attention_bwd {tag} {dt}: errors (dq, dk, "
                      f"dv) {errs}")
-            again = flash_attention_bwd(*args, segment_ids=segs)
+            again = flash_attention_bwd(*args, segment_ids=segs, **kw)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 fail(f"flash_attention_bwd {tag} {dt}: repeat differs")
             sfx = f"{tag}_{dt}"
@@ -1870,7 +1885,7 @@ def check_flash_attention_bwd(timer):
         # timed in bf16, the training path's type
         q, k, v, do = (a.to(torch.bfloat16) for a in (q, k, v, do))
         out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
-                                       with_lse=True)
+                                       with_lse=True, **kw)
         args = (q, k, v, out, lse, do)
         n_bytes = 2 * (3 * b * s * h * d + 2 * b * s * kv * d) + \
             2 * (b * s * h * d + 2 * b * s * kv * d)
@@ -1882,9 +1897,9 @@ def check_flash_attention_bwd(timer):
         dot = do.transpose(1, 2)
         row.update({
             f"ms_{tag}": timer.ms(lambda: flash_attention_bwd(
-                *args, segment_ids=segs)),
+                *args, segment_ids=segs, **kw)),
             f"plain_ms_{tag}": timer.ms(lambda: flash_attention_bwd_ref(
-                *args, segment_ids=segs), iters=3, warmup=1),
+                *args, segment_ids=segs, **kw), iters=3, warmup=1),
             f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
             f"library_ms_{tag}": timer.ms(lambda: torch.autograd.grad(
                 lib_out, (qt, kt, vt), dot, retain_graph=True)),
@@ -1903,9 +1918,11 @@ def check_flash_attention_bwd(timer):
     row["shape"] = "; ".join(
         f"{t}: B={b} S={s} H={h} KV={kv} D={d} causal"
         f"{' packed ids (make_batch step 0)' if ids_ else ''}"
-        for t, b, s, h, kv, d, ids_ in BWD_SHAPES) + (
+        f"{''.join(f' {k} {v:g}' for k, v in kw.items())}"
+        for t, b, s, h, kv, d, ids_, kw in BWD_SHAPES) + (
         " (top-level numbers: train in bf16; err_*: max |got - want| / "
-        "max(1, |want|) over dq, dk, dv; max_abs_err_*: max |got - want|)")
+        "max(1, |want|) over dq, dk, dv; max_abs_err_*: max |got - want|; "
+        "d256_window: the first version's body, SDPA without softcap)")
     fwd_row["shape_lse"] = ("ms_lse_train / ms_nolse_train: the forward at "
                             "the training shape in bf16 with its lse "
                             "written and without")
@@ -4762,6 +4779,9 @@ def main() -> int:
     # the flash kernel's backward (training) and the forward's lse
     rows["flash_attention_bwd"], fwd_lse = check_flash_attention_bwd(timer)
     rows["flash_attention"].update(fwd_lse)
+    # the registers of each tensor-core instantiation the kernels ran
+    for name in ("flash_attention", "flash_attention_bwd"):
+        rows[name]["registers"] = tc_registers(logs, name)
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
     # the channel grid: one launch of C blocks, C in {2, 8, 32}
@@ -4942,7 +4962,7 @@ def main() -> int:
               for c in (1, SERVE_CHANNELS)
               for k in ("ms", "ms_unarmed", "plain_ms", "bound_ms",
                         "bound_by")) + \
-        ("launches_serve_channels", "launches_serve_faults",
+        ("registers", "launches_serve_channels", "launches_serve_faults",
          "launches_serve_recover", "launches_serve_gc",
          "launches_serve_prefix", "launches_ssd", "shape_d256",
          "replaces_what", "launches_train", "ms_lse_train",

@@ -23,7 +23,7 @@ Axes:
   pool retires the block and the manager re-drives the write through a
   CondUpdate map commit onto a same-channel replacement.
 * ``alloc_fail``   — the i-th pool allocation reports a transient
-  shortage (``OutOfBlocks(transient=True)``); callers pause and retry.
+  shortage (``PoolExhausted(transient=True)``); callers pause and retry.
 * ``stall``        — per-channel brownout multipliers (>= 1.0): the
   engine divides a browned-out channel's advertised free blocks by it.
 * ``crash``        — a sudden power-off at the i-th journaled commit,

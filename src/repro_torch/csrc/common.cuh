@@ -62,6 +62,38 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
+// 4-byte asynchronous global -> shared copy (cp.async.ca: the 16-byte
+// .cg form is the only one that bypasses L1); zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
+// ROWS rows of D elements from row0 of src (row stride `stride`) into
+// dst (row stride D + 8: the 16-byte pad puts the eight row addresses
+// of an ldmatrix in distinct bank groups), 16 bytes per cp.async by
+// NT threads; rows at and past nrows are zero-filled
+template <int ROWS, int D, int NT, typename T>
+__device__ __forceinline__ void cp_async_rows(T* dst, const T* src, int row0,
+                                              int nrows, size_t stride,
+                                              int tid) {
+  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  constexpr int EPC = 16 / (int)sizeof(T);       // elements a chunk
+  static_assert((ROWS * CPR) % NT == 0, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+    const int c = tid + i * NT;
+    const int r = c / CPR, cc = c - r * CPR;
+    const bool ok = row0 + r < nrows;
+    cp_async16(dst + r * (D + 8) + cc * EPC,
+               src + (ok ? (size_t)(row0 + r) * stride + cc * EPC : 0), ok);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -133,6 +165,18 @@ template <> struct Mma<__half> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
+
+// (a, b) -> hi + lo as two register pairs of T: hi = T(v), lo = T(v -
+// hi), ~16 bits of each value's mantissa between them in bf16 (two
+// products where one would do)
+template <typename T>
+__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
+                                            uint32_t& lo) {
+  const uint32_t h = Mma<T>::pack(a, b);
+  const T* hv = reinterpret_cast<const T*>(&h);
+  hi = h;
+  lo = Mma<T>::pack(a - to_f32(hv[0]), b - to_f32(hv[1]));
+}
 
 // four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address
 // the rows of matrix i

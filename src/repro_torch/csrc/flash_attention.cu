@@ -49,6 +49,11 @@
 // row with no valid key, which the training path saves for the
 // backward kernel (flash_attention_bwd.cu). Both bodies hold m and l in
 // registers at the end of the row, so it costs one store a row.
+// Segment ids and lse are template parameters of both bodies (SEG, LSE),
+// the instantiation chosen from the null-ness of their pointers: the
+// one without them (every serving prefill) carries no id register, no
+// id term in the mask and no lse store. As runtime operands they cost
+// the no-ids calls 1.6-2.0x on the card (H100, tensor-core body).
 //
 // What is left: wgmma with TMA loads and a producer warp. mma.sync
 // issues one 16x8x16 product per instruction per warp and bounds this
@@ -68,7 +73,7 @@ constexpr int kBQ = 64;  // query rows per block
 template <int D>
 __host__ __device__ constexpr int f32_tpr() { return D >= 256 ? 4 : 1; }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG, bool LSE>
 __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
     flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -83,7 +88,7 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
   constexpr int BK = D <= 64 ? 64 : D <= 128 ? 32 : 16;
   __shared__ float ks[BK][D];
   __shared__ float vs[BK][D];
-  __shared__ int segs[BK];          // the tile's key segment ids
+  __shared__ int segs[SEG ? BK : 1];   // the tile's key segment ids
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int r0 = blockIdx.x * kBQ;
@@ -95,8 +100,8 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
   const int qpos = q_offset + row;
   // the row's segment (one value for the TPR threads of a row, so the
   // skip below keeps their shuffles converged)
-  const int* sk = seg_k ? seg_k + (size_t)b * Skv : nullptr;
-  const int seg_row = sk && live_row ? seg_q[(size_t)b * Sq + row] : 0;
+  const int* sk = SEG ? seg_k + (size_t)b * Skv : nullptr;
+  const int seg_row = SEG && live_row ? seg_q[(size_t)b * Sq + row] : 0;
 
   float qr[DP], acc[DP];
   if (live_row) {
@@ -128,14 +133,14 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
       ks[t][d] = to_f32(k[off]);
       vs[t][d] = to_f32(v[off]);
     }
-    if (sk)
+    if (SEG)
       for (int t = threadIdx.x; t < nk; t += NT) segs[t] = sk[k0 + t];
     __syncthreads();
     if (!live_row) continue;
     const int t_lo = max(0, k_lo - k0);
     const int t_hi = min(nk - 1, k_hi - k0);
     for (int t = t_lo; t <= t_hi; ++t) {
-      if (sk && segs[t] != seg_row) continue;
+      if (SEG && segs[t] != seg_row) continue;
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < DP; ++i) s += qr[i] * ks[t][part + TPR * i];
@@ -161,7 +166,7 @@ __global__ void __launch_bounds__(kBQ * f32_tpr<D>())
 #pragma unroll
     for (int i = 0; i < DP; ++i)
       op[part + TPR * i] = from_f32<T>(acc[i] * inv);
-    if (lse && part == 0)
+    if (LSE && part == 0)
       lse[((size_t)b * H + h) * Sq + row] =
           l > 0.f ? m + logf(l) : REPRO_MASKED;
   }
@@ -178,25 +183,7 @@ constexpr size_t tc_smem_bytes() {  // Q + two stages of K and V
   return (size_t)(kTcBQ + 4 * kTcBK) * (D + 8) * sizeof(T);
 }
 
-// ROWS rows of D elements from row0 of src (row stride `stride`) into
-// dst (row stride D + 8), 16 bytes per cp.async; zero past nrows
-template <int ROWS, int D, typename T>
-__device__ __forceinline__ void tc_load_rows(T* dst, const T* src, int row0,
-                                             int nrows, size_t stride,
-                                             int tid) {
-  constexpr int CPR = D / 8;
-  static_assert((ROWS * CPR) % kTcThreads == 0, "whole rounds");
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / kTcThreads; ++i) {
-    const int c = tid + i * kTcThreads;
-    const int r = c / CPR, cc = c - r * CPR;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * (D + 8) + cc * 8,
-               src + (ok ? (size_t)(row0 + r) * stride + cc * 8 : 0), ok);
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool SEG, bool LSE>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out,
@@ -226,7 +213,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   const T* qb = q + ((size_t)b * Sq * H + h) * D;
   const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;
   const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
-  const int* sk = seg_k ? seg_k + (size_t)b * Skv : nullptr;
+  const int* sk = SEG ? seg_k + (size_t)b * Skv : nullptr;
 
   // q tiles p and nqt-1-p: under causal masking every block then walks
   // nqt + 1 KV tiles, so the blocks finish together
@@ -248,7 +235,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const int kt_hi = hi_pos < 0 ? -1 : hi_pos / BK;
     // segment ids of this thread's two rows (g8 and g8 + 8)
     int seg_row[2] = {0, 0};
-    if (sk) {
+    if constexpr (SEG) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = r0 + warp * 16 + g8 + 8 * i;
@@ -264,18 +251,22 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     uint32_t qf[kQInRegs ? NKS : 1][4];
 
     if (kt_lo <= kt_hi) {
-      tc_load_rows<BQ, D>(qs, qb, r0, Sq, (size_t)H * D, tid);
-      tc_load_rows<BK, D>(ks, kb, kt_lo * BK, Skv, (size_t)KV * D, tid);
-      tc_load_rows<BK, D>(vs, vb, kt_lo * BK, Skv, (size_t)KV * D, tid);
+      cp_async_rows<BQ, D, kTcThreads>(qs, qb, r0, Sq, (size_t)H * D, tid);
+      cp_async_rows<BK, D, kTcThreads>(ks, kb, kt_lo * BK, Skv,
+                                       (size_t)KV * D, tid);
+      cp_async_rows<BK, D, kTcThreads>(vs, vb, kt_lo * BK, Skv,
+                                       (size_t)KV * D, tid);
       cp_async_commit();
     }
     for (int kt = kt_lo; kt <= kt_hi; ++kt) {
       const int st = (kt - kt_lo) & 1;
       if (kt < kt_hi) {
-        tc_load_rows<BK, D>(ks + (st ^ 1) * BK * LD, kb, (kt + 1) * BK, Skv,
-                        (size_t)KV * D, tid);
-        tc_load_rows<BK, D>(vs + (st ^ 1) * BK * LD, vb, (kt + 1) * BK, Skv,
-                        (size_t)KV * D, tid);
+        cp_async_rows<BK, D, kTcThreads>(ks + (st ^ 1) * BK * LD, kb,
+                                         (kt + 1) * BK, Skv, (size_t)KV * D,
+                                         tid);
+        cp_async_rows<BK, D, kTcThreads>(vs + (st ^ 1) * BK * LD, vb,
+                                         (kt + 1) * BK, Skv, (size_t)KV * D,
+                                         tid);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -318,7 +309,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
       // rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3) of the warp's 16
       const int k0 = kt * BK;
       const int qp0 = q_offset + r0 + warp * 16 + g8;
-      const bool need_mask = sk != nullptr || k0 + BK > Skv ||
+      const bool need_mask = SEG || k0 + BK > Skv ||
                              (causal && k0 + BK - 1 > q_offset + r0) ||
                              (window > 0 && k0 < q_offset + r0 + BQ - window);
       float mx[2] = {mrow[0], mrow[1]};
@@ -334,7 +325,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
             const int qp = qp0 + (e >> 1) * 8;
             const bool ok = kp < Skv && (!causal || kp <= qp) &&
                             (window <= 0 || kp > qp - window) &&
-                            (!sk || __ldg(sk + kp) == seg_row[e >> 1]);
+                            (!SEG || __ldg(sk + kp) == seg_row[e >> 1]);
             if (!ok) x = REPRO_MASKED;
           }
           sc[nt][e] = x;
@@ -394,7 +385,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
       const float inv = 1.f / fmaxf(li, 1e-30f);
       const int row = r0 + warp * 16 + g8 + 8 * i;
       if (row >= Sq) continue;
-      if (lse && t4 == 0)   // m is in log2 units
+      if (LSE && t4 == 0)   // m is in log2 units
         lse[((size_t)b * H + h) * Sq + row] =
             li > 0.f ? (mrow[i] + log2f(li)) * 0.6931471805599453f
                      : REPRO_MASKED;
@@ -419,41 +410,53 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-static int launch_d(const Args& a) {
+template <typename T, int D, bool SEG, bool LSE>
+static int launch_f32_v(const Args& a) {
   dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
   constexpr int threads = kBQ * f32_tpr<D>();
-  flash_attention_f32_kernel<T, D><<<grid, threads, 0, a.stream>>>(
+  flash_attention_f32_kernel<T, D, SEG, LSE><<<grid, threads, 0, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
       a.seg_k, a.lse, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
       a.causal, a.Skv - a.Sq);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-static int launch_tc_d(const Args& a) {
+template <typename T, int D, bool SEG, bool LSE>
+static int launch_tc_v(const Args& a) {
   constexpr size_t smem = tc_smem_bytes<T, D>();
   if (smem > 48 * 1024) {  // above the default cap: opt in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<T, D>,
+        flash_attention_tc_kernel<T, D, SEG, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int nqt = (a.Sq + kTcBQ - 1) / kTcBQ;
   dim3 grid((nqt + 1) / 2, a.H, a.B);  // two q tiles per block
-  flash_attention_tc_kernel<T, D><<<grid, kTcThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
-      a.seg_k, a.lse, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
-      a.causal, a.Skv - a.Sq);
+  flash_attention_tc_kernel<T, D, SEG, LSE>
+      <<<grid, kTcThreads, smem, a.stream>>>(
+          (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.seg_q,
+          a.seg_k, a.lse, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap,
+          a.window, a.causal, a.Skv - a.Sq);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool TC, int D, bool SEG, bool LSE>
+static int launch_v(const Args& a) {
+  if constexpr (TC)
+    return launch_tc_v<T, D, SEG, LSE>(a);
+  else
+    return launch_f32_v<T, D, SEG, LSE>(a);
+}
+
+// the instantiation from the null-ness of the ids and lse pointers
 template <typename T, bool TC, int D>
 static int launch_body(const Args& a) {
-  if constexpr (TC)
-    return launch_tc_d<T, D>(a);
-  else
-    return launch_d<T, D>(a);
+  const bool seg = a.seg_k != nullptr, lse = a.lse != nullptr;
+  if (seg)
+    return lse ? launch_v<T, TC, D, true, true>(a)
+               : launch_v<T, TC, D, true, false>(a);
+  return lse ? launch_v<T, TC, D, false, true>(a)
+             : launch_v<T, TC, D, false, false>(a);
 }
 
 template <typename T, bool TC>

@@ -222,27 +222,6 @@ __global__ void __launch_bounds__(kThreads) mamba_scan_kernel(
 // ---- the bf16 body: chunked SSD on the tensor cores ---------------------
 using bf16 = __nv_bfloat16;
 
-// 4-byte asynchronous global -> shared copy; zero-filled when !pred
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-
-// (a, b) -> hi + lo as two bf16 pairs: hi = bf16(v), lo = bf16(v - hi),
-// ~16 bits of mantissa between them (two products instead of one)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // One block: Q tokens a chunk, one warp per 16 of them; PS rows of P;
 // state width N. Shared memory, in bf16 elements unless noted: two
 // stages of x [Q][PS+8], B [Q][N+8] and C [Q][N+8]; the state's hi and
@@ -381,9 +360,9 @@ __global__ void __launch_bounds__(2 * Q)   // TcPlan::kThreads
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int off = (mt * 16 + g8 + 8 * hi) * LDN + (nt0 + j) * 8 + 2 * t4;
-        split_bf16(sacc[j][2 * hi], sacc[j][2 * hi + 1],
-                   *reinterpret_cast<uint32_t*>(ss + off),
-                   *reinterpret_cast<uint32_t*>(ss + PS * LDN + off));
+        split_hi_lo<bf16>(sacc[j][2 * hi], sacc[j][2 * hi + 1],
+                          *reinterpret_cast<uint32_t*>(ss + off),
+                          *reinterpret_cast<uint32_t*>(ss + PS * LDN + off));
       }
     }
   };
@@ -516,10 +495,10 @@ __global__ void __launch_bounds__(2 * Q)   // TcPlan::kThreads
           }
         }
         uint32_t gp[4], gl[4];
-        split_bf16(v[0][0], v[0][1], gp[0], gl[0]);
-        split_bf16(v[0][2], v[0][3], gp[1], gl[1]);
-        split_bf16(v[1][0], v[1][1], gp[2], gl[2]);
-        split_bf16(v[1][2], v[1][3], gp[3], gl[3]);
+        split_hi_lo<bf16>(v[0][0], v[0][1], gp[0], gl[0]);
+        split_hi_lo<bf16>(v[0][2], v[0][3], gp[1], gl[1]);
+        split_hi_lo<bf16>(v[1][0], v[1][1], gp[2], gl[2]);
+        split_hi_lo<bf16>(v[1][2], v[1][3], gp[3], gl[3]);
 #pragma unroll
         for (int pp = 0; pp < NPT / 2; ++pp) {
           uint32_t bb[4];
@@ -579,9 +558,9 @@ __global__ void __launch_bounds__(2 * Q)   // TcPlan::kThreads
     for (int it = 0; it < kXw; ++it) {
       const int k = tid + it * NT;
       const int off = (k / (PS / 2)) * LDP + 2 * (k % (PS / 2));
-      split_bf16(xw[it].x * ww[it], xw[it].y * ww[it],
-                 *reinterpret_cast<uint32_t*>(xws + off),
-                 *reinterpret_cast<uint32_t*>(xws + Q * LDP + off));
+      split_hi_lo<bf16>(xw[it].x * ww[it], xw[it].y * ww[it],
+                        *reinterpret_cast<uint32_t*>(xws + off),
+                        *reinterpret_cast<uint32_t*>(xws + Q * LDP + off));
     }
     if (next) load_bc(c + 1, st ^ 1, 3);
     cp_async_commit();

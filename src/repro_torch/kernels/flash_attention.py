@@ -39,7 +39,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]
-_BWD_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P] * 13 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_ref",
@@ -101,9 +101,10 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                         softcap=0.0, segment_ids=None, bidirectional=False):
     """(dq, dk, dv) of the attention from its output and row
-    log-sum-exp: one launch of the backward kernel (its dq grid, then
-    its dk/dv grid) on a CUDA tensor, ``flash_attention_bwd_ref`` on a
-    CPU tensor. Deterministic: repeated calls are bit-identical."""
+    log-sum-exp: one call of the backward kernel (with ids its tile
+    spans, then its dq grid, then its dk/dv grid) on a CUDA tensor,
+    ``flash_attention_bwd_ref`` on a CPU tensor. Deterministic: repeated
+    calls are bit-identical."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               segment_ids=segment_ids, bidirectional=bidirectional)
     if q.device.type == "cpu":
@@ -119,12 +120,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     if not (b and sq and skv):
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the ids' [min, max] per tile (tiles of 32 rows or more)
+    spans = None if seg_q is None else torch.empty(
+        2 * b * ((sq + 31) // 32 + (skv + 31) // 32), dtype=torch.int32,
+        device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_ARGTYPES)
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _ptr(seg_q), _ptr(seg_k), b, sq, skv,
-        h, kv, d, 1.0 / math.sqrt(d), float(softcap or 0.0),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(spans),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(seg_q),
+        _ptr(seg_k), b, sq, skv, h, kv, d, 1.0 / math.sqrt(d),
+        float(softcap or 0.0),
         int(window or 0), int(causal and not bidirectional),
         _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
     _build.check(lib, "flash_attention_bwd", err)

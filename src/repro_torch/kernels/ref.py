@@ -5,7 +5,9 @@ counterparts of ``attention_naive``, ``paged_attention_naive``,
 and ``fmmu_translate_ref`` in ``repro/kernels/ref.py``; and for the
 flash kernel's backward, which the reference takes with ``jax.grad``
 through its blocked lowering, ``attention_lse`` (the forward with the
-row log-sum-exp it saves) and ``flash_attention_bwd_ref``.
+row log-sum-exp it saves), ``flash_attention_bwd_ref`` and
+``flash_attention_bwd_blocked`` (the kernels' tile walk and their
+segment-span skip, ``tile_spans`` / ``spans_meet``).
 
 They run on any device. The kernel wrappers use them for CPU tensors,
 ``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
@@ -132,6 +134,106 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, skv, kv, g, d).sum(3)
+    dv = dv.reshape(b, skv, kv, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def tile_spans(ids, tile):
+    """ids [B,S] -> [B, ceil(S/tile), 2]: the min and max id of each
+    ``tile``-row tile, what the backward kernel's first launch writes
+    for its tile skip."""
+    b, s = ids.shape
+    n = -(-s // tile)
+    big = torch.iinfo(torch.int32).max
+    pad = n * tile - s
+    lo = torch.nn.functional.pad(ids, (0, pad), value=big)
+    hi = torch.nn.functional.pad(ids, (0, pad), value=-big)
+    return torch.stack([lo.reshape(b, n, tile).amin(-1),
+                        hi.reshape(b, n, tile).amax(-1)], dim=-1)
+
+
+def spans_meet(a, b):
+    """Whether the [min, max] spans a [..., 2] and b [..., 2] overlap:
+    the kernels' test of whether a (query tile, key tile) pair may hold
+    a visible pair. Conservative for any ids: a pair with seg_q[i] ==
+    seg_k[j] lies in both spans."""
+    return torch.maximum(a[..., 0], b[..., 0]) <= \
+        torch.minimum(a[..., 1], b[..., 1])
+
+
+def _tile_key_range(r0, r1, sq, skv, tile, causal, window):
+    """The key tiles a query tile [r0, r1) can see before the ids: the
+    forward's skip of tiles past the causal frontier or below the
+    window (right-aligned positions)."""
+    q_off = skv - sq
+    hi_pos = min(skv - 1, q_off + r1 - 1) if causal else skv - 1
+    lo_pos = max(0, q_off + r0 - window + 1) if window > 0 else 0
+    return range(lo_pos // tile, hi_pos // tile + 1 if hi_pos >= 0 else 0)
+
+
+def flash_attention_bwd_blocked(q, k, v, out, lse, dout, *, causal=True,
+                                window=0, softcap=0.0, segment_ids=None,
+                                bidirectional=False, tile=64):
+    """``flash_attention_bwd_ref`` walked as the backward kernels walk
+    it: per (query tile, key tile) pair of ``tile`` rows, only the key
+    tiles inside the causal frontier and the window, and with segment
+    ids only the pairs whose id spans meet (``tile_spans``,
+    ``spans_meet``); each pair recomputes its logits, P and dS from
+    ``lse`` and adds into dq, dk and dv (f32 sums, dk and dv over each
+    KV head's group). Used by the tests: it holds the tile walk and the
+    skip against the reference."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    causal = causal and not bidirectional
+    qf, dof, of = q.float(), dout.float(), out.float()
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    delta = (dof * of).sum(-1).transpose(1, 2)                 # [B,H,Sq]
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    if segment_ids is not None:
+        sp_q, sp_k = (tile_spans(x, tile) for x in segment_ids)
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)
+    for bi in range(b):
+        for qt in range(-(-sq // tile)):
+            r0, r1 = qt * tile, min(sq, (qt + 1) * tile)
+            for kt in _tile_key_range(r0, r1, sq, skv, tile, causal, window):
+                if segment_ids is not None and \
+                        not spans_meet(sp_q[bi, qt], sp_k[bi, kt]):
+                    continue
+                c0, c1 = kt * tile, min(skv, (kt + 1) * tile)
+                qp, kp = qpos[r0:r1, None], kpos[None, c0:c1]
+                mask = torch.ones((r1 - r0, c1 - c0), dtype=torch.bool,
+                                  device=q.device)
+                if causal:
+                    mask &= kp <= qp
+                if window and window > 0:
+                    mask &= kp > qp - window
+                if segment_ids is not None:
+                    mask &= segment_ids[0][bi, r0:r1, None] == \
+                        segment_ids[1][bi, None, c0:c1]
+                lse_b = lse[bi, :, r0:r1, None].float()
+                mask = mask[None] & torch.isfinite(lse_b)
+                raw = torch.einsum("qhd,khd->hqk", qf[bi, r0:r1] * scale,
+                                   kf[bi, c0:c1])
+                logits = _softcap(raw, softcap)
+                p = torch.where(mask, torch.exp(logits - lse_b),
+                                torch.zeros_like(logits))
+                dp = torch.einsum("qhd,khd->hqk", dof[bi, r0:r1],
+                                  vf[bi, c0:c1])
+                ds = p * (dp - delta[bi, :, r0:r1, None])
+                if softcap and softcap > 0.0:
+                    ds = ds * (1.0 - (logits / softcap) ** 2)
+                dq[bi, r0:r1] += torch.einsum("hqk,khd->qhd", ds,
+                                              kf[bi, c0:c1]) * scale
+                dk[bi, c0:c1] += torch.einsum("hqk,qhd->khd", ds,
+                                              qf[bi, r0:r1]) * scale
+                dv[bi, c0:c1] += torch.einsum("hqk,qhd->khd", p,
+                                              dof[bi, r0:r1])
     dk = dk.reshape(b, skv, kv, g, d).sum(3)
     dv = dv.reshape(b, skv, kv, g, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -108,7 +108,7 @@ from repro_torch.core.fmmu import batch as fb
 from repro_torch.core.fmmu.types import (COND_UPDATE, SWAP_IN, SWAP_OUT,
                                          FMMUGeometry, LOOKUP, NIL, UPDATE)
 from repro_torch.device import resolve_device
-from repro_torch.paging.pool import BlockPool, OutOfBlocks
+from repro_torch.paging.pool import BlockPool, OutOfBlocks, PoolExhausted
 
 # one bump per fused map call / full-map retranslation / allocator
 # re-push
@@ -345,13 +345,13 @@ class KVPageManager:
         channel, per owner channel otherwise (a page and its block share
         a channel, so each channel's device stack mirror stays exact).
         With a fault plane, each call consults its alloc axis first: a
-        hit raises a transient ``OutOfBlocks`` before any pop, so a
+        hit raises a transient ``PoolExhausted`` before any pop, so a
         retry sees an untouched pool."""
         if self.faults is not None and len(dlpns) \
                 and self.faults.alloc_fails():
             c = int(dlpns[0]) % self.channels
             self.pool.note_exhausted(c)
-            raise OutOfBlocks(
+            raise PoolExhausted(
                 f"injected transient {'host' if host else 'device'} "
                 f"allocator exhaustion ({len(dlpns)} blocks)",
                 channel=c, transient=True)

@@ -45,6 +45,16 @@ class OutOfBlocks(RuntimeError):
         self.transient = transient
 
 
+class PoolExhausted(OutOfBlocks):
+    """The typed pool-pressure error, raised where the reference raises
+    its ``PoolExhausted``: a dry pool or channel (``alloc``,
+    ``alloc_for``) and the fault plane's injected shortage
+    (``transient=True``). A subclass of ``OutOfBlocks``, so every
+    existing handler keeps working; new code matches on this type and
+    consults ``transient``: the engine's livelock guard must not treat
+    an injected shortage as terminal."""
+
+
 @dataclasses.dataclass
 class PoolStats:
     allocs: int = 0
@@ -128,7 +138,7 @@ class BlockPool:
         if have < n:
             c = min(range(self.n_channels), key=lambda i: len(lists[i]))
             self.note_exhausted(c)
-            raise OutOfBlocks(
+            raise PoolExhausted(
                 f"need {n} {'host' if host else 'device'} blocks, "
                 f"have {have}", channel=c)
         if self.n_channels == 1:
@@ -156,7 +166,7 @@ class BlockPool:
         for c, k in enumerate(need):
             if k > len(lists[c]):
                 self.note_exhausted(c)
-                raise OutOfBlocks(
+                raise PoolExhausted(
                     f"need {k} {'host' if host else 'device'} blocks in "
                     f"channel {c}, have {len(lists[c])}", channel=c)
         out = [lists[c].pop() for c in channels]

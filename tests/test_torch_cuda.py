@@ -1993,6 +1993,106 @@ def test_flash_attention_bwd_rows_without_keys_and_d256(cuda):
                                        atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _crossing_ids(b, s, dev, shuffled=False, seed=4):
+    """Segment ids [b, s] int32 whose documents cross 64- and 32-row
+    tile edges (runs of 5..83 rows); ``shuffled``: the same ids in a
+    seeded random order (no tile skip can help)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(b):
+        lens = rng.integers(5, 84, s)
+        ids = np.repeat(np.arange(len(lens)), lens)[:s]
+        rows.append(rng.permutation(ids) if shuffled else ids)
+    return torch.tensor(np.stack(rows), dtype=torch.int32, device=dev)
+
+
+# (tag, Sq, Skv, kwargs, ids): the tensor-core backward's cases
+BWD_TC_CASES = (
+    ("causal", 192, 192, dict(), None),
+    ("rows_before_first_key", 230, 150, dict(), None),
+    ("sq_lt_skv", 70, 200, dict(), None),
+    ("window_softcap", 200, 200, dict(window=45, softcap=20.0), None),
+    ("packed_across_tiles", 260, 260, dict(), "packed"),
+    ("shuffled_ids", 130, 130, dict(), "shuffled"),
+    ("bidirectional_packed", 150, 150,
+     dict(causal=False, bidirectional=True), "packed"),
+    ("cross_packed", 130, 260, dict(), "packed"),
+    ("cross_packed_bidirectional", 130, 260,
+     dict(causal=False, bidirectional=True), "packed"),
+)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_bwd_tensor_core_bodies(cuda, d, g, dtype):
+    """The bf16 / f16 tensor-core bodies at head_dim 64 and 128, G = 1 /
+    4 / 8, against ``flash_attention_bwd_ref`` on the same (out, lse):
+    causal, Sq > Skv (rows before the first key: lse -inf, zero dq),
+    Sq < Skv, window + softcap, packed ids whose documents cross tile
+    edges, shuffled ids, bidirectional with ids, and ids at Sq < Skv
+    (the queries carry the ids of the last Sq key positions), causal and
+    bidirectional; one launch a call."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref)
+    from repro_torch.kernels.ref import attention_lse
+    kv = 2
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    for tag, sq, skv, kw, ids in BWD_TC_CASES:
+        q, do = (torch.randn((2, sq, g * kv, d), generator=gen,
+                             device=cuda).to(dtype) for _ in range(2))
+        k, v = (torch.randn((2, skv, kv, d), generator=gen,
+                            device=cuda).to(dtype) for _ in range(2))
+        segs = None
+        if ids:
+            seg = _crossing_ids(2, skv, cuda, shuffled=ids == "shuffled")
+            segs = (seg[:, skv - sq:].contiguous(), seg)
+        out, lse = attention_lse(q, k, v, segment_ids=segs, **kw)
+        args = (q, k, v, out.contiguous(), lse, do)
+        n0 = COUNTERS.launches().get("flash_attention_bwd", 0)
+        got = flash_attention_bwd(*args, segment_ids=segs, **kw)
+        assert COUNTERS.launches()["flash_attention_bwd"] - n0 == 1
+        want = flash_attention_bwd_ref(*args, segment_ids=segs, **kw)
+        for x, y in zip(got, want):
+            assert x.dtype == dtype
+            torch.testing.assert_close(x.float(), y.float(), atol=TOL[dtype],
+                                       rtol=TOL[dtype], msg=tag)
+        if tag == "rows_before_first_key":
+            dead = sq - skv
+            assert torch.isinf(lse[:, :, :dead]).all()
+            assert not got[0][:, :dead].abs().sum()
+
+
+def test_flash_attention_fwd_equal_ids_bit_identical_to_no_ids(cuda):
+    """Ids all equal give the no-ids output bit for bit, with and
+    without the lse (the four instantiations of the tensor-core body),
+    and the same lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (64, 128):
+            for sq, skv, kw in ((300, 300, dict()),
+                                (90, 260, dict(window=70, softcap=20.0)),
+                                (1, 512, dict(causal=False,
+                                              bidirectional=True))):
+                q = torch.randn((2, sq, 8, d), generator=gen,
+                                device=cuda).to(dtype)
+                k, v = (torch.randn((2, skv, 2, d), generator=gen,
+                                    device=cuda).to(dtype) for _ in range(2))
+                segs = (torch.full((2, sq), 7, dtype=torch.int32,
+                                   device=cuda),
+                        torch.full((2, skv), 7, dtype=torch.int32,
+                                   device=cuda))
+                plain = flash_attention_fwd(q, k, v, **kw)
+                assert torch.equal(flash_attention_fwd(
+                    q, k, v, segment_ids=segs, **kw), plain)
+                out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+                out_s, lse_s = flash_attention_fwd(
+                    q, k, v, segment_ids=segs, with_lse=True, **kw)
+                assert torch.equal(out, plain) and torch.equal(out_s, plain)
+                assert torch.equal(lse, lse_s)
+
+
 def test_flash_attention_bwd_repeats_bit_identical(cuda):
     """No float atomics: 100 calls at a packed GQA shape give the same
     bits."""

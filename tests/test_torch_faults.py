@@ -315,6 +315,49 @@ def test_pool_retire_free_state_dict_against_reference(channels):
         assert fresh._free_dev is fresh._free_dev_ch[0]
 
 
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("where", ["pool", "manager", "transient"])
+def test_pool_exhausted_raised_like_the_reference(channels, where):
+    """Both packages driven dry (a pool's aggregate and per-channel
+    pops; a page manager's admissions) and under an injected allocation
+    fault raise their own ``PoolExhausted`` alike: the same message,
+    ``channel`` and ``transient``, each caught by ``except
+    OutOfBlocks``."""
+    from repro.paging.pool import PoolExhausted as JPE
+    from repro_torch.paging.pool import PoolExhausted as TPE
+
+    def drive(pool_cls, kvm_cls, plane, oob, exhausted):
+        seen = []
+
+        def attempt(fn, *args, **kw):
+            try:
+                fn(*args, **kw)
+            except oob as e:
+                assert isinstance(e, exhausted), type(e)
+                seen.append((str(e), e.channel, e.transient))
+        if where == "pool":
+            p = pool_cls(6, 2, channels)
+            for n in (4, 3, 2):
+                attempt(p.alloc, n)
+            attempt(p.alloc, 1, host=True)
+            attempt(p.alloc, 2, host=True)
+            attempt(p.alloc_for, [channels - 1] * 3)
+        else:
+            kw = {"device": "cpu"} if kvm_cls is TKVM else {}
+            kvm = kvm_cls(4, 6, 20, 12, channels=channels,
+                          faults=plane if where == "transient" else None,
+                          **kw)
+            for slot in range(4):
+                attempt(kvm.new_seq, slot, 6)
+        return seen
+
+    tp, jp = planes(3, channels=channels, alloc_fail_p=1.0)
+    got = drive(BlockPool, TKVM, tp, TOOB, TPE)
+    want = drive(JPool, JKVM, jp, JOOB, JPE)
+    assert got == want and got, (got, want)
+    assert all(tr == (where == "transient") for _, _, tr in got)
+
+
 # -------------------------------------------------------- page manager
 def _oracle_move(shadow, pool, pre_pages, post_pages):
     """Replay one relocation's row moves on a numpy shadow of the pool:

@@ -382,6 +382,75 @@ def test_flash_bwd_ref_matches_autograd_and_jax(case):
         assert not out[:, dead].abs().sum()
 
 
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_blocked_matches_reference(case):
+    """The kernels' tile walk (``flash_attention_bwd_blocked``, tiles of
+    8 rows: causal frontier, window and the ids' span skip) against
+    ``jax.vjp`` of the reference's ``attention_naive`` and
+    ``flash_attention_blocked`` and against ``flash_attention_bwd_ref``,
+    on the same (out, lse)."""
+    q, k, v, do, segs, kw = _bwd_inputs(case)
+    sg = None if segs is None else tuple(_t(s) for s in segs)
+    args = (_t(q), _t(k), _t(v)) + ref.attention_lse(
+        _t(q), _t(k), _t(v), segment_ids=sg, **kw) + (_t(do),)
+    got = ref.flash_attention_bwd_blocked(*args, segment_ids=sg, tile=8,
+                                          **kw)
+    want = ref.flash_attention_bwd_ref(*args, segment_ids=sg, **kw)
+    jsegs = None if segs is None else tuple(jnp.asarray(s) for s in segs)
+    for name in ("attention_naive", "flash_attention_blocked"):
+        pulled = _jax_bwd(name, tuple(sorted(kw.items())))(
+            *map(jnp.asarray, (q, k, v, do)), jsegs)
+        for g, j, t in zip(got, pulled, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(j),
+                                       atol=BWD_TOL, rtol=BWD_TOL)
+            np.testing.assert_allclose(g.numpy(), t.numpy(),
+                                       atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.parametrize("ids", ["packed", "shuffled"])
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+def test_span_skip_never_drops_a_visible_pair(ids, mask):
+    """The kernels' tile skip is conservative: for seeded packed
+    (nondecreasing) and shuffled ids, under causal, windowed and
+    bidirectional masks, at Sq == Skv and Sq != Skv and tiles of 4 / 8 /
+    32 / 64 rows, every (query tile, key tile) pair that holds a visible
+    pair has spans that meet and lies in the causal / window key range;
+    with packed ids the skip drops tile pairs."""
+    kw = {"causal": dict(), "window": dict(window=9),
+          "bidirectional": dict(causal=False, bidirectional=True)}[mask]
+    rng = np.random.default_rng(5)
+    dropped = 0
+    for sq, skv in ((96, 96), (40, 96), (96, 40), (130, 130)):
+        s = max(sq, skv)
+        seg = np.cumsum(rng.random((3, s)) < 0.08, axis=1).astype(np.int32)
+        if ids == "shuffled":
+            seg = rng.permuted(seg, axis=1)
+        seg_q, seg_k = _t(seg[:, :sq]), _t(seg[:, :skv])
+        _, _, vis = ref._attention_logits(
+            torch.zeros((3, sq, 1, 4)), torch.zeros((3, skv, 1, 4)),
+            causal=kw.get("causal", True), window=kw.get("window", 0),
+            softcap=0.0, segment_ids=(seg_q, seg_k),
+            bidirectional=kw.get("bidirectional", False))
+        vis = vis[:, 0]                                     # [B,Sq,Skv]
+        for tile in (4, 8, 32, 64):
+            nq, nk = -(-sq // tile), -(-skv // tile)
+            pad = torch.nn.functional.pad(
+                vis, (0, nk * tile - skv, 0, nq * tile - sq))
+            held = pad.reshape(3, nq, tile, nk, tile).any(4).any(2)
+            meet = ref.spans_meet(ref.tile_spans(seg_q, tile)[:, :, None],
+                                  ref.tile_spans(seg_k, tile)[:, None, :])
+            assert not (held & ~meet).any(), (sq, skv, tile)
+            causal = kw.get("causal", True)
+            for qt in range(nq):
+                keys = ref._tile_key_range(
+                    qt * tile, min(sq, (qt + 1) * tile), sq, skv, tile,
+                    causal, kw.get("window", 0))
+                outside = [kt for kt in range(nk) if kt not in keys]
+                assert not held[:, qt, outside].any(), (sq, skv, tile, qt)
+            dropped += int((~meet).sum())
+    assert dropped > 0 or ids == "shuffled"
+
+
 @pytest.mark.parametrize("case", ["causal", "gqa_g2_window_softcap",
                                   "no_key_rows"])
 def test_flash_attention_fn_plain(case):

@@ -4,15 +4,25 @@ on one card, for a before/after comparison inside one call:
 
     python3 tools/kernel_ab.py OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels mamba_chunk_scan OLD NEW NEW OLD
+    python3 tools/kernel_ab.py --kernels flash_attention,attention_served,\
+flash_segments,flash_attention_bwd OLD NEW NEW OLD
 
 Each positional argument is the root of a checkout (its chip_smoke.py
-and src/). ``--kernels`` names the kernels to time, comma-separated
-(default: paged_attention,flash_attention). Each run is a process of its
-own: it builds those kernels of that checkout into the checkout's
-build/ and calls the checkout's ``check_<kernel>`` from chip_smoke.py,
-which holds the kernel against its plain version and times it at the
-serving shape. Prints the card's name and power limit, then one JSON
-line per run; exits nonzero if a run fails.
+and src/). ``--kernels`` names the checks to run, comma-separated
+(default: paged_attention,flash_attention): each is chip_smoke.py's
+``check_<name>``, which holds the kernel against its plain version and
+times it. A check that returns a tuple (the attention shapes' and the
+backward's) gives its first element, the row of the kernel it names;
+a checkout without a check prints it under ``missing``. Each run is a
+process of its own: it builds the kernels those checks run from that
+checkout's csrc/ into the checkout's build/ and prints one JSON line:
+every timing and error key of each row (``ms``, ``plain_ms``,
+``library_ms``, ``bound_ms``, ``max_abs_err`` and their per-shape
+``*_<tag>`` forms) and, from the checkout's own ``ptxas_resources``,
+the registers, spills and static shared memory of every entry function
+it built (nvcc's -Xptxas -v; none when the checkout's build/ already
+held the libraries). Prints the card's name and power limit first;
+exits nonzero if a run fails.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import inspect, json, sys
+import inspect, json, re, sys
 import numpy as np, torch
 root, names = sys.argv[1], sys.argv[2].split(",")
 sys.path[:0] = [root, root + "/src"]
@@ -29,19 +39,33 @@ import chip_smoke as cs
 from repro_torch.kernels import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-# the csrc/ source of each kernel, where its name differs
-sources = {"mamba_chunk_scan": "mamba_scan"}
-_build.build_all(tuple(sources.get(n, n) for n in names))
+# the csrc/ sources each check runs, where they differ from its name
+sources = {"mamba_chunk_scan": ["mamba_scan"],
+           "attention_served": ["flash_attention", "paged_attention"],
+           "attention_d256": ["flash_attention", "paged_attention"],
+           "flash_segments": ["flash_attention"],
+           "flash_attention_bwd": ["flash_attention", "flash_attention_bwd"]}
+have = [n for n in names if hasattr(cs, "check_" + n)]
+build = sorted({src for n in have for src in sources.get(n, [n])})
+logs = _build.build_all(tuple(build))
+regs = cs.ptxas_resources(logs, tuple(build))
 torch.manual_seed(cs.SEED)
 timer = cs.Timer()
+rng = np.random.default_rng(cs.SEED)
+keys = re.compile(r"^(name|(first_version_)?ms|plain_ms|library_ms|"
+                  r"bound_ms|max_abs_err|err)(_.*)?$")
 rows = []
-for name in names:
+for name in have:
     check = getattr(cs, "check_" + name)
-    args = [timer, np.random.default_rng(cs.SEED)]
-    rows.append(check(*args[:len(inspect.signature(check).parameters)]))
-keys = ("name", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
-print(json.dumps({"root": root,
-                  "kernels": [{k: r[k] for k in keys} for r in rows]}))
+    args = [timer, rng]
+    r = check(*args[:len(inspect.signature(check).parameters)])
+    if isinstance(r, tuple):
+        r = r[0]
+    rows.append(dict({k: v for k, v in r.items() if keys.match(k)},
+                     check=name))
+print(json.dumps({"root": root, "kernels": rows,
+                  "missing": [n for n in names if n not in have],
+                  "registers": regs}))
 """
 
 
