@@ -219,9 +219,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                of every round, stats and resolve of every touched dlpn
                equal the port's oracle copy's. Prints steps, steps/s
                and us per request beside the oracle's and the plain
-               version's rates. (c) One run call from a miss-heavy
-               round timed (events) beside the plain version on the
-               card, with its byte bound.
+               version's rates. (c) check_fmmu_fsm: one run call from
+               round 40 of each trace (the kernel engine alone driven
+               there) timed (events) in turns with the kernel's first
+               version (tools/fmmu_fsm_first_version.cu, built beside
+               the package's kernels), and the plain version once on
+               the card, every end state equal; ms, ns a step and the
+               byte bound.
   4c. ssd    — the paper's SSD model (the port's SSDSim at PAPER_SSD:
                16 GB, 16 channels x 8 ways, 512 outstanding; scheme
                fmmu; precondition_sequential, then run_closed_loop) on
@@ -310,7 +314,9 @@ launches_serve_swap, launches_serve_channels and launches_serve_faults
 from the swap, channel and fault phases' counted passes,
 launches_serve_recover from the recovered drain of the crashed engine,
 launches_serve_gc and launches_serve_prefix from the GC phase's counted
-pass and the prefix phase's counted sharing passes), one {"serve":
+pass and the prefix phase's counted sharing passes; fmmu_lookup's and
+fmmu_fsm's floor_ms: one launch of a one-element fill on the same timer,
+the floor of any timed launch), one {"serve":
 {...}} (llama), one
 {"serve_macro": {...}}, one {"serve_swap": {...}}, one
 {"serve_channels": {...}}, one {"serve_faults": {...}}, one
@@ -331,6 +337,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -3998,13 +4005,14 @@ def _fsm_answer(unit, reads):
             unit.push_flash_response(t, s, w)
 
 
-def fsm_drive(units, reqs, seed, compare_state=False, on_round=None):
+def fsm_drive(units, reqs, seed, compare_state=False, until_round=None):
     """Drive every unit (engines, the oracle) with the same pushes in
     lockstep rounds: up to FSM_OUTSTANDING requests in flight, one run
     each a round, flash reads answered in one shuffled order. Each round
     the step counts and drained streams must be equal (and, with
     compare_state, every state tensor of the engines), and each kernel
-    run must be one fmmu_fsm launch. Returns per-unit run seconds (host
+    run must be one fmmu_fsm launch. With until_round, stops after that
+    round's pushes, before its runs. Returns per-unit run seconds (host
     clock around run, which reads the step count once), steps, rounds."""
     from collections import deque
     from repro_torch.kernels import fmmu_fsm
@@ -4018,8 +4026,8 @@ def fsm_drive(units, reqs, seed, compare_state=False, on_round=None):
         out += len(batch)
         for u in units:
             _fsm_push(u, batch)
-        if on_round is not None:
-            on_round(rounds)
+        if rounds == until_round:
+            break
         counts = []
         for i, u in enumerate(units):
             n0 = fmmu_fsm.LAUNCHES[0]
@@ -4060,32 +4068,180 @@ def fsm_drive(units, reqs, seed, compare_state=False, on_round=None):
     return run_s, steps, rounds
 
 
-def _fsm_timed_run(g, snapshot, impl, iters):
-    """(median ms, steps, end state) of one run call from ``snapshot``,
-    a fresh copy each time; CUDA events around the call."""
+FSM_TIMED_ITERS = 5
+FSM_FIRST_VERSION = ROOT / "tools" / "fmmu_fsm_first_version.cu"
+
+
+def fsm_snapshot(g, trace):
+    """The kernel engine alone driven through the FSM_TRACES trace named
+    ``trace`` (the long traces' seeds) to round FSM_SNAPSHOT_ROUND: a
+    copy of its state after that round's pushes, before its run."""
     from repro_torch.core.fmmu import state as S
-    from repro_torch.kernels.fmmu_fsm import fmmu_fsm_run
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    _, n, seq = next(t for t in FSM_TRACES if t[0] == trace)
+    kern = FMMUEngine(g)
+    fsm_drive([kern], fsm_requests(g, SEED + 3, n, seq), SEED + 4,
+              until_round=FSM_SNAPSHOT_ROUND)
+    return S.clone_state(kern.state)
+
+
+def start_fsm_first_version():
+    """Start nvcc for the fmmu_fsm kernel's first version (a timing
+    baseline the package never loads): (the job, None when the library
+    is built; the library's path), for fsm_first_version."""
+    from repro_torch.kernels import _build
+    h = hashlib.sha1(FSM_FIRST_VERSION.read_bytes() +
+                     (_build.CSRC / "common.cuh").read_bytes()).hexdigest()
+    so = _build.BUILD_DIR / f"libfmmu_fsm_first-{h[:12]}.so"
+    if so.exists():
+        return None, so
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         str(tmp), str(FSM_FIRST_VERSION)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return (proc, tmp), so
+
+
+def fsm_first_version(job=None):
+    """The first version's library (ctypes), built from ``job`` or now."""
+    import ctypes
+    from repro_torch.kernels import fmmu_fsm
+    run, so = job or start_fsm_first_version()
+    if run is not None:
+        proc, tmp = run
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the fmmu_fsm first version:\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.fmmu_fsm_launch.argtypes = fmmu_fsm._ARGTYPES
+    lib.fmmu_fsm_launch.restype = ctypes.c_int
+    return lib
+
+
+def _fsm_first_run(lib, g, st):
+    """One run call of the first version on ``st`` (a device int32)."""
+    import ctypes
+    from repro_torch.kernels import _build, fmmu_fsm
+    out = torch.zeros(1, dtype=torch.int32, device=st.stats.device)
+    ptrs = (ctypes.c_void_p * len(st))(*(t.data_ptr() for t in st))
+    err = lib.fmmu_fsm_launch(ptrs, fmmu_fsm._geom(g), fmmu_fsm.MODE_RUN,
+                              FSM_MAX_STEPS, 0, out.data_ptr(),
+                              _build.stream_ptr(out))
+    if err:
+        fail(f"fmmu_fsm first version: launch failed ({err})")
+    return out[0]
+
+
+def _fsm_timed_run(timer, snapshot, call, iters):
+    """(median ms, steps, end state) of ``call`` on a fresh copy of
+    ``snapshot`` each time: events around the call, the card kept busy
+    by the timer's spin while the host enqueues it, the L2 flushed."""
+    from repro_torch.core.fmmu import state as S
     times, n, st = [], 0, None
     for _ in range(iters):
         st = S.clone_state(snapshot)
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(Timer.SPIN_CYCLES)
+        timer.flush.zero_()
         a.record()
-        n = int(fmmu_fsm_run(g, st, FSM_MAX_STEPS, False, impl=impl))
+        steps = call(st)
         b.record()
         b.synchronize()
+        n = int(steps)
         times.append(a.elapsed_time(b))
     return statistics.median(times), n, st
 
 
-def fsm_phase():
+def check_fmmu_fsm(timer, rng):
+    """The packet engine's run call at the paper geometry, from round
+    FSM_SNAPSHOT_ROUND of the miss-heavy trace and of the hit-heavy one
+    (fsm_snapshot: the kernel engine alone): the kernel timed in turns
+    with its first version (FSM_FIRST_VERSION, built here), the plain
+    version once on the card; the end state of every call bit for bit
+    the plain version's. The row's plain keys are the miss-heavy call's,
+    the hit-heavy's carry the suffix _hit_heavy; timed_runs holds each
+    call's steps, bytes and stats delta."""
+    from repro_torch.core.fmmu import state as S
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels.fmmu_fsm import fmmu_fsm_run
+    del rng
+    g = FMMUGeometry()
+    first = fsm_first_version()
+    page = 4 * g.entries_per_tp
+    row = {"name": "fmmu_fsm", "route": "cuda",
+           "source": "src/repro_torch/csrc/fmmu_fsm.cu",
+           "replaces": "src/repro/core/fmmu/engine.py:671",
+           "replaces_what": "the reference's run, a lax.while_loop over "
+                            "step (not a pallas_call)",
+           "max_abs_err": 0.0, "library_ms": None, "timed_runs": {}}
+    for trace in ("miss_heavy", "hit_heavy"):
+        base = fsm_snapshot(g, trace)
+        ms, first_ms, steps, end = [], [], None, None
+        for _ in range(FSM_TIMED_ITERS):     # in turns with the first
+            t, steps, end = _fsm_timed_run(
+                timer, base, lambda st: fmmu_fsm_run(g, st, FSM_MAX_STEPS),
+                1)
+            ms.append(t)
+            t, f_steps, f_end = _fsm_timed_run(
+                timer, base, lambda st: _fsm_first_run(first, g, st), 1)
+            first_ms.append(t)
+        plain_ms, plain_steps, plain_end = _fsm_timed_run(
+            timer, base,
+            lambda st: fmmu_fsm_run(g, st, FSM_MAX_STEPS, impl="ref"), 1)
+        for tag, n, other in (("plain version", plain_steps, plain_end),
+                              ("first version", f_steps, f_end)):
+            if n != steps or any(not torch.equal(x, y) for x, y in
+                                 zip(end, other)):
+                fail(f"fsm timed run ({trace}): the kernel and the {tag} "
+                     "differ")
+        d_stats = (end.stats - base.stats).tolist()
+        fills = int(base.qtail[S.Q_FC_RESP] - base.qhead[S.Q_FC_RESP]) - \
+            int(end.qtail[S.Q_FC_RESP] - end.qhead[S.Q_FC_RESP])
+        # the least a run moves: each step pops one packet and writes at
+        # most one, each program reads a CTP page and writes a flash
+        # page, each flash response's fill reads a flash page and writes
+        # a CTP page
+        n_bytes = steps * 2 * 4 * g.pkt_width + \
+            (d_stats[S.STAT_NAMES.index("programs")] + fills) * 2 * page
+        b_ms, b_by = bound_ms(n_bytes, 0, "int32")
+        sfx = "" if trace == "miss_heavy" else "_" + trace
+        t_ms, t_first = statistics.median(ms), statistics.median(first_ms)
+        row.update({f"ms{sfx}": t_ms, f"first_version_ms{sfx}": t_first,
+                    f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": b_ms,
+                    f"bound_by{sfx}": b_by, f"steps{sfx}": steps,
+                    f"ns_per_step{sfx}": t_ms * 1e6 / steps,
+                    f"first_version_ns_per_step{sfx}":
+                        t_first * 1e6 / steps})
+        row["timed_runs"][trace] = {
+            "steps": steps, "ms_each": ms, "first_version_ms_each":
+            first_ms, "plain_ns_per_step": plain_ms * 1e6 / steps,
+            "bytes": n_bytes, "fills": fills,
+            "stats_delta": dict(zip(S.STAT_NAMES, d_stats))}
+        print(f"fsm timed run ({trace}): {steps} steps, {t_ms:.4f} ms "
+              f"({t_ms * 1e6 / steps:.0f} ns a step), first version "
+              f"{t_first:.4f} ms, plain {plain_ms:.1f} ms; end states "
+              "equal", file=sys.stderr)
+    row["shape"] = (
+        f"paper geometry, one run call from round {FSM_SNAPSHOT_ROUND} of "
+        f"the miss-heavy trace ({row['steps']} steps, "
+        f"{row['timed_runs']['miss_heavy']['fills']} flash fills queued); "
+        f"_hit_heavy: of the hit-heavy trace ({row['steps_hit_heavy']} "
+        "steps)")
+    return row
+
+
+def fsm_phase(timer, rng):
     """The paper's sequential FMMU packet engine at the paper geometry:
     the kernel's run against the plain version on the card (bit for bit
     on every state tensor after every run and after flush_all) and on the
     CPU, then two long traces against the port's oracle copy (streams,
-    stats and resolve of every touched dlpn equal), then one run call
-    timed. Returns (the fsm line, the kernels row)."""
+    stats and resolve of every touched dlpn equal), then the run calls
+    of check_fmmu_fsm timed. Returns (the fsm line, the kernels row)."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.core.fmmu import state as S
     from repro_torch.core.fmmu.engine import FMMUEngine
@@ -4126,20 +4282,13 @@ def fsm_phase():
     line["parity"] = parity
 
     # 2. the long traces against the oracle copy: the slice's main path
-    snap = {}
     COUNTERS.reset()
     traces = {}
     for name, n, seq in FSM_TRACES:
         reqs = fsm_requests(g, SEED + 3, n, seq)
         kern, oracle = FMMUEngine(g), FMMUOracle(g)
-
-        def on_round(r, kern=kern, name=name):
-            if name == "miss_heavy" and r == FSM_SNAPSHOT_ROUND:
-                snap["state"] = S.clone_state(kern.state)
-
         t0 = time.perf_counter()
-        run_s, steps, rounds = fsm_drive([kern, oracle], reqs, SEED + 4,
-                                         on_round=on_round)
+        run_s, steps, rounds = fsm_drive([kern, oracle], reqs, SEED + 4)
         if kern.stats() != oracle.stats:
             fail(f"fsm {name}: stats differ {kern.stats()} {oracle.stats}")
         touched = sorted({r.dlpn for r in reqs})
@@ -4167,41 +4316,10 @@ def fsm_phase():
     line["traces"] = traces
     line["launches"] = launches
 
-    # 3. one run call timed: the miss-heavy state of one round
-    base = snap["state"]
-    ms, steps, end = _fsm_timed_run(g, base, None, 5)
-    plain_ms, plain_steps, plain_end = _fsm_timed_run(g, base, "ref", 1)
-    if plain_steps != steps or any(not torch.equal(x, y) for x, y in
-                                   zip(end, plain_end)):
-        fail("fsm timed run: kernel and plain version differ")
-    d_stats = (end.stats - base.stats).tolist()
-    fills = int(base.qtail[S.Q_FC_RESP] - base.qhead[S.Q_FC_RESP]) - \
-        int(end.qtail[S.Q_FC_RESP] - end.qhead[S.Q_FC_RESP])
-    page = 4 * g.entries_per_tp
-    # the least a run moves: each step pops one packet and writes at
-    # most one, each program reads a CTP page and writes a flash page,
-    # each flash response's fill reads a flash page and writes a CTP page
-    n_bytes = steps * 2 * 4 * g.pkt_width + \
-        (d_stats[S.STAT_NAMES.index("programs")] + fills) * 2 * page
-    b_ms, b_by = bound_ms(n_bytes, 0, "int32")
-    line["timed_run"] = {"steps": steps, "ms": ms, "plain_ms": plain_ms,
-                         "ns_per_step": ms * 1e6 / steps,
-                         "plain_ns_per_step": plain_ms * 1e6 / steps,
-                         "bytes": n_bytes, "fills": fills,
-                         "stats_delta": dict(zip(S.STAT_NAMES, d_stats))}
-    row = {
-        "name": "fmmu_fsm", "route": "cuda",
-        "source": "src/repro_torch/csrc/fmmu_fsm.cu",
-        "replaces": "src/repro/core/fmmu/engine.py:671",
-        "replaces_what": "the reference's run, a lax.while_loop over "
-                         "step (not a pallas_call)",
-        "launches": launches, "launches_path": "fsm phase, long traces",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"paper geometry, one run call of {steps} steps from "
-                 f"round {FSM_SNAPSHOT_ROUND} of the miss-heavy trace "
-                 f"({fills} flash fills queued)",
-    }
+    # 3. the run calls timed, beside the first version and the plain one
+    row = check_fmmu_fsm(timer, rng)
+    line["timed_run"] = row.pop("timed_runs")
+    row.update(launches=launches, launches_path="fsm phase, long traces")
     return line, row
 
 # ---------------------------------------------------------- the SSD model
@@ -4742,9 +4860,11 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
-    # 1. build ---------------------------------------------------------
+    # 1. build (and the fmmu_fsm first version, a timing baseline) -------
     t0 = time.perf_counter()
+    first_job = start_fsm_first_version()
     logs = _build.build_all()
+    fsm_first_version(first_job)
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -4764,6 +4884,9 @@ def main() -> int:
         check_fmmu_translate(timer, rng), check_fmmu_commit(timer, rng),
         check_paged_attention(timer, rng), check_flash_attention(timer),
         check_fmmu_lookup(timer, rng), check_mamba_chunk_scan(timer))}
+    # the floor of any timed launch: one launch of a one-element fill
+    floor_ms = timer.ms(torch.zeros(1, device="cuda").zero_)
+    rows["fmmu_lookup"]["floor_ms"] = floor_ms
     # head_dim 256 in both attention kernels
     flash_d256, paged_d256 = check_attention_d256(timer, rng)
     rows["flash_attention"].update(flash_d256)
@@ -4894,7 +5017,8 @@ def main() -> int:
     # 4b. the sequential packet engine (fmmu_fsm): its launches are the
     # long traces'
     t0 = time.perf_counter()
-    fsm_line, rows["fmmu_fsm"] = fsm_phase()
+    fsm_line, rows["fmmu_fsm"] = fsm_phase(timer, rng)
+    rows["fmmu_fsm"]["floor_ms"] = floor_ms
     print(f"fsm: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     # 4c. the paper's SSD model: its translation streams through fmmu_fsm
     t0 = time.perf_counter()
@@ -4945,7 +5069,12 @@ def main() -> int:
                       rows["paged_attention"]["plan"]}))
     print(smi)
     # comparisons some rows carry
-    extra = ("plain_blocked_ms", "first_version_ms", "ms_masked",
+    extra = ("plain_blocked_ms", "first_version_ms", "floor_ms", "steps",
+             "ns_per_step", "first_version_ns_per_step") + tuple(
+                 f"{k}_hit_heavy" for k in (
+                     "ms", "first_version_ms", "plain_ms", "bound_ms",
+                     "bound_by", "steps", "ns_per_step",
+                     "first_version_ns_per_step")) + ("ms_masked",
              "plain_ms_masked", "ms_paper", "plain_ms_paper",
              "bound_ms_paper", "bound_by_paper") + tuple(
                  f"{k}_{d}" for d in ("swap_out", "swap_in")

@@ -614,6 +614,7 @@ class FMMUEngine:
         self.device = resolve_device(device)
         self.kernel_impl = kernel_impl
         self.state = S.init_state(geom, self.device)
+        self._checked = fmmu_fsm.StateCheck()   # the kernel's state check
 
     # -- pushes: host-side edits of the queue ring --
     def push_request(self, r: Request):
@@ -663,7 +664,8 @@ class FMMUEngine:
 
     def run(self, max_steps: int = 100_000, auto_flash: bool = False) -> int:
         return int(fmmu_fsm.fmmu_fsm_run(self.g, self.state, max_steps,
-                                         auto_flash, impl=self.kernel_impl))
+                                         auto_flash, impl=self.kernel_impl,
+                                         checked=self._checked))
 
     def drain_outputs(self):
         st = self.state
@@ -691,11 +693,12 @@ class FMMUEngine:
             if not (dtl_left or fifo_left or self.pending_work()):
                 break
             if dtl_left:
-                fmmu_fsm.fmmu_fsm_force_flush_one(self.g, st, impl=impl)
+                fmmu_fsm.fmmu_fsm_force_flush_one(self.g, st, impl=impl,
+                                                  checked=self._checked)
             self.run(auto_flash=True)
             while int(st.fifo_tail - st.fifo_head) > 0:
-                if not bool(fmmu_fsm.fmmu_fsm_force_wb(self.g, st,
-                                                       impl=impl)):
+                if not bool(fmmu_fsm.fmmu_fsm_force_wb(
+                        self.g, st, impl=impl, checked=self._checked)):
                     break
             self.run(auto_flash=True)
 

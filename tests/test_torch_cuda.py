@@ -1544,6 +1544,15 @@ FSM_GEOMETRIES = {
                                 n_tvpns=8, dtl_entries=4, queue_cap=2048,
                                 mshr_cap=2, ctp_mshr_cap=2, tppn_cap=8),
     "paper": {},
+    # no power-of-two divisor but the CMT's entries: the floor_div body
+    "divisors": dict(cmt_sets=6, cmt_ways=3, cmt_entries=4, ctp_sets=3,
+                     ctp_ways=3, entries_per_tp=12, n_tvpns=5, dtl_entries=5,
+                     queue_cap=1000, mshr_cap=3, ctp_mshr_cap=3),
+    # a lane for each of 32 ways and 32 entries (37-word packets), 70 DTL
+    # entries, 40 CTP MSHR rows, programs past tppn_cap
+    "wide": dict(cmt_sets=8, cmt_ways=32, cmt_entries=32, ctp_sets=2,
+                 ctp_ways=32, entries_per_tp=64, n_tvpns=40, dtl_entries=70,
+                 queue_cap=512, mshr_cap=32, ctp_mshr_cap=40, tppn_cap=300),
 }
 
 
@@ -1596,6 +1605,72 @@ def test_fmmu_fsm_run_and_flush_all_never_step_in_torch(cuda, monkeypatch):
     assert fmmu_fsm.LAUNCHES[0] - n0 > 1
     assert int(eng.state.cmt_dirty) == 0 and int(eng.state.ctp_dirty) == 0
     assert not eng.pending_work()
+
+
+def test_fmmu_fsm_divisor_body_equals_plain_on_the_card(cuda):
+    """A geometry whose cache divisors are not powers of two (6 x 3 CMT,
+    3 x 3 CTP pages of 12 entries, 3 chunks a page, queues of 1000):
+    the kernel's floor_div body against the plain step loop, every state
+    tensor after every run and after flush_all."""
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_fsm
+    g = FMMUGeometry(**FSM_GEOMETRIES["divisors"])
+    assert -1 in list(fmmu_fsm._geom(g))[19:27]
+    kern = FMMUEngine(g, device=cuda)
+    ref = FMMUEngine(g, device=cuda, kernel_impl="ref")
+    _fsm_lockstep([kern, ref], g, _fsm_requests(g, 1, 500), 2, 40)
+    assert kern.stats()["steps"] > 500
+
+
+def test_fmmu_fsm_wide_sets_equal_plain_on_the_card(cuda):
+    """Every lane of the control warp busy: 32 ways a CMT and CTP set,
+    32 entries a CMT block (a packet of 37 words), 70 DTL entries (the
+    last lanes of a scan past the end), 40 CTP MSHR rows; the kernel
+    against the plain step loop, every state tensor after every run and
+    after flush_all."""
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry(**FSM_GEOMETRIES["wide"])
+    kern = FMMUEngine(g, device=cuda)
+    ref = FMMUEngine(g, device=cuda, kernel_impl="ref")
+    _fsm_lockstep([kern, ref], g, _fsm_requests(g, 1, 600), 2, 100)
+    assert kern.stats()["flush_tvpns"] > 0
+
+
+def test_fmmu_fsm_paper_geometry_fills_and_programs_on_the_card(cuda):
+    """The paper geometry on a miss-heavy trace long enough that
+    translation pages are programmed and read back: the copy warps' page
+    moves (fills waited for, write-backs started and waited for later),
+    the replay from the staged page, against the plain step loop bit for
+    bit after every run and after flush_all."""
+    from repro_torch.core.fmmu import state as S
+    from repro_torch.core.fmmu.engine import FMMUEngine
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    g = FMMUGeometry()
+    kern = FMMUEngine(g, device=cuda)
+    ref = FMMUEngine(g, device=cuda, kernel_impl="ref")
+    _fsm_lockstep([kern, ref], g, _fsm_requests(g, 1, 1200), 2, 256)
+    stats = kern.stats()
+    assert stats["programs"] > 0 and stats["fc_reads"] > 0
+    assert int(kern.state.qhead[S.Q_FC_RESP]) > 0      # pages filled
+
+
+def test_fmmu_fsm_oversized_geometry_raises_on_the_card(cuda):
+    """A geometry whose resident set exceeds the card's shared memory
+    raises ValueError before any launch, and leaves the state as it
+    was."""
+    from repro_torch.core.fmmu import state as S
+    from repro_torch.core.fmmu.types import FMMUGeometry
+    from repro_torch.kernels import fmmu_fsm
+    g = FMMUGeometry(cmt_sets=4096)
+    st = S.init_state(g, cuda)
+    before = S.clone_state(st)
+    n0 = fmmu_fsm.LAUNCHES[0]
+    with pytest.raises(ValueError, match="shared memory"):
+        fmmu_fsm.fmmu_fsm_run(g, st, 100)
+    assert fmmu_fsm.LAUNCHES[0] == n0
+    assert all(torch.equal(x, y) for x, y in zip(st, before))
 
 
 # ------------------------------------------- GQA groups and the MoE layer

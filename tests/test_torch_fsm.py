@@ -774,3 +774,123 @@ def test_fsm_wrapper_takes_the_plain_version_on_a_cpu_state():
     assert COUNTERS.launches().get("fmmu_fsm", 0) == before
     with pytest.raises(ValueError):
         fmmu_fsm.fmmu_fsm_run(g, a.state, 10, impl="cuda")
+
+
+# ======================================================================
+# the kernel's resident set and index arithmetic (no card)
+# ======================================================================
+def _repo_geometries():
+    """Every geometry the repo runs the engine at: the tests', the
+    smoke's and the SSD model's (FMMUGeometry()), the examples'."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "_cuda_tests", Path(__file__).with_name("test_torch_cuda.py"))
+    cuda_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cuda_tests)
+    return [TT.FMMUGeometry(), TGEOM, TT.small_geometry()] + [
+        TT.FMMUGeometry(**kw) for kw in cuda_tests.FSM_GEOMETRIES.values()]
+
+
+def test_fsm_resident_set_at_the_paper_geometry_and_every_repo_geometry():
+    """At FMMUGeometry() the resident state is 105,972 B (the CMT's
+    34,816 + 65,536, the CTP's 832, the DTL's 2,560, the FIFO's 1,028,
+    the GTD's 1,024, 176 of scalars) and 212,468 B with the CTP_REQ and
+    HRM rings (2 x 53,248); the launch's layout adds the staging page
+    (16,384), the MSHR rows of a replay (2,816) and the control words
+    (128): 231,796 B, under the card's 232,448. Every geometry the repo
+    runs passes the check; the regions are 16-byte aligned and disjoint."""
+    g = TT.FMMUGeometry()
+    assert fmmu_fsm.resident_bytes(g, rings=()) == 105_972
+    assert fmmu_fsm.resident_bytes(g) == 212_468
+    assert fmmu_fsm.smem_bytes(g) == 231_796 <= fmmu_fsm.SMEM_LIMIT
+    for geom in _repo_geometries():
+        fmmu_fsm._check_geometry(geom)
+        off, nbytes = fmmu_fsm._layout(geom)
+        sizes = fmmu_fsm._region_ints(geom)
+        spans = sorted((o, o + sizes[r]) for r, o in off.items() if o >= 0)
+        assert all(o % 4 == 0 for o, _ in spans)
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert spans[-1][1] * 4 == nbytes <= fmmu_fsm.SMEM_LIMIT
+        assert len(fmmu_fsm._geom(geom)) == 56    # csrc/fmmu_fsm.cu Geom
+
+
+@pytest.mark.parametrize("kw", [dict(cmt_sets=4096),
+                                dict(queue_cap=4096),
+                                dict(cmt_ways=33)])
+def test_fsm_oversized_geometry_raises_before_any_launch(kw):
+    """A geometry past the card's shared memory (or past a warp's lanes)
+    raises ValueError from the wrapper's check, naming both byte counts,
+    before a tensor is looked at or a kernel built."""
+    g = TT.FMMUGeometry(**kw)
+    with pytest.raises(ValueError) as err:
+        fmmu_fsm._check_geometry(g)
+    if "cmt_ways" not in kw:
+        assert str(fmmu_fsm.smem_bytes(g)) in str(err.value)
+        assert str(fmmu_fsm.SMEM_LIMIT) in str(err.value)
+    st = TS.init_state(g, "meta")
+    before = COUNTERS.launches().get("fmmu_fsm", 0)
+    with pytest.raises(ValueError):
+        fmmu_fsm._check(g, st)
+    assert COUNTERS.launches().get("fmmu_fsm", 0) == before
+
+
+def test_fsm_shift_and_mask_equal_python_floor_div_and_mod():
+    """The kernel's power-of-two body: an arithmetic shift and a mask
+    give Python's floor // and % for negative and positive int32
+    operands; the wrapper passes log2 for a power-of-two divisor and -1
+    (the floor_div body) for any other."""
+    rng = np.random.default_rng(0)
+    a = np.concatenate([rng.integers(-2 ** 31, 2 ** 31, 4000),
+                        np.arange(-70, 70),
+                        [-2 ** 31, 2 ** 31 - 1, -1, 0]]).astype(np.int32)
+    for lg in range(0, 13):
+        d = 1 << lg
+        assert fmmu_fsm._lg(d) == lg
+        shift = (a >> np.int32(lg)).astype(np.int64)
+        mask = (a & np.int32(d - 1)).astype(np.int64)
+        assert (shift == a.astype(np.int64) // d).all()
+        assert (mask == a.astype(np.int64) % d).all()
+    assert [fmmu_fsm._lg(n) for n in (3, 6, 12, 257, 1000, 0)] == [-1] * 6
+    paper = list(fmmu_fsm._geom(TT.FMMUGeometry()))[19:27]
+    assert paper == [9, 2, 3, 4, 2, 12, 9, 10]
+    odd = list(fmmu_fsm._geom(TT.FMMUGeometry(
+        cmt_sets=6, cmt_ways=3, cmt_entries=4, ctp_sets=3, ctp_ways=3,
+        entries_per_tp=12, n_tvpns=5, dtl_entries=5, queue_cap=1000,
+        mshr_cap=3, ctp_mshr_cap=3)))[19:27]
+    assert odd == [-1, -1, 2, -1, -1, -1, -1, -1]
+
+
+def test_fsm_launch_checks_each_state_once(monkeypatch):
+    """A StateCheck (the engine keeps one) checks a state's 43 tensors
+    the first time it sees it, and again only when the tensors, their
+    addresses or the geometry change; a changed tensor that is wrong
+    still raises. Nothing is kept alive by it."""
+    calls = []
+    check = fmmu_fsm._check
+    monkeypatch.setattr(fmmu_fsm, "_check",
+                        lambda g, st: calls.append(1) or check(g, st))
+    checked = fmmu_fsm.StateCheck()
+    g = TGEOM
+    st = TS.init_state(g, "cpu")
+
+    def once(state, geom=g):
+        checked(geom, state, tuple(t.data_ptr() for t in state))
+
+    once(st)
+    once(st)
+    assert len(calls) == 1
+    once(TS.clone_state(st))                       # new tensors
+    once(st)
+    assert len(calls) == 3
+    once(st, dataclasses.replace(g, dtl_entries=g.dtl_entries))   # equal
+    assert len(calls) == 3
+    with pytest.raises(ValueError):
+        once(st._replace(qhead=torch.zeros(4, dtype=torch.int32)))
+    with pytest.raises(ValueError):
+        once(st, dataclasses.replace(g, dtl_entries=g.dtl_entries + 1))
+    ref = checked.refs[0]
+    del st
+    assert ref() is None
+    assert isinstance(TE.FMMUEngine(g, device="cpu")._checked,
+                      fmmu_fsm.StateCheck)

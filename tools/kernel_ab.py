@@ -6,6 +6,7 @@ on one card, for a before/after comparison inside one call:
     python3 tools/kernel_ab.py --kernels mamba_chunk_scan OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels flash_attention,attention_served,\
 flash_segments,flash_attention_bwd OLD NEW NEW OLD
+    python3 tools/kernel_ab.py --kernels fmmu_fsm OLD NEW NEW OLD
 
 Each positional argument is the root of a checkout (its chip_smoke.py
 and src/). ``--kernels`` names the checks to run, comma-separated
@@ -17,8 +18,9 @@ a checkout without a check prints it under ``missing``. Each run is a
 process of its own: it builds the kernels those checks run from that
 checkout's csrc/ into the checkout's build/ and prints one JSON line:
 every timing and error key of each row (``ms``, ``plain_ms``,
-``library_ms``, ``bound_ms``, ``max_abs_err`` and their per-shape
-``*_<tag>`` forms) and, from the checkout's own ``ptxas_resources``,
+``library_ms``, ``bound_ms``, ``max_abs_err``, fmmu_fsm's ``steps`` and
+``ns_per_step``, and their per-shape ``*_<tag>`` forms) and, from the
+checkout's own ``ptxas_resources``,
 the registers, spills and static shared memory of every entry function
 it built (nvcc's -Xptxas -v; none when the checkout's build/ already
 held the libraries). Prints the card's name and power limit first;
@@ -52,8 +54,8 @@ regs = cs.ptxas_resources(logs, tuple(build))
 torch.manual_seed(cs.SEED)
 timer = cs.Timer()
 rng = np.random.default_rng(cs.SEED)
-keys = re.compile(r"^(name|(first_version_)?ms|plain_ms|library_ms|"
-                  r"bound_ms|max_abs_err|err)(_.*)?$")
+keys = re.compile(r"^(name|(first_version_)?(ms|ns_per_step)|plain_ms|"
+                  r"library_ms|bound_ms|max_abs_err|err|steps)(_.*)?$")
 rows = []
 for name in have:
     check = getattr(cs, "check_" + name)
