@@ -73,7 +73,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                kernel's (out, lse), the lse against attention_lse within
                1e-4, a repeat bit-identical; timed in bf16 beside SDPA's
                backward (given the same mask with ids), and the forward
-               timed with its lse beside without. Times the kernel,
+               timed with its lse beside without. The scan's backward
+               (check_mamba_chunk_scan_bwd, training): mamba2-1.3b's
+               training shape (Bt=8 S=1024 H=64 P=64 N=128, bf16), f32
+               at S=512 and a ragged S=1000 with an initial state and
+               dfinal, d_state 16, against autograd through the naive
+               scan (f32: 1e-4 of each gradient's max; bf16: dx, dB, dC
+               within 1e-2 of max(1, |want|) element by element, the f32
+               outputs 1e-4), a repeat bit for bit, one count a call
+               (two launches); timed beside the plain version, with its
+               registers. Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -297,6 +306,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                checkpointed at step 3 and restored (tensors equal bit
                for bit), its next 3 losses within 1e-5 relative of the
                uninterrupted run's.
+  8b. train (SSM) — mamba2-1.3b the same way (48 layers, d 2048, 1.34 B
+               f32 parameters, DataConfig(50280, 1024, 8)): losses
+               finite and falling, 48 mamba_chunk_scan_bwd and 96
+               mamba_chunk_scan launches a step (48 more forward ones
+               as the backward recomputes each period), step ms,
+               tokens/s, mfu (the Mamba2 mixer's products counted,
+               _train_flops) and peak memory; then its 2-layer f32
+               kernel-vs-ref parity.
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
 (fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces,
@@ -330,7 +347,9 @@ one {"serve_ssm_macro": {...}}, and a {"serve_<model>": {...}} and a
 seamless_m4t_large_v2, llava_next_mistral_7b; their launches also in
 the kernel rows as launches_<model>), one {"train": {...}} (the
 backward's launches are the train phase's; the forward row's
-launches_train); the last line is
+launches_train), one {"train_ssm": {...}} (the scan backward's
+launches are its phase's; the scan row's launches_train); the last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -450,7 +469,8 @@ def _demangle(names):
 
 def ptxas_resources(logs, kernels=("fmmu_commit", "paged_attention",
                                    "flash_attention", "flash_attention_bwd",
-                                   "mamba_scan", "fmmu_fsm")):
+                                   "mamba_scan", "mamba_scan_bwd",
+                                   "fmmu_fsm")):
     """Registers, spills and static shared memory of every instantiation
     of the named kernels, from nvcc's -Xptxas -v output."""
     entries, cur = [], None
@@ -1807,13 +1827,14 @@ BWD_TOL = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
            torch.float16: F16_TOL}
 
 
-def train_batch(step=0):
-    """One packed batch of the train phase's data (8 x 1024 tokens of
-    llama3.2-1b's vocabulary)."""
+def train_batch(step=0, spec=None):
+    """One packed batch of a train run's data (8 x 1024 tokens of the
+    run's vocabulary; llama3.2-1b's by default)."""
     from repro_torch.data.pipeline import DataConfig, make_batch
-    return make_batch(DataConfig(vocab_size=TRAIN["vocab"],
-                                 seq_len=TRAIN["seq_len"],
-                                 global_batch=TRAIN["batch"], pack=True),
+    spec = spec or TRAIN
+    return make_batch(DataConfig(vocab_size=spec["vocab"],
+                                 seq_len=spec["seq_len"],
+                                 global_batch=spec["batch"], pack=True),
                       step)
 
 
@@ -1936,35 +1957,39 @@ def check_flash_attention_bwd(timer):
     return row, fwd_row
 
 
+def scan_inputs(bt, s, h, p, n, dtype, init):
+    """Scan inputs in mamba2's ranges (models/ssm.py init_ssm): dt =
+    softplus(0.5 N(0,1) + a per-head bias) around a rate drawn
+    log-uniform in [0.001, 0.1], A = -[1, 16], D ~ N(1, 0.1); x, B, C
+    N(0, 1) rounded to ``dtype``; an initial state or None."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device="cuda")
+    dt0 = torch.exp(u((h,), math.log(1e-3), math.log(0.1)))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))          # softplus^-1(dt0)
+    dt = torch.nn.functional.softplus(0.5 * rn(bt, s, h) + bias)
+    a = -u((h,), 1.0, 16.0)
+    d = 1.0 + 0.1 * rn(h)
+    x = rn(bt, s, h, p).to(dtype)
+    b, c = rn(bt, s, n).to(dtype), rn(bt, s, n).to(dtype)
+    s0 = rn(bt, h, p, n) if init else None
+    return (x, dt, a, b, c, d), s0
+
+
 def check_mamba_chunk_scan(timer):
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                                 mamba_chunk_scan_ref)
     from repro_torch.kernels.ref import mamba_chunk_scan_blocked
     h, p, n, chunk = 64, 64, 128, 256       # mamba2-1.3b's scan widths
-
-    def inputs(s, dtype, init):
-        """Values in the model's ranges (models/ssm.py init_ssm): dt =
-        softplus(projection + dt_bias) around a per-head rate drawn
-        log-uniform in [0.001, 0.1], A = -[1, 16] per head, D per head."""
-        def u(shape, lo, hi):
-            return lo + (hi - lo) * torch.rand(shape, device="cuda")
-        dt0 = torch.exp(u((h,), math.log(1e-3), math.log(0.1)))
-        bias = dt0 + torch.log(-torch.expm1(-dt0))      # softplus^-1(dt0)
-        dt = torch.nn.functional.softplus(
-            0.5 * torch.randn((1, s, h), device="cuda") + bias)
-        a = -u((h,), 1.0, 16.0)
-        d = 1.0 + 0.1 * torch.randn((h,), device="cuda")
-        x = torch.randn((1, s, h, p), device="cuda").to(dtype)
-        b = torch.randn((1, s, n), device="cuda").to(dtype)
-        c = torch.randn((1, s, n), device="cuda").to(dtype)
-        s0 = torch.randn((1, h, p, n), device="cuda") if init else None
-        return (x, dt, a, b, c, d), s0
-
     worst = 0.0
     for s in (1024, 1000, 65, 1):
         for dtype in (torch.bfloat16, torch.float32):
             for init in (False, True):
-                args, s0 = inputs(s, dtype, init)
+                args, s0 = scan_inputs(1, s, h, p, n, dtype, init)
                 y, fin = mamba_chunk_scan(*args, chunk=chunk,
                                           initial_state=s0)
                 yw, fw = mamba_chunk_scan_ref(*args, chunk=chunk,
@@ -1984,7 +2009,7 @@ def check_mamba_chunk_scan(timer):
                              "repeated call differs")
     # the serving path's shape: one prefill of a 1024-token prompt
     s = 1024
-    args, _ = inputs(s, torch.bfloat16, False)
+    args, _ = scan_inputs(1, s, h, p, n, torch.bfloat16, False)
     n_bytes = 2 * (2 * s * h * p) + 2 * (2 * s * n) + 4 * s * h \
         + 2 * 4 * h + 4 * h * p * n
     b_ms, b_by = bound_ms(n_bytes, 5 * s * h * p * n, "bfloat16")
@@ -2005,6 +2030,163 @@ def check_mamba_chunk_scan(timer):
             warmup=1),
         "shape": "Bt=1 S=1024 H=64 P=64 N=128 bf16 (tensor-core body)",
     }
+
+
+# the scan's backward (training): (tag, Bt, S, H, P, N, dtypes, initial
+# state and dfinal): mamba2-1.3b's training shape (8 x 1024 tokens, H=64
+# P=64 N=128; no initial state, the final state unused), f32 at a smaller
+# shape with both, a ragged S with both, d_state 16 (the smoke
+# configuration's) ragged
+SCAN_BWD_SHAPES = (("train", 8, 1024, 64, 64, 128, ("bf16",), False),
+                   ("f32", 2, 512, 64, 64, 128, ("f32",), True),
+                   ("ragged", 1, 1000, 64, 64, 128, ("bf16", "f32"), True),
+                   ("d16", 2, 300, 8, 64, 16, ("bf16", "f32"), True))
+SCAN_BWD_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+SCAN_BWD_BF16_TOL = 1e-2
+
+
+def scan_bwd_inputs(bt, s, h, p, n, dtype, init, dfinal=None):
+    """``scan_inputs`` and the cotangents: ((x, dt, A, B, C, D, dy,
+    dfinal), initial state or None); dy N(0, 1) rounded to ``dtype``,
+    dfinal N(0, 1) f32 or None (drawn when ``dfinal``, which defaults to
+    ``init``). Shared with the GPU tests."""
+    args, s0 = scan_inputs(bt, s, h, p, n, dtype, init)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dy = torch.randn((bt, s, h, p), generator=g, device="cuda").to(dtype)
+    dfin = (torch.randn((bt, h, p, n), generator=g, device="cuda")
+            if (init if dfinal is None else dfinal) else None)
+    return args + (dy, dfin), s0
+
+
+def scan_grad_errs(got, want, dtype):
+    """(the worst gradient's error over its tolerance, max |got - want|)
+    over the seven gradients of the scan. Each gradient's error: in f32,
+    max |got - want| over its max |want| (tolerance F32_TOL); in bf16 the
+    same for the f32 outputs (ddt, dA, dD, dinitial_state), and for dx,
+    dB and dC (rounded to bf16) max |got - want| / max(1, |want|) element
+    by element (``_grad_err``; tolerance SCAN_BWD_BF16_TOL). A gradient
+    that is not finite, or present where it should be None or the other
+    way round, reads inf. Shared with the GPU tests."""
+    share, worst = 0.0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or w is None:
+            if g is not w:
+                share = math.inf
+            continue
+        if not bool(torch.isfinite(g.float()).all()):
+            share = math.inf
+            continue
+        g, w = g.to(w.device), w
+        worst = max(worst, _max_err(g, w))
+        if dtype == torch.bfloat16 and i in (0, 3, 4):
+            share = max(share, _grad_err(g, w) / SCAN_BWD_BF16_TOL)
+        else:
+            share = max(share, _max_err(g, w) / F32_TOL /
+                        max(float(w.float().abs().max()), 1e-30))
+    return share, worst
+
+
+def graph_kernel_launches(fn, name):
+    """(kernel nodes, those whose function name holds ``name``) of one
+    ``fn()`` captured into a kept CUDA graph after an eager call: the
+    kernels one call launches, read through libcuda (``graph_nodes``);
+    the capture's counts are taken back out (``macro.capture``)."""
+    from repro_torch.serving.macro import capture
+    fn()
+    torch.cuda.synchronize()
+    graph, _ = capture(fn)
+    types, named = graph_nodes(graph, (name,))
+    del graph
+    return types.get("kernel", 0), named[name]
+
+
+def check_mamba_chunk_scan_bwd(timer, logs):
+    """The scan's backward kernel at SCAN_BWD_SHAPES against
+    ``mamba_chunk_scan_bwd_ref`` (autograd through the naive scan in f32)
+    on the same inputs, rounded to the working type (``scan_grad_errs``):
+    f32 each gradient within 1e-4 of its max |value|; bf16 dx, dB and dC
+    within SCAN_BWD_BF16_TOL of max(1, |want|) element by element (their
+    bf16 rounding is ~4e-3 of that, tools/mamba_scan_bwd_host_check.py;
+    this is tighter than the scan forward's 8e-2 scaled by max(1, max
+    |want|)) and its f32 outputs within 1e-4; a repeat bit for bit; one
+    count a call, and two kernel launches a call (the scan and its
+    fixed-order reduction), read from the nodes of the call captured in
+    a CUDA graph (``launches_per_call``). At the training shape in bf16
+    it is timed beside the plain version and its bound: bytes of x, dy,
+    dx, B, C, dB, dC (bf16), dt and ddt (f32) once, or 10 Bt S H P N
+    flops (twice the forward's 5) at the bf16 peak. Returns the kernel's
+    row."""
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
+                                                mamba_chunk_scan_bwd_ref)
+    row = {"name": "mamba_chunk_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
+           "replaces": "src/repro/kernels/mamba_scan.py:73",
+           "replaces_what": "the gradient of this function, which the "
+                            "reference takes with jax.grad through "
+                            "ref.mamba_chunk_scan_blocked (the Pallas "
+                            "kernel has no backward)",
+           "registers": {e["kernel"]: e.get("registers") for e in
+                         ptxas_resources(logs, ("mamba_scan_bwd",))}}
+    per_call = set()
+    for tag, bt, s, h, p, n, dts, init in SCAN_BWD_SHAPES:
+        for dt_name in dts:
+            dtype = SCAN_BWD_DTYPES[dt_name]
+            args, s0 = scan_bwd_inputs(bt, s, h, p, n, dtype, init)
+            n0 = COUNTERS.launches().get("mamba_chunk_scan_bwd", 0)
+            got = mamba_chunk_scan_bwd(*args, initial_state=s0)
+            if COUNTERS.launches()["mamba_chunk_scan_bwd"] - n0 != 1:
+                fail("mamba_chunk_scan_bwd: not one count a call")
+            again = mamba_chunk_scan_bwd(*args, initial_state=s0)
+            if not all(a is None or torch.equal(a, b)
+                       for a, b in zip(got, again)):
+                fail(f"mamba_chunk_scan_bwd {tag} {dt_name}: repeat "
+                     "differs")
+            del again
+            kernels, named = graph_kernel_launches(
+                lambda: mamba_chunk_scan_bwd(*args, initial_state=s0),
+                "mamba_scan_bwd")
+            if kernels != 2 or named != 2:
+                fail(f"mamba_chunk_scan_bwd {tag} {dt_name}: a call "
+                     f"launches {kernels} kernels ({named} of its own), "
+                     "not 2")
+            per_call.add(kernels)
+            want = mamba_chunk_scan_bwd_ref(*args, initial_state=s0)
+            share, worst = scan_grad_errs(got, want, dtype)
+            if share > 1.0:
+                fail(f"mamba_chunk_scan_bwd {tag} {dt_name}: an error "
+                     f"{share} times its tolerance")
+            row[f"tol_share_{tag}_{dt_name}"] = share
+            row[f"max_abs_err_{tag}_{dt_name}"] = worst
+            del got, want
+            if tag == "train":
+                n_bytes = 2 * (3 * bt * s * h * p + 4 * bt * s * n) + \
+                    4 * 2 * bt * s * h
+                b_ms, b_by = bound_ms(n_bytes, 10.0 * bt * s * h * p * n,
+                                      "bfloat16")
+                fwd_args, dy = args[:6], args[6]
+                row.update(
+                    ms=timer.ms(lambda: mamba_chunk_scan_bwd(*fwd_args,
+                                                             dy)),
+                    plain_ms=timer.ms(lambda: mamba_chunk_scan_bwd_ref(
+                        *fwd_args, dy), iters=3, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    max_abs_err=row["max_abs_err_train_bf16"])
+                del fwd_args, dy
+            del args, s0
+            free_engine()
+    row["launches_per_call"] = per_call.pop()
+    row["shape"] = "; ".join(
+        f"{t}: Bt={bt} S={s} H={h} P={p} N={n} {'/'.join(d)}"
+        f"{' with initial state and dfinal' if i else ''}"
+        for t, bt, s, h, p, n, d, i in SCAN_BWD_SHAPES) + (
+        " (top-level numbers: train in bf16; tol_share_*: the worst "
+        "gradient's error over its tolerance, 1e-4 of its max |want| or, "
+        "for bf16 dx / dB / dC, 1e-2 of max(1, |want|) element by element; "
+        "max_abs_err_*: max |got - want|; launches / launches_train count "
+        "calls, each of which launches launches_per_call kernels, read "
+        "from the kernel nodes of one call captured in a CUDA graph)")
+    return row
 
 
 def _paper_cmt(rng, e=8):
@@ -4521,9 +4703,15 @@ def ssd_phase():
 
 
 # phase 8: llama3.2-1b trained at published widths and full depth on
-# packed synthetic batches (launch/train.py's optimizer settings)
+# packed synthetic batches (launch/train.py's optimizer settings); 8b:
+# mamba2-1.3b the same way. ``kernels``: (forward, backward) kernel of
+# the run's mixer, launched once a layer each way, the forward once more
+# as the backward recomputes each period under remat 'dots'
 TRAIN = dict(arch="llama3.2-1b", vocab=128256, seq_len=1024, batch=8,
-             steps=30, lr=1e-3, warmup_steps=5, decay_steps=30)
+             steps=30, lr=1e-3, warmup_steps=5, decay_steps=30,
+             kernels=("flash_attention", "flash_attention_bwd"))
+TRAIN_SSM = dict(TRAIN, arch="mamba2-1.3b", vocab=50280,
+                 kernels=("mamba_chunk_scan", "mamba_chunk_scan_bwd"))
 TRAIN_PARITY_LAYERS = 2
 TRAIN_PARITY_STEPS = 3
 RESUME = dict(seq_len=128, batch=4, ckpt_step=3, steps=6)
@@ -4532,13 +4720,25 @@ RESUME = dict(seq_len=128, batch=4, ckpt_step=3, steps=6)
 def _train_flops(cfg, batch) -> float:
     """Model FLOPs of one training step (forward and backward, no
     recomputation): 6 per parameter of every weight product and token
-    (the tied head included), and 12 * H * D per visible (query, key)
-    pair and layer for attention (2 products forward, 4 backward)."""
-    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    (the tied head included, d x V). Attention layers: their
+    projections and MLP, and 12 * H * D per visible (query, key) pair
+    (2 products forward, 4 backward). Mamba2 layers (``cfg.ssm``): the
+    in projection (wx, wz, wB, wC, wdt: d x (2 di + 2 N + nh)) and the
+    out projection (di x d), and the scan's own products, 15 * H * P * N
+    a token (~5 forward, ~10 backward); the depthwise conv, the norms
+    and the gates are not counted."""
+    tokens = batch["tokens"].size
+    d = cfg.d_model
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        di, nh, n = sc.d_inner(d), sc.n_heads(d), sc.d_state
+        per_layer = d * (2 * di + 2 * n + nh) + di * d
+        n_mm = cfg.n_layers * per_layer + d * cfg.vocab_size
+        return 6.0 * n_mm * tokens + \
+            15.0 * nh * sc.head_dim * n * tokens * cfg.n_layers
+    h, kv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * ff
     n_mm = cfg.n_layers * per_layer + d * cfg.vocab_size
-    tokens = batch["tokens"].size
     pairs = 0
     for ids in batch["segment_ids"]:
         _, counts = np.unique(ids, return_counts=True)
@@ -4546,18 +4746,20 @@ def _train_flops(cfg, batch) -> float:
     return 6.0 * n_mm * tokens + 12.0 * h * hd * pairs * cfg.n_layers
 
 
-def _train_parity(cfg, opt_cfg):
+def _train_parity(cfg, opt_cfg, spec):
     """(b) A 2-layer full-width f32 trainer with the kernels and with
-    kernel_impl="ref" from one seeded state on the phase's batches:
+    kernel_impl="ref" from one seeded state on the run's batches:
     step 1's loss within 1e-5 relative, every gradient leaf within 1e-4
     of that leaf's max |value|, three steps' losses within 1e-3
     relative (AdamW's first updates are sign-like: a near-zero
-    gradient's roundoff can move a weight by up to 2 lr)."""
+    gradient's roundoff can move a weight by up to 2 lr); the backward
+    kernel launched once a layer and backward pass."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.models import Runtime, build_model
     from repro_torch.training.train_loop import make_train_step, to_device
     from repro_torch.training.tree import leaves
     cfg = dataclasses.replace(cfg, n_layers=TRAIN_PARITY_LAYERS)
+    bwd_kernel = spec["kernels"][1]
     runs = {}
     COUNTERS.reset()
     for impl in (None, "ref"):
@@ -4568,18 +4770,18 @@ def _train_parity(cfg, opt_cfg):
         step, init = make_train_step(m, opt_cfg)
         state = init(torch.Generator(device="cuda").manual_seed(SEED))
         loss, _ = m.loss_fn(state.params,
-                            to_device(train_batch(0), m.device))
+                            to_device(train_batch(0, spec), m.device))
         grads = torch.autograd.grad(loss, leaves(state.params))
         losses = []
         for s in range(TRAIN_PARITY_STEPS):
-            state, met = step(state, train_batch(s))
+            state, met = step(state, train_batch(s, spec))
             losses.append(float(met["loss"]))
         runs[impl] = (loss.item(), grads, losses)
         del m, state, loss, grads
         free_engine()
-    n_bwd = COUNTERS.launches().get("flash_attention_bwd", 0)
+    n_bwd = COUNTERS.launches().get(bwd_kernel, 0)
     if n_bwd != TRAIN_PARITY_LAYERS * (1 + TRAIN_PARITY_STEPS):
-        fail(f"train parity: {n_bwd} flash_attention_bwd launches, "
+        fail(f"train parity: {n_bwd} {bwd_kernel} launches, "
              f"expected {TRAIN_PARITY_LAYERS} a backward pass")
     (l_k, g_k, ls_k), (l_r, g_r, ls_r) = runs[None], runs["ref"]
     loss_rel = abs(l_k - l_r) / abs(l_r)
@@ -4587,7 +4789,7 @@ def _train_parity(cfg, opt_cfg):
         1e-30)) for a, b in zip(g_k, g_r))
     steps_rel = max(abs(a - b) / abs(b) for a, b in zip(ls_k, ls_r))
     if loss_rel > 1e-5 or grad_rel > 1e-4 or steps_rel > 1e-3:
-        fail(f"train parity: loss {loss_rel}, grads {grad_rel}, "
+        fail(f"train parity {cfg.name}: loss {loss_rel}, grads {grad_rel}, "
              f"3 steps {steps_rel} (kernels {ls_k}, ref {ls_r})")
     return {"layers": TRAIN_PARITY_LAYERS, "bwd_launches": n_bwd,
             "loss_rel_err": loss_rel,
@@ -4644,17 +4846,17 @@ def _train_resume(cfg, opt_cfg):
             "uninterrupted_losses": want, "loss_rel_err": rel}
 
 
-def train_phase():
-    """8. llama3.2-1b trained at published widths and full depth: bf16
-    compute, f32 parameters and AdamW moments, seeded weights,
-    remat="dots", packed batches (DataConfig(128256, 1024, 8)), AdamW
-    (lr 1e-3, warm-up 5, decay 30), 30 steps through ``train`` (the
-    loop the launcher calls). Counts are zeroed just before the run and read
+def train_run(spec):
+    """One architecture trained at published widths and full depth:
+    bf16 compute, f32 parameters and AdamW moments, seeded weights,
+    remat="dots", packed batches (DataConfig(vocab, 1024, 8)), AdamW
+    (lr 1e-3, warm-up 5, decay 30), 30 steps through ``train`` (the loop
+    the launcher calls). Counts are zeroed just before the run and read
     just after. Gates: every loss finite, the mean of the last 5 below
-    the first, 16 flash_attention_bwd launches a step and 32 forward
-    launches (16, and 16 again when the backward recomputes each
-    period). Then (b) the f32 kernel-vs-ref parity and (c) the
-    checkpoint resume. Returns the phase's line."""
+    the first, the backward kernel launched once a layer and step and
+    the forward kernel twice (once, and once more when the backward
+    recomputes each period). Then (b) the f32 kernel-vs-ref parity.
+    Returns the run's line."""
     from repro_torch.configs import get_arch
     from repro_torch.core.counters import COUNTERS
     from repro_torch.data.pipeline import DataConfig, data_iter
@@ -4662,15 +4864,16 @@ def train_phase():
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import TrainerConfig, train
     from repro_torch.training.tree import leaves
-    cfg = get_arch(TRAIN["arch"])
-    opt_cfg = opt.AdamWConfig(lr=TRAIN["lr"],
-                              warmup_steps=TRAIN["warmup_steps"],
-                              decay_steps=TRAIN["decay_steps"])
+    cfg = get_arch(spec["arch"])
+    fwd_k, bwd_k = spec["kernels"]
+    opt_cfg = opt.AdamWConfig(lr=spec["lr"],
+                              warmup_steps=spec["warmup_steps"],
+                              decay_steps=spec["decay_steps"])
     model = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
                                      param_dtype=torch.float32,
                                      remat="dots"), device="cuda")
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
-                      global_batch=TRAIN["batch"], pack=True)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
+                      global_batch=spec["batch"], pack=True)
     it = data_iter(dcfg)
     steps, stamps = [], []
 
@@ -4680,8 +4883,7 @@ def train_phase():
         steps.append({"step": step, "loss": float(metrics["loss"]),
                       "lr": float(metrics["lr"]),
                       "grad_norm": float(metrics["grad_norm"]),
-                      "fwd": n.get("flash_attention", 0),
-                      "bwd": n.get("flash_attention_bwd", 0)})
+                      "fwd": n.get(fwd_k, 0), "bwd": n.get(bwd_k, 0)})
 
     free_engine()
     torch.cuda.reset_peak_memory_stats()
@@ -4689,7 +4891,7 @@ def train_phase():
     t0 = time.perf_counter()
     try:
         state, summary = train(model, it, opt_cfg,
-                               TrainerConfig(total_steps=TRAIN["steps"],
+                               TrainerConfig(total_steps=spec["steps"],
                                              log_every=1, ckpt_every=0),
                                seed=SEED, on_step=on_step)
     finally:
@@ -4703,25 +4905,25 @@ def train_phase():
     losses = [s["loss"] for s in steps]
     per_step = [(b["fwd"] - a["fwd"], b["bwd"] - a["bwd"])
                 for a, b in zip([{"fwd": 0, "bwd": 0}] + steps, steps)]
-    n_attn = cfg.n_layers
+    n_mix = cfg.n_layers
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: a loss is not finite: {losses}")
+        fail(f"train {cfg.name}: a loss is not finite: {losses}")
     if not statistics.mean(losses[-5:]) < losses[0]:
-        fail(f"train: the loss did not fall: {losses}")
-    if any(b != n_attn for _, b in per_step):
-        fail(f"train: flash_attention_bwd launches a step {per_step}")
-    if any(f != 2 * n_attn for f, _ in per_step):
-        fail(f"train: flash_attention launches a step {per_step}")
+        fail(f"train {cfg.name}: the loss did not fall: {losses}")
+    if any(b != n_mix for _, b in per_step):
+        fail(f"train {cfg.name}: {bwd_k} launches a step {per_step}")
+    if any(f != 2 * n_mix for f, _ in per_step):
+        fail(f"train {cfg.name}: {fwd_k} launches a step {per_step}")
     # steady steps: the first pays the kernels' loads and the allocator
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     med_ms = statistics.median(step_ms)
-    tokens = TRAIN["batch"] * TRAIN["seq_len"]
-    flops = _train_flops(cfg, train_batch(0))
+    tokens = spec["batch"] * spec["seq_len"]
+    flops = _train_flops(cfg, train_batch(0, spec))
     line = {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
         "compute_dtype": "bfloat16", "param_dtype": "float32",
-        "remat": "dots", "seq_len": TRAIN["seq_len"],
-        "batch": TRAIN["batch"], "pack": True, "steps": TRAIN["steps"],
+        "remat": "dots", "seq_len": spec["seq_len"],
+        "batch": spec["batch"], "pack": True, "steps": spec["steps"],
         "optimizer": dataclasses.asdict(opt_cfg),
         "losses": losses, "lr": [s["lr"] for s in steps],
         "grad_norm": [s["grad_norm"] for s in steps],
@@ -4730,19 +4932,31 @@ def train_phase():
         "model_flops_per_step": flops,
         "mfu": flops / (med_ms / 1e3) / PEAK_OPS["bfloat16"],
         "peak_mem_gib": peak / 2 ** 30, "run_s": run_s,
-        "flash_fwd_launches_per_step": 2 * n_attn,
-        "flash_bwd_launches_per_step": n_attn,
-        "flash_fwd_launches_note": f"{n_attn} forward + {n_attn} "
-                                   "recomputed by the backward under "
-                                   "remat='dots'",
+        f"{fwd_k}_launches_per_step": 2 * n_mix,
+        f"{bwd_k}_launches_per_step": n_mix,
+        "fwd_launches_note": f"{n_mix} forward + {n_mix} recomputed by "
+                             "the backward under remat='dots'",
         "launches": launches,
         "stragglers": len(summary["stragglers"]),
         "mean_step_s": summary["mean_step_s"],
     }
     del model
     free_engine()
-    line["parity_f32"] = _train_parity(cfg, opt_cfg)
-    line["resume"] = _train_resume(cfg, opt_cfg)
+    line["parity_f32"] = _train_parity(cfg, opt_cfg, spec)
+    return line
+
+
+def train_phase():
+    """8. llama3.2-1b's train run (``train_run``: flash_attention and
+    its backward, 32 and 16 launches a step), then (c) the checkpoint
+    resume. Returns the phase's line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.training import optimizer as opt
+    line = train_run(TRAIN)
+    line["resume"] = _train_resume(
+        get_arch(TRAIN["arch"]),
+        opt.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup_steps"],
+                        decay_steps=TRAIN["decay_steps"]))
     return line
 
 
@@ -4902,6 +5116,8 @@ def main() -> int:
     # the flash kernel's backward (training) and the forward's lse
     rows["flash_attention_bwd"], fwd_lse = check_flash_attention_bwd(timer)
     rows["flash_attention"].update(fwd_lse)
+    # the scan's backward (mamba2 training)
+    rows["mamba_chunk_scan_bwd"] = check_mamba_chunk_scan_bwd(timer, logs)
     # the registers of each tensor-core instantiation the kernels ran
     for name in ("flash_attention", "flash_attention_bwd"):
         rows[name]["registers"] = tc_registers(logs, name)
@@ -5059,6 +5275,18 @@ def main() -> int:
         rows["flash_attention_bwd"]["launches_train"]
     rows["flash_attention_bwd"]["launches_path"] = "train phase"
 
+    # 8b. mamba2-1.3b training at published widths and full depth
+    # (mamba_chunk_scan forward and its backward kernel)
+    t0 = time.perf_counter()
+    train_ssm = train_run(TRAIN_SSM)
+    train_ssm["phase_s"] = time.perf_counter() - t0
+    print(f"train ssm: {train_ssm['phase_s']:.1f} s", file=sys.stderr)
+    for name in TRAIN_SSM["kernels"]:
+        rows[name]["launches_train"] = train_ssm["launches"].get(name, 0)
+    rows["mamba_chunk_scan_bwd"]["launches"] = \
+        rows["mamba_chunk_scan_bwd"]["launches_train"]
+    rows["mamba_chunk_scan_bwd"]["launches_path"] = "train_ssm phase"
+
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "launches_single_step", "launches_serve_swap",
@@ -5099,6 +5327,9 @@ def main() -> int:
              f"{k}_{t}" for t, *_ in BWD_SHAPES
              for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms", "pairs")) + tuple(
+             f"{k}_{t}_{d}" for t, *_, dts, _ in SCAN_BWD_SHAPES
+             for d in dts for k in ("tol_share", "max_abs_err")) + (
+             "launches_per_call",) + tuple(
              f"{k}_{t}_{d}" for t, *_ in BWD_SHAPES
              for d in ("f32", "bf16", "f16")
              for k in ("err", "max_abs_err", "lse_err")) + tuple(
@@ -5134,6 +5365,7 @@ def main() -> int:
         print(json.dumps({f"serve_macro_{_tag(name)}":
                           others[name]["serve_macro"]}))
     print(json.dumps({"train": dict(train_line, card=smi)}))
+    print(json.dumps({"train_ssm": dict(train_ssm, card=smi)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

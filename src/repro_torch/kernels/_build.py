@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("fmmu_translate", "fmmu_commit", "fmmu_lookup",
            "paged_attention", "flash_attention", "flash_attention_bwd",
-           "mamba_scan", "fmmu_fsm")
+           "mamba_scan", "mamba_scan_bwd", "fmmu_fsm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -134,12 +134,15 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise where a kernel without a backward would be recorded by
-    autograd: its output, written through a raw pointer, would carry no
-    gradient and the inputs' gradients would silently miss its share."""
+def refuse_grad(name: str, *tensors, via: str = "") -> None:
+    """Raise where a kernel wrapper without a backward would be recorded
+    by autograd: its output, written through a raw pointer, would carry
+    no gradient and the inputs' gradients would silently miss its share.
+    ``via`` names the differentiable entry point where one exists."""
     if needs_grad(*tensors):
+        what = (f"this wrapper is not differentiable; call {via}" if via
+                else "the CUDA kernel has no backward")
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward; call it under "
-            "torch.no_grad() or with inputs that do not require grad "
-            "(kernel_impl='ref' differentiates the plain version)")
+            f"{name}: {what}, or call it under torch.no_grad() or with "
+            "inputs that do not require grad (kernel_impl='ref' "
+            "differentiates the plain version)")

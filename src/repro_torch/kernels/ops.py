@@ -10,14 +10,18 @@ reference:
           parity check runs the engine both ways), differentiated by
           autograd.
 
-Under autograd on a CUDA tensor, flash attention differentiates through
-its backward kernel; the scan and paged attention have no backward yet
-and raise rather than return a result without a gradient.
+Under autograd on a CUDA tensor, flash attention and the Mamba2 scan
+differentiate through their backward kernels (``FlashAttentionFn``,
+``MambaChunkScanFn``); without grad they launch the forward kernel
+alone, so serving's launches and graphs are unchanged. Paged attention
+has no backward and raises rather than return a result without a
+gradient.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fmmu_commit as fc
 from repro_torch.kernels import fmmu_lookup as fl
@@ -62,10 +66,17 @@ def paged_attention(q, k_pool, v_pool, block_table, ctx_lens, *,
 
 def mamba_chunk_scan(x, dt, A, B, C, D, *, chunk=256, initial_state=None,
                      impl=None):
-    """Mamba2 SSD scan -> (y, final_state)."""
+    """Mamba2 SSD scan -> (y, final_state). A CUDA call that autograd
+    records runs ``MambaChunkScanFn`` (the forward kernel, then the
+    backward kernel in the backward pass)."""
     if _use_ref(impl):
         return ref.mamba_chunk_scan_naive(x, dt, A, B, C, D, chunk=chunk,
                                           initial_state=initial_state)
+    if x.device.type == "cuda" and _build.needs_grad(x, dt, A, B, C, D,
+                                                     initial_state):
+        return ms.MambaChunkScanFn.apply(x, dt, A, B, C, D, initial_state,
+                                         chunk, ms.mamba_chunk_scan,
+                                         ms.mamba_chunk_scan_bwd)
     return ms.mamba_chunk_scan(x, dt, A, B, C, D, chunk=chunk,
                                initial_state=initial_state)
 

@@ -7,7 +7,10 @@ flash kernel's backward, which the reference takes with ``jax.grad``
 through its blocked lowering, ``attention_lse`` (the forward with the
 row log-sum-exp it saves), ``flash_attention_bwd_ref`` and
 ``flash_attention_bwd_blocked`` (the kernels' tile walk and their
-segment-span skip, ``tile_spans`` / ``spans_meet``).
+segment-span skip, ``tile_spans`` / ``spans_meet``); for the scan's
+backward, which the reference also takes with ``jax.grad``,
+``mamba_chunk_scan_bwd_ref`` (autograd through the naive scan) and
+``mamba_chunk_scan_bwd_blocked`` (the backward kernel's arithmetic).
 
 They run on any device. The kernel wrappers use them for CPU tensors,
 ``Runtime.kernel_impl="ref"`` selects them explicitly, and the card's
@@ -340,8 +343,14 @@ def fmmu_translate_ref(tags, valid, refbits, data, backing, dlpns, touch, *,
 
 
 # ======================================================================
+def _wide(t):
+    """``t`` in float32, or float64 where it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def mamba_chunk_scan_naive(x, dt, A, B, C, D, *, chunk, initial_state=None):
-    """Sequential-scan oracle for the Mamba2 SSD op (float32 math).
+    """Sequential-scan oracle for the Mamba2 SSD op (float32 math;
+    float64 for float64 inputs, the gradient checks).
 
     x  [Bt, S, H, P]   (P = head dim)
     dt [Bt, S, H]      (already softplus'd, >= 0)
@@ -355,10 +364,9 @@ def mamba_chunk_scan_naive(x, dt, A, B, C, D, *, chunk, initial_state=None):
     recurrence does not depend on it."""
     bt, s, h, p = x.shape
     n = B.shape[-1]
-    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
-    Af = A.float()
-    state = (initial_state.float().clone() if initial_state is not None
-             else torch.zeros((bt, h, p, n), dtype=torch.float32,
+    xf, dtf, Bf, Cf, Af = (_wide(t) for t in (x, dt, B, C, A))
+    state = (_wide(initial_state).clone() if initial_state is not None
+             else torch.zeros((bt, h, p, n), dtype=xf.dtype,
                               device=x.device))
     ys = []
     for t in range(s):
@@ -367,7 +375,7 @@ def mamba_chunk_scan_naive(x, dt, A, B, C, D, *, chunk, initial_state=None):
             "bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bt, 0, h, p))
-    y = y + xf * D.float()[None, None, :, None]
+    y = y + xf * _wide(D)[None, None, :, None]
     return y.to(x.dtype), state
 
 
@@ -422,6 +430,135 @@ def mamba_chunk_scan_blocked(x, dt, A, B, C, D, *, chunk,
     y = (y_diag + y_off).reshape(bt, s, h, p)
     y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), state
+
+
+def mamba_chunk_scan_bwd_ref(x, dt, A, B, C, D, dy, dfinal=None, *,
+                             initial_state=None):
+    """The gradient of ``mamba_chunk_scan_naive`` by torch autograd, in
+    float32 on the inputs as given (a bf16 input is read as its f32
+    value): the cotangents dy [Bt,S,H,P] of y and ``dfinal``
+    [Bt,H,P,N] of the final state (None: zero) -> (dx, ddt, dA, dB, dC,
+    dD, dinitial_state), all float32; dinitial_state is None when no
+    initial state was given. Autograd keeps every token's state, ~4
+    bytes x Bt H P N a token."""
+    ins = [_wide(t).detach().requires_grad_(True)
+           for t in (x, dt, A, B, C, D)]
+    s0 = (None if initial_state is None else
+          _wide(initial_state).detach().requires_grad_(True))
+    with torch.enable_grad():
+        y, fin = mamba_chunk_scan_naive(*ins, chunk=1, initial_state=s0)
+        outs, cots = [y], [_wide(dy).to(y.dtype)]
+        if dfinal is not None:
+            outs.append(fin)
+            cots.append(dfinal.to(fin.dtype))
+        wrt = ins + ([s0] if s0 is not None else [])
+        grads = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, wrt)]
+    return tuple(grads[:6]) + (grads[6] if s0 is not None else None,)
+
+
+def mamba_chunk_scan_bwd_blocked(x, dt, A, B, C, D, dy, dfinal=None, *,
+                                 initial_state=None, chunk=32):
+    """``mamba_chunk_scan_bwd_ref`` in the backward kernel's arithmetic
+    (float32), for the tests: S is cut into chunks of ``chunk`` tokens
+    (rows past S are zero, dt = 0: decay 1, no input, no gradient).
+    With c_i the inclusive cumulative sum of the log-decays dt A inside a
+    chunk, a chunk maps its entry state S0 to
+      y_i   = e^{c_i} C_i S0^T + sum_{j<=i} e^{c_i-c_j} dt_j (C_i.B_j) x_j
+              + D x_i,
+      S_end = e^{c_L} S0 + sum_j e^{c_L-c_j} dt_j x_j B_j^T.
+    A first pass runs the states entering each chunk forward; a second
+    walks the chunks in reverse, carrying G = dS_end (``dfinal`` at the
+    end), and per chunk forms dx, dB, dC, the direct dt term, the
+    gradient dc_i of each c_i (from the off-diagonal term, the pairs j
+    <= i as +row / -column sums, the state update) and its reverse
+    cumulative sum dl (the log-decays' gradient: ddt += A dl, dA +=
+    sum dt dl), then G = e^{c_L} G + sum_i e^{c_i} dy_i^T C_i; dS0 of
+    the first chunk is dinitial_state. Pairs above the diagonal get
+    weight 0 (never an exponential of a positive number). Returns what
+    ``mamba_chunk_scan_bwd_ref`` returns."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    ft = _wide(x).dtype                 # float32, float64 for float64
+    q = chunk
+    nc = max(1, -(-s // q))
+    pad = nc * q - s
+
+    def chunks(t):       # [bt, s, ...] -> [bt, nc, q, ...] in ft, zero pad
+        t = t.to(ft)
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(bt, nc, q, *t.shape[2:])
+
+    xc, dyc, dtc = chunks(x), chunks(dy), chunks(dt)    # [bt,nc,q,h(,p)]
+    bc, cc = chunks(B), chunks(C)                       # [bt,nc,q,n]
+    af = A.to(ft)
+    cum = torch.cumsum(dtc * af, dim=2)                 # [bt,nc,q,h]
+    idx = torch.arange(q, device=x.device)
+    lower = idx[:, None] >= idx[None, :]                # j <= i
+    state = (initial_state.to(ft) if initial_state is not None else
+             torch.zeros((bt, h, p, n), dtype=ft, device=x.device))
+    entry = []
+    for c in range(nc):
+        entry.append(state)
+        ce = cum[:, c]                                  # [bt,q,h]
+        w = torch.exp(ce[:, -1:] - ce) * dtc[:, c]      # [bt,q,h]
+        state = torch.exp(ce[:, -1])[..., None, None] * state + \
+            torch.einsum("bjh,bjhp,bjn->bhpn", w, xc[:, c], bc[:, c])
+    g = (dfinal.to(ft) if dfinal is not None else
+         torch.zeros((bt, h, p, n), dtype=ft, device=x.device))
+    dx = torch.zeros((bt, nc, q, h, p), dtype=ft, device=x.device)
+    ddt = torch.zeros((bt, nc, q, h), dtype=ft, device=x.device)
+    dB = torch.zeros((bt, nc, q, n), dtype=ft, device=x.device)
+    dC = torch.zeros_like(dB)
+    dA = torch.zeros((h,), dtype=ft, device=x.device)
+    for c in reversed(range(nc)):
+        s0 = entry[c]
+        ce = cum[:, c].transpose(1, 2)                  # [bt,h,q]
+        dtj = dtc[:, c].transpose(1, 2)                 # [bt,h,q]
+        xs, dys = xc[:, c], dyc[:, c]                   # [bt,q,h,p]
+        bs, cs = bc[:, c], cc[:, c]                     # [bt,q,n]
+        diff = torch.clamp(ce[..., :, None] - ce[..., None, :], max=0.0)
+        wgt = torch.where(lower, torch.exp(diff),
+                          torch.zeros_like(diff))       # [bt,h,i,j]
+        cb = torch.einsum("bin,bjn->bij", cs, bs)[:, None]
+        dyx = torch.einsum("bihp,bjhp->bhij", dys, xs)
+        a1 = wgt * cb                                   # dx's weights
+        a2 = wgt * dtj[..., None, :] * dyx              # dB's, dC's
+        r = a1 * dyx                                    # direct dt terms
+        m = r * dtj[..., None, :]                       # dc's pairs
+        gb = torch.einsum("bhpn,bjn->bhjp", g, bs)      # G B_j
+        xg = torch.einsum("bjhp,bhpn->bhjn", xs, g)     # x_j^T G
+        dys0 = torch.einsum("bihp,bhpn->bhin", dys, s0)  # dy_i^T S0
+        e_end = torch.exp(ce[..., -1:] - ce)            # [bt,h,q]
+        e_in = torch.exp(ce)
+        dx[:, c] = (dtj[..., None] * (
+            torch.einsum("bhij,bihp->bhjp", a1, dys) +
+            e_end[..., None] * gb)).transpose(1, 2) + \
+            dys * D.to(ft)[None, None, :, None]
+        dC[:, c] = torch.einsum("bhi,bhin->bin", e_in, dys0) + \
+            torch.einsum("bhij,bjn->bin", a2, bs)
+        dB[:, c] = torch.einsum("bhij,bin->bjn", a2, cs) + \
+            torch.einsum("bhj,bhjn->bjn", e_end * dtj, xg)
+        f = e_end * torch.einsum("bjhp,bhjp->bhj", xs, gb)
+        direct = r.sum(2) + f                           # [bt,h,q]
+        off = e_in * torch.einsum("bhin,bin->bhi", dys0, cs)
+        strict = lower & ~torch.eye(q, dtype=torch.bool, device=x.device)
+        ms = torch.where(strict, m, torch.zeros_like(m))
+        dc = off + ms.sum(3) - ms.sum(2) - dtj * f
+        dc[..., -1] += torch.exp(ce[..., -1]) * (g * s0).sum((2, 3)) + \
+            (dtj * f).sum(2)
+        dl = torch.flip(torch.cumsum(torch.flip(dc, [2]), 2), [2])
+        ddt[:, c] = (direct + af[None, :, None] * dl).transpose(1, 2)
+        dA += (dtj * dl).sum((0, 2))
+        g = torch.exp(ce[..., -1])[..., None, None] * g + torch.einsum(
+            "bhi,bihp,bin->bhpn", e_in, dys, cs)
+    dD = (dy.to(ft) * x.to(ft)).sum((0, 1, 3))
+
+    def cut(t):
+        return t.reshape(bt, nc * q, *t.shape[3:])[:, :s]
+    return (cut(dx), cut(ddt), dA, cut(dB), cut(dC), dD,
+            g if initial_state is not None else None)
 
 
 def mamba_decode_step(state, x, dt, A, B, C, D):

@@ -60,14 +60,21 @@ def to_device(batch: Dict[str, Any], device: torch.device
 
 
 def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1,
+                    on_phase: Optional[Callable[[str], None]] = None):
     """Returns (train_step, init_state): ``train_step(state, batch) ->
     (state, metrics)`` (the state's tensors updated in place),
-    ``init_state(generator) -> TrainState``."""
+    ``init_state(generator) -> TrainState``. ``on_phase(name)``, where
+    given, is called as each phase of the step begins ("forward" and
+    "backward" once a micro-batch, "optimizer") and as it ends ("end"),
+    for a caller that times them."""
+    mark = on_phase or (lambda name: None)
 
     def grads_of(params, batch):
+        mark("forward")
         loss, metrics = model.loss_fn(params, batch)
         ps = leaves(params)
+        mark("backward")
         gs = torch.autograd.grad(loss, ps, allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g
               for p, g in zip(ps, gs)]
@@ -89,8 +96,10 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
             metrics["loss"] = loss_sum / grad_accum
         else:
             _, metrics, grads = grads_of(state.params, batch)
+        mark("optimizer")
         params, opt_state, om = opt.adamw_update(
             cfg, state.params, grads, state.opt_state)
+        mark("end")
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(om)
         return TrainState(params, opt_state), metrics

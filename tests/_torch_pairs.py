@@ -1,9 +1,11 @@
 """Shared pieces of the port's model-family tests
 (``test_torch_families.py``, ``test_torch_moe.py``,
-``test_torch_encdec.py``, ``test_torch_vlm.py``): the JAX / port model
-pair at ``smoke_config`` in float32 with the reference's initialisation
-loaded through ``convert.params_from_jax``, and the JAX engines' shared
-compiled programs."""
+``test_torch_encdec.py``, ``test_torch_vlm.py``) and training tests
+(``test_torch_train.py``, ``test_torch_train_families.py``): the JAX /
+port model pair at ``smoke_config`` in float32 with the reference's
+initialisation loaded through ``convert.params_from_jax`` (for training
+with the jitted JAX ``value_and_grad`` of ``loss_fn``), the JAX
+engines' shared compiled programs, and the loss-and-gradient check."""
 import functools
 
 import numpy as np
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 
 from repro.configs import get_arch as j_get_arch
 from repro.configs import smoke_config as j_smoke
+from repro.data.pipeline import DataConfig, make_batch
 from repro.core.fmmu import batch as JB
 from repro.models import Runtime as JRuntime
 from repro.models import build_model as j_build
@@ -22,9 +25,17 @@ from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import Runtime, build_model
+from repro_torch.training.train_loop import to_device, trainable
+from repro_torch.training.tree import leaves
 
 TOL = 2e-5
 PAGE = 8
+# training, float32 on both sides: the loss and every gradient leaf
+# agree to summation order (measured ~1e-6 relative); a gradient leaf is
+# held within GRAD_TOL of its own largest magnitude
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4
+SEQ, BATCH = 32, 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +52,68 @@ def pair(arch):
     jp = jm.init(jax.random.key(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
     return jm, jp, tm, tp, jax.jit(jm.prefill), jax.jit(jm.decode_step)
+
+
+@functools.lru_cache(maxsize=None)
+def train_pair(arch, zloss=0.0, remat="none"):
+    """(jitted JAX value_and_grad of loss_fn, JAX params, port model,
+    port params) for one smoke configuration, once per process."""
+    jm = j_build(j_smoke(j_get_arch(arch)),
+                 JRuntime(compute_dtype=jnp.float32, param_dtype=jnp.float32,
+                          remat="none", zloss=zloss))
+    tm = build_model(smoke_config(get_arch(arch)),
+                     Runtime(compute_dtype=torch.float32,
+                             param_dtype=torch.float32, remat=remat,
+                             zloss=zloss), device="cpu")
+    jp = jm.init(jax.random.key(0))
+    tp = trainable(params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg,
+                                   "cpu"))
+    vg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))
+    return vg, jp, tm, tp
+
+
+def train_batch(vocab, pack, seed=0):
+    """One reference batch (``make_batch``) of BATCH x SEQ tokens."""
+    return make_batch(DataConfig(vocab_size=vocab, seq_len=SEQ,
+                                 global_batch=BATCH, pack=pack), seed)
+
+
+def port_loss_grads(tm, tp, batch):
+    """The port's loss, metrics and gradient of every leaf of ``tp``."""
+    loss, metrics = tm.loss_fn(tp, to_device(batch, tm.device))
+    grads = torch.autograd.grad(loss, leaves(tp), allow_unused=True)
+    return loss, metrics, grads
+
+
+def hold_grads(tgrads, jgrads):
+    """Each port gradient leaf (None: zero) within GRAD_TOL of the JAX
+    leaf's largest magnitude."""
+    jl = jax.tree.leaves(jgrads)
+    assert len(tgrads) == len(jl)
+    for i, (t, j) in enumerate(zip(tgrads, jl)):
+        j = np.asarray(j)
+        t = np.zeros_like(j) if t is None else t.detach().numpy()
+        scale = max(float(np.abs(j).max()), 1e-12)
+        err = float(np.abs(t - j).max())
+        assert err <= GRAD_TOL * scale, (i, err, scale)
+
+
+def hold_loss_and_grads(vg, jp, tm, tp, batch):
+    """``loss_fn``'s value, every metric and every gradient leaf of the
+    port against ``jax.value_and_grad`` on one host batch (numpy
+    arrays); returns the port's metrics."""
+    (jloss, jmet), jgrads = vg(jp, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+    loss, metrics, grads = port_loss_grads(tm, tp, batch)
+    assert set(metrics) == set(jmet)
+    for k in metrics:
+        np.testing.assert_allclose(float(metrics[k].detach()),
+                                   float(jmet[k]), rtol=LOSS_RTOL,
+                                   atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=LOSS_RTOL)
+    hold_grads(grads, jgrads)
+    return metrics
 
 
 def _engine_key(eng):

@@ -4,6 +4,8 @@ JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -1406,16 +1408,23 @@ PLANE_SHAPE = dict(max_ctx=64, n_device_blocks=12, n_host_blocks=24,
                    swap_patience=2)
 
 
-def _graph_kernel_nodes(graph, name):
-    """Kernel nodes of a kept CUDA graph whose function name holds
-    ``name``, through libcuda (``chip_smoke.graph_nodes``)."""
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    """``chip_smoke.py`` as a module, for the helpers the tests share
+    with it."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.graph_nodes(graph, (name,))[1][name]
+    return smoke
+
+
+def _graph_kernel_nodes(graph, name):
+    """Kernel nodes of a kept CUDA graph whose function name holds
+    ``name``, through libcuda (``chip_smoke.graph_nodes``)."""
+    return _smoke().graph_nodes(graph, (name,))[1][name]
 
 
 @pytest.mark.parametrize("channels", [1, 2])
@@ -2244,18 +2253,22 @@ def test_train_step_flash_launch_counts(cuda):
 
 
 def test_scan_and_paged_refuse_grad(cuda):
-    """The kernels without a backward raise under autograd on the card
-    instead of returning a result that carries no gradient; under
-    no_grad they run."""
+    """The raw kernel wrappers without a backward raise under autograd
+    on the card instead of returning a result that carries no gradient
+    (the scan's raw forward wrapper too: only ``ops.mamba_chunk_scan``,
+    through ``MambaChunkScanFn``, differentiates it); under no_grad they
+    run."""
     from repro_torch.kernels import ops
     x = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
     dt = torch.rand((1, 64, 2), device=cuda)
     a = -torch.rand(2, device=cuda)
     bc = torch.randn((1, 64, 16), device=cuda)
-    with pytest.raises(NotImplementedError):
-        ops.mamba_chunk_scan(x, dt, a, bc, bc, torch.ones(2, device=cuda),
-                             chunk=32)
+    with pytest.raises(NotImplementedError, match="MambaChunkScanFn"):
+        mamba_chunk_scan(x, dt, a, bc, bc, torch.ones(2, device=cuda),
+                         chunk=32)
     with torch.no_grad():
+        mamba_chunk_scan(x, dt, a, bc, bc, torch.ones(2, device=cuda),
+                         chunk=32)
         ops.mamba_chunk_scan(x, dt, a, bc, bc, torch.ones(2, device=cuda),
                              chunk=32)
     q = torch.randn((2, 4, 16), device=cuda, requires_grad=True)
@@ -2268,3 +2281,124 @@ def test_scan_and_paged_refuse_grad(cuda):
     # the plain versions stay differentiable (impl="ref")
     out = ops.paged_attention(q, pool, pool, table, ctx, impl="ref")
     assert out.requires_grad
+
+
+# ---------------------------------------------------------------- the
+# scan's backward (training)
+def _scan_bwd_case(cuda, bt, s, h, p, n, dtype, init, dfinal):
+    """Inputs in mamba2's ranges (init_ssm's dt and A) and cotangents:
+    ((x, dt, A, B, C, D, dy, dfinal), the initial state or None), drawn
+    as the smoke draws them (``chip_smoke.scan_bwd_inputs``)."""
+    return _smoke().scan_bwd_inputs(bt, s, h, p, n, dtype, init, dfinal)
+
+
+def _hold_scan_grads(got, want, dtype):
+    """The smoke's gate (``chip_smoke.scan_grad_errs``): f32 each
+    gradient within 1e-4 of its max |value|; bf16 dx, dB, dC (rounded to
+    bf16) within 1e-2 of max(1, |want|) element by element, the f32
+    outputs within 1e-4 of their max; every gradient finite, None where
+    the plain version's is."""
+    share, worst = _smoke().scan_grad_errs(got, want, dtype)
+    assert share <= 1.0, (share, worst)
+
+
+@pytest.mark.parametrize("bt,s,h,p,n,init,dfinal", [
+    (2, 100, 4, 64, 16, False, False), (2, 100, 4, 64, 16, True, True),
+    (1, 64, 3, 80, 16, True, False), (2, 33, 2, 16, 16, False, True),
+    (1, 256, 4, 64, 128, False, False), (2, 130, 3, 64, 128, True, True),
+    (1, 1, 2, 64, 128, True, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_chunk_scan_bwd_kernel(cuda, bt, s, h, p, n, init, dfinal,
+                                     dtype):
+    """The backward kernel against ``mamba_chunk_scan_bwd_ref`` on the
+    same inputs, both d_states and dtypes, ragged S and P (80: two row
+    slices), with and without an initial state and dfinal; one count a
+    call (its two launches)."""
+    from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
+                                                mamba_chunk_scan_bwd_ref)
+    args, s0 = _scan_bwd_case(cuda, bt, s, h, p, n, dtype, init, dfinal)
+    n0 = COUNTERS.launches().get("mamba_chunk_scan_bwd", 0)
+    got = mamba_chunk_scan_bwd(*args, initial_state=s0)
+    assert COUNTERS.launches()["mamba_chunk_scan_bwd"] - n0 == 1
+    assert got[0].dtype == got[3].dtype == got[4].dtype == dtype
+    assert all(t.dtype == torch.float32 for t in got[1:3] + got[5:6])
+    want = mamba_chunk_scan_bwd_ref(*args, initial_state=s0)
+    _hold_scan_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_chunk_scan_bwd_repeats_bit_identical(cuda, dtype):
+    """mamba2's widths (H=64 P=64 N=128) at S=300: ten calls equal bit
+    for bit (a fixed-order reduction, no float atomics)."""
+    from repro_torch.kernels.mamba_scan import mamba_chunk_scan_bwd
+    args, s0 = _scan_bwd_case(cuda, 2, 300, 64, 64, 128, dtype, True, True)
+    first = mamba_chunk_scan_bwd(*args, initial_state=s0)
+    for _ in range(10):
+        again = mamba_chunk_scan_bwd(*args, initial_state=s0)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_chunk_scan_bwd_two_launches_a_call(cuda, n, dtype):
+    """One call captured in a CUDA graph holds two kernel nodes, the
+    scan and its fixed-order reduction, and nothing else that launches
+    a kernel; the counter takes one count a call."""
+    from repro_torch.kernels.mamba_scan import mamba_chunk_scan_bwd
+    args, s0 = _scan_bwd_case(cuda, 2, 100, 4, 64, n, dtype, True, True)
+    n0 = COUNTERS.launches().get("mamba_chunk_scan_bwd", 0)
+    _, names = _graph_kernels(
+        lambda: mamba_chunk_scan_bwd(*args, initial_state=s0))
+    assert COUNTERS.launches()["mamba_chunk_scan_bwd"] - n0 == 1
+    assert len(names) == 2, names
+    assert sum("mamba_scan_bwd_kernel<" in k for k in names) == 1, names
+    assert sum("mamba_scan_bwd_reduce<" in k for k in names) == 1, names
+
+
+def test_mamba_chunk_scan_grads_on_cuda_equal_cpu(cuda):
+    """``ops.mamba_chunk_scan`` under autograd on the card (forward
+    kernel, then the backward kernel through ``MambaChunkScanFn``)
+    against autograd of the plain scan on the CPU, f32 and bf16, with
+    the final state used."""
+    from repro_torch.kernels import ops
+    for dtype in (torch.float32, torch.bfloat16):
+        args, s0 = _scan_bwd_case(cuda, 2, 70, 3, 64, 16, dtype, True,
+                                  True)
+        x, dt, a, b, c, d, dy, df = args
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            leaves = [t.detach().to(dev).requires_grad_(True)
+                      for t in (x, dt, a, b, c, d, s0)]
+            n0 = COUNTERS.launches().get("mamba_chunk_scan_bwd", 0)
+            y, fin = ops.mamba_chunk_scan(*leaves[:6], chunk=32,
+                                          initial_state=leaves[6])
+            loss = (y.float() * dy.to(dev).float()).sum() + \
+                (fin * df.to(dev)).sum()
+            grads.append(torch.autograd.grad(loss, leaves))
+            n1 = COUNTERS.launches().get("mamba_chunk_scan_bwd", 0)
+            assert n1 - n0 == (1 if dev.type == "cuda" else 0)
+        _hold_scan_grads(grads[0], grads[1], dtype)
+
+
+def test_train_step_mamba_launch_counts(cuda):
+    """One smoke mamba2 train step on the card (bf16 compute): per layer
+    one scan forward launch, one more when the backward recomputes the
+    period under remat 'dots', and one backward launch; loss finite."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    cfg = smoke_config(get_arch("mamba2-1.3b"))
+    for remat, fwd_per_layer in (("dots", 2), ("none", 1)):
+        m = build_model(cfg, Runtime(remat=remat), device=cuda)
+        step, init = make_train_step(m, opt.AdamWConfig(lr=1e-3))
+        state = init(torch.Generator(device=cuda).manual_seed(0))
+        batch = make_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=128, global_batch=2), 0)
+        COUNTERS.reset()
+        state, metrics = step(state, batch)
+        n = COUNTERS.launches()
+        assert torch.isfinite(metrics["loss"])
+        assert n["mamba_chunk_scan"] == fwd_per_layer * cfg.n_layers
+        assert n["mamba_chunk_scan_bwd"] == cfg.n_layers

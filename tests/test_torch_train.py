@@ -27,7 +27,6 @@ from repro.training import optimizer as jopt  # noqa: E402
 from repro.training.train_loop import TrainState as JTrainState  # noqa: E402
 from repro.training.train_loop import make_train_step as j_make  # noqa: E402
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.convert import train_state_from_jax  # noqa: E402
 from repro_torch.data.pipeline import data_iter  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -38,70 +37,20 @@ from repro_torch.training.train_loop import (  # noqa: E402
     TrainerConfig, TrainState, make_train_step, to_device, train, trainable)
 from repro_torch.training.tree import leaves  # noqa: E402
 
-# float32 on both sides: the loss and every gradient leaf agree to
-# summation order (measured ~1e-6 relative); a gradient leaf is held
-# within GRAD_TOL of its own largest magnitude
-LOSS_RTOL = 1e-5
-GRAD_TOL = 1e-4
-SEQ, BATCH = 32, 4
-
-
-@functools.lru_cache(maxsize=None)
-def _pair(arch, zloss=0.0, remat="none"):
-    """(jitted JAX value_and_grad of loss_fn, JAX params, port model,
-    port params) for one smoke configuration, once per process."""
-    jm = j_build(j_smoke(j_get_arch(arch)),
-                 JRuntime(compute_dtype=jnp.float32, param_dtype=jnp.float32,
-                          remat="none", zloss=zloss))
-    tm = build_model(smoke_config(get_arch(arch)),
-                     Runtime(compute_dtype=torch.float32,
-                             param_dtype=torch.float32, remat=remat,
-                             zloss=zloss), device="cpu")
-    jp = jm.init(jax.random.key(0))
-    tp = trainable(params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg,
-                                   "cpu"))
-    vg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))
-    return vg, jp, tm, tp
-
-
-def _batch(vocab, pack, seed=0):
-    return make_batch(DataConfig(vocab_size=vocab, seq_len=SEQ,
-                                 global_batch=BATCH, pack=pack), seed)
-
-
-def _port_loss_grads(tm, tp, batch):
-    loss, metrics = tm.loss_fn(tp, to_device(batch, tm.device))
-    grads = torch.autograd.grad(loss, leaves(tp), allow_unused=True)
-    return loss, metrics, grads
-
-
-def _hold_grads(tgrads, jgrads):
-    for i, (t, j) in enumerate(zip(tgrads, jax.tree.leaves(jgrads))):
-        j = np.asarray(j)
-        t = np.zeros_like(j) if t is None else t.detach().numpy()
-        scale = max(float(np.abs(j).max()), 1e-12)
-        err = float(np.abs(t - j).max())
-        assert err <= GRAD_TOL * scale, (i, err, scale)
-
+from _torch_pairs import BATCH, LOSS_RTOL, SEQ  # noqa: E402
+from _torch_pairs import hold_loss_and_grads  # noqa: E402
+from _torch_pairs import train_batch as _batch  # noqa: E402
+from _torch_pairs import train_pair as _pair  # noqa: E402
 
 @pytest.mark.parametrize("arch,pack,zloss", [
     ("llama3.2-1b", True, 0.0), ("llama3.2-1b", False, 0.0),
     ("gemma2-9b", True, 0.0), ("llama3.2-1b", True, 1e-4)])
 def test_loss_and_grads_match_jax(arch, pack, zloss):
     vg, jp, tm, tp = _pair(arch, zloss)
-    batch = _batch(tm.cfg.vocab_size, pack)
-    (jloss, jmet), jgrads = vg(jp, {k: jnp.asarray(v)
-                                    for k, v in batch.items()})
-    loss, metrics, grads = _port_loss_grads(tm, tp, batch)
-    assert set(metrics) == set(jmet)
-    for k in metrics:
-        np.testing.assert_allclose(float(metrics[k].detach()),
-                                   float(jmet[k]), rtol=LOSS_RTOL,
-                                   atol=1e-7, err_msg=k)
-    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    metrics = hold_loss_and_grads(vg, jp, tm, tp,
+                                  _batch(tm.cfg.vocab_size, pack))
     if zloss:
         assert float(metrics["zloss"]) > 0
-    _hold_grads(grads, jgrads)
 
 
 def test_moe_loss_and_aux_match_jax():
@@ -240,6 +189,26 @@ def test_grad_accum_equivalence():
     for a, b in zip(leaves(outs[0]), leaves(outs[1])):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("ga", [1, 2])
+def test_train_step_phase_marks(ga):
+    """``on_phase`` marks the step's phases in order (forward and
+    backward once a micro-batch, then optimizer and end), and a step
+    with the hook equals one without it bit for bit."""
+    tm = _pair("llama3.2-1b")[2]
+    cfg = opt.AdamWConfig(lr=1e-3)
+    batch = make_batch(DataConfig(vocab_size=tm.cfg.vocab_size, seq_len=32,
+                                  global_batch=4, pack=False), 0)
+    marks, outs = [], []
+    for hook in (None, marks.append):
+        step, _ = make_train_step(tm, cfg, grad_accum=ga, on_phase=hook)
+        st, met = step(opt_state_of(_fresh(tm)), batch)
+        outs.append((st.params, float(met["loss"])))
+    assert marks == ["forward", "backward"] * ga + ["optimizer", "end"]
+    assert outs[0][1] == outs[1][1]
+    for a, b in zip(leaves(outs[0][0]), leaves(outs[1][0])):
+        assert torch.equal(a, b)
 
 
 def opt_state_of(params):

@@ -12,7 +12,8 @@ Each positional argument is the root of a checkout (its chip_smoke.py
 and src/). ``--kernels`` names the checks to run, comma-separated
 (default: paged_attention,flash_attention): each is chip_smoke.py's
 ``check_<name>``, which holds the kernel against its plain version and
-times it. A check that returns a tuple (the attention shapes' and the
+times it (given, by its parameters' names, the timer, a seeded numpy
+generator and nvcc's build logs). A check that returns a tuple (the attention shapes' and the
 backward's) gives its first element, the row of the kernel it names;
 a checkout without a check prints it under ``missing``. Each run is a
 process of its own: it builds the kernels those checks run from that
@@ -46,7 +47,8 @@ sources = {"mamba_chunk_scan": ["mamba_scan"],
            "attention_served": ["flash_attention", "paged_attention"],
            "attention_d256": ["flash_attention", "paged_attention"],
            "flash_segments": ["flash_attention"],
-           "flash_attention_bwd": ["flash_attention", "flash_attention_bwd"]}
+           "flash_attention_bwd": ["flash_attention", "flash_attention_bwd"],
+           "mamba_chunk_scan_bwd": ["mamba_scan_bwd"]}
 have = [n for n in names if hasattr(cs, "check_" + n)]
 build = sorted({src for n in have for src in sources.get(n, [n])})
 logs = _build.build_all(tuple(build))
@@ -57,10 +59,10 @@ rng = np.random.default_rng(cs.SEED)
 keys = re.compile(r"^(name|(first_version_)?(ms|ns_per_step)|plain_ms|"
                   r"library_ms|bound_ms|max_abs_err|err|steps)(_.*)?$")
 rows = []
+args = {"timer": timer, "rng": rng, "logs": logs}
 for name in have:
     check = getattr(cs, "check_" + name)
-    args = [timer, rng]
-    r = check(*args[:len(inspect.signature(check).parameters)])
+    r = check(*(args[p] for p in inspect.signature(check).parameters))
     if isinstance(r, tuple):
         r = r[0]
     rows.append(dict({k: v for k, v in r.items() if keys.match(k)},

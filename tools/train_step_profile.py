@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where one training step's time goes, on the card:
+
+    python3 tools/train_step_profile.py [--arch mamba2-1.3b] [--top 30]
+                                        [--runs K]
+
+``--runs K`` first repeats ``chip_smoke.train_run`` (the smoke's whole
+30-step run with its gates) K times in this process and prints each
+run's step median, tokens/s, mfu and peak memory: the spread of the
+smoke's figure on one tree.
+
+Builds the architecture at published widths and full depth as
+``chip_smoke.py``'s train runs do (bf16 compute, f32 parameters and
+AdamW moments, seeded weights, remat 'dots', one packed 8 x 1024 batch
+of ``chip_smoke.train_batch``), takes three warm-up steps, then:
+
+- times the forward (``loss_fn``), the backward (``autograd.grad``) and
+  the optimizer (``adamw_update``) of two more steps with CUDA events
+  recorded at the phase marks of the step itself (``make_train_step``'s
+  ``on_phase``), the step ``chip_smoke.py``'s train runs time;
+- profiles one whole step with ``torch.profiler`` and prints the
+  ``--top`` rows by self device time (ms and calls), then by self host
+  time.
+
+Prints the card's name and power limit first, then one JSON line of the
+event times, then the tables. The profiler's own cost is in its step
+(its wall time is printed beside); its device times are per kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=cs.TRAIN_SSM["arch"])
+    ap.add_argument("--top", type=int, default=30)
+    ap.add_argument("--runs", type=int, default=0)
+    a = ap.parse_args(argv)
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+    cs._setup()
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    spec = next(s for s in (cs.TRAIN, cs.TRAIN_SSM) if s["arch"] == a.arch)
+    for i in range(a.runs):
+        line = cs.train_run(spec)
+        print(json.dumps({"run": i, **{k: line[k] for k in (
+            "arch", "step_ms_median", "tokens_per_s", "mfu",
+            "peak_mem_gib")}}), flush=True)
+    cfg = get_arch(a.arch)
+    model = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
+                                     param_dtype=torch.float32,
+                                     remat="dots"), device="cuda")
+    ocfg = opt.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup_steps"],
+                           decay_steps=spec["decay_steps"])
+    marks = []                      # (phase, event) while timing
+
+    def on_phase(name):
+        if timing:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+    timing = False
+    step, init = make_train_step(model, ocfg, on_phase=on_phase)
+    state = init(torch.Generator(device="cuda").manual_seed(cs.SEED))
+    batch = cs.train_batch(0, spec)
+    for _ in range(3):
+        state, met = step(state, batch)
+        float(met["loss"])
+    times = []
+    for _ in range(2):
+        marks.clear()
+        timing = True
+        state, met = step(state, batch)
+        timing = False
+        float(met["loss"])
+        torch.cuda.synchronize()
+        times.append({f"{name}_ms": ev.elapsed_time(nxt)
+                      for (name, ev), (_, nxt) in zip(marks, marks[1:])})
+    print(json.dumps({"arch": a.arch, "events": times}), flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"profiled step: {wall * 1e3:.1f} ms wall", flush=True)
+    ka = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    print("by self device time (ms, calls, name):")
+    for e in sorted(ka, key=lambda e: -dev(e))[:a.top]:
+        print(f"{dev(e) / 1e3:10.3f} {e.count:7d}  {e.key[:100]}")
+    print("by self host time (ms, calls, name):")
+    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:a.top]:
+        print(f"{e.self_cpu_time_total / 1e3:10.3f} {e.count:7d}  "
+              f"{e.key[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
