@@ -81,8 +81,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                scan (f32: 1e-4 of each gradient's max; bf16: dx, dB, dC
                within 1e-2 of max(1, |want|) element by element, the f32
                outputs 1e-4), a repeat bit for bit, one count a call
-               (two launches); timed beside the plain version, with its
-               registers. Times the kernel,
+               (three launches on the bf16 tensor-core body, two on the
+               f32 first version, read from a CUDA graph of one call);
+               timed beside the plain version, with its registers and
+               the scratch one call holds (read from the allocator).
+               Times the kernel,
                the plain version, the bound and the PyTorch library
                call where one exists (for the scan also its blocked
                plain version, the kernel's arithmetic in many calls).
@@ -2086,18 +2089,42 @@ def scan_grad_errs(got, want, dtype):
     return share, worst
 
 
-def graph_kernel_launches(fn, name):
-    """(kernel nodes, those whose function name holds ``name``) of one
-    ``fn()`` captured into a kept CUDA graph after an eager call: the
-    kernels one call launches, read through libcuda (``graph_nodes``);
-    the capture's counts are taken back out (``macro.capture``)."""
+def graph_kernel_launches(fn, names):
+    """(kernel nodes, {name: those whose function name holds it} for
+    each of ``names``) of one ``fn()`` captured into a kept CUDA graph
+    after an eager call: the kernels one call launches, read through
+    libcuda (``graph_nodes``); the capture's counts are taken back out
+    (``macro.capture``)."""
     from repro_torch.serving.macro import capture
     fn()
     torch.cuda.synchronize()
     graph, _ = capture(fn)
-    types, named = graph_nodes(graph, (name,))
+    types, named = graph_nodes(graph, names)
     del graph
-    return types.get("kernel", 0), named[name]
+    return types.get("kernel", 0), named
+
+
+# the kernels one scan backward call launches, by route: bf16 with P <=
+# 64 takes the tensor-core body (the walk, the chunk-local gradients and
+# the fixed-order reduction), f32 and bf16 at P > 64 the first version
+# (its scan and its reduction)
+SCAN_BWD_TC_KERNELS = ("mamba_scan_bwd_walk", "mamba_scan_bwd_grads",
+                       "mamba_scan_bwd_tc_reduce")
+SCAN_BWD_FIRST_KERNELS = ("mamba_scan_bwd_kernel", "mamba_scan_bwd_reduce")
+
+
+def scan_bwd_scratch_bytes(fn):
+    """Bytes one ``fn()`` holds beyond what it returns, read from the
+    caching allocator: its peak after ``reset_peak_memory_stats`` less
+    what stays allocated once the call has returned (for the scan's
+    backward, the scratch the wrapper allocates and frees)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    del out
+    return held
 
 
 def check_mamba_chunk_scan_bwd(timer, logs):
@@ -2109,13 +2136,15 @@ def check_mamba_chunk_scan_bwd(timer, logs):
     bf16 rounding is ~4e-3 of that, tools/mamba_scan_bwd_host_check.py;
     this is tighter than the scan forward's 8e-2 scaled by max(1, max
     |want|)) and its f32 outputs within 1e-4; a repeat bit for bit; one
-    count a call, and two kernel launches a call (the scan and its
-    fixed-order reduction), read from the nodes of the call captured in
-    a CUDA graph (``launches_per_call``). At the training shape in bf16
-    it is timed beside the plain version and its bound: bytes of x, dy,
-    dx, B, C, dB, dC (bf16), dt and ddt (f32) once, or 10 Bt S H P N
-    flops (twice the forward's 5) at the bf16 peak. Returns the kernel's
-    row."""
+    count a call, and exactly the kernels of its route a call, one node
+    each and no other (SCAN_BWD_TC_KERNELS for bf16 with P <= 64,
+    SCAN_BWD_FIRST_KERNELS otherwise), read from the nodes of the call
+    captured in a CUDA graph (``launches_per_call``, by shape and dtype).
+    At the training shape in bf16 it is timed beside the plain version
+    and its bound (bytes of x, dy, dx, B, C, dB, dC (bf16), dt and ddt
+    (f32) once, or 10 Bt S H P N flops, twice the forward's 5, at the
+    bf16 peak), and the scratch one call holds is read from the
+    allocator (``scan_bwd_scratch_bytes``). Returns the kernel's row."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
                                                 mamba_chunk_scan_bwd_ref)
@@ -2128,7 +2157,7 @@ def check_mamba_chunk_scan_bwd(timer, logs):
                             "kernel has no backward)",
            "registers": {e["kernel"]: e.get("registers") for e in
                          ptxas_resources(logs, ("mamba_scan_bwd",))}}
-    per_call = set()
+    per_call = {}
     for tag, bt, s, h, p, n, dts, init in SCAN_BWD_SHAPES:
         for dt_name in dts:
             dtype = SCAN_BWD_DTYPES[dt_name]
@@ -2143,14 +2172,16 @@ def check_mamba_chunk_scan_bwd(timer, logs):
                 fail(f"mamba_chunk_scan_bwd {tag} {dt_name}: repeat "
                      "differs")
             del again
+            parts = (SCAN_BWD_TC_KERNELS if dtype == torch.bfloat16 and
+                     p <= 64 else SCAN_BWD_FIRST_KERNELS)
             kernels, named = graph_kernel_launches(
                 lambda: mamba_chunk_scan_bwd(*args, initial_state=s0),
-                "mamba_scan_bwd")
-            if kernels != 2 or named != 2:
+                parts)
+            if kernels != len(parts) or any(v != 1 for v in named.values()):
                 fail(f"mamba_chunk_scan_bwd {tag} {dt_name}: a call "
-                     f"launches {kernels} kernels ({named} of its own), "
-                     "not 2")
-            per_call.add(kernels)
+                     f"launches {kernels} kernels ({named}), not one each "
+                     f"of {parts}")
+            per_call[f"{tag}_{dt_name}"] = kernels
             want = mamba_chunk_scan_bwd_ref(*args, initial_state=s0)
             share, worst = scan_grad_errs(got, want, dtype)
             if share > 1.0:
@@ -2171,11 +2202,13 @@ def check_mamba_chunk_scan_bwd(timer, logs):
                     plain_ms=timer.ms(lambda: mamba_chunk_scan_bwd_ref(
                         *fwd_args, dy), iters=3, warmup=1),
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    max_abs_err=row["max_abs_err_train_bf16"])
+                    max_abs_err=row["max_abs_err_train_bf16"],
+                    scratch_bytes_train=scan_bwd_scratch_bytes(
+                        lambda: mamba_chunk_scan_bwd(*fwd_args, dy)))
                 del fwd_args, dy
             del args, s0
             free_engine()
-    row["launches_per_call"] = per_call.pop()
+    row["launches_per_call"] = per_call
     row["shape"] = "; ".join(
         f"{t}: Bt={bt} S={s} H={h} P={p} N={n} {'/'.join(d)}"
         f"{' with initial state and dfinal' if i else ''}"
@@ -2184,8 +2217,10 @@ def check_mamba_chunk_scan_bwd(timer, logs):
         "gradient's error over its tolerance, 1e-4 of its max |want| or, "
         "for bf16 dx / dB / dC, 1e-2 of max(1, |want|) element by element; "
         "max_abs_err_*: max |got - want|; launches / launches_train count "
-        "calls, each of which launches launches_per_call kernels, read "
-        "from the kernel nodes of one call captured in a CUDA graph)")
+        "calls, each of which launches launches_per_call[<shape>_<dtype>] "
+        "kernels, read from the kernel nodes of one call captured in a "
+        "CUDA graph; scratch_bytes_train: the allocator's peak during one "
+        "train-shape call less what it holds after)")
     return row
 
 
@@ -5298,6 +5333,7 @@ def main() -> int:
     print(smi)
     # comparisons some rows carry
     extra = ("plain_blocked_ms", "first_version_ms", "floor_ms", "steps",
+             "scratch_bytes_train",
              "ns_per_step", "first_version_ns_per_step") + tuple(
                  f"{k}_hit_heavy" for k in (
                      "ms", "first_version_ms", "plain_ms", "bound_ms",

@@ -23,12 +23,16 @@ beyond rounding. A CPU tensor takes the plain version
 kernel or raises.
 
 The gradient, which the reference takes with ``jax.grad`` through its
-blocked lowering: ``mamba_chunk_scan_bwd`` runs the backward kernel (a
-scan over the chunks of each (batch, head) that recomputes the states
-entering them, then a fixed-order sum of its per-head partials of dB,
-dC, ddt, dA and dD: two launches a call, bit-identical on repeat) and
-``MambaChunkScanFn`` carries both kernels under autograd. The raw
-``mamba_chunk_scan`` still raises under autograd on a CUDA tensor;
+blocked lowering: ``mamba_chunk_scan_bwd`` runs the backward kernel and
+``MambaChunkScanFn`` carries both kernels under autograd. bf16 with P <=
+64 (training) runs the chunk-parallel tensor-core body in three
+launches: a walk that writes each 64-token chunk's entry state and its
+adjoint, the chunk-local gradients of a group of eight heads a block
+(dB and dC summed over the group inside it), and a fixed-order sum of
+the partials. f32 (and bf16 at P > 64) runs the first version, a scan
+over the chunks of each (batch, head) on the CUDA cores and a
+fixed-order sum of its per-head partials: two launches. Both are
+bit-identical on repeat. The raw ``mamba_chunk_scan`` still raises under autograd on a CUDA tensor;
 ``ops.mamba_chunk_scan`` sends such a call through the Function.
 """
 from __future__ import annotations
@@ -57,6 +61,13 @@ _BWD_ARGTYPES = [_P] * 17 + [_I] * 6 + [_P]
 __all__ = ["mamba_chunk_scan", "mamba_chunk_scan_ref", "mamba_chunk_scan_bwd",
            "mamba_chunk_scan_bwd_ref", "MambaChunkScanFn", "LAUNCHES",
            "BWD_LAUNCHES"]
+
+
+def _bwd_lib():
+    lib = _build.load("mamba_scan_bwd", _BWD_ARGTYPES)
+    lib.mamba_scan_bwd_workspace.argtypes = [_I] * 6
+    lib.mamba_scan_bwd_workspace.restype = ctypes.c_longlong
+    return lib
 
 
 def _check(x, dt, A, B, C, D, initial_state, name):
@@ -126,10 +137,9 @@ def mamba_chunk_scan_bwd(x, dt, A, B, C, D, dy, dfinal=None, *,
     [Bt,S,H,P] (x's dtype) and ``dfinal`` [Bt,H,P,N] f32 (None: zero) ->
     (dx, ddt, dA, dB, dC, dD, dinitial_state): dx, dB, dC in x's dtype,
     the rest f32, dinitial_state None without an initial state. A CUDA
-    tensor runs the backward kernel (its scan, then the fixed-order
-    reduction: two launches, one count), a CPU tensor
-    ``mamba_chunk_scan_bwd_ref``. Deterministic: repeated calls are
-    bit-identical."""
+    tensor runs the backward kernel (three launches on the bf16
+    tensor-core body, two on the first version; one count), a CPU tensor ``mamba_chunk_scan_bwd_ref``. Deterministic:
+    repeated calls are bit-identical."""
     if x.device.type == "cpu":
         return mamba_chunk_scan_bwd_ref(x, dt, A, B, C, D, dy, dfinal,
                                         initial_state=initial_state)
@@ -154,15 +164,14 @@ def mamba_chunk_scan_bwd(x, dt, A, B, C, D, dy, dfinal=None, *,
                    else ds0.zero_())
         return (dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_(),
                 dD.zero_(), ds0)
-    lib = _build.load("mamba_scan_bwd", _BWD_ARGTYPES)
-    lib.mamba_scan_bwd_workspace.argtypes = [_I] * 5   # scratch bytes
-    lib.mamba_scan_bwd_workspace.restype = ctypes.c_longlong
-    ws = torch.empty(lib.mamba_scan_bwd_workspace(bt, s, h, p, n) // 4,
+    lib = _bwd_lib()
+    code = _build.DTYPE_CODES[x.dtype]
+    ws = torch.empty(lib.mamba_scan_bwd_workspace(bt, s, h, p, n, code) // 4,
                      dtype=f32, device=dev)
     err = lib.mamba_scan_bwd_launch(
         *(_ptr(t) for t in (x, dt, A, B, C, D, initial_state, dy, dfinal,
                             dx, ds0, dB, dC, ddt, dA, dD, ws)),
-        bt, s, h, p, n, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+        bt, s, h, p, n, code, _build.stream_ptr(x))
     _build.check(lib, "mamba_chunk_scan_bwd", err)
     BWD_LAUNCHES[0] += 1
     return dx, ddt, dA, dB, dC, dD, ds0

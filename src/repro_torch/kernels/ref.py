@@ -458,32 +458,66 @@ def mamba_chunk_scan_bwd_ref(x, dt, A, B, C, D, dy, dfinal=None, *,
     return tuple(grads[:6]) + (grads[6] if s0 is not None else None,)
 
 
+SCAN_BWD_GROUP = 8     # heads a gradient block of the bf16 backward kernel
+
+
 def mamba_chunk_scan_bwd_blocked(x, dt, A, B, C, D, dy, dfinal=None, *,
-                                 initial_state=None, chunk=32):
+                                 initial_state=None, chunk=64):
     """``mamba_chunk_scan_bwd_ref`` in the backward kernel's arithmetic
     (float32), for the tests: S is cut into chunks of ``chunk`` tokens
-    (rows past S are zero, dt = 0: decay 1, no input, no gradient).
+    (rows past S are zero, dt = 0: decay 1, no input, no gradient). The
+    default, 64, is the bf16 tensor-core body's chunk; the f32 first
+    version walks chunks of 32, which changes the result only by
+    rounding.
     With c_i the inclusive cumulative sum of the log-decays dt A inside a
     chunk, a chunk maps its entry state S0 to
       y_i   = e^{c_i} C_i S0^T + sum_{j<=i} e^{c_i-c_j} dt_j (C_i.B_j) x_j
               + D x_i,
-      S_end = e^{c_L} S0 + sum_j e^{c_L-c_j} dt_j x_j B_j^T.
-    A first pass runs the states entering each chunk forward; a second
-    walks the chunks in reverse, carrying G = dS_end (``dfinal`` at the
-    end), and per chunk forms dx, dB, dC, the direct dt term, the
-    gradient dc_i of each c_i (from the off-diagonal term, the pairs j
-    <= i as +row / -column sums, the state update) and its reverse
-    cumulative sum dl (the log-decays' gradient: ddt += A dl, dA +=
-    sum dt dl), then G = e^{c_L} G + sum_i e^{c_i} dy_i^T C_i; dS0 of
-    the first chunk is dinitial_state. Pairs above the diagonal get
-    weight 0 (never an exponential of a positive number). Returns what
-    ``mamba_chunk_scan_bwd_ref`` returns."""
+      S_end = e^{c_L} S0 + T,  T = sum_j e^{c_L-c_j} dt_j x_j B_j^T.
+    Three passes, as the kernel's launches (the chunked SSD form of
+    arXiv:2405.21060 section 6 applied to the backward):
+    1. chunk-local, every chunk at once: T_c and U_c = sum_i e^{c_i}
+       dy_i^T C_i, the chunk's share of the adjoint;
+    2. the passing, elementwise along the chunks: the state entering
+       chunk c, S0_{c+1} = e^{c_L} S0_c + T_c from the initial state, and
+       G_c = dL/dS_end of chunk c, G_{c-1} = e^{c_L} G_c + U_c from
+       ``dfinal``; what G_{-1} reaches is dinitial_state;
+    3. chunk-local gradients from S0_c and G_c: dx, the direct dt term,
+       the gradient dc_i of each c_i (the off-diagonal term, the pairs
+       j <= i as +row / -column sums, the chunk end's e^{c_L} <G, S0> and
+       sum_j dt_j F_j) and its reverse cumulative sum dl (ddt += A dl, dA
+       += sum dt dl); dB and dC summed over each group of
+       SCAN_BWD_GROUP heads in head order, the weighted pairs A2 = w dt_j
+       dy_i.x_j of a group summed before their products with B and C,
+       then the groups in order (the kernel's partials and its
+       fixed-order reduction).
+    Pairs above the diagonal get weight 0 (never an exponential of a
+    positive number). Returns what ``mamba_chunk_scan_bwd_ref``
+    returns."""
+    return scan_bwd_passes(x, dt, A, B, C, D, dy, dfinal,
+                           initial_state=initial_state, chunk=chunk)
+
+
+def _exact(operand, t):
+    return t
+
+
+def scan_bwd_passes(x, dt, A, B, C, D, dy, dfinal=None, *,
+                    initial_state=None, chunk=64, made=_exact):
+    """``mamba_chunk_scan_bwd_blocked``'s passes, each operand that the
+    bf16 kernel makes in f32 passed through ``made(operand, t)`` before
+    the product that takes it: "walk" (x_j e^{c_L-c_j} dt_j and dy_i
+    e^{c_i}, into T_c and U_c), "states" (S0_c and G_c, into dy S0, x G
+    and B G^T), "a1" (A1, into A1^T dy) and "a2" (a group's sum of A2,
+    into A2 B and A2^T C). The identity by default; a rounding there
+    emulates the kernel's operands (``tools/mamba_scan_bwd_rounding.py``)."""
     bt, s, h, p = x.shape
     n = B.shape[-1]
     ft = _wide(x).dtype                 # float32, float64 for float64
     q = chunk
     nc = max(1, -(-s // q))
     pad = nc * q - s
+    dev = x.device
 
     def chunks(t):       # [bt, s, ...] -> [bt, nc, q, ...] in ft, zero pad
         t = t.to(ft)
@@ -493,66 +527,73 @@ def mamba_chunk_scan_bwd_blocked(x, dt, A, B, C, D, dy, dfinal=None, *,
     xc, dyc, dtc = chunks(x), chunks(dy), chunks(dt)    # [bt,nc,q,h(,p)]
     bc, cc = chunks(B), chunks(C)                       # [bt,nc,q,n]
     af = A.to(ft)
-    cum = torch.cumsum(dtc * af, dim=2)                 # [bt,nc,q,h]
-    idx = torch.arange(q, device=x.device)
-    lower = idx[:, None] >= idx[None, :]                # j <= i
+    ce = torch.cumsum(dtc * af, dim=2).transpose(2, 3)  # [bt,nc,h,q]
+    dtj = dtc.transpose(2, 3)                           # [bt,nc,h,q]
+    e_end = torch.exp(ce[..., -1:] - ce)                # e^{c_L - c_j}
+    e_in = torch.exp(ce)                                # e^{c_i}
+    e_last = torch.exp(ce[..., -1])                     # [bt,nc,h]
+
+    # 1. chunk-local T_c and U_c
+    xw = made("walk", xc * (e_end * dtj).transpose(2, 3)[..., None])
+    dye = made("walk", dyc * e_in.transpose(2, 3)[..., None])
+    t_loc = torch.einsum("bcjhp,bcjn->bchpn", xw, bc)
+    u_loc = torch.einsum("bcihp,bcin->bchpn", dye, cc)
+    # 2. the passing
     state = (initial_state.to(ft) if initial_state is not None else
-             torch.zeros((bt, h, p, n), dtype=ft, device=x.device))
-    entry = []
-    for c in range(nc):
-        entry.append(state)
-        ce = cum[:, c]                                  # [bt,q,h]
-        w = torch.exp(ce[:, -1:] - ce) * dtc[:, c]      # [bt,q,h]
-        state = torch.exp(ce[:, -1])[..., None, None] * state + \
-            torch.einsum("bjh,bjhp,bjn->bhpn", w, xc[:, c], bc[:, c])
+             torch.zeros((bt, h, p, n), dtype=ft, device=dev))
     g = (dfinal.to(ft) if dfinal is not None else
-         torch.zeros((bt, h, p, n), dtype=ft, device=x.device))
-    dx = torch.zeros((bt, nc, q, h, p), dtype=ft, device=x.device)
-    ddt = torch.zeros((bt, nc, q, h), dtype=ft, device=x.device)
-    dB = torch.zeros((bt, nc, q, n), dtype=ft, device=x.device)
-    dC = torch.zeros_like(dB)
-    dA = torch.zeros((h,), dtype=ft, device=x.device)
+         torch.zeros((bt, h, p, n), dtype=ft, device=dev))
+    s0s, gs = [], [None] * nc
+    for c in range(nc):
+        s0s.append(state)
+        state = e_last[:, c, :, None, None] * state + t_loc[:, c]
     for c in reversed(range(nc)):
-        s0 = entry[c]
-        ce = cum[:, c].transpose(1, 2)                  # [bt,h,q]
-        dtj = dtc[:, c].transpose(1, 2)                 # [bt,h,q]
-        xs, dys = xc[:, c], dyc[:, c]                   # [bt,q,h,p]
-        bs, cs = bc[:, c], cc[:, c]                     # [bt,q,n]
-        diff = torch.clamp(ce[..., :, None] - ce[..., None, :], max=0.0)
-        wgt = torch.where(lower, torch.exp(diff),
-                          torch.zeros_like(diff))       # [bt,h,i,j]
-        cb = torch.einsum("bin,bjn->bij", cs, bs)[:, None]
-        dyx = torch.einsum("bihp,bjhp->bhij", dys, xs)
-        a1 = wgt * cb                                   # dx's weights
-        a2 = wgt * dtj[..., None, :] * dyx              # dB's, dC's
-        r = a1 * dyx                                    # direct dt terms
-        m = r * dtj[..., None, :]                       # dc's pairs
-        gb = torch.einsum("bhpn,bjn->bhjp", g, bs)      # G B_j
-        xg = torch.einsum("bjhp,bhpn->bhjn", xs, g)     # x_j^T G
-        dys0 = torch.einsum("bihp,bhpn->bhin", dys, s0)  # dy_i^T S0
-        e_end = torch.exp(ce[..., -1:] - ce)            # [bt,h,q]
-        e_in = torch.exp(ce)
-        dx[:, c] = (dtj[..., None] * (
-            torch.einsum("bhij,bihp->bhjp", a1, dys) +
-            e_end[..., None] * gb)).transpose(1, 2) + \
-            dys * D.to(ft)[None, None, :, None]
-        dC[:, c] = torch.einsum("bhi,bhin->bin", e_in, dys0) + \
-            torch.einsum("bhij,bjn->bin", a2, bs)
-        dB[:, c] = torch.einsum("bhij,bin->bjn", a2, cs) + \
-            torch.einsum("bhj,bhjn->bjn", e_end * dtj, xg)
-        f = e_end * torch.einsum("bjhp,bhjp->bhj", xs, gb)
-        direct = r.sum(2) + f                           # [bt,h,q]
-        off = e_in * torch.einsum("bhin,bin->bhi", dys0, cs)
-        strict = lower & ~torch.eye(q, dtype=torch.bool, device=x.device)
-        ms = torch.where(strict, m, torch.zeros_like(m))
-        dc = off + ms.sum(3) - ms.sum(2) - dtj * f
-        dc[..., -1] += torch.exp(ce[..., -1]) * (g * s0).sum((2, 3)) + \
-            (dtj * f).sum(2)
-        dl = torch.flip(torch.cumsum(torch.flip(dc, [2]), 2), [2])
-        ddt[:, c] = (direct + af[None, :, None] * dl).transpose(1, 2)
-        dA += (dtj * dl).sum((0, 2))
-        g = torch.exp(ce[..., -1])[..., None, None] * g + torch.einsum(
-            "bhi,bihp,bin->bhpn", e_in, dys, cs)
+        gs[c] = g
+        g = e_last[:, c, :, None, None] * g + u_loc[:, c]
+    s0 = torch.stack(s0s, 1)                            # [bt,nc,h,p,n]
+    gc = torch.stack(gs, 1)
+    # 3. chunk-local gradients
+    idx = torch.arange(q, device=dev)
+    lower = idx[:, None] >= idx[None, :]                # j <= i
+    strict = idx[:, None] > idx[None, :]
+    diff = torch.clamp(ce[..., :, None] - ce[..., None, :], max=0.0)
+    wgt = torch.where(lower, torch.exp(diff), torch.zeros_like(diff))
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)[:, :, None]
+    dyx = torch.einsum("bcihp,bcjhp->bchij", dyc, xc)
+    a1 = wgt * cb                                       # dx's weights
+    a2 = wgt * dtj[..., None, :] * dyx                  # dB's, dC's
+    r = a1 * dyx                                        # direct dt terms
+    m = torch.where(strict, r * dtj[..., None, :], torch.zeros_like(r))
+    s0m, gm = made("states", s0), made("states", gc)
+    gb = torch.einsum("bchpn,bcjn->bchjp", gm, bc)      # G B_j
+    xg = torch.einsum("bcjhp,bchpn->bchjn", xc, gm)     # x_j^T G
+    dys0 = torch.einsum("bcihp,bchpn->bchin", dyc, s0m)  # dy_i^T S0
+    dx = (dtj[..., None] * (torch.einsum("bchij,bcihp->bchjp",
+                                         made("a1", a1), dyc) +
+                            e_end[..., None] * gb)).transpose(2, 3) + \
+        dyc * D.to(ft)[None, None, None, :, None]
+    f = e_end * torch.einsum("bcjhp,bchjp->bchj", xc, gb)
+    direct = r.sum(3) + f                               # [bt,nc,h,q]
+    off = e_in * torch.einsum("bchin,bcin->bchi", dys0, cc)
+    dc = off + m.sum(4) - m.sum(3) - dtj * f
+    dc[..., -1] += e_last * (gc * s0).sum((3, 4)) + (dtj * f).sum(3)
+    dl = torch.flip(torch.cumsum(torch.flip(dc, [3]), 3), [3])
+    ddt = (direct + af[None, None, :, None] * dl).transpose(2, 3)
+    dA = (dtj * dl).sum((0, 1, 3))
+    # dB, dC: each group of heads summed in head order, then the groups
+    group = SCAN_BWD_GROUP
+    ng = -(-h // group)
+    hp = ng * group - h
+
+    def grouped(t):      # [bt,nc,h,...] -> [bt,nc,ng,group,...], zero pad
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3) + (0, hp))
+        return t.reshape(bt, nc, ng, group, *t.shape[3:])
+    a2g = made("a2", grouped(a2).sum(3))                # [bt,nc,ng,i,j]
+    dc_part = grouped(e_in[..., None] * dys0).sum(3) + \
+        torch.einsum("bcgij,bcjn->bcgin", a2g, bc)
+    db_part = grouped((e_end * dtj)[..., None] * xg).sum(3) + \
+        torch.einsum("bcgij,bcin->bcgjn", a2g, cc)
+    dC, dB = dc_part.sum(2), db_part.sum(2)             # [bt,nc,q,n]
     dD = (dy.to(ft) * x.to(ft)).sum((0, 1, 3))
 
     def cut(t):

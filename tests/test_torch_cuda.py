@@ -2306,14 +2306,17 @@ def _hold_scan_grads(got, want, dtype):
     (2, 100, 4, 64, 16, False, False), (2, 100, 4, 64, 16, True, True),
     (1, 64, 3, 80, 16, True, False), (2, 33, 2, 16, 16, False, True),
     (1, 256, 4, 64, 128, False, False), (2, 130, 3, 64, 128, True, True),
-    (1, 1, 2, 64, 128, True, True)])
+    (1, 1, 2, 64, 128, True, True), (1, 200, 20, 48, 128, True, True),
+    (2, 70, 9, 20, 16, True, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_chunk_scan_bwd_kernel(cuda, bt, s, h, p, n, init, dfinal,
                                      dtype):
     """The backward kernel against ``mamba_chunk_scan_bwd_ref`` on the
-    same inputs, both d_states and dtypes, ragged S and P (80: two row
-    slices), with and without an initial state and dfinal; one count a
-    call (its two launches)."""
+    same inputs, both d_states and dtypes, ragged S and P (80: the bf16
+    first version's two row slices; 48 and 20 on the tensor-core body,
+    20 with element loads), more than one group of eight heads (the last
+    partial), with and without an initial state and dfinal; one count a
+    call."""
     from repro_torch.kernels.mamba_scan import (mamba_chunk_scan_bwd,
                                                 mamba_chunk_scan_bwd_ref)
     args, s0 = _scan_bwd_case(cuda, bt, s, h, p, n, dtype, init, dfinal)
@@ -2340,19 +2343,26 @@ def test_mamba_chunk_scan_bwd_repeats_bit_identical(cuda, dtype):
 
 @pytest.mark.parametrize("n", [16, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mamba_chunk_scan_bwd_two_launches_a_call(cuda, n, dtype):
-    """One call captured in a CUDA graph holds two kernel nodes, the
-    scan and its fixed-order reduction, and nothing else that launches
-    a kernel; the counter takes one count a call."""
+def test_mamba_chunk_scan_bwd_kernels_a_call(cuda, n, dtype):
+    """One call captured in a CUDA graph holds the kernel nodes of its
+    route and nothing else that launches a kernel: bf16 (P = 64) three,
+    the tensor-core body's walk, chunk-local gradients and fixed-order
+    reduction; f32 two, the first version's scan and its reduction. The
+    counter takes one count a call."""
     from repro_torch.kernels.mamba_scan import mamba_chunk_scan_bwd
     args, s0 = _scan_bwd_case(cuda, 2, 100, 4, 64, n, dtype, True, True)
     n0 = COUNTERS.launches().get("mamba_chunk_scan_bwd", 0)
     _, names = _graph_kernels(
         lambda: mamba_chunk_scan_bwd(*args, initial_state=s0))
     assert COUNTERS.launches()["mamba_chunk_scan_bwd"] - n0 == 1
-    assert len(names) == 2, names
-    assert sum("mamba_scan_bwd_kernel<" in k for k in names) == 1, names
-    assert sum("mamba_scan_bwd_reduce<" in k for k in names) == 1, names
+    if dtype == torch.bfloat16:
+        parts = ("mamba_scan_bwd_walk<", "mamba_scan_bwd_grads<",
+                 "mamba_scan_bwd_tc_reduce(")
+    else:
+        parts = ("mamba_scan_bwd_kernel<", "mamba_scan_bwd_reduce<")
+    assert len(names) == len(parts), names
+    for part in parts:
+        assert sum(part in k for k in names) == 1, (part, names)
 
 
 def test_mamba_chunk_scan_grads_on_cuda_equal_cpu(cuda):

@@ -1,17 +1,19 @@
 """The Mamba2 scan's gradient on the CPU: the port's plain versions of
 the backward kernel's function, ``mamba_chunk_scan_bwd_ref`` (autograd
 through the naive scan) and ``mamba_chunk_scan_bwd_blocked`` (the
-kernel's chunked arithmetic), against each other and against
-``jax.vjp`` through the reference's ``ref.mamba_chunk_scan_blocked``
+kernel's passes: chunk-local states, the passing, chunk-local gradients
+with dB and dC summed over groups of heads), against each other and
+against ``jax.vjp`` through the reference's ``ref.mamba_chunk_scan_blocked``
 and ``ref.mamba_chunk_scan_naive``, in float32 at small shapes: d_state
 16, with and without an initial state, a zero and a nonzero cotangent
 of the final state, S a multiple of the chunk and not, dt in
-``init_ssm``'s range and ten times it. Each gradient is held within
-1e-4 of its own largest magnitude. Also ``MambaChunkScanFn`` driven
-with the plain versions (against autograd of the plain forward, and
-``torch.autograd.gradcheck`` at a tiny float64 shape) and
-``ops.mamba_chunk_scan`` on the CPU differentiating the plain version.
-Inputs come from a numpy seed."""
+``init_ssm``'s range and ten times it; and at the tensor-core body's
+chunk of 64 (and 128) with more than one group of heads, the last one
+partial. Each gradient is held within 1e-4 of its own largest
+magnitude. Also ``MambaChunkScanFn`` driven with the plain versions
+(against autograd of the plain forward, and ``torch.autograd.gradcheck``
+at a tiny float64 shape) and ``ops.mamba_chunk_scan`` on the CPU
+differentiating the plain version. Inputs come from a numpy seed."""
 import math
 
 import numpy as np
@@ -116,10 +118,41 @@ def test_bwd_plain_versions_match_jax(case):
         _hold(blocked, want, f"blocked vs {fn.__name__}")
 
 
-@pytest.mark.parametrize("chunk", [8, 32])
+GROUP_CASES = [  # (bt, s, h, p, n, chunk, init, dfinal, dt_scale)
+    (1, 128, 10, 4, 16, 64, True, True, 1.0),
+    (2, 100, 17, 4, 16, 64, False, True, 10.0),
+    (1, 256, 9, 4, 16, 128, True, False, 1.0),
+    (1, 70, 9, 4, 32, 64, True, True, 1.0),
+]
+
+
+@pytest.mark.parametrize("case", GROUP_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_bwd_kernel_chunks_and_head_groups_match_jax(case):
+    """The blocked version at the tensor-core body's chunk (64; 128 as
+    the forward's) with dB and dC summed over groups of eight heads (two
+    or three groups, the last one partial) against jax.vjp through the
+    reference's blocked lowering (where S is a multiple of the chunk)
+    and naive scan, and against ``mamba_chunk_scan_bwd_ref``."""
+    bt, s, h, p, n, chunk, init, dfinal, dts = case
+    assert h > tref.SCAN_BWD_GROUP
+    arrs = _inputs(20 + GROUP_CASES.index(case), bt, s, h, p, n, init,
+                   dfinal, dts)
+    x, dt, a, b, c, d, dy, df, s0 = _torch(arrs)
+    got = tref.mamba_chunk_scan_bwd_blocked(
+        x, dt, a, b, c, d, dy, df, initial_state=s0, chunk=chunk)
+    ref = tref.mamba_chunk_scan_bwd_ref(x, dt, a, b, c, d, dy, df,
+                                        initial_state=s0)
+    _hold(got, ref, "blocked vs ref")
+    for fn in (jref.mamba_chunk_scan_blocked, jref.mamba_chunk_scan_naive):
+        _hold(got, _jax_grads(fn, arrs, chunk), f"blocked vs {fn.__name__}")
+
+
+@pytest.mark.parametrize("chunk", [8, 32, 64])
 def test_bwd_blocked_chunk_does_not_change_the_gradient(chunk):
-    """The blocked version's chunk (the kernel's is 32) changes the
-    result only by rounding: against the float64 autograd gradient."""
+    """The blocked version's chunk (the first version's is 32, the bf16
+    tensor-core body's 64, one ragged chunk here) changes the result
+    only by rounding: against the float64 autograd gradient."""
     arrs = _inputs(7, 2, 40, 2, 8, 16, True, True)
     t32 = _torch(arrs)
     want = tref.mamba_chunk_scan_bwd_ref(

@@ -20,7 +20,8 @@ process of its own: it builds the kernels those checks run from that
 checkout's csrc/ into the checkout's build/ and prints one JSON line:
 every timing and error key of each row (``ms``, ``plain_ms``,
 ``library_ms``, ``bound_ms``, ``max_abs_err``, fmmu_fsm's ``steps`` and
-``ns_per_step``, and their per-shape ``*_<tag>`` forms) and, from the
+``ns_per_step``, the scan backward's ``scratch_bytes_train`` and
+``launches_per_call``, and their per-shape ``*_<tag>`` forms) and, from the
 checkout's own ``ptxas_resources``,
 the registers, spills and static shared memory of every entry function
 it built (nvcc's -Xptxas -v; none when the checkout's build/ already
@@ -57,7 +58,8 @@ torch.manual_seed(cs.SEED)
 timer = cs.Timer()
 rng = np.random.default_rng(cs.SEED)
 keys = re.compile(r"^(name|(first_version_)?(ms|ns_per_step)|plain_ms|"
-                  r"library_ms|bound_ms|max_abs_err|err|steps)(_.*)?$")
+                  r"library_ms|bound_ms|max_abs_err|err|steps|"
+                  r"scratch_bytes|launches_per_call)(_.*)?$")
 rows = []
 args = {"timer": timer, "rng": rng, "logs": logs}
 for name in have:

@@ -6,8 +6,9 @@
 
 ``--runs K`` first repeats ``chip_smoke.train_run`` (the smoke's whole
 30-step run with its gates) K times in this process and prints each
-run's step median, tokens/s, mfu and peak memory: the spread of the
-smoke's figure on one tree.
+run's step median, the spread of its steps (min, quartiles, max),
+tokens/s, mfu, peak memory, first and last loss and the scan and flash
+kernels' launches: the spread of the smoke's figure on one tree.
 
 Builds the architecture at published widths and full depth as
 ``chip_smoke.py``'s train runs do (bf16 compute, f32 parameters and
@@ -62,9 +63,16 @@ def main(argv) -> int:
     spec = next(s for s in (cs.TRAIN, cs.TRAIN_SSM) if s["arch"] == a.arch)
     for i in range(a.runs):
         line = cs.train_run(spec)
+        ms = sorted(line["step_ms"])
+        q = len(ms) // 4
         print(json.dumps({"run": i, **{k: line[k] for k in (
             "arch", "step_ms_median", "tokens_per_s", "mfu",
-            "peak_mem_gib")}}), flush=True)
+            "peak_mem_gib")}, "step_ms_min_q1_q3_max": [
+                ms[0], ms[q], ms[-1 - q], ms[-1]],
+            "losses_first_last": [line["losses"][0], line["losses"][-1]],
+            "launches": {k: v for k, v in line["launches"].items()
+                         if k.startswith("mamba") or "flash" in k}}),
+              flush=True)
     cfg = get_arch(a.arch)
     model = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
                                      param_dtype=torch.float32,
