@@ -317,6 +317,16 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                tokens/s, mfu (the Mamba2 mixer's products counted,
                _train_flops) and peak memory; then its 2-layer f32
                kernel-vs-ref parity.
+  8c. train (gemma2) — gemma2-9b at every published width (d 3584,
+               16 / 8 heads of 256, d_ff 14336, vocab 256000, softcaps
+               50 / 30, window 4096 on local layers, tied embeddings)
+               and a depth cut to TRAIN_GEMMA's layers (whole local /
+               global periods; the line's published_layers and
+               depth_cut), the same way: losses finite and falling, one
+               flash_attention_bwd (the head_dim 256 bodies) and two
+               flash_attention launches a layer and step, step ms,
+               tokens/s, mfu, peak memory; then its 2-layer f32
+               kernel-vs-ref parity.
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
 (fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces,
@@ -351,7 +361,8 @@ seamless_m4t_large_v2, llava_next_mistral_7b; their launches also in
 the kernel rows as launches_<model>), one {"train": {...}} (the
 backward's launches are the train phase's; the forward row's
 launches_train), one {"train_ssm": {...}} (the scan backward's
-launches are its phase's; the scan row's launches_train); the last
+launches are its phase's; the scan row's launches_train), one
+{"train_gemma": {...}} (the flash rows' launches_train_gemma); the last
 line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -510,6 +521,21 @@ def tc_registers(logs, kernel):
             e["registers"]
             for e in ptxas_resources(logs, (kernel,))
             if "_tc_kernel<" in e["kernel"] and "registers" in e}
+
+
+def check_wide_bwd_spills(logs):
+    """The flash backward's head_dim 256 bodies (eight warps a block, up
+    to 255 registers a thread) must not spill: fails if nvcc's -Xptxas
+    -v output shows spill bytes for any of their instantiations, or none
+    of them when it built the kernel."""
+    wide = [e for e in ptxas_resources(logs, ("flash_attention_bwd",))
+            if "_wide_tc_kernel<" in e.get("kernel", "")]
+    if logs.get("flash_attention_bwd") and len(wide) != 8:
+        fail(f"flash_attention_bwd: {len(wide)} head_dim 256 "
+             "instantiations in the build log, expected 8")
+    for e in wide:
+        if e.get("spill_store_bytes") or e.get("spill_load_bytes"):
+            fail(f"flash_attention_bwd spills: {e}")
 
 
 def _max_err(got, want) -> float:
@@ -1816,15 +1842,21 @@ def check_flash_segments(timer):
     return row
 
 
-# the flash kernel's backward (training): (tag, B, S, H, KV, D, ids,
-# mask options): the training shape (llama3.2-1b's attention at 8 x 1024
-# packed tokens, with the segment ids of one make_batch call), the same
-# without ids, head_dim 128 at S = 1000, and gemma2-9b's head_dim 256
-# with its window and softcap (the window covers the 1000 positions)
-BWD_SHAPES = (("train", 8, 1024, 32, 8, 64, True, {}),
-              ("train_noids", 8, 1024, 32, 8, 64, False, {}),
-              ("d128", 1, 1000, 32, 8, 128, False, {}),
-              ("d256_window", 1, 1000, 16, 8, 256, False,
+# the flash kernel's backward (training): (tag, B, S, H, KV, D, the
+# train run whose make_batch step 0 gives the segment ids or None, mask
+# options): the training shape (llama3.2-1b's attention at 8 x 1024
+# packed tokens), the same without ids, head_dim 128 at S = 1000, and
+# gemma2-9b's head_dim 256 with its window and softcap: at S = 1000
+# (the window covers every position), at its training shape (8 x 1024
+# packed tokens) and at S = 6144, where the 4096 window binds
+BWD_SHAPES = (("train", 8, 1024, 32, 8, 64, "llama3.2-1b", {}),
+              ("train_noids", 8, 1024, 32, 8, 64, None, {}),
+              ("d128", 1, 1000, 32, 8, 128, None, {}),
+              ("d256_window", 1, 1000, 16, 8, 256, None,
+               dict(window=4096, softcap=50.0)),
+              ("d256_train", 8, 1024, 16, 8, 256, "gemma2-9b",
+               dict(softcap=50.0)),
+              ("d256_band", 1, 6144, 16, 8, 256, None,
                dict(window=4096, softcap=50.0)))
 BWD_TOL = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
            torch.float16: F16_TOL}
@@ -1857,12 +1889,12 @@ def check_flash_attention_bwd(timer):
     ``flash_attention_bwd_ref`` on the same (out, lse), and a repeat bit
     for bit. In bf16 it is timed beside the plain version, SDPA's
     backward (autograd.grad of F.scaled_dot_product_attention with
-    enable_gqa, causal, or given the same boolean mask with ids; its
-    forward outside the timing; no softcap) and its bound: the 5
-    products over this run's visible pairs at the bf16 peak, or the
-    bytes of q, k, v, o, dO read and dq, dk, dv written. Returns (the
-    backward's row, the forward row's extra keys: its time with lse
-    beside without at the training shape)."""
+    enable_gqa, causal, or given the same boolean mask with ids or a
+    binding window; its forward outside the timing; no softcap) and its
+    bound: the 5 products over this run's visible pairs at the bf16
+    peak, or the bytes of q, k, v, o, dO read and dq, dk, dv written.
+    Returns (the backward's row, the forward row's extra keys: its time
+    with lse beside without at the training shape)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
     from repro_torch.kernels.ref import attention_lse
@@ -1874,15 +1906,18 @@ def check_flash_attention_bwd(timer):
                             "ref.flash_attention_blocked (the Pallas "
                             "kernel has no backward)"}
     fwd_row = {}
-    ids = torch.from_numpy(train_batch()["segment_ids"]).cuda()
-    for tag, b, s, h, kv, d, with_ids, kw in BWD_SHAPES:
-        segs = (ids, ids) if with_ids else None
+    runs = {spec["arch"]: spec for spec in (TRAIN, TRAIN_GEMMA)}
+    for tag, b, s, h, kv, d, ids_of, kw in BWD_SHAPES:
+        ids = None if ids_of is None else torch.from_numpy(
+            train_batch(0, runs[ids_of])["segment_ids"]).cuda()
+        segs = None if ids is None else (ids, ids)
         i = torch.arange(s, device="cuda")
         mask = (i[None, :] <= i[:, None])
-        if kw.get("window"):
+        band = 0 < kw.get("window", 0) < s     # the window binds
+        if band:
             mask = mask & (i[None, :] > i[:, None] - kw["window"])
         mask = mask[None, None].expand(b, 1, s, s)
-        if with_ids:
+        if ids is not None:
             mask = mask & (ids[:, None, :, None] == ids[:, None, None, :])
         pairs = int(mask.sum())
         for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
@@ -1923,8 +1958,8 @@ def check_flash_attention_bwd(timer):
         b_ms, b_by = bound_ms(n_bytes, 5 * 2 * d * pairs * h, "bfloat16")
         qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True)
                       for a in (q, k, v))
-        lib_out = _sdpa(qt, kt, vt, attn_mask=mask) if with_ids else \
-            _sdpa(qt, kt, vt, is_causal=True)
+        lib_out = _sdpa(qt, kt, vt, attn_mask=mask) \
+            if ids is not None or band else _sdpa(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
         row.update({
             f"ms_{tag}": timer.ms(lambda: flash_attention_bwd(
@@ -1948,12 +1983,13 @@ def check_flash_attention_bwd(timer):
     row["max_abs_err"] = row["max_abs_err_train_bf16"]
     row["shape"] = "; ".join(
         f"{t}: B={b} S={s} H={h} KV={kv} D={d} causal"
-        f"{' packed ids (make_batch step 0)' if ids_ else ''}"
+        f"{f' packed ids ({ids_} make_batch step 0)' if ids_ else ''}"
         f"{''.join(f' {k} {v:g}' for k, v in kw.items())}"
         for t, b, s, h, kv, d, ids_, kw in BWD_SHAPES) + (
         " (top-level numbers: train in bf16; err_*: max |got - want| / "
         "max(1, |want|) over dq, dk, dv; max_abs_err_*: max |got - want|; "
-        "d256_window: the first version's body, SDPA without softcap)")
+        "d256_*: the eight-warp head_dim 256 bodies in bf16 / f16, SDPA "
+        "without softcap, given the mask where ids or the window cut it)")
     fwd_row["shape_lse"] = ("ms_lse_train / ms_nolse_train: the forward at "
                             "the training shape in bf16 with its lse "
                             "written and without")
@@ -4747,6 +4783,15 @@ TRAIN = dict(arch="llama3.2-1b", vocab=128256, seq_len=1024, batch=8,
              kernels=("flash_attention", "flash_attention_bwd"))
 TRAIN_SSM = dict(TRAIN, arch="mamba2-1.3b", vocab=50280,
                  kernels=("mamba_chunk_scan", "mamba_chunk_scan_bwd"))
+# 8c: gemma2-9b at its published widths (head_dim 256, so the flash
+# backward's eight-warp bodies), depth cut to two (local, global)
+# periods: 9.24 B parameters at 16 B each (f32 parameter, gradient and
+# two moments) are ~148 GB, and the 256,000-entry head's f32 logits at
+# 8,192 tokens 8.4 GB a copy (ROADMAP.md Queue 1 item 1: the memory plan)
+TRAIN_GEMMA = dict(TRAIN, arch="gemma2-9b", vocab=256000, n_layers=4,
+                   cut="4 of 42 layers (two local / global periods): "
+                       "the f32 parameters, gradients and AdamW moments "
+                       "of all 42 are ~148 GB")
 TRAIN_PARITY_LAYERS = 2
 TRAIN_PARITY_STEPS = 3
 RESUME = dict(seq_len=128, batch=4, ckpt_step=3, steps=6)
@@ -4757,8 +4802,12 @@ def _train_flops(cfg, batch) -> float:
     recomputation): 6 per parameter of every weight product and token
     (the tied head included, d x V). Attention layers: their
     projections and MLP, and 12 * H * D per visible (query, key) pair
-    (2 products forward, 4 backward). Mamba2 layers (``cfg.ssm``): the
-    in projection (wx, wz, wB, wC, wdt: d x (2 di + 2 N + nh)) and the
+    (2 products forward, 4 backward). The pairs are counted by segment
+    alone, which is right while every document is shorter than a
+    sliding window (S 1024 against gemma2's 4096); above the window it
+    would overcount the local layers' pairs. Mamba2 layers
+    (``cfg.ssm``): the in projection (wx, wz, wB, wC, wdt: d x (2 di +
+    2 N + nh)) and the
     out projection (di x d), and the scan's own products, 15 * H * P * N
     a token (~5 forward, ~10 backward); the depthwise conv, the norms
     and the gates are not counted."""
@@ -4811,7 +4860,10 @@ def _train_parity(cfg, opt_cfg, spec):
         for s in range(TRAIN_PARITY_STEPS):
             state, met = step(state, train_batch(s, spec))
             losses.append(float(met["loss"]))
-        runs[impl] = (loss.item(), grads, losses)
+        # the gradients wait on the host, so that the second trainer
+        # runs with the card as empty as the first (gemma2's 2-layer
+        # gradients are 5.3 GB)
+        runs[impl] = (loss.item(), [g.cpu() for g in grads], losses)
         del m, state, loss, grads
         free_engine()
     n_bwd = COUNTERS.launches().get(bwd_kernel, 0)
@@ -4882,8 +4934,10 @@ def _train_resume(cfg, opt_cfg):
 
 
 def train_run(spec):
-    """One architecture trained at published widths and full depth:
-    bf16 compute, f32 parameters and AdamW moments, seeded weights,
+    """One architecture trained at published widths and full depth, or
+    the spec's ``n_layers`` (the line then carries ``published_layers``
+    and the spec's ``cut``): bf16 compute, f32 parameters and AdamW
+    moments, seeded weights,
     remat="dots", packed batches (DataConfig(vocab, 1024, 8)), AdamW
     (lr 1e-3, warm-up 5, decay 30), 30 steps through ``train`` (the loop
     the launcher calls). Counts are zeroed just before the run and read
@@ -4900,6 +4954,9 @@ def train_run(spec):
     from repro_torch.training.train_loop import TrainerConfig, train
     from repro_torch.training.tree import leaves
     cfg = get_arch(spec["arch"])
+    published_layers = cfg.n_layers
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     fwd_k, bwd_k = spec["kernels"]
     opt_cfg = opt.AdamWConfig(lr=spec["lr"],
                               warmup_steps=spec["warmup_steps"],
@@ -4955,7 +5012,9 @@ def train_run(spec):
     tokens = spec["batch"] * spec["seq_len"]
     flops = _train_flops(cfg, train_batch(0, spec))
     line = {
-        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "arch": cfg.name, "layers": cfg.n_layers,
+        "published_layers": published_layers,
+        "depth_cut": spec.get("cut"), "params": n_params,
         "compute_dtype": "bfloat16", "param_dtype": "float32",
         "remat": "dots", "seq_len": spec["seq_len"],
         "batch": spec["batch"], "pack": True, "steps": spec["steps"],
@@ -5097,6 +5156,7 @@ def _setup() -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -5124,6 +5184,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"build: {len(logs)} kernels in {build_s:.1f} s", file=sys.stderr)
+    check_wide_bwd_spills(logs)
 
     # 2. kernels against their plain versions ----------------------------
     rng = np.random.default_rng(SEED)
@@ -5322,6 +5383,16 @@ def main() -> int:
         rows["mamba_chunk_scan_bwd"]["launches_train"]
     rows["mamba_chunk_scan_bwd"]["launches_path"] = "train_ssm phase"
 
+    # 8c. gemma2-9b training at published widths, depth cut (the flash
+    # forward and its backward at head_dim 256)
+    t0 = time.perf_counter()
+    train_gemma = train_run(TRAIN_GEMMA)
+    train_gemma["phase_s"] = time.perf_counter() - t0
+    print(f"train gemma: {train_gemma['phase_s']:.1f} s", file=sys.stderr)
+    for name in TRAIN_GEMMA["kernels"]:
+        rows[name]["launches_train_gemma"] = \
+            train_gemma["launches"].get(name, 0)
+
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "launches_single_step", "launches_serve_swap",
@@ -5358,7 +5429,8 @@ def main() -> int:
         ("registers", "launches_serve_channels", "launches_serve_faults",
          "launches_serve_recover", "launches_serve_gc",
          "launches_serve_prefix", "launches_ssd", "shape_d256",
-         "replaces_what", "launches_train", "ms_lse_train",
+         "replaces_what", "launches_train", "launches_train_gemma",
+         "ms_lse_train",
          "ms_nolse_train", "shape_lse") + tuple(
              f"{k}_{t}" for t, *_ in BWD_SHAPES
              for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5402,6 +5474,8 @@ def main() -> int:
                           others[name]["serve_macro"]}))
     print(json.dumps({"train": dict(train_line, card=smi)}))
     print(json.dumps({"train_ssm": dict(train_ssm, card=smi)}))
+    print(json.dumps({"train_gemma": dict(train_gemma, card=smi)}))
+    print(f"total: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

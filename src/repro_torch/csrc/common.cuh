@@ -1,16 +1,18 @@
 // Shared helpers for the port's CUDA kernels (plain C interface,
-// loaded with ctypes; no PyTorch headers).
+// loaded with ctypes; no PyTorch headers). Built with g++ and
+// -DREPRO_HOST_EMULATION, the CUDA primitives come from
+// host_emulation.cuh instead (a CPU stand-in: tools/*_host_check.py),
+// and the helpers below them are the same code.
 #pragma once
 
+#include <stdint.h>
+
+#ifdef REPRO_HOST_EMULATION
+#include "host_emulation.cuh"
+#else
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <stdint.h>
-
-// dtype codes passed by the Python wrappers
-enum ReproDtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-#define REPRO_NEG_INF (-1e30f)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -24,32 +26,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
 }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Python's floor // and mod (as jnp's) for a divisor b > 0
-__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
-  int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int floor_mod(int a, int b) {  // b > 0
-  int r = a % b;
-  return r < 0 ? r + b : r;
-}
-
-// a masked logit: exp of it is exactly 0, and it never raises a max
-#define REPRO_MASKED __int_as_float(0xff800000u)
 
 // 16-byte asynchronous global -> shared copy (cp.async.cg, bypassing
 // L1); with pred false nothing is read and the 16 bytes are zero-filled
@@ -73,27 +49,6 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                : "memory");
 }
 
-// ROWS rows of D elements from row0 of src (row stride `stride`) into
-// dst (row stride D + 8: the 16-byte pad puts the eight row addresses
-// of an ldmatrix in distinct bank groups), 16 bytes per cp.async by
-// NT threads; rows at and past nrows are zero-filled
-template <int ROWS, int D, int NT, typename T>
-__device__ __forceinline__ void cp_async_rows(T* dst, const T* src, int row0,
-                                              int nrows, size_t stride,
-                                              int tid) {
-  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
-  constexpr int EPC = 16 / (int)sizeof(T);       // elements a chunk
-  static_assert((ROWS * CPR) % NT == 0, "whole rounds");
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / NT; ++i) {
-    const int c = tid + i * NT;
-    const int r = c / CPR, cc = c - r * CPR;
-    const bool ok = row0 + r < nrows;
-    cp_async16(dst + r * (D + 8) + cc * EPC,
-               src + (ok ? (size_t)(row0 + r) * stride + cc * EPC : 0), ok);
-  }
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -102,34 +57,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 8 consecutive elements (16-byte aligned) -> float
-__device__ __forceinline__ void load8_f32(const float* p, float* o) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void load8_f32(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8_f32(const __half* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
 }
 
 // ---- tensor cores: mma.sync m16n8k16 (f32 accumulators) and ldmatrix
@@ -166,18 +93,6 @@ template <> struct Mma<__half> {
   }
 };
 
-// (a, b) -> hi + lo as two register pairs of T: hi = T(v), lo = T(v -
-// hi), ~16 bits of each value's mantissa between them in bf16 (two
-// products where one would do)
-template <typename T>
-__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
-                                            uint32_t& lo) {
-  const uint32_t h = Mma<T>::pack(a, b);
-  const T* hv = reinterpret_cast<const T*>(&h);
-  hi = h;
-  lo = Mma<T>::pack(a - to_f32(hv[0]), b - to_f32(hv[1]));
-}
-
 // four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address
 // the rows of matrix i
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
@@ -195,6 +110,106 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s)
       : "memory");
+}
+
+// a kernel's dynamic shared memory, and a launch (host_emulation.cuh
+// gives both on the CPU)
+#define BWD_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
+#define BWD_LAUNCH(kern, grid, block, smem, stream, ...) \
+  kern<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#define REPRO_WARPS 1
+#endif  // REPRO_HOST_EMULATION
+
+// dtype codes passed by the Python wrappers
+enum ReproDtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+#define REPRO_NEG_INF (-1e30f)
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Python's floor // and mod (as jnp's) for a divisor b > 0
+__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floor_mod(int a, int b) {  // b > 0
+  int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// a masked logit: exp of it is exactly 0, and it never raises a max
+#define REPRO_MASKED __int_as_float(0xff800000u)
+
+// ROWS rows of D elements from row0 of src (row stride `stride`) into
+// dst (row stride D + 8: the 16-byte pad puts the eight row addresses
+// of an ldmatrix in distinct bank groups), 16 bytes per cp.async by
+// NT threads; rows at and past nrows are zero-filled
+template <int ROWS, int D, int NT, typename T>
+__device__ __forceinline__ void cp_async_rows(T* dst, const T* src, int row0,
+                                              int nrows, size_t stride,
+                                              int tid) {
+  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  constexpr int EPC = 16 / (int)sizeof(T);       // elements a chunk
+  static_assert((ROWS * CPR) % NT == 0, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+    const int c = tid + i * NT;
+    const int r = c / CPR, cc = c - r * CPR;
+    const bool ok = row0 + r < nrows;
+    cp_async16(dst + r * (D + 8) + cc * EPC,
+               src + (ok ? (size_t)(row0 + r) * stride + cc * EPC : 0), ok);
+  }
+}
+
+// 8 consecutive elements (16-byte aligned) -> float
+__device__ __forceinline__ void load8_f32(const float* p, float* o) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+__device__ __forceinline__ void load8_f32(const __nv_bfloat16* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8_f32(const __half* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// (a, b) -> hi + lo as two register pairs of T: hi = T(v), lo = T(v -
+// hi), ~16 bits of each value's mantissa between them in bf16 (two
+// products where one would do)
+template <typename T>
+__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
+                                            uint32_t& lo) {
+  const uint32_t h = Mma<T>::pack(a, b);
+  const T* hv = reinterpret_cast<const T*>(&h);
+  hi = h;
+  lo = Mma<T>::pack(a - to_f32(hv[0]), b - to_f32(hv[1]));
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -62,17 +62,24 @@
 // Candidate tiles are first cut to the causal frontier and the window,
 // as in the forward.
 //
-// f32 (1e-4 tolerance; TF32 tensor cores would not meet it) and head_dim
-// 256 in any type: the first version, on the CUDA cores. TPR threads
-// per row hold D / TPR elements of its q, dout and dq (dq kernel) or
-// k, v, dk, dv (dk/dv kernel) in registers; tiles are staged as f32,
-// and a pair's dot products reduce over the row's threads by shuffles.
-// At D 256 a tensor-core dk/dv block would hold 256 f32 accumulators a
-// thread.
+// bf16 / f16 at head_dim 256 (gemma2's training path): the same walk
+// and tile skip in eight-warp bodies whose warps split dQ, dK and dV
+// along D, with P and dS staged in shared memory (see "head_dim 256"
+// below): four warps of 16 rows would hold 128 (dq) or 256 (dk/dv) f32
+// accumulators a thread.
+//
+// f32 (1e-4 tolerance; TF32 tensor cores would not meet it): the first
+// version, on the CUDA cores. TPR threads per row hold D / TPR elements
+// of its q, dout and dq (dq kernel) or k, v, dk, dv (dk/dv kernel) in
+// registers; tiles are staged as f32, and a pair's dot products reduce
+// over the row's threads by shuffles.
+//
+// The launches go through BWD_LAUNCH, so the whole file also builds
+// with g++ against host_emulation.cuh (tools/flash_bwd_host_check.py).
 #include "common.cuh"
 
 // ======================================================================
-// the first version: float32, and head_dim 256
+// the first version: float32
 
 // threads per row: a row's D elements in chunks of 32 a thread (all D
 // at D <= 32), interleaved (element part + TPR * i) so the threads of a
@@ -355,7 +362,8 @@ __global__ void flash_bwd_spans_kernel(const int* __restrict__ ids, int S,
 }
 
 // the block's own [min, max] of its rows' ids (rows past the end
-// excluded): every thread passes its two rows
+// excluded): every thread of the NW warps passes its two rows
+template <int NW = kBwdThreads / 32>
 __device__ __forceinline__ int2 block_span(const int* id, const bool* live,
                                            int2* red) {
   int lo = 0x7fffffff, hi = (int)0x80000000;
@@ -371,7 +379,7 @@ __device__ __forceinline__ int2 block_span(const int* id, const bool* live,
   __syncthreads();
   int2 m = red[0];
 #pragma unroll
-  for (int w = 1; w < kBwdThreads / 32; ++w) {
+  for (int w = 1; w < NW; ++w) {
     m.x = min(m.x, red[w].x);
     m.y = max(m.y, red[w].y);
   }
@@ -551,7 +559,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_tc_kernel(
   constexpr int NDT = D / 8;    // 8-wide column tiles of dQ
   constexpr bool kRegs = D <= 64;   // Q, dO fragments held in registers
   static_assert(NDT % 2 == 0, "pairs of 8-wide output tiles");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BWD_SMEM(smem_raw);
   T* qs = reinterpret_cast<T*>(smem_raw);  // [BQ][LD]
   T* dos = qs + BQ * LD;                   // [BQ][LD]
   T* ks = dos + BQ * LD;                   // [2][BK][LD]
@@ -740,7 +748,7 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_tc_kernel(
   constexpr int NDT = D / 8;
   constexpr bool kRegs = D <= 64;   // K, V fragments held in registers
   static_assert(NDT % 2 == 0 && NNT % 2 == 0, "pairs of 8-wide tiles");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BWD_SMEM(smem_raw);
   T* ks = reinterpret_cast<T*>(smem_raw);  // [BK][LD]
   T* vs = ks + BK * LD;                    // [BK][LD]
   T* qs = vs + BK * LD;                    // [2][BQ][LD]
@@ -908,6 +916,496 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_tc_kernel(
   }
 }
 
+// ======================================================================
+// head_dim 256, bf16 / f16: eight warps a block, P and dS staged in
+// shared memory (FlashAttention-2's layout at this width)
+//
+// A warp of 16 rows that held a whole 256-wide f32 accumulator would
+// need 128 registers a thread for dQ, and 256 for dK + dV. Here each
+// block has eight warps in a 4 x 2 grid: warp w takes the 16-row group
+// rw = w % 4 and the half hf = w / 4. For S and dP the half picks 16 of
+// the walked tile's 32 columns, so no product is computed twice; for the
+// output products it picks 128 of the 256 columns of dQ, or of dK and
+// dV. P and dS cross between the halves through shared memory: each
+// warp writes its 16 x 16 block of them, rounded to the input type (hi
+// + lo in bf16, kSplit), and after a barrier each warp reads its 16
+// rows x 32 back as A fragments by ldmatrix.
+// - dq: one block per (b, q head, 64-row query tile), tiles p and
+//   nqt-1-p in turn, walking 32-key tiles. Q and dO stay in shared
+//   memory and are re-read as A fragments for every tile (as the
+//   forward does at D 256); dQ += dS K reads K by ldmatrix.trans.
+// - dk/dv: one block per (b, KV head, 64-key tile), key tiles p and
+//   nkt-1-p in turn, walking the group's G heads and, for each, the
+//   32-row query tiles that can see the key tile: S^T = K Q^T, dP^T =
+//   V dO^T, then dV += P^T dO and dK += dS^T Q.
+// Tiles are double-buffered by cp.async; the causal / window cut and
+// the ids' span skip are the D <= 128 bodies' (spans of 32-row tiles).
+// Resources a block (bf16; f16 the same less the lo arrays):
+//   dq    shared: Q, dO 2 x 64 x 264 x 2 B = 67,584; K, V two stages
+//         4 x 32 x 264 x 2 = 67,584; dS hi + lo 2 x 64 x 40 x 2 =
+//         10,240; key ids 256; delta and lse 512: 146,176 B.
+//         registers: dQ 16 tiles x 4 = 64 f32, S and dP 2 x 2 x 4 = 16.
+//   dk/dv shared: K, V 67,584; Q, dO two stages 67,584; P and dS hi +
+//         lo 4 x 64 x 40 x 2 = 20,480; lse, delta, ids 768: 156,416 B.
+//         registers: dK and dV 2 x 16 x 4 = 128 f32, S^T and dP^T 16.
+//   One 256-thread block an SM: shared memory allows one, and 255
+//   registers a thread are 65,280 of the SM's 65,536. The launch bounds
+//   say one block an SM: with the thread count alone ptxas capped the
+//   bf16 dq body with ids at 128 registers and spilled.
+constexpr int kWideThreads = 256;   // eight warps: 4 row groups x 2 halves
+constexpr int kWideRows = 64;       // a dq block's queries, dk/dv's keys
+constexpr int kWideTile = 32;       // rows of a walked tile
+
+// Q, dO, two stages of K and V, dS (hi and lo), two stages of key ids,
+// delta and lse
+template <typename T, int D>
+constexpr size_t dq_wide_smem_bytes() {
+  return (size_t)(2 * kWideRows + 4 * kWideTile) * (D + 8) * sizeof(T) +
+         (kSplit<T> ? 2 : 1) * kWideRows * (kWideTile + 8) * sizeof(T) +
+         2 * kWideTile * sizeof(int) + 2 * kWideRows * sizeof(float);
+}
+
+// K, V, two stages of Q and dO, P and dS (hi and lo), two stages of
+// lse, delta and query ids
+template <typename T, int D>
+constexpr size_t dkdv_wide_smem_bytes() {
+  return (size_t)(2 * kWideRows + 4 * kWideTile) * (D + 8) * sizeof(T) +
+         2 * (kSplit<T> ? 2 : 1) * kWideRows * (kWideTile + 8) * sizeof(T) +
+         2 * kWideTile * (2 * sizeof(float) + sizeof(int));
+}
+
+// rows [r0, r0 + 16) x 8*NT columns from c0 of f32 accumulators into
+// shared `hi` (row stride LD) rounded to T; with SPLIT the remainder
+// into `lo`
+template <int NT, int LD, bool SPLIT, typename T>
+__device__ __forceinline__ void stage_x(T* hi, T* lo, const float (*x)[4],
+                                        int r0, int c0, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int off = (r0 + (lane >> 2) + 8 * i) * LD + c0 + nt * 8 +
+                      2 * (lane & 3);
+      uint32_t h, l;
+      if constexpr (SPLIT) {
+        split_hi_lo<T>(x[nt][2 * i], x[nt][2 * i + 1], h, l);
+        *reinterpret_cast<uint32_t*>(lo + off) = l;
+      } else {
+        h = Mma<T>::pack(x[nt][2 * i], x[nt][2 * i + 1]);
+      }
+      *reinterpret_cast<uint32_t*>(hi + off) = h;
+    }
+}
+
+// acc[NDT][4] += A (the 16 rows from ar0 x 16*NKS columns of shared
+// `ah`, with SPLIT plus the same of `al`) times rows [0, 16*NKS) x
+// 8*NDT columns of `bs`: dQ += dS K, dV += P^T dO, dK += dS^T Q from
+// the staged P and dS
+template <int NKS, int NDT, int LDA, int LDB, bool SPLIT, typename T>
+__device__ __forceinline__ void mma_sb(float (*acc)[4], const T* ah,
+                                       const T* al, int ar0, const T* bs,
+                                       int lane) {
+#pragma unroll
+  for (int s = 0; s < NKS; ++s) {
+    uint32_t a[4], alo[4];
+    ld_a<LDA>(a, ah, ar0, s * 16, lane);
+    if constexpr (SPLIT) ld_a<LDA>(alo, al, ar0, s * 16, lane);
+#pragma unroll
+    for (int dp = 0; dp < NDT / 2; ++dp) {
+      uint32_t bb[4];
+      ldsm_x4_trans(bb, bs + (s * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 LDB +
+                            dp * 16 + (lane >> 4) * 8);
+      Mma<T>::run(acc[2 * dp], a, bb[0], bb[1]);
+      Mma<T>::run(acc[2 * dp + 1], a, bb[2], bb[3]);
+      if constexpr (SPLIT) {
+        Mma<T>::run(acc[2 * dp], alo, bb[0], bb[1]);
+        Mma<T>::run(acc[2 * dp + 1], alo, bb[2], bb[3]);
+      }
+    }
+  }
+}
+
+template <typename T, int D, bool SEG>
+__global__ void __launch_bounds__(kWideThreads, 1) flash_bwd_dq_wide_tc_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ out,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, T* __restrict__ dq,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+    const int2* __restrict__ spans_k, int Sq, int Skv, int H, int KV,
+    float scale, float softcap, int window, int causal, int q_offset) {
+  constexpr int BQ = kWideRows, BK = kWideTile, NT = kWideThreads;
+  constexpr int LD = D + 8, LDS = BK + 8;   // padded shared rows
+  constexpr int NKS = D / 16;    // k-steps of Q K^T
+  constexpr int HALF = D / 2;    // dQ columns a warp
+  constexpr int NDT = HALF / 8;  // their 8-wide tiles
+  constexpr int RPT = NT / BQ;   // threads a row of the delta sum
+  BWD_SMEM(smem_raw);
+  T* qs = reinterpret_cast<T*>(smem_raw);       // [BQ][LD]
+  T* dos = qs + BQ * LD;                        // [BQ][LD]
+  T* ks = dos + BQ * LD;                        // [2][BK][LD]
+  T* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
+  T* dsh = vs + 2 * BK * LD;                    // [BQ][LDS] dS (hi)
+  T* dsl = dsh + (kSplit<T> ? BQ * LDS : 0);    // [BQ][LDS] its lo
+  int* sks = reinterpret_cast<int*>(dsl + BQ * LDS);     // [2][BK] key ids
+  float* stat = reinterpret_cast<float*>(sks + 2 * BK);  // [2][BQ]
+  __shared__ int2 red[NT / 32];
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rw = warp & 3, hf = warp >> 2;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t qstride = (size_t)H * D, kstride = (size_t)KV * D;
+  const T* qb = q + ((size_t)b * Sq * H + h) * D;
+  const T* ob = out + ((size_t)b * Sq * H + h) * D;
+  const T* dob = dout + ((size_t)b * Sq * H + h) * D;
+  const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;
+  const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
+  const int* sk = SEG ? seg_k + (size_t)b * Skv : nullptr;
+  const size_t srow = ((size_t)b * H + h) * Sq;   // lse / delta row 0
+  const int nkt = (Skv + BK - 1) / BK;
+  const uint32_t (*no_frags)[4] = nullptr;        // A read from shared
+
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const int heavy = nqt - 1 - blockIdx.x, light = blockIdx.x;
+#pragma unroll 1
+  for (int rep = 0; rep < 2; ++rep) {
+    if (rep == 1) {
+      if (light >= heavy) break;
+      __syncthreads();  // the first tile's shared arrays are no longer read
+    }
+    const int r0 = (rep == 0 ? heavy : light) * BQ;
+
+    // delta = rowsum(dO * O): RPT threads a row, D / RPT elements each
+    {
+      const int row = tid / RPT, part = tid % RPT;
+      float dl = 0.f;
+      if (r0 + row < Sq) {
+        const size_t off = (size_t)(r0 + row) * qstride + part * (D / RPT);
+#pragma unroll
+        for (int c = 0; c < D / RPT; c += 8) {
+          float o8[8], d8[8];
+          load8_f32(ob + off + c, o8);
+          load8_f32(dob + off + c, d8);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dl += o8[e] * d8[e];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < RPT; o <<= 1)
+        dl += __shfl_xor_sync(0xffffffffu, dl, o);
+      if (part == 0) {
+        const bool live = r0 + row < Sq;
+        stat[row] = dl;
+        stat[BQ + row] =
+            live ? lse_log2(lse[srow + r0 + row]) : __int_as_float(0x7f800000);
+        if (live) delta[srow + r0 + row] = dl;
+      }
+    }
+    // this thread's rows g8 and g8 + 8 of its group's 16
+    int seg_row[2] = {0, 0};
+    bool live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + rw * 16 + g8 + 8 * i;
+      live[i] = row < Sq;
+      if (SEG && live[i]) seg_row[i] = seg_q[(size_t)b * Sq + row];
+    }
+    int2 mine = make_int2(0, 0);
+    if constexpr (SEG) mine = block_span<NT / 32>(seg_row, live, red);
+    __syncthreads();  // stat written
+    float dl[2], l2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dl[i] = stat[rw * 16 + g8 + 8 * i];
+      l2[i] = stat[BQ + rw * 16 + g8 + 8 * i];
+    }
+
+    // key tiles this query tile can see (the forward's), then the spans
+    const int r_last = min(r0 + BQ, Sq) - 1;
+    const int hi_pos = causal ? min(Skv - 1, q_offset + r_last) : Skv - 1;
+    const int lo_pos = window > 0 ? max(0, q_offset + r0 - window + 1) : 0;
+    const int kt_lo = lo_pos / BK;
+    const int kt_hi = hi_pos < 0 ? -1 : hi_pos / BK;
+    SpanWalk<SEG> walk(SEG ? spans_k + (size_t)b * nkt : nullptr, mine,
+                       kt_lo, kt_hi);
+
+    float acc[NDT][4];
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt)
+      acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+    auto load_kv = [&](int kt, int st) {
+      cp_async_rows<BK, D, NT>(ks + st * BK * LD, kb, kt * BK, Skv, kstride,
+                               tid);
+      cp_async_rows<BK, D, NT>(vs + st * BK * LD, vb, kt * BK, Skv, kstride,
+                               tid);
+      if (SEG && tid < BK)
+        cp_async4(sks + st * BK + tid, sk + min(kt * BK + tid, Skv - 1),
+                  kt * BK + tid < Skv);
+    };
+    int kt = walk.next(kt_lo);
+    if (kt <= kt_hi) {
+      cp_async_rows<BQ, D, NT>(qs, qb, r0, Sq, qstride, tid);
+      cp_async_rows<BQ, D, NT>(dos, dob, r0, Sq, qstride, tid);
+      load_kv(kt, 0);
+      cp_async_commit();
+    }
+    for (int st = 0; kt <= kt_hi; st ^= 1) {
+      const int nxt = walk.next(kt + 1);
+      if (nxt <= kt_hi) {
+        load_kv(nxt, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* kts = ks + st * BK * LD;
+      const T* vts = vs + st * BK * LD;
+      const int* skt = sks + st * BK;
+
+      // S = Q K^T and dP = dO V^T: this warp's 16 rows x 16 keys
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+      mma_abt<NKS, 2, LD, false>(sc, no_frags, qs, rw * 16,
+                                 kts + hf * 16 * LD, lane);
+      mma_abt<NKS, 2, LD, false>(dp, no_frags, dos, rw * 16,
+                                 vts + hf * 16 * LD, lane);
+
+      // dS; this thread holds rows g8 (e = 0, 1) and g8 + 8 (e = 2, 3)
+      const int k0 = kt * BK;
+      const int qp0 = q_offset + r0 + rw * 16 + g8;
+      const bool need_mask = SEG || k0 + BK > Skv ||
+                             (causal && k0 + BK - 1 > q_offset + r0) ||
+                             (window > 0 && k0 < q_offset + r0 + BQ - window);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p, ds;
+          pair_p_ds(sc[nt][e], dp[nt][e], l2[e >> 1], dl[e >> 1], scale,
+                    softcap, &p, &ds);
+          if (need_mask) {
+            const int kk = hf * 16 + nt * 8 + 2 * t4 + (e & 1);
+            const int kp = k0 + kk;
+            const int qp = qp0 + (e >> 1) * 8;
+            const bool ok = kp < Skv && (!causal || kp <= qp) &&
+                            (window <= 0 || kp > qp - window) &&
+                            (!SEG || skt[kk] == seg_row[e >> 1]);
+            if (!ok) ds = 0.f;
+          }
+          dp[nt][e] = ds;
+        }
+      }
+      stage_x<2, LDS, kSplit<T>>(dsh, dsl, dp, rw * 16, hf * 16, lane);
+      __syncthreads();  // the tile's dS staged
+      // dQ (this warp's half) += dS K
+      mma_sb<BK / 16, NDT, LDS, LD, kSplit<T>>(acc, dsh, dsl, rw * 16,
+                                                kts + hf * HALF, lane);
+      __syncthreads();  // dS read; this stage is refilled two tiles on
+      kt = nxt;
+    }
+    store_rows<NDT>(dq + ((size_t)b * Sq * H + h) * D + hf * HALF, acc,
+                    scale, r0 + rw * 16, Sq, qstride, lane);
+  }
+}
+
+template <typename T, int D, bool SEG>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_bwd_dkdv_wide_tc_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ seg_q,
+    const int* __restrict__ seg_k, const int2* __restrict__ spans_q,
+    int Sq, int Skv, int H, int KV, float scale, float softcap, int window,
+    int causal, int q_offset) {
+  constexpr int BK = kWideRows, BQ = kWideTile, NT = kWideThreads;
+  constexpr int LD = D + 8, LDP = BQ + 8;   // padded shared rows
+  constexpr int NKS = D / 16;
+  constexpr int HALF = D / 2;    // dK / dV columns a warp
+  constexpr int NDT = HALF / 8;
+  constexpr int NX = kSplit<T> ? BK * LDP : 0;   // a lo array's elements
+  BWD_SMEM(smem_raw);
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [BK][LD]
+  T* vs = ks + BK * LD;                    // [BK][LD]
+  T* qs = vs + BK * LD;                    // [2][BQ][LD]
+  T* dos = qs + 2 * BQ * LD;               // [2][BQ][LD]
+  T* ph = dos + 2 * BQ * LD;               // [BK][LDP] P^T (hi)
+  T* pl = ph + NX;                         // its lo
+  T* dsh = pl + BK * LDP;                  // [BK][LDP] dS^T (hi)
+  T* dsl = dsh + NX;                       // its lo
+  float* lses = reinterpret_cast<float*>(dsl + BK * LDP);   // [2][BQ]
+  float* dels = lses + 2 * BQ;                              // [2][BQ]
+  int* sqs = reinterpret_cast<int*>(dels + 2 * BQ);         // [2][BQ]
+  __shared__ int2 red[NT / 32];
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rw = warp & 3, hf = warp >> 2;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const size_t qstride = (size_t)H * D, kstride = (size_t)KV * D;
+  const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;
+  const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
+  const int* sq = SEG ? seg_q + (size_t)b * Sq : nullptr;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  const uint32_t (*no_frags)[4] = nullptr;   // A read from shared
+
+  const int nkt = (Skv + BK - 1) / BK;
+  const int light = nkt - 1 - blockIdx.x, heavy = blockIdx.x;
+#pragma unroll 1
+  for (int rep = 0; rep < 2; ++rep) {
+    if (rep == 1) {
+      if (heavy >= light) break;
+      __syncthreads();  // the first tile's shared arrays are no longer read
+    }
+    const int c0 = (rep == 0 ? heavy : light) * BK;
+
+    // this thread's keys g8 and g8 + 8 of its group's 16
+    int seg_key[2] = {0, 0};
+    bool live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = c0 + rw * 16 + g8 + 8 * i;
+      live[i] = key < Skv;
+      if (SEG && live[i]) seg_key[i] = seg_k[(size_t)b * Skv + key];
+    }
+    int2 mine = make_int2(0, 0);
+    if constexpr (SEG) mine = block_span<NT / 32>(seg_key, live, red);
+
+    // query rows that can see a key of this tile: [i_lo, i_hi]
+    const int c_last = min(c0 + BK, Skv) - 1;
+    const int i_lo = causal ? max(0, c0 - q_offset) : 0;
+    const int i_hi = window > 0 ? min(Sq - 1, c_last + window - 1 - q_offset)
+                                : Sq - 1;
+    const int qt_lo = i_lo / BQ;
+    const int qt_hi = i_lo <= i_hi ? i_hi / BQ : -1;
+    SpanWalk<SEG> walk(SEG ? spans_q + (size_t)b * nqt : nullptr, mine,
+                       qt_lo, qt_hi);
+
+    float dka[NDT][4], dva[NDT][4];
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
+
+    // items (g, qt): the group's heads, each over the query tiles whose
+    // span meets this key tile's
+    auto load_item = [&](int g, int qt, int st) {
+      const int h = kvh * G + g, i0 = qt * BQ;
+      const size_t hq = ((size_t)b * Sq * H + h) * D;
+      cp_async_rows<BQ, D, NT>(qs + st * BQ * LD, q + hq, i0, Sq, qstride,
+                               tid);
+      cp_async_rows<BQ, D, NT>(dos + st * BQ * LD, dout + hq, i0, Sq,
+                               qstride, tid);
+      if (tid < BQ) {
+        const size_t r = ((size_t)b * H + h) * Sq + min(i0 + tid, Sq - 1);
+        const bool ok = i0 + tid < Sq;
+        cp_async4(lses + st * BQ + tid, lse + r, ok);
+        cp_async4(dels + st * BQ + tid, delta + r, ok);
+        if (SEG) cp_async4(sqs + st * BQ + tid, sq + min(i0 + tid, Sq - 1), ok);
+      }
+    };
+    const int first_qt = walk.next(qt_lo);
+    int g = 0, qt = first_qt;
+    if (qt <= qt_hi) {
+      cp_async_rows<BK, D, NT>(ks, kb, c0, Skv, kstride, tid);
+      cp_async_rows<BK, D, NT>(vs, vb, c0, Skv, kstride, tid);
+      load_item(g, qt, 0);
+      cp_async_commit();
+    } else {
+      g = G;   // no query tile sees this key tile
+    }
+    for (int st = 0; g < G; st ^= 1) {
+      int ng = g, nq = walk.next(qt + 1);
+      if (nq > qt_hi) {
+        ++ng;
+        nq = first_qt;
+      }
+      if (ng < G) {
+        load_item(ng, nq, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* qts = qs + st * BQ * LD;
+      const T* dots = dos + st * BQ * LD;
+      const float* lt = lses + st * BQ;
+      const float* dlt = dels + st * BQ;
+      const int* sqt = sqs + st * BQ;
+
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 16 queries
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+      mma_abt<NKS, 2, LD, false>(sc, no_frags, ks, rw * 16,
+                                 qts + hf * 16 * LD, lane);
+      mma_abt<NKS, 2, LD, false>(dp, no_frags, vs, rw * 16,
+                                 dots + hf * 16 * LD, lane);
+
+      // P^T and dS^T; this thread holds keys g8 (e = 0, 1) and g8 + 8
+      // (e = 2, 3), queries hf * 16 + nt * 8 + 2 * t4 + (e & 1). Rows
+      // past Sq are zero in Q and dO (and their lse and delta 0): they
+      // add nothing
+      const int i0 = qt * BQ;
+      const int kp0 = c0 + rw * 16 + g8;
+      const bool need_mask =
+          SEG || (causal && c0 + BK - 1 > q_offset + i0) ||
+          (window > 0 && c0 <= q_offset + i0 + BQ - 1 - window);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = hf * 16 + nt * 8 + 2 * t4;
+        const float2 l2 = make_float2(lse_log2(lt[col]), lse_log2(lt[col + 1]));
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = col + (e & 1);
+          float p, ds;
+          pair_p_ds(sc[nt][e], dp[nt][e], (e & 1) ? l2.y : l2.x,
+                    (e & 1) ? d2.y : d2.x, scale, softcap, &p, &ds);
+          if (need_mask) {
+            const int qp = q_offset + i0 + c;
+            const int kp = kp0 + (e >> 1) * 8;
+            const bool ok = (!causal || kp <= qp) &&
+                            (window <= 0 || kp > qp - window) &&
+                            (!SEG || sqt[c] == seg_key[e >> 1]);
+            if (!ok) p = ds = 0.f;
+          }
+          sc[nt][e] = p;
+          dp[nt][e] = ds;
+        }
+      }
+      stage_x<2, LDP, kSplit<T>>(ph, pl, sc, rw * 16, hf * 16, lane);
+      stage_x<2, LDP, kSplit<T>>(dsh, dsl, dp, rw * 16, hf * 16, lane);
+      __syncthreads();  // the item's P and dS staged
+      // this warp's half of dV += P^T dO and dK += dS^T Q
+      mma_sb<BQ / 16, NDT, LDP, LD, kSplit<T>>(dva, ph, pl, rw * 16,
+                                                dots + hf * HALF, lane);
+      mma_sb<BQ / 16, NDT, LDP, LD, kSplit<T>>(dka, dsh, dsl, rw * 16,
+                                                qts + hf * HALF, lane);
+      __syncthreads();  // P, dS read; this stage is refilled two items on
+      g = ng;
+      qt = nq;
+    }
+    const size_t kbase = ((size_t)b * Skv * KV + kvh) * D + hf * HALF;
+    store_rows<NDT>(dk + kbase, dka, scale, c0 + rw * 16, Skv, kstride,
+                    lane);
+    store_rows<NDT>(dv + kbase, dva, 1.f, c0 + rw * 16, Skv, kstride,
+                    lane);
+  }
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *out, *dout;
   const float* lse;
@@ -925,18 +1423,22 @@ template <typename T, int D>
 static int launch_first(const BwdArgs& a) {
   constexpr int rows = bwd_rows<D>(), threads = rows * bwd_tpr<D>();
   const int q_offset = a.Skv - a.Sq;
-  dim3 gq((a.Sq + rows - 1) / rows, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<gq, threads, 0, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.out,
-      (const T*)a.dout, a.lse, a.delta, (T*)a.dq, a.seg_q, a.seg_k, a.Sq,
-      a.Skv, a.H, a.KV, a.scale, a.softcap, a.window, a.causal, q_offset);
+  const dim3 gq((a.Sq + rows - 1) / rows, a.H, a.B);
+  auto* dq_kern = flash_bwd_dq_kernel<T, D>;
+  BWD_LAUNCH(dq_kern, gq, dim3(threads), 0, a.stream,
+             (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.out,
+             (const T*)a.dout, a.lse, a.delta, (T*)a.dq, a.seg_q, a.seg_k,
+             a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window, a.causal,
+             q_offset);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 gk((a.Skv + rows - 1) / rows, a.KV, a.B);
-  flash_bwd_dkdv_kernel<T, D><<<gk, threads, 0, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
-      a.delta, (T*)a.dk, (T*)a.dv, a.seg_q, a.seg_k, a.Sq, a.Skv, a.H, a.KV,
-      a.scale, a.softcap, a.window, a.causal, q_offset);
+  const dim3 gk((a.Skv + rows - 1) / rows, a.KV, a.B);
+  auto* kv_kern = flash_bwd_dkdv_kernel<T, D>;
+  BWD_LAUNCH(kv_kern, gk, dim3(threads), 0, a.stream,
+             (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+             a.lse, a.delta, (T*)a.dk, (T*)a.dv, a.seg_q, a.seg_k, a.Sq,
+             a.Skv, a.H, a.KV, a.scale, a.softcap, a.window, a.causal,
+             q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -945,6 +1447,13 @@ static cudaError_t opt_in_smem(Kern kern, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;   // under the default cap
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// the [min, max] ids of each `tile`-row tile of ids [B, S]
+static void launch_spans(const BwdArgs& a, const int* ids, int S, int tile,
+                         int ntiles, int2* spans) {
+  BWD_LAUNCH(flash_bwd_spans_kernel, dim3(ntiles, a.B), dim3(32), 0, a.stream,
+             ids, S, tile, ntiles, spans);
 }
 
 template <typename T, int D, bool SEG>
@@ -959,40 +1468,80 @@ static int launch_tc_seg(const BwdArgs& a) {
   if constexpr (SEG) {   // key tiles of the dq kernel, query tiles of dk/dv
     spans_k = a.spans;
     spans_q = a.spans + (size_t)a.B * nkt;
-    flash_bwd_spans_kernel<<<dim3(nkt, a.B), 32, 0, a.stream>>>(
-        a.seg_k, a.Skv, kBwdBK, nkt, spans_k);
-    flash_bwd_spans_kernel<<<dim3(nqt_kv, a.B), 32, 0, a.stream>>>(
-        a.seg_q, a.Sq, KBQ, nqt_kv, spans_q);
+    launch_spans(a, a.seg_k, a.Skv, kBwdBK, nkt, spans_k);
+    launch_spans(a, a.seg_q, a.Sq, KBQ, nqt_kv, spans_q);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   constexpr size_t smem_dq = dq_smem_bytes<T, D>();
-  if ((err = opt_in_smem(flash_bwd_dq_tc_kernel<T, D, SEG>, smem_dq)) !=
-      cudaSuccess)
-    return (int)err;
-  flash_bwd_dq_tc_kernel<T, D, SEG>
-      <<<dim3((nqt + 1) / 2, a.H, a.B), kBwdThreads, smem_dq, a.stream>>>(
-          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.out,
-          (const T*)a.dout, a.lse, a.delta, (T*)a.dq, a.seg_q, a.seg_k,
-          spans_k, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window,
-          a.causal, q_offset);
+  auto* dq_kern = flash_bwd_dq_tc_kernel<T, D, SEG>;
+  if ((err = opt_in_smem(dq_kern, smem_dq)) != cudaSuccess) return (int)err;
+  BWD_LAUNCH(dq_kern,
+             dim3((nqt + 1) / 2, a.H, a.B), dim3(kBwdThreads), smem_dq,
+             a.stream, (const T*)a.q, (const T*)a.k, (const T*)a.v,
+             (const T*)a.out, (const T*)a.dout, a.lse, a.delta, (T*)a.dq,
+             a.seg_q, a.seg_k, spans_k, a.Sq, a.Skv, a.H, a.KV, a.scale,
+             a.softcap, a.window, a.causal, q_offset);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   constexpr size_t smem_kv = dkdv_smem_bytes<T, D>();
-  if ((err = opt_in_smem(flash_bwd_dkdv_tc_kernel<T, D, SEG>, smem_kv)) !=
-      cudaSuccess)
-    return (int)err;
-  flash_bwd_dkdv_tc_kernel<T, D, SEG>
-      <<<dim3((nkt + 1) / 2, a.KV, a.B), kBwdThreads, smem_kv, a.stream>>>(
-          (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-          a.lse, a.delta, (T*)a.dk, (T*)a.dv, a.seg_q, a.seg_k, spans_q,
-          a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap, a.window, a.causal,
-          q_offset);
+  auto* kv_kern = flash_bwd_dkdv_tc_kernel<T, D, SEG>;
+  if ((err = opt_in_smem(kv_kern, smem_kv)) != cudaSuccess) return (int)err;
+  BWD_LAUNCH(kv_kern,
+             dim3((nkt + 1) / 2, a.KV, a.B), dim3(kBwdThreads), smem_kv,
+             a.stream, (const T*)a.q, (const T*)a.k, (const T*)a.v,
+             (const T*)a.dout, a.lse, a.delta, (T*)a.dk, (T*)a.dv, a.seg_q,
+             a.seg_k, spans_q, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap,
+             a.window, a.causal, q_offset);
+  return (int)cudaGetLastError();
+}
+
+// head_dim 256 in bf16 / f16: the eight-warp bodies; with ids the spans
+// of 32-row tiles (the dq kernel's key tiles, the dk/dv kernel's query
+// tiles)
+template <typename T, int D, bool SEG>
+static int launch_wide_seg(const BwdArgs& a) {
+  const int q_offset = a.Skv - a.Sq;
+  const int nqb = (a.Sq + kWideRows - 1) / kWideRows;    // dq blocks' tiles
+  const int nkb = (a.Skv + kWideRows - 1) / kWideRows;   // dk/dv blocks'
+  const int nkt = (a.Skv + kWideTile - 1) / kWideTile;   // walked by dq
+  const int nqt = (a.Sq + kWideTile - 1) / kWideTile;    // walked by dk/dv
+  int2 *spans_k = nullptr, *spans_q = nullptr;
+  cudaError_t err;
+  if constexpr (SEG) {
+    spans_k = a.spans;
+    spans_q = a.spans + (size_t)a.B * nkt;
+    launch_spans(a, a.seg_k, a.Skv, kWideTile, nkt, spans_k);
+    launch_spans(a, a.seg_q, a.Sq, kWideTile, nqt, spans_q);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  constexpr size_t smem_dq = dq_wide_smem_bytes<T, D>();
+  auto* dq_kern = flash_bwd_dq_wide_tc_kernel<T, D, SEG>;
+  if ((err = opt_in_smem(dq_kern, smem_dq)) != cudaSuccess) return (int)err;
+  BWD_LAUNCH(dq_kern,
+             dim3((nqb + 1) / 2, a.H, a.B), dim3(kWideThreads), smem_dq,
+             a.stream, (const T*)a.q, (const T*)a.k, (const T*)a.v,
+             (const T*)a.out, (const T*)a.dout, a.lse, a.delta, (T*)a.dq,
+             a.seg_q, a.seg_k, spans_k, a.Sq, a.Skv, a.H, a.KV, a.scale,
+             a.softcap, a.window, a.causal, q_offset);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  constexpr size_t smem_kv = dkdv_wide_smem_bytes<T, D>();
+  auto* kv_kern = flash_bwd_dkdv_wide_tc_kernel<T, D, SEG>;
+  if ((err = opt_in_smem(kv_kern, smem_kv)) != cudaSuccess) return (int)err;
+  BWD_LAUNCH(kv_kern,
+             dim3((nkb + 1) / 2, a.KV, a.B), dim3(kWideThreads), smem_kv,
+             a.stream, (const T*)a.q, (const T*)a.k, (const T*)a.v,
+             (const T*)a.dout, a.lse, a.delta, (T*)a.dk, (T*)a.dv, a.seg_q,
+             a.seg_k, spans_q, a.Sq, a.Skv, a.H, a.KV, a.scale, a.softcap,
+             a.window, a.causal, q_offset);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 static int launch_d(const BwdArgs& a) {
-  if constexpr (sizeof(T) == 4 || D >= 256)
+  if constexpr (sizeof(T) == 4)
     return launch_first<T, D>(a);
+  else if constexpr (D >= 256)
+    return a.seg_k ? launch_wide_seg<T, D, true>(a)
+                   : launch_wide_seg<T, D, false>(a);
   else
     return a.seg_k ? launch_tc_seg<T, D, true>(a)
                    : launch_tc_seg<T, D, false>(a);

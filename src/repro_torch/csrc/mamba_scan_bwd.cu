@@ -98,20 +98,11 @@
 //   partials of dB, dC ([Bt, S, H*np, N] f32), ddt, dA and dD, and a
 //   second launch sums them in a fixed order. Every phase ends at a
 //   block barrier and uses no warp primitive, so this body also runs on
-//   the CPU with one thread per CUDA thread (-DREPRO_HOST_EMULATION,
-//   tools/mamba_scan_bwd_host_check.py, which routes bf16 here too;
-//   with -DREPRO_HOST_WARPS the stub also emulates the warp primitives
-//   and the tensor-core body runs).
+//   the CPU with one thread per CUDA thread (-DREPRO_HOST_EMULATION:
+//   the stand-in of host_emulation.cuh; tools/mamba_scan_bwd_host_check.py,
+//   which routes bf16 here too; with -DREPRO_HOST_WARPS the tensor-core
+//   body is built as well and runs on the stand-in's warp primitives).
 #include "common.cuh"
-
-#ifdef REPRO_HOST_EMULATION
-#define BWD_LAUNCH(kern, grid, block, smem, stream, ...) \
-  repro_host_launch(grid, block, smem, [=] { kern(__VA_ARGS__); })
-#else
-#define BWD_SMEM(name) extern __shared__ __align__(16) unsigned char name[]
-#define BWD_LAUNCH(kern, grid, block, smem, stream, ...) \
-  kern<<<grid, block, smem, stream>>>(__VA_ARGS__)
-#endif
 
 namespace {
 
@@ -578,7 +569,7 @@ int launch(const void* x, const void* dt, const void* A, const void* B,
   return (int)cudaGetLastError();
 }
 
-#if !defined(REPRO_HOST_EMULATION) || defined(REPRO_HOST_WARPS)
+#if REPRO_WARPS   // (0 on the CPU without -DREPRO_HOST_WARPS)
 #define REPRO_BWD_TC 1
 // ---- the bf16 body: chunk-parallel on the tensor cores -----------------
 using bf16 = __nv_bfloat16;

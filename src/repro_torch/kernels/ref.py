@@ -175,20 +175,35 @@ def _tile_key_range(r0, r1, sq, skv, tile, causal, window):
     return range(lo_pos // tile, hi_pos // tile + 1 if hi_pos >= 0 else 0)
 
 
+def _tile_query_range(c0, c1, sq, skv, tile, causal, window):
+    """The query tiles a key tile [c0, c1) can be seen by before the
+    ids: the dk/dv kernels' cut of the rows before the causal frontier
+    or past the window (right-aligned positions)."""
+    q_off = skv - sq
+    i_lo = max(0, c0 - q_off) if causal else 0
+    i_hi = min(sq - 1, c1 - 1 + window - 1 - q_off) if window > 0 \
+        else sq - 1
+    return range(i_lo // tile, i_hi // tile + 1 if i_lo <= i_hi else 0)
+
+
 def flash_attention_bwd_blocked(q, k, v, out, lse, dout, *, causal=True,
                                 window=0, softcap=0.0, segment_ids=None,
-                                bidirectional=False, tile=64):
+                                bidirectional=False, tiles=(64, 64)):
     """``flash_attention_bwd_ref`` walked as the backward kernels walk
-    it: per (query tile, key tile) pair of ``tile`` rows, only the key
-    tiles inside the causal frontier and the window, and with segment
-    ids only the pairs whose id spans meet (``tile_spans``,
-    ``spans_meet``); each pair recomputes its logits, P and dS from
-    ``lse`` and adds into dq, dk and dv (f32 sums, dk and dv over each
-    KV head's group). Used by the tests: it holds the tile walk and the
+    it. dq: each query tile of ``rows`` over the key tiles of
+    ``walked`` inside its causal frontier and window; dk and dv: each
+    key tile of ``rows`` over the query tiles of ``walked`` that can
+    see it; with segment ids only the tile pairs whose id spans meet
+    (``tile_spans``, ``spans_meet``). ``tiles`` = (rows, walked): the
+    head_dim 16-128 bodies' dq walk (64, 64), the head_dim 256 bodies'
+    (64, 32). Each pair recomputes its logits, P and dS from ``lse`` and
+    adds into dq, or into dk and dv (f32 sums, dk and dv over each KV
+    head's group). Used by the tests: it holds the tile walk and the
     skip against the reference."""
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
+    rows, walked = tiles
     scale = 1.0 / math.sqrt(d)
     causal = causal and not bidirectional
     qf, dof, of = q.float(), dout.float(), out.float()
@@ -197,46 +212,62 @@ def flash_attention_bwd_blocked(q, k, v, out, lse, dout, *, causal=True,
     delta = (dof * of).sum(-1).transpose(1, 2)                 # [B,H,Sq]
     dq = torch.zeros_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    if segment_ids is not None:
-        sp_q, sp_k = (tile_spans(x, tile) for x in segment_ids)
     qpos = torch.arange(sq, device=q.device) + (skv - sq)
     kpos = torch.arange(skv, device=q.device)
+    if segment_ids is not None:
+        spans = {t: tuple(tile_spans(x, t) for x in segment_ids)
+                 for t in {rows, walked}}
+
+    def meet(bi, qt, q_tile, kt, k_tile):
+        return segment_ids is None or bool(spans_meet(
+            spans[q_tile][0][bi, qt], spans[k_tile][1][bi, kt]))
+
+    def pair(bi, r0, r1, c0, c1):
+        """(P, dS) [H, r1 - r0, c1 - c0] of one tile pair."""
+        qp, kp = qpos[r0:r1, None], kpos[None, c0:c1]
+        mask = torch.ones((r1 - r0, c1 - c0), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kp <= qp
+        if window and window > 0:
+            mask &= kp > qp - window
+        if segment_ids is not None:
+            mask &= segment_ids[0][bi, r0:r1, None] == \
+                segment_ids[1][bi, None, c0:c1]
+        lse_b = lse[bi, :, r0:r1, None].float()
+        mask = mask[None] & torch.isfinite(lse_b)
+        raw = torch.einsum("qhd,khd->hqk", qf[bi, r0:r1] * scale,
+                           kf[bi, c0:c1])
+        logits = _softcap(raw, softcap)
+        p = torch.where(mask, torch.exp(logits - lse_b),
+                        torch.zeros_like(logits))
+        dp = torch.einsum("qhd,khd->hqk", dof[bi, r0:r1], vf[bi, c0:c1])
+        ds = p * (dp - delta[bi, :, r0:r1, None])
+        if softcap and softcap > 0.0:
+            ds = ds * (1.0 - (logits / softcap) ** 2)
+        return p, ds
+
     for bi in range(b):
-        for qt in range(-(-sq // tile)):
-            r0, r1 = qt * tile, min(sq, (qt + 1) * tile)
-            for kt in _tile_key_range(r0, r1, sq, skv, tile, causal, window):
-                if segment_ids is not None and \
-                        not spans_meet(sp_q[bi, qt], sp_k[bi, kt]):
-                    continue
-                c0, c1 = kt * tile, min(skv, (kt + 1) * tile)
-                qp, kp = qpos[r0:r1, None], kpos[None, c0:c1]
-                mask = torch.ones((r1 - r0, c1 - c0), dtype=torch.bool,
-                                  device=q.device)
-                if causal:
-                    mask &= kp <= qp
-                if window and window > 0:
-                    mask &= kp > qp - window
-                if segment_ids is not None:
-                    mask &= segment_ids[0][bi, r0:r1, None] == \
-                        segment_ids[1][bi, None, c0:c1]
-                lse_b = lse[bi, :, r0:r1, None].float()
-                mask = mask[None] & torch.isfinite(lse_b)
-                raw = torch.einsum("qhd,khd->hqk", qf[bi, r0:r1] * scale,
-                                   kf[bi, c0:c1])
-                logits = _softcap(raw, softcap)
-                p = torch.where(mask, torch.exp(logits - lse_b),
-                                torch.zeros_like(logits))
-                dp = torch.einsum("qhd,khd->hqk", dof[bi, r0:r1],
-                                  vf[bi, c0:c1])
-                ds = p * (dp - delta[bi, :, r0:r1, None])
-                if softcap and softcap > 0.0:
-                    ds = ds * (1.0 - (logits / softcap) ** 2)
-                dq[bi, r0:r1] += torch.einsum("hqk,khd->qhd", ds,
-                                              kf[bi, c0:c1]) * scale
-                dk[bi, c0:c1] += torch.einsum("hqk,qhd->khd", ds,
-                                              qf[bi, r0:r1]) * scale
-                dv[bi, c0:c1] += torch.einsum("hqk,qhd->khd", p,
-                                              dof[bi, r0:r1])
+        for qt in range(-(-sq // rows)):
+            r0, r1 = qt * rows, min(sq, (qt + 1) * rows)
+            for kt in _tile_key_range(r0, r1, sq, skv, walked, causal,
+                                      window):
+                if meet(bi, qt, rows, kt, walked):
+                    c0, c1 = kt * walked, min(skv, (kt + 1) * walked)
+                    _, ds = pair(bi, r0, r1, c0, c1)
+                    dq[bi, r0:r1] += torch.einsum(
+                        "hqk,khd->qhd", ds, kf[bi, c0:c1]) * scale
+        for kt in range(-(-skv // rows)):
+            c0, c1 = kt * rows, min(skv, (kt + 1) * rows)
+            for qt in _tile_query_range(c0, c1, sq, skv, walked, causal,
+                                        window):
+                if meet(bi, qt, walked, kt, rows):
+                    r0, r1 = qt * walked, min(sq, (qt + 1) * walked)
+                    p, ds = pair(bi, r0, r1, c0, c1)
+                    dk[bi, c0:c1] += torch.einsum(
+                        "hqk,qhd->khd", ds, qf[bi, r0:r1]) * scale
+                    dv[bi, c0:c1] += torch.einsum(
+                        "hqk,qhd->khd", p, dof[bi, r0:r1])
     dk = dk.reshape(b, skv, kv, g, d).sum(3)
     dv = dv.reshape(b, skv, kv, g, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -2117,6 +2117,23 @@ def test_flash_attention_bwd_tensor_core_bodies(cuda, d, g, dtype):
     edges, shuffled ids, bidirectional with ids, and ids at Sq < Skv
     (the queries carry the ids of the last Sq key positions), causal and
     bidirectional; one launch a call."""
+    _hold_bwd_tc_cases(cuda, d, g, dtype)
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_bwd_d256_tensor_core_bodies(cuda, g, dtype):
+    """The head_dim 256 bodies (eight warps, dQ / dK / dV split along D,
+    P and dS staged in shared memory) at G = 1 / 2 / 8 against
+    ``flash_attention_bwd_ref`` on the same (out, lse), at the cases of
+    the head_dim 64 / 128 bodies: the window binding (45 of 200), ids
+    whose documents cross the 32- and 64-row tile edges, shuffled ids,
+    Sq < Skv, Sq > Skv (rows with no key: zero dq), bidirectional; one
+    launch a call."""
+    _hold_bwd_tc_cases(cuda, 256, g, dtype)
+
+
+def _hold_bwd_tc_cases(cuda, d, g, dtype):
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref)
     from repro_torch.kernels.ref import attention_lse
@@ -2188,6 +2205,41 @@ def test_flash_attention_bwd_repeats_bit_identical(cuda):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+def test_flash_attention_bwd_d256_repeats_bit_identical(cuda):
+    """No float atomics in the head_dim 256 bodies either: 100 calls at
+    gemma2's heads (16 / 8) with packed ids and softcap 50 give the same
+    bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    kw = dict(softcap=50.0)
+    args = _bwd_case(cuda, 2, 300, 300, 16, 8, 256, torch.bfloat16, kw,
+                     True)
+    first = flash_attention_bwd(*args[:6], segment_ids=args[6], **kw)
+    for _ in range(100):
+        again = flash_attention_bwd(*args[:6], segment_ids=args[6], **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("ids", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_bwd_d256_kernels_a_call(cuda, ids, dtype):
+    """One head_dim 256 call captured in a CUDA graph holds the eight-warp
+    route's kernel nodes and nothing else: its dq and dk/dv kernels, and
+    with ids first the two span launches (key tiles, query tiles). The
+    counter takes one count a call."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    args = _bwd_case(cuda, 1, 200, 200, 4, 2, 256, dtype, {}, ids)
+    n0 = COUNTERS.launches().get("flash_attention_bwd", 0)
+    _, names = _graph_kernels(
+        lambda: flash_attention_bwd(*args[:6], segment_ids=args[6]))
+    assert COUNTERS.launches()["flash_attention_bwd"] - n0 == 1
+    parts = {"flash_bwd_dq_wide_tc_kernel<": 1,
+             "flash_bwd_dkdv_wide_tc_kernel<": 1,
+             "flash_bwd_spans_kernel": 2 if ids else 0}
+    assert len(names) == sum(parts.values()), names
+    for part, n in parts.items():
+        assert sum(part in k for k in names) == n, (part, names)
+
+
 def test_flash_attention_fwd_lse(cuda):
     """The forward's lse against ``attention_lse`` (both bodies), and
     serving's output unchanged by asking for it."""
@@ -2250,6 +2302,37 @@ def test_train_step_flash_launch_counts(cuda):
         assert torch.isfinite(metrics["loss"])
         assert n["flash_attention"] == fwd_per_layer * cfg.n_layers
         assert n["flash_attention_bwd"] == cfg.n_layers
+
+
+def test_train_step_gemma2_on_card(cuda):
+    """One gemma2-9b train step on the card at its published widths and
+    2 layers (a local and a global one; bf16 compute, f32 parameters,
+    remat 'dots', 2 x 256 packed tokens): the loss and the gradient norm
+    finite, per layer two flash_attention launches and one
+    flash_attention_bwd launch (the head_dim 256 route)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    cfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=2)
+    m = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
+                                 param_dtype=torch.float32, remat="dots"),
+                    device=cuda)
+    step, init = make_train_step(m, opt.AdamWConfig(lr=1e-4))
+    state = init(torch.Generator(device=cuda).manual_seed(0))
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                  global_batch=2), 0)
+    COUNTERS.reset()
+    state, metrics = step(state, batch)
+    n = COUNTERS.launches()
+    assert torch.isfinite(metrics["loss"])
+    assert torch.isfinite(metrics["grad_norm"])
+    assert n["flash_attention"] == 2 * cfg.n_layers
+    assert n["flash_attention_bwd"] == cfg.n_layers
+    del m, state
+    torch.cuda.empty_cache()
 
 
 def test_scan_and_paged_refuse_grad(cuda):

@@ -277,18 +277,31 @@ BWD_CASES = {
     "no_key_rows": dict(h=4, kv=2, sq=24, skv=16, kw=dict()),
 }
 BWD_TOL = 2e-5      # float32, summation order
+# head_dim 256 (gemma2's): the blocked walk at the eight-warp bodies'
+# tiles (64-row blocks over 32-row tiles), S crossing the 32- and 64-row
+# edges and a multiple of the JAX blocked lowering's chunk (24 here)
+WIDE_TILES = (64, 32)
+WIDE_CASES = {
+    "d256_window": dict(h=2, kv=2, sq=72, skv=72, kw=dict(window=24)),
+    "d256_softcap": dict(h=2, kv=2, sq=72, skv=72, kw=dict(softcap=2.0)),
+    "d256_gqa_g2": dict(h=4, kv=2, sq=72, skv=72, kw=dict()),
+    "d256_packed": dict(h=2, kv=1, sq=72, skv=72, kw=dict(), segs=True),
+    "d256_sq_ne_skv": dict(h=2, kv=1, sq=48, skv=72, kw=dict(window=28)),
+}
+WIDE_TOL = 1e-4     # float32 at head_dim 256
 
 
 def _bwd_inputs(case, seed=0):
-    c = BWD_CASES[case]
+    c = BWD_CASES.get(case) or WIDE_CASES[case]
+    b, d = (1, 256) if case in WIDE_CASES else (2, 16)
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((2, c["sq"], c["h"], 16)).astype(np.float32)
-    k = rng.standard_normal((2, c["skv"], c["kv"], 16)).astype(np.float32)
-    v = rng.standard_normal((2, c["skv"], c["kv"], 16)).astype(np.float32)
+    q = rng.standard_normal((b, c["sq"], c["h"], d)).astype(np.float32)
+    k = rng.standard_normal((b, c["skv"], c["kv"], d)).astype(np.float32)
+    v = rng.standard_normal((b, c["skv"], c["kv"], d)).astype(np.float32)
     do = rng.standard_normal(q.shape).astype(np.float32)
     segs = None
     if c.get("segs"):
-        ids = np.cumsum(rng.random((2, c["skv"])) < 0.2, axis=1)
+        ids = np.cumsum(rng.random((b, c["skv"])) < 0.2, axis=1)
         segs = (ids.astype(np.int32), ids.astype(np.int32))
     # rows with no valid key (causal rows before the first key): the
     # port gives 0 there and the jnp oracle the mean of v; their dout is
@@ -312,12 +325,12 @@ def _autograd_ref(q, k, v, do, segs, kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_bwd(name, kw_items):
+def _jax_bwd(name, kw_items, chunk=8):
     """Jitted (q, k, v, dout, segs) -> (dq, dk, dv) of the reference's
-    ``name`` (the blocked lowering in chunks of 8)."""
+    ``name`` (the blocked lowering in chunks of ``chunk``)."""
     fn = getattr(jref, name)
     if name == "flash_attention_blocked":
-        fn = functools.partial(fn, q_chunk=8, kv_chunk=8)
+        fn = functools.partial(fn, q_chunk=chunk, kv_chunk=chunk)
     kw = dict(kw_items)
 
     def grads(q, k, v, do, segs):
@@ -351,42 +364,66 @@ def test_flash_bwd_ref_matches_autograd_and_jax(case):
         assert not out[:, dead].abs().sum()
 
 
-@pytest.mark.parametrize("case", sorted(BWD_CASES))
+@pytest.mark.parametrize("case", sorted(BWD_CASES) + sorted(WIDE_CASES))
 def test_flash_bwd_blocked_matches_reference(case):
-    """The kernels' tile walk (``flash_attention_bwd_blocked``, tiles of
-    8 rows: causal frontier, window and the ids' span skip) against
-    ``jax.vjp`` of the reference's ``attention_naive`` and
-    ``flash_attention_blocked`` and against ``flash_attention_bwd_ref``,
-    on the same (out, lse)."""
+    """The kernels' tile walk (``flash_attention_bwd_blocked``: causal
+    frontier, window and the ids' span skip; tiles of 8 rows, and at
+    head_dim 256 the eight-warp bodies' 64-row blocks over 32-row
+    tiles) against ``jax.vjp`` of the reference's ``attention_naive``
+    and ``flash_attention_blocked`` (only the blocked lowering at head
+    dim 256) and against ``flash_attention_bwd_ref``, on the same (out,
+    lse)."""
     q, k, v, do, segs, kw = _bwd_inputs(case)
     sg = None if segs is None else tuple(_t(s) for s in segs)
     args = (_t(q), _t(k), _t(v)) + ref.attention_lse(
         _t(q), _t(k), _t(v), segment_ids=sg, **kw) + (_t(do),)
-    got = ref.flash_attention_bwd_blocked(*args, segment_ids=sg, tile=8,
-                                          **kw)
+    wide = case in WIDE_CASES
+    tol = WIDE_TOL if wide else BWD_TOL
+    got = ref.flash_attention_bwd_blocked(
+        *args, segment_ids=sg, tiles=WIDE_TILES if wide else (8, 8), **kw)
     want = ref.flash_attention_bwd_ref(*args, segment_ids=sg, **kw)
     jsegs = None if segs is None else tuple(jnp.asarray(s) for s in segs)
-    for name in ("attention_naive", "flash_attention_blocked"):
-        pulled = _jax_bwd(name, tuple(sorted(kw.items())))(
+    names = ("flash_attention_blocked",) if wide else (
+        "attention_naive", "flash_attention_blocked")
+    for name in names:
+        pulled = _jax_bwd(name, tuple(sorted(kw.items())),
+                          24 if wide else 8)(
             *map(jnp.asarray, (q, k, v, do)), jsegs)
         for g, j, t in zip(got, pulled, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(j),
-                                       atol=BWD_TOL, rtol=BWD_TOL)
+                                       atol=tol, rtol=tol)
             np.testing.assert_allclose(g.numpy(), t.numpy(),
-                                       atol=BWD_TOL, rtol=BWD_TOL)
+                                       atol=tol, rtol=tol)
 
 
+# the backward kernels' walks: (query tile rows, key tile rows, which
+# side walks): "dq" walks key tiles from each query tile (the causal /
+# window key range), "dkdv" walks query tiles from each key tile (the
+# query range)
+SPAN_WALKS = {
+    "square": [(t, t, side) for t in (4, 8, 32, 64)
+               for side in ("dq", "dkdv")],
+    # head_dim 256: 64-row blocks over 32-row tiles
+    "d256": [(64, 32, "dq"), (32, 64, "dkdv")],
+}
+
+
+@pytest.mark.parametrize("route", sorted(SPAN_WALKS))
 @pytest.mark.parametrize("ids", ["packed", "shuffled"])
 @pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
-def test_span_skip_never_drops_a_visible_pair(ids, mask):
+def test_span_skip_never_drops_a_visible_pair(ids, mask, route):
     """The kernels' tile skip is conservative: for seeded packed
     (nondecreasing) and shuffled ids, under causal, windowed and
-    bidirectional masks, at Sq == Skv and Sq != Skv and tiles of 4 / 8 /
-    32 / 64 rows, every (query tile, key tile) pair that holds a visible
-    pair has spans that meet and lies in the causal / window key range;
-    with packed ids the skip drops tile pairs."""
+    bidirectional masks, at Sq == Skv and Sq != Skv and each walk of
+    the route (square tiles of 4 / 8 / 32 / 64 rows; at head_dim 256
+    the 64-row blocks over 32-row tiles), every (query tile, key tile)
+    pair that holds a visible pair has spans that meet and lies in the
+    walk's causal / window range (``_tile_key_range`` from a query
+    tile, ``_tile_query_range`` from a key tile); with packed ids the
+    skip drops tile pairs."""
     kw = {"causal": dict(), "window": dict(window=9),
           "bidirectional": dict(causal=False, bidirectional=True)}[mask]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
     rng = np.random.default_rng(5)
     dropped = 0
     for sq, skv in ((96, 96), (40, 96), (96, 40), (130, 130)):
@@ -397,25 +434,32 @@ def test_span_skip_never_drops_a_visible_pair(ids, mask):
         seg_q, seg_k = _t(seg[:, :sq]), _t(seg[:, :skv])
         _, _, vis = ref._attention_logits(
             torch.zeros((3, sq, 1, 4)), torch.zeros((3, skv, 1, 4)),
-            causal=kw.get("causal", True), window=kw.get("window", 0),
-            softcap=0.0, segment_ids=(seg_q, seg_k),
+            causal=causal, window=window, softcap=0.0,
+            segment_ids=(seg_q, seg_k),
             bidirectional=kw.get("bidirectional", False))
         vis = vis[:, 0]                                     # [B,Sq,Skv]
-        for tile in (4, 8, 32, 64):
-            nq, nk = -(-sq // tile), -(-skv // tile)
+        for tq, tk, side in SPAN_WALKS[route]:
+            nq, nk = -(-sq // tq), -(-skv // tk)
             pad = torch.nn.functional.pad(
-                vis, (0, nk * tile - skv, 0, nq * tile - sq))
-            held = pad.reshape(3, nq, tile, nk, tile).any(4).any(2)
-            meet = ref.spans_meet(ref.tile_spans(seg_q, tile)[:, :, None],
-                                  ref.tile_spans(seg_k, tile)[:, None, :])
-            assert not (held & ~meet).any(), (sq, skv, tile)
-            causal = kw.get("causal", True)
-            for qt in range(nq):
-                keys = ref._tile_key_range(
-                    qt * tile, min(sq, (qt + 1) * tile), sq, skv, tile,
-                    causal, kw.get("window", 0))
-                outside = [kt for kt in range(nk) if kt not in keys]
-                assert not held[:, qt, outside].any(), (sq, skv, tile, qt)
+                vis, (0, nk * tk - skv, 0, nq * tq - sq))
+            held = pad.reshape(3, nq, tq, nk, tk).any(4).any(2)
+            meet = ref.spans_meet(ref.tile_spans(seg_q, tq)[:, :, None],
+                                  ref.tile_spans(seg_k, tk)[:, None, :])
+            assert not (held & ~meet).any(), (sq, skv, tq, tk)
+            if side == "dq":
+                for qt in range(nq):
+                    keys = ref._tile_key_range(
+                        qt * tq, min(sq, (qt + 1) * tq), sq, skv, tk,
+                        causal, window)
+                    outside = [kt for kt in range(nk) if kt not in keys]
+                    assert not held[:, qt, outside].any(), (sq, skv, tq, qt)
+            else:
+                for kt in range(nk):
+                    rows = ref._tile_query_range(
+                        kt * tk, min(skv, (kt + 1) * tk), sq, skv, tq,
+                        causal, window)
+                    outside = [qt for qt in range(nq) if qt not in rows]
+                    assert not held[:, outside, kt].any(), (sq, skv, tk, kt)
             dropped += int((~meet).sum())
     assert dropped > 0 or ids == "shuffled"
 

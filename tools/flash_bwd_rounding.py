@@ -12,10 +12,13 @@ that rounding ("bf16": one operand; "pair": a bf16 hi + lo pair, two
 products) it prints the worst |error| / max(1, |ref|) of dq, dk and dv,
 each rounded to bf16 as the kernel writes them, against the f32
 arithmetic rounded alike: the metric and gate (2e-2) of
-chip_smoke.check_flash_attention_bwd. The shape is the training check's
-(S 1024, H 32, KV 8, D 64, causal, the packed segment ids of
-make_batch's step 0) at ``--batch`` of its 8 rows, one head at a time;
-inputs are seeded standard normals rounded to bf16.
+chip_smoke.check_flash_attention_bwd. The shape is a training check's
+at ``--batch`` of its 8 rows, one head at a time, causal with the packed
+segment ids of make_batch's step 0: ``--shape llama`` (S 1024, H 32, KV
+8, D 64; the head_dim 16-128 bodies) or ``--shape gemma2`` (S 1024, H
+16, KV 8, D 256, softcap 50: the head_dim 256 bodies, where P and dS
+also carry the softcap's derivative); inputs are seeded standard
+normals rounded to bf16.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 
-S, H, KV, D = 1024, 32, 8, 64
+# (S, H, KV, D, softcap, vocabulary of the ids' make_batch)
+SHAPES = {"llama": (1024, 32, 8, 64, 0.0, 128256),
+          "gemma2": (1024, 16, 8, 256, 50.0, 256000)}
 
 
 def rounded(t, how):
@@ -50,10 +55,12 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="llama")
     a = ap.parse_args(argv)
     b = a.batch
+    S, H, KV, D, cap, vocab = SHAPES[a.shape]
     ids = torch.from_numpy(make_batch(DataConfig(
-        vocab_size=128256, seq_len=S, global_batch=8, pack=True),
+        vocab_size=vocab, seq_len=S, global_batch=8, pack=True),
         0)["segment_ids"][:b])
     i = torch.arange(S)
     mask = (i[None, :] <= i[:, None])[None] & (ids[:, :, None] ==
@@ -74,12 +81,16 @@ def main(argv) -> int:
             qh, doh, kh, vh = q[:, :, h], do[:, :, h], k[:, :, kvh], \
                 v[:, :, kvh]
             logits = torch.einsum("bqd,bkd->bqk", qh * scale, kh)
+            deriv = 1.0
+            if cap:
+                logits = cap * torch.tanh(logits / cap)
+                deriv = 1.0 - (logits / cap) ** 2
             logits = logits.masked_fill(~mask, -math.inf)
             p = torch.exp(logits - torch.logsumexp(logits, -1)[..., None])
             out = torch.einsum("bqk,bkd->bqd", p, vh).bfloat16().float()
             delta = (doh * out).sum(-1)
             ds = p * (torch.einsum("bqd,bkd->bqk", doh, vh) -
-                      delta[..., None])
+                      delta[..., None]) * deriv
             dq = {}
             for m in modes:
                 pm, dsm = rounded(p, m), rounded(ds, m)
@@ -92,7 +103,8 @@ def main(argv) -> int:
             worst[m]["dk"] = max(worst[m]["dk"], err(dk[m], dk["f32"]))
             worst[m]["dv"] = max(worst[m]["dv"], err(dv[m], dv["f32"]))
     print(json.dumps({"shape": f"B={b} S={S} H={H} KV={KV} D={D} causal "
-                      "packed ids", "seed": a.seed, "gate": 2e-2,
+                      f"packed ids softcap {cap:g}", "seed": a.seed,
+                      "gate": 2e-2,
                       "worst": worst}))
     return 0
 

@@ -2,7 +2,7 @@
 """Where one training step's time goes, on the card:
 
     python3 tools/train_step_profile.py [--arch mamba2-1.3b] [--top 30]
-                                        [--runs K]
+                                        [--runs K] [--layers N] [--steps N]
 
 ``--runs K`` first repeats ``chip_smoke.train_run`` (the smoke's whole
 30-step run with its gates) K times in this process and prints each
@@ -10,27 +10,35 @@ run's step median, the spread of its steps (min, quartiles, max),
 tokens/s, mfu, peak memory, first and last loss and the scan and flash
 kernels' launches: the spread of the smoke's figure on one tree.
 
-Builds the architecture at published widths and full depth as
-``chip_smoke.py``'s train runs do (bf16 compute, f32 parameters and
-AdamW moments, seeded weights, remat 'dots', one packed 8 x 1024 batch
-of ``chip_smoke.train_batch``), takes three warm-up steps, then:
+Builds the architecture at published widths and at the depth of
+``chip_smoke.py``'s train run for it (gemma2-9b: ``TRAIN_GEMMA``'s cut;
+``--layers`` sets another) as those runs do (bf16 compute, f32
+parameters and AdamW moments, seeded weights, remat 'dots', one packed
+8 x 1024 batch of ``chip_smoke.train_batch``), takes three warm-up
+steps, then:
 
 - times the forward (``loss_fn``), the backward (``autograd.grad``) and
-  the optimizer (``adamw_update``) of two more steps with CUDA events
-  recorded at the phase marks of the step itself (``make_train_step``'s
+  the optimizer (``adamw_update``) of ``--steps`` more steps (2) with
+  CUDA events recorded at the phase marks of the step itself (``make_train_step``'s
   ``on_phase``), the step ``chip_smoke.py``'s train runs time;
 - profiles one whole step with ``torch.profiler`` and prints the
   ``--top`` rows by self device time (ms and calls), then by self host
   time.
 
 Prints the card's name and power limit first, then one JSON line of the
-event times, then the tables. The profiler's own cost is in its step
-(its wall time is printed beside); its device times are per kernel.
+event times (and their steps' median), then the tables. Run from a
+checkout whose ``chip_smoke.py`` has no gemma2 run (an older tree, for
+a comparison in turns), ``--arch gemma2-9b`` still builds the cut model
+from ``--layers`` (``--runs`` needs the checkout's own run). The
+profiler's own cost is in its step (its wall time is printed beside);
+its device times are per kernel.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -49,6 +57,8 @@ def main(argv) -> int:
     ap.add_argument("--arch", default=cs.TRAIN_SSM["arch"])
     ap.add_argument("--top", type=int, default=30)
     ap.add_argument("--runs", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=2)
     a = ap.parse_args(argv)
     from repro_torch.configs import get_arch
     from repro_torch.models import Runtime, build_model
@@ -60,7 +70,13 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
-    spec = next(s for s in (cs.TRAIN, cs.TRAIN_SSM) if s["arch"] == a.arch)
+    specs = [getattr(cs, n) for n in ("TRAIN", "TRAIN_SSM", "TRAIN_GEMMA")
+             if hasattr(cs, n)]
+    spec = next((s for s in specs if s["arch"] == a.arch), None)
+    if spec is None and a.arch == "gemma2-9b":
+        spec = dict(cs.TRAIN, arch=a.arch, vocab=256000, n_layers=4)
+    if a.layers:
+        spec = dict(spec, n_layers=a.layers)
     for i in range(a.runs):
         line = cs.train_run(spec)
         ms = sorted(line["step_ms"])
@@ -74,6 +90,8 @@ def main(argv) -> int:
                          if k.startswith("mamba") or "flash" in k}}),
               flush=True)
     cfg = get_arch(a.arch)
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     model = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
                                      param_dtype=torch.float32,
                                      remat="dots"), device="cuda")
@@ -94,7 +112,7 @@ def main(argv) -> int:
         state, met = step(state, batch)
         float(met["loss"])
     times = []
-    for _ in range(2):
+    for _ in range(a.steps):
         marks.clear()
         timing = True
         state, met = step(state, batch)
@@ -103,7 +121,9 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         times.append({f"{name}_ms": ev.elapsed_time(nxt)
                       for (name, ev), (_, nxt) in zip(marks, marks[1:])})
-    print(json.dumps({"arch": a.arch, "events": times}), flush=True)
+    print(json.dumps({"arch": a.arch, "layers": cfg.n_layers,
+                      "events": times, "step_ms_median": statistics.median(
+                          sum(t.values()) for t in times)}), flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
