@@ -63,7 +63,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                (1e-4) and bf16 (2e-2) with a row without a valid key
                exactly 0, and llava's 3,900-position prefill (bf16);
                each timed in bf16 beside SDPA given the same boolean
-               mask (llava's: causal). The flash kernel's backward
+               mask (llava's: causal). The flash forward at the
+               training shapes (check_flash_fwd_train: B=8 S=1024 with
+               make_batch's packed ids, llama3.2-1b's D 64 and gemma2-9b's
+               D 256 with softcap 50, with lse) in bf16, f16 and f32,
+               lse within 1e-4, a repeat bit for bit, timed with and
+               without lse beside SDPA given the same mask. The flash
+               kernel's backward
                (check_flash_attention_bwd, training): at the training
                shape (B=8 S=1024 H=32 KV=8 D=64 causal, with the packed
                segment ids of one make_batch call), the same without
@@ -72,8 +78,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                dk and dv, against the plain version on the forward
                kernel's (out, lse), the lse against attention_lse within
                1e-4, a repeat bit-identical; timed in bf16 beside SDPA's
-               backward (given the same mask with ids), and the forward
-               timed with its lse beside without. The scan's backward
+               backward (given the same mask with ids). The flash
+               kernels' head_dim 256 bodies must show no spill in
+               nvcc's -Xptxas -v output (check_wide_spills). The scan's
+               backward
                (check_mamba_chunk_scan_bwd, training): mamba2-1.3b's
                training shape (Bt=8 S=1024 H=64 P=64 N=128, bf16), f32
                at S=512 and a ragged S=1000 with an initial state and
@@ -523,19 +531,21 @@ def tc_registers(logs, kernel):
             if "_tc_kernel<" in e["kernel"] and "registers" in e}
 
 
-def check_wide_bwd_spills(logs):
-    """The flash backward's head_dim 256 bodies (eight warps a block, up
-    to 255 registers a thread) must not spill: fails if nvcc's -Xptxas
-    -v output shows spill bytes for any of their instantiations, or none
-    of them when it built the kernel."""
-    wide = [e for e in ptxas_resources(logs, ("flash_attention_bwd",))
-            if "_wide_tc_kernel<" in e.get("kernel", "")]
-    if logs.get("flash_attention_bwd") and len(wide) != 8:
-        fail(f"flash_attention_bwd: {len(wide)} head_dim 256 "
-             "instantiations in the build log, expected 8")
-    for e in wide:
-        if e.get("spill_store_bytes") or e.get("spill_load_bytes"):
-            fail(f"flash_attention_bwd spills: {e}")
+def check_wide_spills(logs):
+    """The flash kernels' head_dim 256 bodies (eight warps a block: the
+    backward's up to 255 registers a thread, the forward's capped at 128
+    for two blocks an SM) must not spill: fails if nvcc's -Xptxas -v
+    output shows spill bytes for any of their instantiations, or not 8
+    of a kernel's when it built that kernel."""
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        wide = [e for e in ptxas_resources(logs, (kernel,))
+                if "_wide_tc_kernel<" in e.get("kernel", "")]
+        if logs.get(kernel) and len(wide) != 8:
+            fail(f"{kernel}: {len(wide)} head_dim 256 instantiations in "
+                 "the build log, expected 8")
+        for e in wide:
+            if e.get("spill_store_bytes") or e.get("spill_load_bytes"):
+                fail(f"{kernel} spills: {e}")
 
 
 def _max_err(got, want) -> float:
@@ -1882,6 +1892,85 @@ def _grad_err(got, want) -> float:
     return float(((got.float() - w).abs() / w.abs().clamp_min(1.0)).max())
 
 
+# the forward at the training shapes: BWD_SHAPES' llama3.2-1b (train) and
+# gemma2-9b (d256_train) rows, packed ids of make_batch step 0
+FWD_TRAIN_SHAPES = tuple(("fwd_" + t, *rest) for t, *rest in BWD_SHAPES
+                         if t in ("train", "d256_train"))
+FWD_TRAIN_TAGS = tuple(t for t, *_ in FWD_TRAIN_SHAPES)
+
+
+def check_flash_fwd_train(timer):
+    """The forward kernel at FWD_TRAIN_SHAPES (B=8 S=1024 causal, packed
+    ids: llama3.2-1b's D 64 and gemma2-9b's D 256 with softcap 50) as the
+    training path runs it, with lse: out held against ``attention_lse``
+    in bf16 (2e-2), f16 (1e-2) and f32 (1e-4), lse within 1e-4, a repeat
+    bit for bit; then in bf16 timed with lse and without, beside its
+    plain version, SDPA given the same boolean mask (no softcap) and its
+    bound: the products of this run's visible pairs at the bf16 peak, or
+    the bytes of q, k, v and the ids read and out and lse written.
+    Returns the flash row's extra keys."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    attention_lse = ref.attention_lse
+    runs = {spec["arch"]: spec for spec in (TRAIN, TRAIN_GEMMA)}
+    row = {}
+    for tag, b, s, h, kv, d, ids_of, kw in FWD_TRAIN_SHAPES:
+        ids = torch.from_numpy(train_batch(0, runs[ids_of])["segment_ids"])
+        segs = (ids.cuda(), ids.cuda())
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None])[None, None] & \
+            (segs[0][:, None, :, None] == segs[0][:, None, None, :])
+        base = [torch.randn((b, s, n, d), device="cuda") for n in (h, kv, kv)]
+        lse_err = 0.0
+        for dtype, tol, sfx in ((torch.float32, F32_TOL, "_f32"),
+                                (torch.float16, F16_TOL, "_f16"),
+                                (torch.bfloat16, BF16_TOL, "")):
+            q, k, v = (x.to(dtype) for x in base)
+            out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                           with_lse=True, **kw)
+            want, want_lse = attention_lse(q, k, v, segment_ids=segs, **kw)
+            err = _max_err(out, want)
+            lse_err = max(lse_err, _max_err(lse, want_lse))
+            if err > tol or lse_err > 1e-4:
+                fail(f"flash_attention {tag} {dtype}: out error {err}, lse "
+                     f"error {lse_err}")
+            again = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                        with_lse=True, **kw)
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                fail(f"flash_attention {tag} {dtype}: repeat differs")
+            row[f"max_abs_err{sfx}_{tag}"] = err
+            del out, lse, want, want_lse, again
+        # timed in bf16, the training path's type (q, k, v of the last pass)
+        pairs = int(mask.sum())
+        n_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d) + \
+            4 * b * h * s + 2 * 4 * b * s
+        b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs * h, "bfloat16")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        row.update({
+            f"lse_err_{tag}": lse_err,
+            f"ms_{tag}": timer.ms(lambda: flash_attention_fwd(
+                q, k, v, segment_ids=segs, with_lse=True, **kw)),
+            f"ms_nolse_{tag}": timer.ms(lambda: flash_attention_fwd(
+                q, k, v, segment_ids=segs, **kw)),
+            f"plain_ms_{tag}": timer.ms(lambda: attention_lse(
+                q, k, v, segment_ids=segs, **kw), iters=3, warmup=1),
+            f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
+            f"library_ms_{tag}": timer.ms(
+                lambda: _sdpa(qt, kt, vt, attn_mask=mask)),
+            f"pairs_{tag}": pairs})
+        del base, q, k, v, qt, kt, vt, mask
+        free_engine()
+    row["shape_fwd_train"] = "; ".join(
+        f"{t}: B={b} S={s} H={h} KV={kv} D={d} causal, packed ids "
+        f"({ids_} make_batch step 0)"
+        f"{''.join(f' {k} {v:g}' for k, v in kw.items())}"
+        for t, b, s, h, kv, d, ids_, kw in FWD_TRAIN_SHAPES) + (
+        " (ms_*: with lse, as training runs it; ms_nolse_*: without; "
+        "max_abs_err_*: bf16, _f16 / _f32 beside; SDPA given the same "
+        "boolean mask, no softcap)")
+    return row
+
+
 def check_flash_attention_bwd(timer):
     """The backward kernel at BWD_SHAPES, in f32 (1e-4), bf16 (2e-2)
     and f16 (1e-2): the forward kernel's (out, lse) with lse held
@@ -1893,8 +1982,7 @@ def check_flash_attention_bwd(timer):
     binding window; its forward outside the timing; no softcap) and its
     bound: the 5 products over this run's visible pairs at the bf16
     peak, or the bytes of q, k, v, o, dO read and dq, dk, dv written.
-    Returns (the backward's row, the forward row's extra keys: its time
-    with lse beside without at the training shape)."""
+    Returns the backward's row."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
     from repro_torch.kernels.ref import attention_lse
@@ -1905,7 +1993,6 @@ def check_flash_attention_bwd(timer):
                             "reference takes with jax.grad through "
                             "ref.flash_attention_blocked (the Pallas "
                             "kernel has no backward)"}
-    fwd_row = {}
     runs = {spec["arch"]: spec for spec in (TRAIN, TRAIN_GEMMA)}
     for tag, b, s, h, kv, d, ids_of, kw in BWD_SHAPES:
         ids = None if ids_of is None else torch.from_numpy(
@@ -1970,12 +2057,6 @@ def check_flash_attention_bwd(timer):
             f"library_ms_{tag}": timer.ms(lambda: torch.autograd.grad(
                 lib_out, (qt, kt, vt), dot, retain_graph=True)),
             f"pairs_{tag}": pairs})
-        if tag == "train":
-            fwd_row = {
-                "ms_lse_train": timer.ms(lambda: flash_attention_fwd(
-                    q, k, v, segment_ids=segs, with_lse=True)),
-                "ms_nolse_train": timer.ms(lambda: flash_attention_fwd(
-                    q, k, v, segment_ids=segs))}
         del lib_out, qt, kt, vt, args, out, lse, mask
         free_engine()
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
@@ -1990,10 +2071,7 @@ def check_flash_attention_bwd(timer):
         "max(1, |want|) over dq, dk, dv; max_abs_err_*: max |got - want|; "
         "d256_*: the eight-warp head_dim 256 bodies in bf16 / f16, SDPA "
         "without softcap, given the mask where ids or the window cut it)")
-    fwd_row["shape_lse"] = ("ms_lse_train / ms_nolse_train: the forward at "
-                            "the training shape in bf16 with its lse "
-                            "written and without")
-    return row, fwd_row
+    return row
 
 
 def scan_inputs(bt, s, h, p, n, dtype, init):
@@ -5184,7 +5262,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"build: {len(logs)} kernels in {build_s:.1f} s", file=sys.stderr)
-    check_wide_bwd_spills(logs)
+    check_wide_spills(logs)
 
     # 2. kernels against their plain versions ----------------------------
     rng = np.random.default_rng(SEED)
@@ -5209,9 +5287,10 @@ def main() -> int:
     # segment ids in the flash kernel: the encoder-decoder's cross- and
     # encoder attention, packed segments at head_dim 128; llava's prefill
     rows["flash_attention"].update(check_flash_segments(timer))
-    # the flash kernel's backward (training) and the forward's lse
-    rows["flash_attention_bwd"], fwd_lse = check_flash_attention_bwd(timer)
-    rows["flash_attention"].update(fwd_lse)
+    # the flash forward at the training shapes (packed ids, lse), and its
+    # backward
+    rows["flash_attention"].update(check_flash_fwd_train(timer))
+    rows["flash_attention_bwd"] = check_flash_attention_bwd(timer)
     # the scan's backward (mamba2 training)
     rows["mamba_chunk_scan_bwd"] = check_mamba_chunk_scan_bwd(timer, logs)
     # the registers of each tensor-core instantiation the kernels ran
@@ -5430,8 +5509,11 @@ def main() -> int:
          "launches_serve_recover", "launches_serve_gc",
          "launches_serve_prefix", "launches_ssd", "shape_d256",
          "replaces_what", "launches_train", "launches_train_gemma",
-         "ms_lse_train",
-         "ms_nolse_train", "shape_lse") + tuple(
+         "shape_fwd_train") + tuple(
+             f"{k}_{t}" for t in FWD_TRAIN_TAGS
+             for k in ("max_abs_err", "lse_err", "max_abs_err_f16",
+                       "max_abs_err_f32", "ms", "ms_nolse", "plain_ms",
+                       "bound_ms", "bound_by", "library_ms", "pairs")) + tuple(
              f"{k}_{t}" for t, *_ in BWD_SHAPES
              for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms", "pairs")) + tuple(

@@ -1,8 +1,9 @@
 // A CPU stand-in for the CUDA runtime and the warp primitives the
-// backward kernels use, so that their C++ runs on a machine with no
-// card: common.cuh includes it in place of the CUDA headers when a
-// source is built with g++ and -DREPRO_HOST_EMULATION
-// (tools/mamba_scan_bwd_host_check.py, tools/flash_bwd_host_check.py).
+// attention and scan kernels use, so that their C++ runs on a machine
+// with no card: common.cuh includes it in place of the CUDA headers when
+// a source is built with g++ and -DREPRO_HOST_EMULATION
+// (tools/mamba_scan_bwd_host_check.py, tools/flash_bwd_host_check.py,
+// tools/flash_fwd_host_check.py).
 //
 // - A launch (BWD_LAUNCH) runs the grid's blocks one after another;
 //   each CUDA thread of a block is a CPU thread, and __syncthreads() is
@@ -52,7 +53,10 @@ inline dim3 gridDim, blockDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
 template <typename F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -75,6 +79,9 @@ inline float __int_as_float(int v) {
   return f;
 }
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+inline float __fdividef(float a, float b) { return a / b; }
 
 // the 2-byte types as their bits
 struct __nv_bfloat16 { uint16_t bits; };

@@ -9,9 +9,14 @@ right-aligned (query row i sits at position i + Skv - Sq); fully masked
 KV tiles are skipped; sequence lengths need no padding. Segment ids
 (``segment_ids=(seg_q [B,Sq], seg_k [B,Skv])``, int32) restrict a query
 to keys of its own segment inside the same kernel, where the reference
-sends them to its blocked jnp lowering. A CPU tensor takes the plain
-version (``flash_attention_ref``, differentiated by autograd); a CUDA
-tensor launches the kernel or raises.
+sends them to its blocked jnp lowering; in bf16 / f16 a key tile whose
+ids' [min, max] misses the query tile's is neither loaded nor
+multiplied, the spans reduced inside the launch (one launch a call, no
+scratch; ``ref.fwd_tile_walk`` / ``ref.flash_attention_fwd_blocked``
+walk the same tiles). bf16 / f16 at head_dim 256 run an eight-warp body
+that splits the scores by key columns and the output by D. A CPU tensor
+takes the plain version (``flash_attention_ref``, differentiated by
+autograd); a CUDA tensor launches the kernel or raises.
 
 Where autograd records the call (grad enabled and q, k or v requiring
 grad), the CUDA path runs ``FlashAttentionFn``: its forward launches the
@@ -78,7 +83,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
                         segment_ids=None, bidirectional=False,
                         with_lse=False):
     """One launch of the forward kernel -> out [B,Sq,H,D] (+ lse
-    [B,H,Sq] float32 with ``with_lse``)."""
+    [B,H,Sq] float32 with ``with_lse``; -inf for a row with no valid key,
+    whose output is 0). Allocates only ``out`` and ``lse``."""
     seg_q, seg_k = _check(q, k, v, segment_ids, "flash_attention")
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]

@@ -186,6 +186,94 @@ def _tile_query_range(c0, c1, sq, skv, tile, causal, window):
     return range(i_lo // tile, i_hi // tile + 1 if i_lo <= i_hi else 0)
 
 
+def fwd_tile_walk(sq, skv, tiles, *, causal=True, window=0,
+                  segment_ids=None, bidirectional=False):
+    """The forward kernels' walk: {(b, q tile, key tile)} -> True for
+    each pair a q tile of ``tiles[0]`` rows walks over key tiles of
+    ``tiles[1]`` rows: the causal / window key range
+    (``_tile_key_range``), then with segment ids only the key tiles
+    whose id span meets the q tile's (``tile_spans``, ``spans_meet``).
+    Returns a bool [B, n q tiles, n key tiles] (B = 1 without ids)."""
+    rows, walked = tiles
+    causal = causal and not bidirectional
+    nq, nk = -(-sq // rows), -(-skv // walked)
+    b = 1 if segment_ids is None else segment_ids[0].shape[0]
+    walk = torch.zeros((b, nq, nk), dtype=torch.bool)
+    for qt in range(nq):
+        keys = list(_tile_key_range(qt * rows, min(sq, (qt + 1) * rows), sq,
+                                    skv, walked, causal, window))
+        walk[:, qt, keys] = True
+    if segment_ids is not None:
+        walk &= spans_meet(
+            tile_spans(segment_ids[0], rows)[:, :, None],
+            tile_spans(segment_ids[1], walked)[:, None, :]).cpu()
+    return walk
+
+
+def flash_attention_fwd_blocked(q, k, v, *, causal=True, window=0,
+                                softcap=0.0, segment_ids=None,
+                                bidirectional=False, tiles=(64, 64)):
+    """``attention_lse`` walked as the forward kernels walk it: each q
+    tile of ``tiles[0]`` rows over the key tiles of ``tiles[1]`` rows
+    that ``fwd_tile_walk`` keeps (the head_dim 16-128 bodies' (64, 64),
+    the head_dim 256 body's (64, 32)), with an online softmax in f32:
+    per tile m' = max(m, the tile's row max), alpha = exp(m - m'), l =
+    alpha l + sum p, acc = alpha acc + p v; m starts at -1e30 and a
+    masked logit is -inf, the kernels' values, so a walked tile whose
+    entries are all masked adds p = 0 with alpha = 1. Returns (out in
+    q's dtype, lse f32 [B,H,Sq], -inf for a row with no valid key, whose
+    output is 0). Used by the tests and the kernel's host check: it
+    holds the walk and the segment-span skip against the plain
+    version."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    rows, walked = tiles
+    causal = causal and not bidirectional
+    qf = q.float() * (1.0 / math.sqrt(d))
+    kf = k.float().repeat_interleave(h // kv, dim=2)
+    vf = v.float().repeat_interleave(h // kv, dim=2)
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)
+    walk = fwd_tile_walk(sq, skv, tiles, causal=causal, window=window,
+                         segment_ids=segment_ids)
+    out = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, h, sq), -math.inf, device=q.device)
+    for bi in range(b):
+        for qt in range(-(-sq // rows)):
+            r0, r1 = qt * rows, min(sq, (qt + 1) * rows)
+            m = torch.full((h, r1 - r0), NEG_INF, device=q.device)
+            l = torch.zeros((h, r1 - r0), device=q.device)
+            acc = torch.zeros((h, r1 - r0, d), device=q.device)
+            for kt in walk[min(bi, walk.shape[0] - 1), qt].nonzero()[:, 0]:
+                c0, c1 = int(kt) * walked, min(skv, (int(kt) + 1) * walked)
+                qp, kp = qpos[r0:r1, None], kpos[None, c0:c1]
+                mask = torch.ones((r1 - r0, c1 - c0), dtype=torch.bool,
+                                  device=q.device)
+                if causal:
+                    mask &= kp <= qp
+                if window and window > 0:
+                    mask &= kp > qp - window
+                if segment_ids is not None:
+                    mask &= segment_ids[0][bi, r0:r1, None] == \
+                        segment_ids[1][bi, None, c0:c1]
+                x = _softcap(torch.einsum("qhd,khd->hqk", qf[bi, r0:r1],
+                                          kf[bi, c0:c1]), softcap)
+                x = torch.where(mask, x, torch.full_like(x, -math.inf))
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(x - m_new[..., None])
+                l = alpha * l + p.sum(-1)
+                acc = alpha[..., None] * acc + torch.einsum(
+                    "hqk,khd->hqd", p, vf[bi, c0:c1])
+                m = m_new
+            out[bi, r0:r1] = (acc / l.clamp_min(1e-30)[..., None]) \
+                .transpose(0, 1)
+            lse[bi, :, r0:r1] = torch.where(
+                l > 0, m + torch.log(l.clamp_min(1e-30)),
+                torch.full_like(l, -math.inf))
+    return out.to(q.dtype), lse
+
+
 def flash_attention_bwd_blocked(q, k, v, out, lse, dout, *, causal=True,
                                 window=0, softcap=0.0, segment_ids=None,
                                 bidirectional=False, tiles=(64, 64)):

@@ -2166,12 +2166,13 @@ def _hold_bwd_tc_cases(cuda, d, g, dtype):
 
 def test_flash_attention_fwd_equal_ids_bit_identical_to_no_ids(cuda):
     """Ids all equal give the no-ids output bit for bit, with and
-    without the lse (the four instantiations of the tensor-core body),
-    and the same lse."""
+    without the lse (the four instantiations of each tensor-core body:
+    head_dim 64 and 128, and the eight-warp body at 256), and the same
+    lse."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     gen = torch.Generator(device=cuda).manual_seed(8)
     for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128):
+        for d in (64, 128, 256):
             for sq, skv, kw in ((300, 300, dict()),
                                 (90, 260, dict(window=70, softcap=20.0)),
                                 (1, 512, dict(causal=False,
@@ -2192,6 +2193,108 @@ def test_flash_attention_fwd_equal_ids_bit_identical_to_no_ids(cuda):
                     q, k, v, segment_ids=segs, with_lse=True, **kw)
                 assert torch.equal(out, plain) and torch.equal(out_s, plain)
                 assert torch.equal(lse, lse_s)
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_fwd_d256_tensor_core_body(cuda, g, dtype):
+    """The forward's head_dim 256 body (eight warps, S split by key
+    columns and O by D, P staged in shared memory, the id-span tile
+    skip) at G = 1 / 2 / 8 against ``attention_lse`` on out and lse, at
+    the backward's cases: the window binding (45 of 200) with softcap,
+    ids whose documents cross the 32- and 64-row tile edges, shuffled
+    ids, Sq < Skv, Sq > Skv (rows with no key: 0, lse -inf),
+    bidirectional with ids; one launch a call."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ref import attention_lse
+    kv, d = 2, 256
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    for tag, sq, skv, kw, ids in BWD_TC_CASES:
+        q = torch.randn((2, sq, g * kv, d), generator=gen,
+                        device=cuda).to(dtype)
+        k, v = (torch.randn((2, skv, kv, d), generator=gen,
+                            device=cuda).to(dtype) for _ in range(2))
+        segs = None
+        if ids:
+            seg = _crossing_ids(2, skv, cuda, shuffled=ids == "shuffled")
+            segs = (seg[:, skv - sq:].contiguous(), seg)
+        n0 = COUNTERS.launches().get("flash_attention", 0)
+        out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                       with_lse=True, **kw)
+        assert COUNTERS.launches()["flash_attention"] - n0 == 1
+        want, want_lse = attention_lse(q, k, v, segment_ids=segs, **kw)
+        assert out.dtype == dtype
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype], msg=tag)
+        dead = torch.isinf(want_lse)
+        assert torch.equal(torch.isinf(lse), dead), tag
+        torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=1e-4,
+                                   rtol=1e-4, msg=tag)
+        assert not out.transpose(1, 2)[dead].abs().sum(), tag
+        if tag == "rows_before_first_key":
+            assert dead[:, :, :sq - skv].all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_fwd_relabelled_ids_bit_identical(cuda, d):
+    """Ids relabelled (each document's label mapped through a seeded
+    permutation: the same mask, other tile spans, so the id-span skip
+    walks other key tiles) give out and lse bit for bit, with and
+    without lse, causal, at Sq < Skv and bidirectional, in bf16 and
+    f16: a tile the skip drops has every entry masked."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.ref import fwd_tile_walk
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    rng = np.random.default_rng(12)
+    tiles = (64, 64) if d <= 128 else (64, 32)
+    walked_other = False
+    for dtype in (torch.bfloat16, torch.float16):
+        for sq, skv, kw in ((300, 300, dict(softcap=20.0)),
+                            (130, 260, dict()),
+                            (260, 260, dict(causal=False,
+                                            bidirectional=True))):
+            q = torch.randn((2, sq, 8, d), generator=gen,
+                            device=cuda).to(dtype)
+            k, v = (torch.randn((2, skv, 2, d), generator=gen,
+                                device=cuda).to(dtype) for _ in range(2))
+            seg = _crossing_ids(2, skv, cuda)
+            labels = torch.tensor(
+                rng.permutation(int(seg.max()) + 1) * 7 - 40,
+                dtype=torch.int32, device=cuda)
+            other = labels[seg.long()]
+            runs = []
+            for ids in (seg, other):
+                segs = (ids[:, skv - sq:].contiguous(), ids)
+                runs.append(flash_attention_fwd(q, k, v, segment_ids=segs,
+                                                with_lse=True, **kw) +
+                            (flash_attention_fwd(q, k, v, segment_ids=segs,
+                                                 **kw),))
+                walk_kw = {n: x for n, x in kw.items() if n != "softcap"}
+                runs[-1] += (fwd_tile_walk(
+                    sq, skv, tiles, segment_ids=tuple(x.cpu() for x in segs),
+                    **walk_kw),)
+            for a, b in zip(runs[0][:3], runs[1][:3]):
+                assert torch.equal(a, b), (d, dtype, sq, skv, kw)
+            walked_other |= not torch.equal(runs[0][3], runs[1][3])
+    assert walked_other
+
+
+@pytest.mark.parametrize("ids", [False, True])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_fwd_one_kernel_a_call(cuda, ids, d):
+    """One forward call, with lse and ids or without, captured in a CUDA
+    graph is one kernel node of the body its head_dim takes (the id
+    spans are reduced inside it: no other launch, no scratch), and one
+    count."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    args = _bwd_case(cuda, 2, 200, 200, 4, 2, d, torch.bfloat16, {}, ids)
+    n0 = COUNTERS.launches().get("flash_attention", 0)
+    _, names = _graph_kernels(lambda: flash_attention_fwd(
+        *args[:3], segment_ids=args[6], with_lse=True))
+    assert COUNTERS.launches()["flash_attention"] - n0 == 1
+    body = ("flash_attention_wide_tc_kernel<" if d == 256
+            else "flash_attention_tc_kernel<")
+    assert len(names) == 1 and body in names[0], names
 
 
 def test_flash_attention_bwd_repeats_bit_identical(cuda):

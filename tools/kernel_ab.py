@@ -7,14 +7,21 @@ on one card, for a before/after comparison inside one call:
     python3 tools/kernel_ab.py --kernels flash_attention,attention_served,\
 flash_segments,flash_attention_bwd OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels fmmu_fsm OLD NEW NEW OLD
+    python3 tools/kernel_ab.py --harness NEW --kernels flash_fwd_train,\
+attention_d256 OLD NEW NEW OLD
 
 Each positional argument is the root of a checkout (its chip_smoke.py
-and src/). ``--kernels`` names the checks to run, comma-separated
+and src/). ``--harness DIR`` takes the checks from DIR's chip_smoke.py
+for every checkout (the kernels, their wrappers and their build still
+come from each checkout's src/): a shape that only the newer checkout's
+smoke holds is then timed on the older kernels too, through the same
+code. ``--kernels`` names the checks to run, comma-separated
 (default: paged_attention,flash_attention): each is chip_smoke.py's
 ``check_<name>``, which holds the kernel against its plain version and
 times it (given, by its parameters' names, the timer, a seeded numpy
-generator and nvcc's build logs). A check that returns a tuple (the attention shapes' and the
-backward's) gives its first element, the row of the kernel it names;
+generator and nvcc's build logs). A check that returns a tuple (the
+attention shapes') gives its first element, the row of the kernel it
+names;
 a checkout without a check prints it under ``missing``. Each run is a
 process of its own: it builds the kernels those checks run from that
 checkout's csrc/ into the checkout's build/ and prints one JSON line:
@@ -37,8 +44,8 @@ import sys
 CHILD = r"""
 import inspect, json, re, sys
 import numpy as np, torch
-root, names = sys.argv[1], sys.argv[2].split(",")
-sys.path[:0] = [root, root + "/src"]
+root, names, harness = sys.argv[1], sys.argv[2].split(","), sys.argv[3]
+sys.path[:0] = [harness, root + "/src"]
 import chip_smoke as cs
 from repro_torch.kernels import _build
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -48,6 +55,7 @@ sources = {"mamba_chunk_scan": ["mamba_scan"],
            "attention_served": ["flash_attention", "paged_attention"],
            "attention_d256": ["flash_attention", "paged_attention"],
            "flash_segments": ["flash_attention"],
+           "flash_fwd_train": ["flash_attention"],
            "flash_attention_bwd": ["flash_attention", "flash_attention_bwd"],
            "mamba_chunk_scan_bwd": ["mamba_scan_bwd"]}
 have = [n for n in names if hasattr(cs, "check_" + n)]
@@ -58,7 +66,7 @@ torch.manual_seed(cs.SEED)
 timer = cs.Timer()
 rng = np.random.default_rng(cs.SEED)
 keys = re.compile(r"^(name|(first_version_)?(ms|ns_per_step)|plain_ms|"
-                  r"library_ms|bound_ms|max_abs_err|err|steps|"
+                  r"library_ms|bound_ms|max_abs_err|err|lse_err|steps|"
                   r"scratch_bytes|launches_per_call)(_.*)?$")
 rows = []
 args = {"timer": timer, "rng": rng, "logs": logs}
@@ -69,7 +77,7 @@ for name in have:
         r = r[0]
     rows.append(dict({k: v for k, v in r.items() if keys.match(k)},
                      check=name))
-print(json.dumps({"root": root, "kernels": rows,
+print(json.dumps({"root": root, "harness": harness, "kernels": rows,
                   "missing": [n for n in names if n not in have],
                   "registers": regs}))
 """
@@ -78,6 +86,8 @@ print(json.dumps({"root": root, "kernels": rows,
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default="paged_attention,flash_attention")
+    ap.add_argument("--harness", default=None,
+                    help="checkout whose chip_smoke.py checks every root")
     ap.add_argument("roots", nargs="+")
     a = ap.parse_args(argv)
     print(subprocess.run(
@@ -85,7 +95,8 @@ def main(argv) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
     for root in a.roots:
-        res = subprocess.run([sys.executable, "-c", CHILD, root, a.kernels],
+        res = subprocess.run([sys.executable, "-c", CHILD, root, a.kernels,
+                              a.harness or root],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)

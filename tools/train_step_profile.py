@@ -21,9 +21,12 @@ steps, then:
   the optimizer (``adamw_update``) of ``--steps`` more steps (2) with
   CUDA events recorded at the phase marks of the step itself (``make_train_step``'s
   ``on_phase``), the step ``chip_smoke.py``'s train runs time;
-- profiles one whole step with ``torch.profiler`` and prints the
-  ``--top`` rows by self device time (ms and calls), then by self host
-  time.
+- profiles one whole step with ``torch.profiler`` and prints one JSON
+  line of its device time: the sum of its kernels, that of the kernels
+  launched inside the forward and the optimizer phases (the backward's
+  run on autograd's own thread, outside the phase's range) and each
+  flash kernel's calls and ms; then the ``--top`` rows by self device
+  time (ms and calls), then by self host time.
 
 Prints the card's name and power limit first, then one JSON line of the
 event times (and their steps' median), then the tables. Run from a
@@ -38,6 +41,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -64,7 +68,8 @@ def main(argv) -> int:
     from repro_torch.models import Runtime, build_model
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import make_train_step
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
     cs._setup()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,13 +103,20 @@ def main(argv) -> int:
     ocfg = opt.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup_steps"],
                            decay_steps=spec["decay_steps"])
     marks = []                      # (phase, event) while timing
+    ranges = []                     # the profiled step's open phase range
 
     def on_phase(name):
         if timing:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks.append((name, ev))
-    timing = False
+        if profiling:
+            if ranges:
+                ranges.pop().__exit__(None, None, None)
+            if name != "end":
+                ranges.append(record_function(f"phase:{name}"))
+                ranges[-1].__enter__()
+    timing = profiling = False
     step, init = make_train_step(model, ocfg, on_phase=on_phase)
     state = init(torch.Generator(device="cuda").manual_seed(cs.SEED))
     batch = cs.train_batch(0, spec)
@@ -127,19 +139,30 @@ def main(argv) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        profiling = True
         state, met = step(state, batch)
+        profiling = False
         float(met["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"profiled step: {wall * 1e3:.1f} ms wall", flush=True)
     ka = prof.key_averages()
 
-    def dev(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
+    def dev(e, kind=""):
+        return getattr(e, kind + "device_time_total",
+                       getattr(e, kind + "cuda_time_total", 0))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    print(json.dumps({"profiled_device_ms": {
+        "kernels": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+        **{e.key[6:]: dev(e) / 1e3 for e in ka
+           if e.key.startswith("phase:") and e.key != "phase:backward"},
+        "flash": {re.search(r"flash_\w+", e.key)[0]: [
+            e.count, dev(e, "self_") / 1e3] for e in ka
+            if "flash_" in e.key and e.device_type == DeviceType.CUDA}}}),
+          flush=True)
     print("by self device time (ms, calls, name):")
-    for e in sorted(ka, key=lambda e: -dev(e))[:a.top]:
-        print(f"{dev(e) / 1e3:10.3f} {e.count:7d}  {e.key[:100]}")
+    for e in sorted(ka, key=lambda e: -dev(e, "self_"))[:a.top]:
+        print(f"{dev(e, 'self_') / 1e3:10.3f} {e.count:7d}  {e.key[:100]}")
     print("by self host time (ms, calls, name):")
     for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:a.top]:
         print(f"{e.self_cpu_time_total / 1e3:10.3f} {e.count:7d}  "
