@@ -48,9 +48,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                (m, l) within 1e-3, repeats bit-identical); each timed
                beside SDPA at the same shape. The served models'
                attention shapes (check_attention_served): head_dim 128
-               at G = 2, 6 (dbrx), 7 (arctic), 8 (qwen2) and 16 (glm4),
+               at G = 2, 4 (llava), 6 (dbrx), 7 (arctic), 8 (qwen2) and
+               16 (glm4), and seamless's decoder at head_dim 64, G = 1,
                paged at B=8 P=16 ctx 1024 (within 2e-2, (m, l) 1e-3,
-               repeats bit-identical) and flash at B=1 S=1000 causal;
+               repeats bit-identical, each row with its split plan) and
+               flash at B=1 S=1000 causal;
                head_dim 256 with gemma2's window active (ctx / S 6144,
                window 4096, softcap 50), paged at B=8 and flash at
                B=1; each bf16, timed beside SDPA. Segment ids in the
@@ -79,8 +81,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                kernel's (out, lse), the lse against attention_lse within
                1e-4, a repeat bit-identical; timed in bf16 beside SDPA's
                backward (given the same mask with ids). The flash
-               kernels' head_dim 256 bodies must show no spill in
-               nvcc's -Xptxas -v output (check_wide_spills). The scan's
+               kernels' head_dim 256 bodies and every instantiation of
+               the paged kernel must show no spill in nvcc's -Xptxas -v
+               output (check_wide_spills). The scan's
                backward
                (check_mamba_chunk_scan_bwd, training): mamba2-1.3b's
                training shape (Bt=8 S=1024 H=64 P=64 N=128, bf16), f32
@@ -531,19 +534,30 @@ def tc_registers(logs, kernel):
             if "_tc_kernel<" in e["kernel"] and "registers" in e}
 
 
+# paged_attention.cu's entry functions: the bf16 / f16 tensor-core body
+# at 5 head dims x 1 / 2 / 4 head tiles x softcap on / off, and the f32
+# body at 5 head dims x head chunks of 1 / 4 / 8
+PAGED_INSTANTIATIONS = 2 * 5 * 3 * 2 + 5 * 3
+
+
 def check_wide_spills(logs):
     """The flash kernels' head_dim 256 bodies (eight warps a block: the
     backward's up to 255 registers a thread, the forward's capped at 128
-    for two blocks an SM) must not spill: fails if nvcc's -Xptxas -v
-    output shows spill bytes for any of their instantiations, or not 8
-    of a kernel's when it built that kernel."""
-    for kernel in ("flash_attention", "flash_attention_bwd"):
-        wide = [e for e in ptxas_resources(logs, (kernel,))
-                if "_wide_tc_kernel<" in e.get("kernel", "")]
-        if logs.get(kernel) and len(wide) != 8:
-            fail(f"{kernel}: {len(wide)} head_dim 256 instantiations in "
-                 "the build log, expected 8")
-        for e in wide:
+    for two blocks an SM) and every instantiation of the paged kernel
+    must not spill: fails if nvcc's -Xptxas -v output shows spill bytes
+    for any of them, or not 8 of a flash kernel's head_dim 256 bodies
+    (PAGED_INSTANTIATIONS of the paged kernel's entries) when it built
+    that kernel."""
+    for kernel, body, want in (
+            ("flash_attention", "_wide_tc_kernel<", 8),
+            ("flash_attention_bwd", "_wide_tc_kernel<", 8),
+            ("paged_attention", "paged_attention", PAGED_INSTANTIATIONS)):
+        ents = [e for e in ptxas_resources(logs, (kernel,))
+                if body in e.get("kernel", "")]
+        if logs.get(kernel) and len(ents) != want:
+            fail(f"{kernel}: {len(ents)} instantiations of {body} in the "
+                 f"build log, expected {want}")
+        for e in ents:
             if e.get("spill_store_bytes") or e.get("spill_load_bytes"):
                 fail(f"{kernel} spills: {e}")
 
@@ -1490,7 +1504,6 @@ def check_paged_attention(timer, rng):
     kg = kp[table.long()].reshape(b, 64 * page, kv, d).transpose(1, 2)
     vg = vp[table.long()].reshape(b, 64 * page, kv, d).transpose(1, 2)
     kg, vg, q4 = kg.contiguous(), vg.contiguous(), q[:, :, None, :]
-    plan = pa.plan(b, h, kv, 64, page, pa._sm_count(q.device.index))
     return {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -1501,7 +1514,7 @@ def check_paged_attention(timer, rng):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: _sdpa(q4, kg, vg)),
         "shape": "B=8 H=32 KV=8 D=64 P=16 ctx=1024 bf16",
-        "plan": plan._asdict(),
+        "plan": _plan(b, h, kv, 64, page),
     }
 
 
@@ -1621,6 +1634,7 @@ def check_attention_d256(timer, rng):
     kg, vg, q4 = kg.contiguous(), vg.contiguous(), q[:, :, None, :]
     paged = {
         "max_abs_err_d256": err,
+        "plan_d256": _plan(b, h, kv, maxp, page),
         "ms_d256": timer.ms(lambda: paged_attention(*args)),
         "plain_ms_d256": timer.ms(lambda: paged_attention_ref(*args)),
         "bound_ms_d256": b_ms, "bound_by_d256": b_by,
@@ -1631,11 +1645,21 @@ def check_attention_d256(timer, rng):
     return flash, paged
 
 
-# the served models' attention shapes: (tag, H, KV) at head_dim 128
-GQA_SHAPES = (("d128_g2", 16, 8), ("d128_g6", 48, 8), ("d128_g7", 56, 8),
-              ("d128_g8", 64, 8), ("d128_g16", 32, 2))
+# the served models' attention shapes: (tag, H, KV, D); llava's 32/8 at
+# head_dim 128, seamless's decoder 16/16 at 64
+GQA_SHAPES = (("d128_g2", 16, 8, 128), ("d128_g4", 32, 8, 128),
+              ("d128_g6", 48, 8, 128), ("d128_g7", 56, 8, 128),
+              ("d128_g8", 64, 8, 128), ("d128_g16", 32, 2, 128),
+              ("d64_g1", 16, 16, 64))
 WINDOW_CTX, WINDOW, WINDOW_SOFTCAP = 6144, 4096, 50.0   # gemma2's local layers
-SERVED_TAGS = tuple(t for t, _, _ in GQA_SHAPES) + ("d256_window",)
+SERVED_TAGS = tuple(t for t, *_ in GQA_SHAPES) + ("d256_window",)
+
+
+def _plan(b, h, kv, maxp, page):
+    """The paged kernel's launch plan at a shape, as a dict."""
+    from repro_torch.kernels import paged_attention as pa
+    return pa.plan(b, h, kv, maxp, page,
+                   pa._sm_count(torch.cuda.current_device()))._asdict()
 
 
 def _paged_row(timer, rng, tag, b, h, kv, d, ctx, page=16, window=0,
@@ -1677,6 +1701,7 @@ def _paged_row(timer, rng, tag, b, h, kv, d, ctx, page=16, window=0,
     kg, vg = (t.transpose(1, 2).contiguous() for t in (kg, vg))
     q4 = q[:, :, None, :]
     return {f"max_abs_err_{tag}": err,
+            f"plan_{tag}": _plan(b, h, kv, maxp, page),
             f"ms_{tag}": timer.ms(lambda: paged_attention(*args, **kw)),
             f"plain_ms_{tag}": timer.ms(
                 lambda: paged_attention_ref(*args, **kw), iters=5),
@@ -1723,22 +1748,23 @@ def _flash_row(timer, tag, s, h, kv, d, window=0, softcap=0.0):
 
 def check_attention_served(timer, rng):
     """Both attention kernels at the served models' shapes: head_dim 128
-    at G = 2, 6 (dbrx), 7 (arctic; paged's head chunk of 8 partly
-    empty), 8 (qwen2) and 16 (glm4; two chunks), paged at B=8 P=16 ctx
+    at G = 2, 4 (llava), 6 (dbrx), 7 (arctic), 8 (qwen2) and 16 (glm4),
+    head_dim 64 at G = 1 (seamless's decoder), paged at B=8 P=16 ctx
     1024 and flash at B=1 S=1000 causal; and gemma2's head_dim 256 with
     its local window active, ctx / S 6144 > window 4096, softcap 50
     (paged at B=8 H=16 KV=8, flash at H=16 KV=8). Returns the extra keys
     of the flash and paged rows."""
     flash, paged = {}, {}
-    for tag, h, kv in GQA_SHAPES:
-        paged.update(_paged_row(timer, rng, tag, 8, h, kv, 128, 1024))
-        flash.update(_flash_row(timer, tag, 1000, h, kv, 128))
+    for tag, h, kv, d in GQA_SHAPES:
+        paged.update(_paged_row(timer, rng, tag, 8, h, kv, d, 1024))
+        flash.update(_flash_row(timer, tag, 1000, h, kv, d))
     win = dict(window=WINDOW, softcap=WINDOW_SOFTCAP)
     paged.update(_paged_row(timer, rng, "d256_window", 8, 16, 8, 256,
                             WINDOW_CTX, **win))
     flash.update(_flash_row(timer, "d256_window", WINDOW_CTX, 16, 8, 256,
                             **win))
-    shapes = ", ".join(f"{t}: H={h} KV={kv} D=128" for t, h, kv in GQA_SHAPES)
+    shapes = ", ".join(f"{t}: H={h} KV={kv} D={d}"
+                       for t, h, kv, d in GQA_SHAPES)
     paged["shape_served"] = (
         f"B=8 P=16 ctx=1024 bf16, {shapes}; d256_window: B=8 H=16 KV=8 "
         f"D=256 ctx={WINDOW_CTX} window {WINDOW} softcap {WINDOW_SOFTCAP:g} "
@@ -5279,8 +5305,8 @@ def main() -> int:
     flash_d256, paged_d256 = check_attention_d256(timer, rng)
     rows["flash_attention"].update(flash_d256)
     rows["paged_attention"].update(paged_d256)
-    # the served models' shapes: head_dim 128 at G = 2 / 6 / 7 / 8 / 16,
-    # and head_dim 256 with gemma2's window active
+    # the served models' shapes: head_dim 128 at G = 2 / 4 / 6 / 7 / 8 /
+    # 16, head_dim 64 at G = 1, and head_dim 256 with gemma2's window
     flash_served, paged_served = check_attention_served(timer, rng)
     rows["flash_attention"].update(flash_served)
     rows["paged_attention"].update(paged_served)
@@ -5294,7 +5320,8 @@ def main() -> int:
     # the scan's backward (mamba2 training)
     rows["mamba_chunk_scan_bwd"] = check_mamba_chunk_scan_bwd(timer, logs)
     # the registers of each tensor-core instantiation the kernels ran
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "paged_attention"):
         rows[name]["registers"] = tc_registers(logs, name)
     # the probe kernel's time, beside the commit kernel that redesigned it
     rows["fmmu_commit"]["first_version_ms"] = rows["fmmu_translate"]["ms"]
@@ -5528,7 +5555,8 @@ def main() -> int:
                        "bound_by", "library_ms")) + tuple(
              f"{k}_{t}" for t in SERVED_TAGS
              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                       "bound_by", "library_ms")) + ("shape_served",) + \
+                       "bound_by", "library_ms", "plan")) + (
+             "shape_served", "plan", "plan_d256") + \
         tuple(f"launches_{_tag(n)}" for n in NEW_MODELS + EMBED_MODELS) + \
         tuple(f"{k}_{t}" for t in SEG_TAGS
               for k in ("ms", "plain_ms",

@@ -118,6 +118,58 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 #define BWD_LAUNCH(kern, grid, block, smem, stream, ...) \
   kern<<<grid, block, smem, stream>>>(__VA_ARGS__)
 #define REPRO_WARPS 1
+
+// ---- thread block clusters: a launch whose grid's z axis is cut into
+// clusters of cz blocks (cz <= 8, dividing gridDim.z), this block's rank
+// in its cluster and their count (1 under a plain launch), a barrier of
+// every thread of the cluster (release / acquire: the shared-memory
+// writes before it are seen after it), and an address of this block's
+// shared memory mapped to the same offset in the cluster's block `rank`
+// (distributed shared memory, read with plain loads)
+template <typename... Exp, typename... Act>
+inline cudaError_t repro_cluster_z_launch(void (*kern)(Exp...), dim3 grid,
+                                          dim3 block, size_t smem,
+                                          cudaStream_t stream, unsigned cz,
+                                          Act... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cz;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+#define CLUSTER_Z_LAUNCH(kern, grid, block, smem, stream, cz, ...) \
+  repro_cluster_z_launch(kern, grid, block, smem, stream, cz, __VA_ARGS__)
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+template <typename T>
+__device__ __forceinline__ const T* cluster_peer(const T* p, unsigned rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
+}
 #endif  // REPRO_HOST_EMULATION
 
 // dtype codes passed by the Python wrappers
@@ -212,6 +264,10 @@ __device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
   lo = Mma<T>::pack(a - to_f32(hv[0]), b - to_f32(hv[1]));
 }
 
+// once a library: a source built in parts (kernels/_build.py PARTS)
+// defines it in part 0
+#if !defined(REPRO_PART) || REPRO_PART == 0
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

@@ -3,9 +3,10 @@
 // with no card: common.cuh includes it in place of the CUDA headers when
 // a source is built with g++ and -DREPRO_HOST_EMULATION
 // (tools/mamba_scan_bwd_host_check.py, tools/flash_bwd_host_check.py,
-// tools/flash_fwd_host_check.py).
+// tools/flash_fwd_host_check.py, tools/paged_attention_host_check.py).
 //
-// - A launch (BWD_LAUNCH) runs the grid's blocks one after another;
+// - A launch (BWD_LAUNCH) runs the grid's blocks one after another
+//   (CLUSTER_Z_LAUNCH: a thread block cluster's blocks at once);
 //   each CUDA thread of a block is a CPU thread, and __syncthreads() is
 //   a std::barrier of the block. The dynamic shared memory (BWD_SMEM)
 //   is filled with NaN before each block, so a read of a word no phase
@@ -60,6 +61,13 @@ enum cudaFuncAttribute {
 template <typename F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// an H100's 132 SMs
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;
+  return 0;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "host emulation"; }
 
 struct int2 { int x, y; };
@@ -82,6 +90,16 @@ inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 inline float __fdividef(float a, float b) { return a / b; }
+inline float __expf(float x) { return expf(x); }
+// global-memory primitives of the split combine: loads past L1, the
+// ticket's atomic and the fence (blocks run one after another, but a
+// block's threads at once)
+template <typename T>
+inline T __ldcg(const T* p) { return *p; }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 
 // the 2-byte types as their bits
 struct __nv_bfloat16 { uint16_t bits; };
@@ -129,7 +147,7 @@ struct ReproWarp {
   const void* addr[32];
   uint32_t a[32][4], b[32][2];
 };
-inline ReproWarp* repro_host_warps;
+inline thread_local ReproWarp* repro_host_warps;
 inline ReproWarp& repro_warp() { return repro_host_warps[threadIdx.x >> 5]; }
 inline int repro_lane() { return (int)(threadIdx.x & 31); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -270,34 +288,69 @@ struct Mma {
 };
 
 // ---- launches
-inline std::barrier<>* repro_host_bar;
-inline unsigned char* repro_host_smem;
+inline thread_local std::barrier<>* repro_host_bar;
+inline thread_local unsigned char* repro_host_smem;
 #define __syncthreads() repro_host_bar->arrive_and_wait()
 #define BWD_SMEM(name) unsigned char* name = repro_host_smem
 #define BWD_LAUNCH(kern, grid, block, smem, stream, ...) \
   repro_host_launch(grid, block, smem, [=] { kern(__VA_ARGS__); })
 
+// ---- thread block clusters along z (CLUSTER_Z_LAUNCH): a cluster's
+// blocks run at once, each with its own shared memory, barrier and
+// warps; cluster_sync() meets every thread of the cluster and
+// cluster_peer() maps an address of this block's shared memory to the
+// same offset in another block's (distributed shared memory)
+inline thread_local unsigned char* const* repro_cluster_smem;
+inline thread_local unsigned repro_cluster_rank, repro_cluster_size;
+inline thread_local std::barrier<>* repro_cluster_bar;
+#define CLUSTER_Z_LAUNCH(kern, grid, block, smem, stream, cz, ...) \
+  (repro_host_launch(grid, block, smem, [=] { kern(__VA_ARGS__); }, cz), 0)
+inline unsigned cluster_rank() { return repro_cluster_rank; }
+inline unsigned cluster_size() { return repro_cluster_size; }
+inline void cluster_sync() { repro_cluster_bar->arrive_and_wait(); }
+template <typename T>
+inline const T* cluster_peer(const T* p, unsigned rank) {
+  return reinterpret_cast<const T*>(
+      repro_cluster_smem[rank] +
+      (reinterpret_cast<const unsigned char*>(p) - repro_host_smem));
+}
+
+// the grid's clusters (cz blocks along z; 1: every block alone) one
+// after another
 template <typename F>
-void repro_host_launch(dim3 grid, dim3 block, size_t smem, F fn) {
+void repro_host_launch(dim3 grid, dim3 block, size_t smem, F fn,
+                       unsigned cz = 1) {
   gridDim = grid;
   blockDim = block;
-  std::vector<float> buf(smem / 4 + 1);
-  std::unique_ptr<ReproWarp[]> warps(new ReproWarp[(block.x + 31) / 32]);
-  repro_host_warps = warps.get();
-  for (unsigned bz = 0; bz < grid.z; ++bz)
+  const unsigned nw = (block.x + 31) / 32;
+  std::vector<std::vector<float>> bufs(cz, std::vector<float>(smem / 4 + 1));
+  std::vector<unsigned char*> bases(cz);
+  std::unique_ptr<ReproWarp[]> warps(new ReproWarp[nw * cz]);
+  for (unsigned bz = 0; bz < grid.z; bz += cz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        for (auto& w : buf) w = NAN;
-        std::barrier<> bar(block.x);
-        repro_host_bar = &bar;
-        repro_host_smem = reinterpret_cast<unsigned char*>(buf.data());
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        for (unsigned c = 0; c < cz; ++c) {
+          for (auto& w : bufs[c]) w = NAN;
+          bases[c] = reinterpret_cast<unsigned char*>(bufs[c].data());
+          bars.emplace_back(new std::barrier<>(block.x));
+        }
+        std::barrier<> cluster_bar(block.x * cz);
         std::vector<std::thread> ts;
-        for (unsigned t = 0; t < block.x; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx, by, bz);
-            fn();
-          });
+        for (unsigned c = 0; c < cz; ++c)
+          for (unsigned t = 0; t < block.x; ++t)
+            ts.emplace_back([&, c, t] {
+              threadIdx = dim3(t);
+              blockIdx = dim3(bx, by, bz + c);
+              repro_host_bar = bars[c].get();
+              repro_host_smem = bases[c];
+              repro_host_warps = warps.get() + nw * c;
+              repro_cluster_smem = bases.data();
+              repro_cluster_rank = c;
+              repro_cluster_size = cz;
+              repro_cluster_bar = &cluster_bar;
+              fn();
+            });
         for (auto& th : ts) th.join();
       }
 }

@@ -7,7 +7,9 @@ the checkout, named by a hash of their sources, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing is built when
 the package is imported: the first launch of a kernel builds it, and
 ``build_all()`` builds every kernel with one nvcc process each, all
-started together.
+started together; a source named in ``PARTS`` is compiled as that many
+translation units at once (``-DREPRO_PART=i``) and linked into its one
+library.
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ KERNELS = ("fmmu_translate", "fmmu_commit", "fmmu_lookup",
            "mamba_scan", "mamba_scan_bwd", "fmmu_fsm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources compiled in parts: paged_attention.cu's 75 instantiations took
+# ~110 s of ptxas in one process, the longest of the build
+PARTS = {"paged_attention": 3}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -51,28 +56,50 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _popen(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name: str):
-    """Start nvcc for one kernel; None when its library is current."""
+    """Start nvcc for one kernel (one process a part); None when its
+    library is current."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    src = str(CSRC / f"{name}.cu")
+    if name not in PARTS:
+        return [_popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src])], [], \
+            tmp, out
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [tmp.with_suffix(f".{i}.o") for i in range(PARTS[name])]
+    procs = [_popen([_nvcc(), *flags, "-c", f"-DREPRO_PART={i}", "-o",
+                     str(obj), src]) for i, obj in enumerate(objs)]
+    return procs, objs, tmp, out
 
 
 def _finish(name: str, job) -> str:
     if job is None:
         return ""
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+    procs, objs, tmp, out = job
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        for proc, log in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        if objs:
+            link = _popen([_nvcc(), "-shared", "-o", str(tmp),
+                           *map(str, objs)])
+            log = link.communicate()[0]
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link {name}:\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return log
+    return "".join(logs)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:

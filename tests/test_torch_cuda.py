@@ -175,6 +175,44 @@ def test_paged_attention_one_launch_per_call(cuda):
     assert torch.equal(got[-1], want)
 
 
+@pytest.mark.parametrize("g,d", [(g, d) for d in (64, 128, 256)
+                                 for g in (1, 2, 4, 6, 7, 8, 16)]
+                         + [(24, 64), (40, 64), (80, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_attention_tensor_core_body(cuda, g, d, dtype):
+    """The bf16 / f16 body (every query head of a KV head in one block,
+    the heads the rows of the tensor-core products; two and four 16-row
+    head tiles at G = 24 / 40, two chunks at 80) against the plain
+    version with (m, l): a ctx = 0 lane, contexts on and one past a
+    split edge and far from it, with and without the window and the
+    softcap; a repeat and a wider table give the same bits, every call
+    is one launch and leaves the ticket counters at zero."""
+    b, kv, page, maxp = 4, 2, 16, 64
+    h = g * kv
+    q, kp, vp, wide = _paged_inputs(cuda, b, h, kv, d, page, 2 * maxp,
+                                    dtype, seed=g + d)
+    args = (q, kp, vp, wide[:, :maxp].contiguous())
+    pl = pa.plan(b, h, kv, maxp, page, pa._sm_count(cuda.index or 0))
+    assert pl.n_split > 2 and pl.head_chunks == -(-g // 64)
+    edge = pl.pages_per_split * page
+    ctx = torch.tensor([0, edge, edge + 1, maxp * page - 3],
+                       dtype=torch.int32, device=cuda)
+    for kw in (dict(), dict(window=edge + 10, softcap=30.0)):
+        got, m, l = _check_paged(args, ctx, dtype, **kw)
+        assert (got[0] == 0).all() and (l[0] == 0).all() \
+            and (m[0] == -1e30).all()
+        n0 = COUNTERS.launches()["paged_attention"]
+        again = paged_attention(*args, ctx, return_stats=True, **kw)
+        wider = paged_attention(q, kp, vp, wide, ctx, return_stats=True,
+                                **kw)
+        assert COUNTERS.launches()["paged_attention"] - n0 == 2
+        for other in (again, wider):
+            assert torch.equal(got, other[0])
+            assert torch.equal(m, other[1][0]) and torch.equal(l, other[1][1])
+    torch.cuda.synchronize()
+    assert int(pa._COUNTER_BUFS[q.device].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("sq,skv", [(100, 100), (37, 200), (130, 130),
                                     (64, 64)])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
@@ -1060,9 +1098,9 @@ def test_moe_macro_replays_match_eager_program(cuda, arch):
 
 
 def test_macro_capture_never_grows_the_ticket_buffer(cuda, monkeypatch):
-    """In a fresh process state the first capture is at page bucket 4
+    """In a fresh process state the first capture is at page bucket 8
     (paged attention runs one split: no ticket buffer) and the next at
-    bucket 8 (two splits): the buffer is grown by that variant's eager
+    bucket 16 (two splits): the buffer is grown by that variant's eager
     warm-up, never inside a capture, where the zero-fill would only run
     at replay from the graph pool. The tokens equal single steps'."""
     pa._COUNTER_BUFS.clear()                     # nothing sized yet
@@ -1076,17 +1114,17 @@ def test_macro_capture_never_grows_the_ticket_buffer(cuda, monkeypatch):
             grown.append(torch.cuda.is_current_stream_capturing())
         return buf
     monkeypatch.setattr(pa, "_counter_buffer", spy)
-    # a 60-token prompt at page 16: ctx 60..63 (4 pages) in the first
-    # run, 64..67 (5 pages, bucket 8) in the second
-    reqs = [(range(1, 61), 12), (range(100, 110), 12)]
+    # a 124-token prompt at page 16: ctx 124..127 (8 pages) in the
+    # first run, 128..131 (9 pages, bucket 16) in the second
+    reqs = [(range(1, 125), 12), (range(100, 110), 12)]
     eng = _macro_engine(cuda, page=16, max_ctx=256)
     got, keys = _serve(eng, reqs)
     cfg = eng.cfg
     splits = {p: pa.plan(eng.n_slots, cfg.n_heads, cfg.n_kv_heads, p, 16,
                          pa._sm_count(torch.cuda.current_device())).n_split
-              for p in (4, 8)}
-    assert [k[2] for k in keys[:2]] == [(4,) * MACRO_K, (8,) * MACRO_K]
-    assert splits[4] == 1 < splits[8]
+              for p in (8, 16)}
+    assert [k[2] for k in keys[:2]] == [(8,) * MACRO_K, (16,) * MACRO_K]
+    assert splits[8] == 1 < splits[16]
     assert grown == [False]
     assert eng._graphs.stats()["graphs"] == len(set(keys)) >= 2
     monkeypatch.undo()
@@ -1688,10 +1726,11 @@ def test_fmmu_fsm_oversized_geometry_raises_on_the_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernels_at_the_served_gqa_groups(cuda, h, kv, dtype):
     """head_dim 128 at G = 2, 6 (dbrx), 7 (arctic), 8 (qwen2) and 16
-    (glm4): paged attention's head chunk of 8 runs partly empty at 6 and
-    7 and twice at 16; flash attention maps a query head to its KV head
-    by H / KV. Both against their plain versions, paged with (m, l) and
-    repeats bit-identical."""
+    (glm4): paged attention's 16-row head tile runs partly empty below
+    16 (f32: its head chunk of 8 partly empty at 6 and 7, twice at 16);
+    flash attention maps a query head to its KV head by H / KV. Both
+    against their plain versions, paged with (m, l) and repeats
+    bit-identical."""
     d, page, maxp, b = 128, 16, 24, 4
     args = _paged_inputs(cuda, b, h, kv, d, page, maxp, dtype, seed=h + kv)
     ctx = torch.tensor([1, 100, 257, maxp * page], dtype=torch.int32,

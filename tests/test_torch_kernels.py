@@ -292,17 +292,22 @@ def test_paged_split_partials_combine_to_whole(page, maxp, pps, window):
 @pytest.mark.parametrize("b,h,kv,maxp,page", [
     (8, 32, 8, 64, 16), (8, 32, 8, 128, 16), (1, 32, 8, 4, 16),
     (3, 8, 2, 6, 8), (2, 8, 2, 2, 256), (64, 32, 8, 128, 16),
-    (2, 24, 2, 33, 16), (4, 4, 4, 0, 16), (1, 4, 1, 512, 16)])
+    (2, 24, 2, 33, 16), (4, 4, 4, 0, 16), (1, 4, 1, 512, 16),
+    (8, 32, 2, 64, 16), (2, 160, 2, 16, 16)])
 def test_paged_plan_covers_every_page_from_shapes(b, h, kv, maxp, page):
-    """The paged kernel's launch plan: whole pages per split, every page
-    in exactly one split, no split past the table, no split under one
-    64-row tile unless the table is, at most MAX_SPLITS splits; at the
-    llama serving shape (8 slots, ctx 1024, 132 SMs) at least 2 blocks
-    per SM."""
+    """The paged kernel's launch plan: every query head of a KV head in
+    one block up to MAX_BLOCK_HEADS (past it, the fewest equal chunks),
+    whole pages per split, every page in exactly one split, no split
+    past the table, no split under two 64-key stages unless the table
+    is, at most MAX_SPLITS splits; at the llama serving shape (8 slots,
+    ctx 1024, 132 SMs) one wave of at most BLOCKS_PER_SM blocks an SM,
+    more than half full: two splits of 512 tokens."""
     from repro_torch.kernels import paged_attention as pa
     pl = pa.plan(b, h, kv, maxp, page, 132)
     g = h // kv
-    assert pl.heads_per_block in (1, 4, 8)
+    assert pl.head_chunks == -(-g // pa.MAX_BLOCK_HEADS)
+    assert pl.heads_per_block == -(-g // pl.head_chunks)
+    assert pl.heads_per_block <= pa.MAX_BLOCK_HEADS
     assert pl.head_chunks * pl.heads_per_block >= g
     assert (pl.head_chunks - 1) * pl.heads_per_block < g
     assert 1 <= pl.n_split <= pa.MAX_SPLITS and pl.pages_per_split >= 1
@@ -311,9 +316,10 @@ def test_paged_plan_covers_every_page_from_shapes(b, h, kv, maxp, page):
         assert pl.n_split * pl.pages_per_split >= maxp
         if pl.n_split > 1:
             assert pl.pages_per_split * page >= pa.MIN_SPLIT_TOKENS
-    if (b, maxp) == (8, 64):
-        assert b * kv * pl.head_chunks * pl.n_split >= 2 * 132
-        assert 128 <= pl.pages_per_split * page <= 256
+    if (b, kv, maxp) == (8, 8, 64):
+        assert 132 // 2 < b * kv * pl.head_chunks * pl.n_split \
+            <= pa.BLOCKS_PER_SM * 132
+        assert pl.pages_per_split * page == 512
 
 
 @pytest.mark.parametrize("b,h,kv,page,n_sm", [

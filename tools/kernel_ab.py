@@ -9,6 +9,8 @@ flash_segments,flash_attention_bwd OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels fmmu_fsm OLD NEW NEW OLD
     python3 tools/kernel_ab.py --harness NEW --kernels flash_fwd_train,\
 attention_d256 OLD NEW NEW OLD
+    python3 tools/kernel_ab.py --harness NEW --kernels paged_attention,\
+attention_served:1,attention_d256:1 OLD NEW NEW OLD
 
 Each positional argument is the root of a checkout (its chip_smoke.py
 and src/). ``--harness DIR`` takes the checks from DIR's chip_smoke.py
@@ -20,13 +22,14 @@ code. ``--kernels`` names the checks to run, comma-separated
 ``check_<name>``, which holds the kernel against its plain version and
 times it (given, by its parameters' names, the timer, a seeded numpy
 generator and nvcc's build logs). A check that returns a tuple (the
-attention shapes') gives its first element, the row of the kernel it
-names;
-a checkout without a check prints it under ``missing``. Each run is a
+attention shapes': the flash row, then the paged row) gives its first
+element, or element N when named ``<name>:N`` (``attention_served:1``
+is the paged rows); a checkout without a check prints it under
+``missing``. Each run is a
 process of its own: it builds the kernels those checks run from that
 checkout's csrc/ into the checkout's build/ and prints one JSON line:
-every timing and error key of each row (``ms``, ``plain_ms``,
-``library_ms``, ``bound_ms``, ``max_abs_err``, fmmu_fsm's ``steps`` and
+every timing, error and plan key of each row (``ms``, ``plain_ms``,
+``library_ms``, ``bound_ms``, ``max_abs_err``, ``plan``, fmmu_fsm's ``steps`` and
 ``ns_per_step``, the scan backward's ``scratch_bytes_train`` and
 ``launches_per_call``, and their per-shape ``*_<tag>`` forms) and, from the
 checkout's own ``ptxas_resources``,
@@ -58,8 +61,10 @@ sources = {"mamba_chunk_scan": ["mamba_scan"],
            "flash_fwd_train": ["flash_attention"],
            "flash_attention_bwd": ["flash_attention", "flash_attention_bwd"],
            "mamba_chunk_scan_bwd": ["mamba_scan_bwd"]}
-have = [n for n in names if hasattr(cs, "check_" + n)]
-build = sorted({src for n in have for src in sources.get(n, [n])})
+specs = [(n.split(":")[0], int(n.split(":")[1]) if ":" in n else 0, n)
+         for n in names]
+have = [s for s in specs if hasattr(cs, "check_" + s[0])]
+build = sorted({src for n, _, _ in have for src in sources.get(n, [n])})
 logs = _build.build_all(tuple(build))
 regs = cs.ptxas_resources(logs, tuple(build))
 torch.manual_seed(cs.SEED)
@@ -67,18 +72,18 @@ timer = cs.Timer()
 rng = np.random.default_rng(cs.SEED)
 keys = re.compile(r"^(name|(first_version_)?(ms|ns_per_step)|plain_ms|"
                   r"library_ms|bound_ms|max_abs_err|err|lse_err|steps|"
-                  r"scratch_bytes|launches_per_call)(_.*)?$")
+                  r"scratch_bytes|launches_per_call|plan)(_.*)?$")
 rows = []
 args = {"timer": timer, "rng": rng, "logs": logs}
-for name in have:
+for name, index, spec in have:
     check = getattr(cs, "check_" + name)
     r = check(*(args[p] for p in inspect.signature(check).parameters))
     if isinstance(r, tuple):
-        r = r[0]
+        r = r[index]
     rows.append(dict({k: v for k, v in r.items() if keys.match(k)},
-                     check=name))
+                     check=spec))
 print(json.dumps({"root": root, "harness": harness, "kernels": rows,
-                  "missing": [n for n in names if n not in have],
+                  "missing": [s[2] for s in specs if s not in have],
                   "registers": regs}))
 """
 

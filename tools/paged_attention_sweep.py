@@ -5,11 +5,14 @@ and the context length, to see where its time goes:
 
     python3 tools/paged_attention_sweep.py
 
-For each blocks-per-SM target of the split plan and each context
-length it prints the plan, the kernel's median device time with the L2
-flushed before each launch (chip_smoke.Timer) and with the L2 warm,
-and the bytes the call must move; first, the same timers around a
-one-element fill, the floor of any timed launch. Needs one CUDA card.
+For each blocks-per-SM target of the split plan (``BLOCKS_PER_SM``:
+the plan takes the most splits that keep one wave of that many blocks
+an SM) and each context length it prints the plan (heads a block, head
+chunks, splits, pages a split), the kernel's median device time with
+the L2 flushed before each launch (chip_smoke.Timer) and with the L2
+warm, and the bytes the call must move; first, the same timers around
+a one-element fill, the floor of any timed launch. Needs one CUDA
+card.
 
     python3 tools/paged_attention_sweep.py --wide
 
