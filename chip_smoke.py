@@ -65,22 +65,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                (1e-4) and bf16 (2e-2) with a row without a valid key
                exactly 0, and llava's 3,900-position prefill (bf16);
                each timed in bf16 beside SDPA given the same boolean
-               mask (llava's: causal). The flash forward at the
-               training shapes (check_flash_fwd_train: B=8 S=1024 with
-               make_batch's packed ids, llama3.2-1b's D 64 and gemma2-9b's
-               D 256 with softcap 50, with lse) in bf16, f16 and f32,
-               lse within 1e-4, a repeat bit for bit, timed with and
-               without lse beside SDPA given the same mask. The flash
-               kernel's backward
-               (check_flash_attention_bwd, training): at the training
-               shape (B=8 S=1024 H=32 KV=8 D=64 causal, with the packed
-               segment ids of one make_batch call), the same without
-               ids, and D=128 at S=1000, in f32 (1e-4), bf16 (2e-2) and
-               f16 (1e-2) on max |got - want| / max(1, |want|) of dq,
-               dk and dv, against the plain version on the forward
-               kernel's (out, lse), the lse against attention_lse within
-               1e-4, a repeat bit-identical; timed in bf16 beside SDPA's
-               backward (given the same mask with ids). The flash
+               mask (llava's: causal). The flash forward (with lse)
+               and backward at every training shape (check_flash_train,
+               BWD_SHAPES: llama3.2-1b's B=8 S=1024 H=32 KV=8 D=64
+               causal with make_batch's packed ids and without, D=128 at
+               S=1000, gemma2-9b's D 256 with window and softcap,
+               llava's B=2 S=3904 D=128 causal, seamless's encoder,
+               decoder and cross-attention), in f32 (1e-4), f16 (1e-2)
+               and bf16 (2e-2): out against attention_lse, lse within
+               1e-4, dq, dk and dv against the plain version on the
+               forward kernel's (out, lse) on max |got - want| /
+               max(1, |want|) and block by block (TILE_TOL), the block
+               check shown to see a dropped tail tile, repeats bit for
+               bit; timed in bf16 in turns beside SDPA's forward and
+               backward given the same mask. The flash
                kernels' head_dim 256 bodies and every instantiation of
                the paged kernel must show no spill in nvcc's -Xptxas -v
                output (check_wide_spills). The scan's
@@ -338,6 +336,36 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
                flash_attention launches a layer and step, step ms,
                tokens/s, mfu, peak memory; then its 2-layer f32
                kernel-vs-ref parity.
+  8d. train (llava) — llava-next-mistral-7b at every published width
+               (d 4096, 32 / 8 heads of 128, d_ff 14336, vocab 32000)
+               and TRAIN_LLAVA's cuts (12 of 32 layers by the memory
+               plan; 2 rows), each row 2,880 seeded patch embeddings
+               (prefix_emb, made on the card) before 1,024 unpacked text
+               tokens, the loss on the text, AdamW lr 3e-4 (TRAIN_LLAVA's
+               lr_note): losses finite and falling, one flash_attention_bwd
+               (head_dim 128 over 3,904 causal positions) and two
+               flash_attention launches a layer and step, step ms, text
+               tokens/s and positions/s, mfu (_train_flops counts the
+               prefix through every layer), peak memory; then its
+               2-layer f32 kernel-vs-ref parity.
+  8e. train (seamless) — seamless-m4t-large-v2 at full depth and every
+               published width (24 encoder + 24 decoder layers, d 1024,
+               16 heads of 64, GeGLU 8192, vocab 256,206), 4 rows (at 8
+               the step does not fit the card) of 1,024 unpacked decoder
+               tokens, each with 512 seeded source frames (row 0 all
+               valid, the others 96..512, src_valid): 72 flash_attention_bwd
+               and 144 flash_attention launches a step (an encoder
+               self-attention, a decoder self-attention and a
+               cross-attention a layer, each recomputed once under remat
+               'dots'); then its 2-layer f32 parity (2 encoder + 2
+               decoder layers). The kernels phase holds and times the
+               forward with lse and the backward at both models'
+               training shapes (check_flash_train).
+  9. serve launch — the serving launcher, launch/serve.py's main, on
+               the card for llama3.2-1b at its published widths (6
+               requests, 16 new tokens each): its JSON parses, every
+               request completes with all its tokens, and fmmu_commit,
+               paged and flash attention are launched.
 Launch counts are zeroed just before each path's run and read just
 after it; each kernel reports the count of the path that carries it
 (fmmu_lookup: the map phase's; fmmu_fsm: the fsm phase's long traces,
@@ -373,8 +401,11 @@ the kernel rows as launches_<model>), one {"train": {...}} (the
 backward's launches are the train phase's; the forward row's
 launches_train), one {"train_ssm": {...}} (the scan backward's
 launches are its phase's; the scan row's launches_train), one
-{"train_gemma": {...}} (the flash rows' launches_train_gemma); the last
-line is
+{"train_gemma": {...}} (the flash rows' launches_train_gemma), one
+{"train_llava": {...}} and one {"train_seamless": {...}} (the flash
+rows' launches_train_llava and launches_train_seamless), one
+{"serve_launch": {...}} (the attention rows' launches_serve_launch);
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -1878,35 +1909,99 @@ def check_flash_segments(timer):
     return row
 
 
-# the flash kernel's backward (training): (tag, B, S, H, KV, D, the
-# train run whose make_batch step 0 gives the segment ids or None, mask
-# options): the training shape (llama3.2-1b's attention at 8 x 1024
-# packed tokens), the same without ids, head_dim 128 at S = 1000, and
-# gemma2-9b's head_dim 256 with its window and softcap: at S = 1000
-# (the window covers every position), at its training shape (8 x 1024
-# packed tokens) and at S = 6144, where the 4096 window binds
-BWD_SHAPES = (("train", 8, 1024, 32, 8, 64, "llama3.2-1b", {}),
-              ("train_noids", 8, 1024, 32, 8, 64, None, {}),
-              ("d128", 1, 1000, 32, 8, 128, None, {}),
-              ("d256_window", 1, 1000, 16, 8, 256, None,
-               dict(window=4096, softcap=50.0)),
-              ("d256_train", 8, 1024, 16, 8, 256, "gemma2-9b",
-               dict(softcap=50.0)),
-              ("d256_band", 1, 6144, 16, 8, 256, None,
-               dict(window=4096, softcap=50.0)))
+# the flash kernel at the training shapes, forward (with lse) and
+# backward: (tag, B, Sq, Skv, H, KV, D, ids, mask options). ids: None,
+# a train run's arch (its make_batch step 0 gives packed ids, the same
+# for queries and keys) or "src_valid" (each query in segment 1, frame j
+# in TRAIN_SEAMLESS's step-0 src_valid of ``train_extras``). Rows:
+# llama3.2-1b's attention at its training shape (8 x 1024 packed
+# tokens), the same without ids, head_dim 128 at S = 1000; gemma2-9b's
+# head_dim 256 with its window and softcap at S = 1000 (the window
+# covers every position), at its training shape and at S = 6144, where
+# the 4096 window binds; llava's training shape (2 rows of 2,880 patch
+# embeddings + 1,024 text tokens, causal, no ids: phase 8d); seamless's
+# encoder (bidirectional, unmasked, as ``Model._encode`` runs it), its
+# decoder's self-attention (causal, unpacked) and its cross-attention
+# (Sq 1024 over Skv 512), at TRAIN_SEAMLESS's 4 rows (phase 8e)
+BIDIR = dict(causal=False, bidirectional=True)
+BWD_SHAPES = (
+    ("train", 8, 1024, 1024, 32, 8, 64, "llama3.2-1b", {}),
+    ("train_noids", 8, 1024, 1024, 32, 8, 64, None, {}),
+    ("d128", 1, 1000, 1000, 32, 8, 128, None, {}),
+    ("d256_window", 1, 1000, 1000, 16, 8, 256, None,
+     dict(window=4096, softcap=50.0)),
+    ("d256_train", 8, 1024, 1024, 16, 8, 256, "gemma2-9b",
+     dict(softcap=50.0)),
+    ("d256_band", 1, 6144, 6144, 16, 8, 256, None,
+     dict(window=4096, softcap=50.0)),
+    ("llava_train", 2, 3904, 3904, 32, 8, 128, None, {}),
+    ("seamless_enc", 4, 512, 512, 16, 16, 64, None, BIDIR),
+    ("seamless_dec", 4, 1024, 1024, 16, 16, 64, None, {}),
+    ("seamless_cross", 4, 1024, 512, 16, 16, 64, "src_valid", BIDIR))
+TRAIN_TAGS = tuple(t for t, *_ in BWD_SHAPES)
 BWD_TOL = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
            torch.float16: F16_TOL}
+# the backward held block by block as well (``_tile_err``): a dropped,
+# shifted or misplaced tile reads ~1 whatever its scale, where BWD_TOL's
+# absolute limit passes a tail tile whose gradients are all below it
+# (llava's last 64 keys: dv ~0.003). The limits are 2.6-3.1x the
+# largest reading over BWD_SHAPES on an H100 (1.0e-5 f32, 9.8e-4 f16,
+# 7.7e-3 bf16: about one unit in the last place of a block's largest
+# gradient); a dropped tile reads 1.0 (PERF.md §6)
+TILE = 64
+TILE_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2, torch.float16: 3e-3}
 
 
 def train_batch(step=0, spec=None):
-    """One packed batch of a train run's data (8 x 1024 tokens of the
-    run's vocabulary; llama3.2-1b's by default)."""
-    from repro_torch.data.pipeline import DataConfig, make_batch
-    spec = spec or TRAIN
-    return make_batch(DataConfig(vocab_size=spec["vocab"],
-                                 seq_len=spec["seq_len"],
-                                 global_batch=spec["batch"], pack=True),
-                      step)
+    """One batch of a train run's data (``train_data``; llama3.2-1b's
+    by default)."""
+    from repro_torch.data.pipeline import make_batch
+    return make_batch(train_data(spec or TRAIN), step)
+
+
+def train_data(spec):
+    """A train run's DataConfig: ``spec["batch"]`` rows of
+    ``spec["seq_len"]`` tokens of its vocabulary, packed unless the spec
+    says ``pack=False``; an unpacked run's ``doc_len`` (the mean
+    document length) makes a row one document of the whole row."""
+    from repro_torch.data.pipeline import DataConfig
+    kw = {"mean_doc_len": spec["doc_len"]} if "doc_len" in spec else {}
+    return DataConfig(vocab_size=spec["vocab"], seq_len=spec["seq_len"],
+                      global_batch=spec["batch"],
+                      pack=spec.get("pack", True), **kw)
+
+
+def train_extras(batch, spec, d_model, step):
+    """A train run's host batch of ``step`` with the seeded embeddings
+    its spec asks for, made on the card (0.02 * N(0, 1), as
+    ``serve_extras`` draws them, from a ``torch.Generator`` seeded by the
+    step): a VLM's ``spec["prefix"]`` patch embeddings before each row
+    (positions then run over prefix and text, so the batch's own are
+    dropped; the loss stays on the text), an encoder-decoder's
+    ``spec["src_frames"]`` source frames with ``src_valid``: row 0 all
+    valid, each other row a seeded count in [``spec["src_min"]``,
+    ``spec["src_frames"]``] (never 0: ROADMAP.md Queue 3). The batch
+    itself unchanged where the spec asks for none."""
+    if not (spec.get("prefix") or spec.get("src_frames")):
+        return batch
+    out = dict(batch)
+    b = batch["tokens"].shape[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1000 + step)
+    if spec.get("prefix"):
+        del out["positions"]
+        out["prefix_emb"] = 0.02 * torch.randn(
+            (b, spec["prefix"], d_model), generator=g, device="cuda")
+    if spec.get("src_frames"):
+        n = spec["src_frames"]
+        out["src_emb"] = 0.02 * torch.randn((b, n, d_model), generator=g,
+                                            device="cuda")
+        lens = np.random.default_rng([SEED, step]).integers(
+            spec["src_min"], n + 1, b)
+        lens[0] = n
+        out["src_valid"] = (torch.arange(n, device="cuda")[None, :] <
+                            torch.as_tensor(lens, device="cuda")[:, None]
+                            ).to(torch.int32)
+    return out
 
 
 def _grad_err(got, want) -> float:
@@ -1918,186 +2013,210 @@ def _grad_err(got, want) -> float:
     return float(((got.float() - w).abs() / w.abs().clamp_min(1.0)).max())
 
 
-# the forward at the training shapes: BWD_SHAPES' llama3.2-1b (train) and
-# gemma2-9b (d256_train) rows, packed ids of make_batch step 0
-FWD_TRAIN_SHAPES = tuple(("fwd_" + t, *rest) for t, *rest in BWD_SHAPES
-                         if t in ("train", "d256_train"))
-FWD_TRAIN_TAGS = tuple(t for t, *_ in FWD_TRAIN_SHAPES)
+def _tile_err(got, want) -> float:
+    """Max over the (row, TILE positions, head) blocks of a [B, S, H, D]
+    gradient of max |got - want| over the block's own max |want|, floored
+    at 1e-3 of the tensor's max |want| (a block of zeros, or of
+    rounding-level values, is not held to its own noise)."""
+    b, s, h, d = want.shape
+    pad = (0, 0, 0, 0, 0, -s % TILE)
+    w = torch.nn.functional.pad(want.float().abs(), pad).view(
+        b, -1, TILE, h, d)
+    e = torch.nn.functional.pad((got.float() - want.float()).abs(),
+                                pad).view(b, -1, TILE, h, d)
+    floor = max(1e-3 * float(w.max()), 1e-30)
+    return float((e.amax((2, 4)) / w.amax((2, 4)).clamp_min(floor)).max())
 
 
-def check_flash_fwd_train(timer):
-    """The forward kernel at FWD_TRAIN_SHAPES (B=8 S=1024 causal, packed
-    ids: llama3.2-1b's D 64 and gemma2-9b's D 256 with softcap 50) as the
-    training path runs it, with lse: out held against ``attention_lse``
-    in bf16 (2e-2), f16 (1e-2) and f32 (1e-4), lse within 1e-4, a repeat
-    bit for bit; then in bf16 timed with lse and without, beside its
-    plain version, SDPA given the same boolean mask (no softcap) and its
-    bound: the products of this run's visible pairs at the bf16 peak, or
-    the bytes of q, k, v and the ids read and out and lse written.
-    Returns the flash row's extra keys."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    attention_lse = ref.attention_lse
-    runs = {spec["arch"]: spec for spec in (TRAIN, TRAIN_GEMMA)}
-    row = {}
-    for tag, b, s, h, kv, d, ids_of, kw in FWD_TRAIN_SHAPES:
-        ids = torch.from_numpy(train_batch(0, runs[ids_of])["segment_ids"])
-        segs = (ids.cuda(), ids.cuda())
-        i = torch.arange(s, device="cuda")
-        mask = (i[None, :] <= i[:, None])[None, None] & \
-            (segs[0][:, None, :, None] == segs[0][:, None, None, :])
-        base = [torch.randn((b, s, n, d), device="cuda") for n in (h, kv, kv)]
-        lse_err = 0.0
-        for dtype, tol, sfx in ((torch.float32, F32_TOL, "_f32"),
-                                (torch.float16, F16_TOL, "_f16"),
-                                (torch.bfloat16, BF16_TOL, "")):
-            q, k, v = (x.to(dtype) for x in base)
-            out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
-                                           with_lse=True, **kw)
-            want, want_lse = attention_lse(q, k, v, segment_ids=segs, **kw)
-            err = _max_err(out, want)
-            lse_err = max(lse_err, _max_err(lse, want_lse))
-            if err > tol or lse_err > 1e-4:
-                fail(f"flash_attention {tag} {dtype}: out error {err}, lse "
-                     f"error {lse_err}")
-            again = flash_attention_fwd(q, k, v, segment_ids=segs,
-                                        with_lse=True, **kw)
-            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
-                fail(f"flash_attention {tag} {dtype}: repeat differs")
-            row[f"max_abs_err{sfx}_{tag}"] = err
-            del out, lse, want, want_lse, again
-        # timed in bf16, the training path's type (q, k, v of the last pass)
-        pairs = int(mask.sum())
-        n_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d) + \
-            4 * b * h * s + 2 * 4 * b * s
-        b_ms, b_by = bound_ms(n_bytes, 4 * d * pairs * h, "bfloat16")
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        row.update({
-            f"lse_err_{tag}": lse_err,
-            f"ms_{tag}": timer.ms(lambda: flash_attention_fwd(
-                q, k, v, segment_ids=segs, with_lse=True, **kw)),
-            f"ms_nolse_{tag}": timer.ms(lambda: flash_attention_fwd(
-                q, k, v, segment_ids=segs, **kw)),
-            f"plain_ms_{tag}": timer.ms(lambda: attention_lse(
-                q, k, v, segment_ids=segs, **kw), iters=3, warmup=1),
-            f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
-            f"library_ms_{tag}": timer.ms(
-                lambda: _sdpa(qt, kt, vt, attn_mask=mask)),
-            f"pairs_{tag}": pairs})
-        del base, q, k, v, qt, kt, vt, mask
-        free_engine()
-    row["shape_fwd_train"] = "; ".join(
-        f"{t}: B={b} S={s} H={h} KV={kv} D={d} causal, packed ids "
-        f"({ids_} make_batch step 0)"
-        f"{''.join(f' {k} {v:g}' for k, v in kw.items())}"
-        for t, b, s, h, kv, d, ids_, kw in FWD_TRAIN_SHAPES) + (
-        " (ms_*: with lse, as training runs it; ms_nolse_*: without; "
-        "max_abs_err_*: bf16, _f16 / _f32 beside; SDPA given the same "
-        "boolean mask, no softcap)")
-    return row
+def _train_ids(b, sq, ids):
+    """A BWD_SHAPES row's (q, k) segment ids on the card, or None."""
+    if ids is None:
+        return None
+    if ids == "src_valid":
+        valid = train_extras(train_batch(0, TRAIN_SEAMLESS), TRAIN_SEAMLESS,
+                             1, 0)["src_valid"]
+        return torch.ones((b, sq), dtype=torch.int32, device="cuda"), valid
+    spec = next(r for r in (TRAIN, TRAIN_GEMMA) if r["arch"] == ids)
+    x = torch.from_numpy(train_batch(0, spec)["segment_ids"]).cuda()
+    return x, x
 
 
-def check_flash_attention_bwd(timer):
-    """The backward kernel at BWD_SHAPES, in f32 (1e-4), bf16 (2e-2)
-    and f16 (1e-2): the forward kernel's (out, lse) with lse held
-    against ``attention_lse`` within 1e-4, then (dq, dk, dv) against
-    ``flash_attention_bwd_ref`` on the same (out, lse), and a repeat bit
-    for bit. In bf16 it is timed beside the plain version, SDPA's
-    backward (autograd.grad of F.scaled_dot_product_attention with
-    enable_gqa, causal, or given the same boolean mask with ids or a
-    binding window; its forward outside the timing; no softcap) and its
-    bound: the 5 products over this run's visible pairs at the bf16
-    peak, or the bytes of q, k, v, o, dO read and dq, dk, dv written.
-    Returns the backward's row."""
+def _train_mask(b, sq, skv, segs, kw):
+    """The boolean mask [B, 1, Sq, Skv] a BWD_SHAPES row's ids and
+    options keep (causal aligned to the last key unless bidirectional,
+    the window where it binds), and SDPA's keywords for the same mask:
+    the mask itself with ids or a binding window, else is_causal or
+    nothing."""
+    i = torch.arange(skv, device="cuda")
+    mask = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+    if not kw.get("bidirectional"):
+        mask &= i[None, :] <= i[-sq:, None]
+    band = 0 < kw.get("window", 0) < skv
+    if band:
+        mask &= i[None, :] > i[-sq:, None] - kw["window"]
+    mask = mask[None, None].expand(b, 1, sq, skv)
+    if segs is not None:
+        mask = mask & (segs[0][:, None, :, None] == segs[1][:, None, None, :])
+    if segs is not None or band:
+        return mask, {"attn_mask": mask}
+    return mask, {} if kw.get("bidirectional") else {"is_causal": True}
+
+
+def check_flash_train(timer):
+    """The flash kernel's forward (with lse) and backward at BWD_SHAPES,
+    in f32, f16 and bf16: out within F32_TOL / F16_TOL / BF16_TOL of
+    ``attention_lse`` and lse within 1e-4; (dq, dk, dv) against
+    ``flash_attention_bwd_ref`` on the kernel's (out, lse), within the
+    same limits of max(1, |want|) and within TILE_TOL block by block
+    (``_tile_err``); every call repeated bit for bit. In bf16 the block
+    check is shown to see a dropped tile: dk or dv with its last TILE
+    keys zeroed must read above the limit (drop_tail_err_*; beside it
+    what the absolute check reads, drop_tail_grad_err_*). Then in bf16,
+    the training path's type, each timed beside its plain version and,
+    in turns (kernel, SDPA, kernel, SDPA), beside SDPA given the same
+    mask (``_train_mask``; no softcap; its backward through
+    autograd.grad, its forward outside that timing), the forward also
+    without lse, with the bounds: 4 (forward) or 10 (backward) D H flops
+    per visible pair at the bf16 peak, or the bytes of q, k, v, the ids
+    (and out, dO, lse) read and of out and lse (dq, dk, dv) written.
+    Returns (the forward row's extra keys, the backward's row)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd)
     from repro_torch.kernels.ref import attention_lse
-    row = {"name": "flash_attention_bwd", "route": "cuda",
+    fwd = {}
+    bwd = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:83",
            "replaces_what": "the gradient of this function, which the "
                             "reference takes with jax.grad through "
                             "ref.flash_attention_blocked (the Pallas "
                             "kernel has no backward)"}
-    runs = {spec["arch"]: spec for spec in (TRAIN, TRAIN_GEMMA)}
-    for tag, b, s, h, kv, d, ids_of, kw in BWD_SHAPES:
-        ids = None if ids_of is None else torch.from_numpy(
-            train_batch(0, runs[ids_of])["segment_ids"]).cuda()
-        segs = None if ids is None else (ids, ids)
-        i = torch.arange(s, device="cuda")
-        mask = (i[None, :] <= i[:, None])
-        band = 0 < kw.get("window", 0) < s     # the window binds
-        if band:
-            mask = mask & (i[None, :] > i[:, None] - kw["window"])
-        mask = mask[None, None].expand(b, 1, s, s)
-        if ids is not None:
-            mask = mask & (ids[:, None, :, None] == ids[:, None, None, :])
+    for tag, b, sq, skv, h, kv, d, ids, kw in BWD_SHAPES:
+        segs = _train_ids(b, sq, ids)
+        mask, lib_kw = _train_mask(b, sq, skv, segs, kw)
         pairs = int(mask.sum())
-        for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
-                          (torch.float16, "f16")):
-            q, do = (torch.randn((b, s, h, d), device="cuda").to(dtype)
+        for dtype, dt in ((torch.float32, "f32"), (torch.float16, "f16"),
+                          (torch.bfloat16, "bf16")):
+            q, do = (torch.randn((b, sq, h, d), device="cuda").to(dtype)
                      for _ in range(2))
-            k, v = (torch.randn((b, s, kv, d), device="cuda").to(dtype)
+            k, v = (torch.randn((b, skv, kv, d), device="cuda").to(dtype)
                     for _ in range(2))
             out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
                                            with_lse=True, **kw)
-            _, want_lse = attention_lse(q, k, v, segment_ids=segs, **kw)
-            lse_err = _max_err(lse, want_lse)
-            if lse_err > 1e-4:
-                fail(f"flash_attention lse {tag} {dt}: max err {lse_err}")
+            want, want_lse = attention_lse(q, k, v, segment_ids=segs, **kw)
+            err, lse_err = _max_err(out, want), _max_err(lse, want_lse)
+            if err > BWD_TOL[dtype] or lse_err > 1e-4:
+                fail(f"flash_attention {tag} {dt}: out error {err}, lse "
+                     f"error {lse_err}")
+            del want, want_lse
             args = (q, k, v, out, lse, do)
             got = flash_attention_bwd(*args, segment_ids=segs, **kw)
             want = flash_attention_bwd_ref(*args, segment_ids=segs, **kw)
             errs = [_grad_err(g, w) for g, w in zip(got, want)]
-            if max(errs) > BWD_TOL[dtype]:
-                fail(f"flash_attention_bwd {tag} {dt}: errors (dq, dk, "
-                     f"dv) {errs}")
+            tiles = [_tile_err(g, w) for g, w in zip(got, want)]
+            if max(errs) > BWD_TOL[dtype] or max(tiles) > TILE_TOL[dtype]:
+                fail(f"flash_attention_bwd {tag} {dt}: errors (dq, dk, dv) "
+                     f"{errs}, by block {tiles}")
             again = flash_attention_bwd(*args, segment_ids=segs, **kw)
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                fail(f"flash_attention_bwd {tag} {dt}: repeat differs")
+            again_f = flash_attention_fwd(q, k, v, segment_ids=segs,
+                                          with_lse=True, **kw)
+            if not (all(torch.equal(x, y) for x, y in zip(got, again))
+                    and torch.equal(out, again_f[0])
+                    and torch.equal(lse, again_f[1])):
+                fail(f"flash_attention {tag} {dt}: a repeat differs")
             sfx = f"{tag}_{dt}"
-            row[f"err_{sfx}"] = max(errs)
-            row[f"max_abs_err_{sfx}"] = max(_max_err(g, w)
-                                            for g, w in zip(got, want))
-            row[f"lse_err_{sfx}"] = lse_err
-            del got, want, again, want_lse
-        # timed in bf16, the training path's type
-        q, k, v, do = (a.to(torch.bfloat16) for a in (q, k, v, do))
-        out, lse = flash_attention_fwd(q, k, v, segment_ids=segs,
-                                       with_lse=True, **kw)
-        args = (q, k, v, out, lse, do)
-        n_bytes = 2 * (3 * b * s * h * d + 2 * b * s * kv * d) + \
-            2 * (b * s * h * d + 2 * b * s * kv * d)
-        b_ms, b_by = bound_ms(n_bytes, 5 * 2 * d * pairs * h, "bfloat16")
+            fwd[f"max_abs_err_fwd_{sfx}"] = err
+            fwd[f"lse_err_fwd_{sfx}"] = lse_err
+            bwd.update({f"err_{sfx}": max(errs), f"tile_err_{sfx}": tiles,
+                        f"max_abs_err_{sfx}": max(
+                            _max_err(g, w) for g, w in zip(got, want)),
+                        f"lse_err_{sfx}": lse_err})
+            if dtype == torch.bfloat16:
+                dropped = [g.clone() for g in got[1:]]
+                for g in dropped:
+                    g[:, -TILE:] = 0
+                drop = min(_tile_err(g, w) for g, w in zip(dropped, want[1:]))
+                if drop <= TILE_TOL[dtype]:
+                    fail(f"flash_attention_bwd {tag}: the block check reads "
+                         f"{drop} with the last {TILE} keys dropped")
+                bwd[f"drop_tail_err_{tag}"] = drop
+                bwd[f"drop_tail_grad_err_{tag}"] = max(
+                    _grad_err(g, w) for g, w in zip(dropped, want[1:]))
+                del dropped
+            del got, want, again, again_f
+            free_engine()
+        # timed in bf16 (q, k, v, dO, out, lse of the last pass)
+        id_bytes = 4 * b * (sq + skv) if segs is not None else 0
+        f_ms, f_by = bound_ms(
+            2 * (2 * b * sq * h * d + 2 * b * skv * kv * d)
+            + 4 * b * h * sq + id_bytes, 4 * d * pairs * h, "bfloat16")
+        b_ms, b_by = bound_ms(
+            2 * (3 * b * sq * h * d + 2 * b * skv * kv * d)
+            + 2 * (b * sq * h * d + 2 * b * skv * kv * d)
+            + 4 * b * h * sq + id_bytes, 10 * d * pairs * h, "bfloat16")
         qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True)
                       for a in (q, k, v))
-        lib_out = _sdpa(qt, kt, vt, attn_mask=mask) \
-            if ids is not None or band else _sdpa(qt, kt, vt, is_causal=True)
+        lib_out = _sdpa(qt, kt, vt, **lib_kw)
         dot = do.transpose(1, 2)
-        row.update({
-            f"ms_{tag}": timer.ms(lambda: flash_attention_bwd(
-                *args, segment_ids=segs, **kw)),
+
+        def kern_f():
+            return flash_attention_fwd(q, k, v, segment_ids=segs,
+                                       with_lse=True, **kw)
+
+        def lib_f():
+            with torch.no_grad():
+                return _sdpa(qt, kt, vt, **lib_kw)
+
+        def kern_b():
+            return flash_attention_bwd(*args, segment_ids=segs, **kw)
+
+        def lib_b():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        turns = {"fwd": [], "sdpa_fwd": [], "bwd": [], "sdpa_bwd": []}
+        for _ in range(2):
+            for key, fn in (("fwd", kern_f), ("sdpa_fwd", lib_f),
+                            ("bwd", kern_b), ("sdpa_bwd", lib_b)):
+                turns[key].append(timer.ms(fn))
+        fwd.update({
+            f"ms_fwd_{tag}": turns["fwd"][0],
+            f"ms_nolse_fwd_{tag}": timer.ms(lambda: flash_attention_fwd(
+                q, k, v, segment_ids=segs, **kw)),
+            f"plain_ms_fwd_{tag}": timer.ms(lambda: attention_lse(
+                q, k, v, segment_ids=segs, **kw), iters=3, warmup=1),
+            f"bound_ms_fwd_{tag}": f_ms, f"bound_by_fwd_{tag}": f_by,
+            f"library_ms_fwd_{tag}": turns["sdpa_fwd"][0],
+            f"turns_fwd_{tag}": [turns["fwd"], turns["sdpa_fwd"]],
+            f"pairs_fwd_{tag}": pairs})
+        bwd.update({
+            f"ms_{tag}": turns["bwd"][0],
             f"plain_ms_{tag}": timer.ms(lambda: flash_attention_bwd_ref(
                 *args, segment_ids=segs, **kw), iters=3, warmup=1),
             f"bound_ms_{tag}": b_ms, f"bound_by_{tag}": b_by,
-            f"library_ms_{tag}": timer.ms(lambda: torch.autograd.grad(
-                lib_out, (qt, kt, vt), dot, retain_graph=True)),
+            f"library_ms_{tag}": turns["sdpa_bwd"][0],
+            f"turns_{tag}": [turns["bwd"], turns["sdpa_bwd"]],
             f"pairs_{tag}": pairs})
-        del lib_out, qt, kt, vt, args, out, lse, mask
+        del q, k, v, do, out, lse, args, qt, kt, vt, lib_out, dot, mask
         free_engine()
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
-        row[key] = row[f"{key}_train"]
-    row["max_abs_err"] = row["max_abs_err_train_bf16"]
-    row["shape"] = "; ".join(
-        f"{t}: B={b} S={s} H={h} KV={kv} D={d} causal"
-        f"{f' packed ids ({ids_} make_batch step 0)' if ids_ else ''}"
-        f"{''.join(f' {k} {v:g}' for k, v in kw.items())}"
-        for t, b, s, h, kv, d, ids_, kw in BWD_SHAPES) + (
+        bwd[key] = bwd[f"{key}_train"]
+    bwd["max_abs_err"] = bwd["max_abs_err_train_bf16"]
+    ids_note = {None: "", "src_valid": " ids: TRAIN_SEAMLESS's src_valid"}
+    shape = "; ".join(
+        f"{t}: B={b} Sq={sq} Skv={skv} H={h} KV={kv} D={d} "
+        f"{'bidirectional' if kw.get('bidirectional') else 'causal'}"
+        f"{''.join(f' {k} {kw[k]:g}' for k in ('window', 'softcap') if k in kw)}"
+        f"{ids_note.get(i, f' packed ids ({i} make_batch step 0)')}"
+        for t, b, sq, skv, h, kv, d, i, kw in BWD_SHAPES) + (
         " (top-level numbers: train in bf16; err_*: max |got - want| / "
-        "max(1, |want|) over dq, dk, dv; max_abs_err_*: max |got - want|; "
-        "d256_*: the eight-warp head_dim 256 bodies in bf16 / f16, SDPA "
-        "without softcap, given the mask where ids or the window cut it)")
-    return row
+        "max(1, |want|) over dq, dk, dv; tile_err_*: [dq, dk, dv] by "
+        f"block of {TILE} positions and a head; max_abs_err_*: max |got - "
+        "want|; turns_*: [kernel ms, SDPA ms] timed kernel, SDPA, kernel, "
+        "SDPA; SDPA without softcap, given the mask where ids or the "
+        "window cut it)")
+    fwd["shape_fwd_train"] = bwd["shape"] = shape
+    return fwd, bwd
 
 
 def scan_inputs(bt, s, h, p, n, dtype, init):
@@ -4896,26 +5015,74 @@ TRAIN_GEMMA = dict(TRAIN, arch="gemma2-9b", vocab=256000, n_layers=4,
                    cut="4 of 42 layers (two local / global periods): "
                        "the f32 parameters, gradients and AdamW moments "
                        "of all 42 are ~148 GB")
+# 8d / 8e: the embedding families at every published width on unpacked
+# rows (one document a row: a mean document length of 16,384 fills the
+# 1,024 text tokens of ~94% of rows, where make_batch's default of 96
+# would leave ~90 labelled tokens a row), the loss on the text, their
+# embeddings seeded on the card (``train_extras``). llava: 2,880 patch
+# embeddings (the served prefix, the anyres maximum) before each row;
+# the batch cut to 2 rows (7,808 positions, about the other runs' 8,192
+# tokens) and the depth to the largest even one whose peak leaves 8 GB
+# of the card free (PERF.md: the memory plan; measured 15.8 GB at 2
+# layers, 26.8 at 4, 71.6 at 12 of the card's 85.0). seamless: 24
+# encoder + 24 decoder layers, 512 source frames a row (the serve
+# phase's src_cap), each row after the first 96..512 valid; at 8 rows the step
+# does not fit the card, so 4 (the batch cut before any depth)
+TRAIN_LLAVA = dict(
+    TRAIN, arch="llava-next-mistral-7b", vocab=32000, batch=2, pack=False,
+    doc_len=16384, prefix=2880, n_layers=12, lr=3e-4,
+    lr_note="3e-4, not the other runs' 1e-3: at 1e-3 this width's loss "
+            "rises from 4 layers on (4: 10.857 -> a last-5 mean of "
+            "10.984; 12: 10.897 -> 11.215), and the plain versions "
+            "(kernel_impl='ref') rise alike at 4, 6 and 8 layers (4: "
+            "10.857 -> 11.332, within 0.2% of the kernels' losses for "
+            "14 steps); tools/train_memory_probe.py",
+    cut="12 of 32 layers: 218.1 M parameters a layer are 3.49 GB of f32 "
+        "parameters, gradients and AdamW moments, all 32 with the untied "
+        "embedding and head ~116 GB; the peak grows 5.47 GB a layer from "
+        "15.8 GB at 2, so 12 is the largest even depth that leaves 8 GB "
+        "of the card's 85.0 free (71.6 GB; 14 runs out at 79.5 GB)",
+    batch_cut="2 rows of 2,880 patch embeddings + 1,024 text tokens "
+              "(7,808 positions a step)")
+TRAIN_SEAMLESS = dict(
+    TRAIN, arch="seamless-m4t-large-v2", vocab=256206, pack=False,
+    doc_len=16384, batch=4, src_frames=512, src_min=96,
+    batch_cut="4 rows (53.3 GB): at 8 the second step runs out of the "
+              "card's memory at 81.6 GB")
 TRAIN_PARITY_LAYERS = 2
 TRAIN_PARITY_STEPS = 3
+
+
+def mixer_sites(cfg) -> int:
+    """Mixer calls one forward pass makes, one kernel launch each: a
+    decoder layer's self-attention or scan, an encoder layer's
+    self-attention, and an encoder-decoder's cross-attention in each
+    decoder layer (``transformer._apply_layer_full``)."""
+    return cfg.n_enc_layers + cfg.n_layers * (2 if cfg.n_enc_layers else 1)
 RESUME = dict(seq_len=128, batch=4, ckpt_step=3, steps=6)
 
 
 def _train_flops(cfg, batch) -> float:
     """Model FLOPs of one training step (forward and backward, no
-    recomputation): 6 per parameter of every weight product and token
-    (the tied head included, d x V). Attention layers: their
-    projections and MLP, and 12 * H * D per visible (query, key) pair
-    (2 products forward, 4 backward). The pairs are counted by segment
-    alone, which is right while every document is shorter than a
-    sliding window (S 1024 against gemma2's 4096); above the window it
-    would overcount the local layers' pairs. Mamba2 layers
+    recomputation): 6 per parameter of every weight product and
+    position (the head, d x V, on the text tokens alone). Attention
+    layers: their projections and MLP over every position (a VLM's
+    prefix included), and 12 * H * D per visible (query, key) pair (2
+    products forward, 4 backward). With packed ids the pairs are
+    counted by segment alone, which is right while every document is
+    shorter than a sliding window (S 1024 against gemma2's 4096); above
+    the window it would overcount the local layers' pairs. Unpacked
+    rows: the causal pairs over prefix and text. An encoder-decoder
+    adds its encoder layers over the source frames (every pair
+    visible: the encoder is unmasked) and each decoder layer's
+    cross-attention: q and out projections over the text, k and v over
+    the frames, the pairs of each row's valid frames. Mamba2 layers
     (``cfg.ssm``): the in projection (wx, wz, wB, wC, wdt: d x (2 di +
-    2 N + nh)) and the
-    out projection (di x d), and the scan's own products, 15 * H * P * N
-    a token (~5 forward, ~10 backward); the depthwise conv, the norms
-    and the gates are not counted."""
-    tokens = batch["tokens"].size
+    2 N + nh)) and the out projection (di x d), and the scan's own
+    products, 15 * H * P * N a token (~5 forward, ~10 backward); the
+    depthwise conv, the norms and the gates are not counted."""
+    b, s_text = batch["tokens"].shape
+    tokens = b * s_text
     d = cfg.d_model
     if cfg.ssm is not None:
         sc = cfg.ssm
@@ -4926,28 +5093,50 @@ def _train_flops(cfg, batch) -> float:
             15.0 * nh * sc.head_dim * n * tokens * cfg.n_layers
     h, kv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * ff
-    n_mm = cfg.n_layers * per_layer + d * cfg.vocab_size
-    pairs = 0
-    for ids in batch["segment_ids"]:
-        _, counts = np.unique(ids, return_counts=True)
-        pairs += int((counts * (counts + 1) // 2).sum())
-    return 6.0 * n_mm * tokens + 12.0 * h * hd * pairs * cfg.n_layers
+    pre = batch["prefix_emb"].shape[1] if "prefix_emb" in batch else 0
+    s = s_text + pre
+    if "segment_ids" in batch:
+        pairs = 0
+        for ids in batch["segment_ids"]:
+            _, counts = np.unique(ids, return_counts=True)
+            pairs += int((counts * (counts + 1) // 2).sum())
+    else:
+        pairs = b * s * (s + 1) // 2
+    flops = 6.0 * (cfg.n_layers * per_layer * b * s
+                   + d * cfg.vocab_size * tokens) + \
+        12.0 * h * hd * pairs * cfg.n_layers
+    if cfg.n_enc_layers:
+        n_src = batch["src_emb"].shape[1]
+        valid = int(batch["src_valid"].sum())
+        frames = b * n_src
+        flops += 6.0 * cfg.n_enc_layers * per_layer * frames + \
+            12.0 * h * hd * b * n_src * n_src * cfg.n_enc_layers
+        flops += 6.0 * cfg.n_layers * (2 * h * hd * d * tokens
+                                       + 2 * kv * hd * d * frames) + \
+            12.0 * h * hd * s_text * valid * cfg.n_layers
+    return flops
 
 
 def _train_parity(cfg, opt_cfg, spec):
-    """(b) A 2-layer full-width f32 trainer with the kernels and with
-    kernel_impl="ref" from one seeded state on the run's batches:
+    """(b) A 2-layer full-width f32 trainer (an encoder-decoder: 2
+    encoder and 2 decoder layers) with the kernels and with
+    kernel_impl="ref" from one seeded state on the run's batches, their
+    embeddings included:
     step 1's loss within 1e-5 relative, every gradient leaf within 1e-4
     of that leaf's max |value|, three steps' losses within 1e-3
     relative (AdamW's first updates are sign-like: a near-zero
     gradient's roundoff can move a weight by up to 2 lr); the backward
-    kernel launched once a layer and backward pass."""
+    kernel launched once a mixer site and backward pass."""
     from repro_torch.core.counters import COUNTERS
     from repro_torch.models import Runtime, build_model
     from repro_torch.training.train_loop import make_train_step, to_device
     from repro_torch.training.tree import leaves
-    cfg = dataclasses.replace(cfg, n_layers=TRAIN_PARITY_LAYERS)
+    cfg = _parity_cfg(cfg, TRAIN_PARITY_LAYERS)
     bwd_kernel = spec["kernels"][1]
+
+    def batch(step):
+        return train_extras(train_batch(step, spec), spec, cfg.d_model, step)
+
     runs = {}
     COUNTERS.reset()
     for impl in (None, "ref"):
@@ -4957,12 +5146,11 @@ def _train_parity(cfg, opt_cfg, spec):
                         device="cuda")
         step, init = make_train_step(m, opt_cfg)
         state = init(torch.Generator(device="cuda").manual_seed(SEED))
-        loss, _ = m.loss_fn(state.params,
-                            to_device(train_batch(0, spec), m.device))
+        loss, _ = m.loss_fn(state.params, to_device(batch(0), m.device))
         grads = torch.autograd.grad(loss, leaves(state.params))
         losses = []
         for s in range(TRAIN_PARITY_STEPS):
-            state, met = step(state, train_batch(s, spec))
+            state, met = step(state, batch(s))
             losses.append(float(met["loss"]))
         # the gradients wait on the host, so that the second trainer
         # runs with the card as empty as the first (gemma2's 2-layer
@@ -4971,9 +5159,9 @@ def _train_parity(cfg, opt_cfg, spec):
         del m, state, loss, grads
         free_engine()
     n_bwd = COUNTERS.launches().get(bwd_kernel, 0)
-    if n_bwd != TRAIN_PARITY_LAYERS * (1 + TRAIN_PARITY_STEPS):
+    if n_bwd != mixer_sites(cfg) * (1 + TRAIN_PARITY_STEPS):
         fail(f"train parity: {n_bwd} {bwd_kernel} launches, "
-             f"expected {TRAIN_PARITY_LAYERS} a backward pass")
+             f"expected {mixer_sites(cfg)} a backward pass")
     (l_k, g_k, ls_k), (l_r, g_r, ls_r) = runs[None], runs["ref"]
     loss_rel = abs(l_k - l_r) / abs(l_r)
     grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
@@ -4982,8 +5170,9 @@ def _train_parity(cfg, opt_cfg, spec):
     if loss_rel > 1e-5 or grad_rel > 1e-4 or steps_rel > 1e-3:
         fail(f"train parity {cfg.name}: loss {loss_rel}, grads {grad_rel}, "
              f"3 steps {steps_rel} (kernels {ls_k}, ref {ls_r})")
-    return {"layers": TRAIN_PARITY_LAYERS, "bwd_launches": n_bwd,
-            "loss_rel_err": loss_rel,
+    return {"layers": TRAIN_PARITY_LAYERS,
+            "enc_layers": cfg.n_enc_layers, "rows": spec["batch"],
+            "bwd_launches": n_bwd, "loss_rel_err": loss_rel,
             "grad_rel_err": grad_rel, "steps_rel_err": steps_rel,
             "losses_kernel": ls_k, "losses_ref": ls_r}
 
@@ -5037,22 +5226,26 @@ def _train_resume(cfg, opt_cfg):
             "uninterrupted_losses": want, "loss_rel_err": rel}
 
 
-def train_run(spec):
+def train_run(spec, gates=True):
     """One architecture trained at published widths and full depth, or
     the spec's ``n_layers`` (the line then carries ``published_layers``
     and the spec's ``cut``): bf16 compute, f32 parameters and AdamW
     moments, seeded weights,
-    remat="dots", packed batches (DataConfig(vocab, 1024, 8)), AdamW
-    (lr 1e-3, warm-up 5, decay 30), 30 steps through ``train`` (the loop
-    the launcher calls). Counts are zeroed just before the run and read
-    just after. Gates: every loss finite, the mean of the last 5 below
-    the first, the backward kernel launched once a layer and step and
-    the forward kernel twice (once, and once more when the backward
-    recomputes each period). Then (b) the f32 kernel-vs-ref parity.
+    remat="dots", the kernels unless the spec sets ``kernel_impl``,
+    batches of DataConfig(vocab, 1024, spec["batch"]),
+    packed unless the spec says not, with the spec's seeded embeddings
+    (``train_extras``), AdamW (lr 1e-3 unless the spec sets it, warm-up
+    5, decay 30), 30 steps
+    through ``train`` (the loop the launcher calls). Counts are zeroed
+    just before the run and read just after. Gates (``gates``): every
+    loss finite, the mean of the last 5 below the first, the backward
+    kernel launched once a mixer site (``mixer_sites``) and step and the
+    forward kernel twice (once, and once more when the backward
+    recomputes each period); then (b) the f32 kernel-vs-ref parity.
     Returns the run's line."""
     from repro_torch.configs import get_arch
     from repro_torch.core.counters import COUNTERS
-    from repro_torch.data.pipeline import DataConfig, data_iter
+    from repro_torch.data.pipeline import data_iter
     from repro_torch.models import Runtime, build_model
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import TrainerConfig, train
@@ -5067,10 +5260,14 @@ def train_run(spec):
                               decay_steps=spec["decay_steps"])
     model = build_model(cfg, Runtime(compute_dtype=torch.bfloat16,
                                      param_dtype=torch.float32,
-                                     remat="dots"), device="cuda")
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq_len"],
-                      global_batch=spec["batch"], pack=True)
-    it = data_iter(dcfg)
+                                     remat="dots",
+                                     kernel_impl=spec.get("kernel_impl")),
+                        device="cuda")
+    it = data_iter(train_data(spec))
+    # the spec's seeded embeddings added step by step; the port's
+    # pipeline is left as it is
+    batches = (train_extras(b, spec, cfg.d_model, i)
+               for i, b in enumerate(it))
     steps, stamps = [], []
 
     def on_step(step, metrics):
@@ -5086,7 +5283,7 @@ def train_run(spec):
     COUNTERS.reset()
     t0 = time.perf_counter()
     try:
-        state, summary = train(model, it, opt_cfg,
+        state, summary = train(model, batches, opt_cfg,
                                TrainerConfig(total_steps=spec["steps"],
                                              log_every=1, ckpt_every=0),
                                seed=SEED, on_step=on_step)
@@ -5101,47 +5298,112 @@ def train_run(spec):
     losses = [s["loss"] for s in steps]
     per_step = [(b["fwd"] - a["fwd"], b["bwd"] - a["bwd"])
                 for a, b in zip([{"fwd": 0, "bwd": 0}] + steps, steps)]
-    n_mix = cfg.n_layers
-    if not all(math.isfinite(x) for x in losses):
+    n_mix = mixer_sites(cfg)
+    if gates and not all(math.isfinite(x) for x in losses):
         fail(f"train {cfg.name}: a loss is not finite: {losses}")
-    if not statistics.mean(losses[-5:]) < losses[0]:
+    if gates and not statistics.mean(losses[-5:]) < losses[0]:
         fail(f"train {cfg.name}: the loss did not fall: {losses}")
-    if any(b != n_mix for _, b in per_step):
+    if gates and any(b != n_mix for _, b in per_step):
         fail(f"train {cfg.name}: {bwd_k} launches a step {per_step}")
-    if any(f != 2 * n_mix for f, _ in per_step):
+    if gates and any(f != 2 * n_mix for f, _ in per_step):
         fail(f"train {cfg.name}: {fwd_k} launches a step {per_step}")
     # steady steps: the first pays the kernels' loads and the allocator
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     med_ms = statistics.median(step_ms)
     tokens = spec["batch"] * spec["seq_len"]
-    flops = _train_flops(cfg, train_batch(0, spec))
+    positions = spec["batch"] * (spec["seq_len"] + spec.get("prefix", 0))
+    batch0 = train_extras(train_batch(0, spec), spec, cfg.d_model, 0)
+    flops = _train_flops(cfg, batch0)
     line = {
         "arch": cfg.name, "layers": cfg.n_layers,
+        "enc_layers": cfg.n_enc_layers,
         "published_layers": published_layers,
-        "depth_cut": spec.get("cut"), "params": n_params,
+        "depth_cut": spec.get("cut"), "batch_cut": spec.get("batch_cut"),
+        "params": n_params,
         "compute_dtype": "bfloat16", "param_dtype": "float32",
-        "remat": "dots", "seq_len": spec["seq_len"],
-        "batch": spec["batch"], "pack": True, "steps": spec["steps"],
+        "remat": "dots", "kernel_impl": spec.get("kernel_impl"),
+        "seq_len": spec["seq_len"],
+        "batch": spec["batch"], "pack": spec.get("pack", True),
+        "prefix_len": spec.get("prefix", 0),
+        "src_frames": spec.get("src_frames", 0),
+        "src_valid_step0": [int(x) for x in batch0["src_valid"].sum(-1)]
+        if "src_valid" in batch0 else None,
+        "steps": spec["steps"],
         "optimizer": dataclasses.asdict(opt_cfg),
+        "lr_note": spec.get("lr_note"),
         "losses": losses, "lr": [s["lr"] for s in steps],
         "grad_norm": [s["grad_norm"] for s in steps],
         "step_ms_median": med_ms, "step_ms": step_ms,
         "tokens_per_s": tokens / (med_ms / 1e3),
+        "positions_per_s": positions / (med_ms / 1e3),
         "model_flops_per_step": flops,
         "mfu": flops / (med_ms / 1e3) / PEAK_OPS["bfloat16"],
-        "peak_mem_gib": peak / 2 ** 30, "run_s": run_s,
+        "peak_mem_gib": peak / 2 ** 30, "peak_mem_gb": peak / 1e9,
+        "run_s": run_s,
         f"{fwd_k}_launches_per_step": 2 * n_mix,
         f"{bwd_k}_launches_per_step": n_mix,
+        "mixer_sites": n_mix,
         "fwd_launches_note": f"{n_mix} forward + {n_mix} recomputed by "
-                             "the backward under remat='dots'",
+                             "the backward under remat='dots' (sites: "
+                             f"{cfg.n_enc_layers} encoder self-attention, "
+                             f"{cfg.n_layers} decoder mixers"
+                             f"{', ' + str(cfg.n_layers) + ' cross-attention' if cfg.n_enc_layers else ''})",
         "launches": launches,
         "stragglers": len(summary["stragglers"]),
         "mean_step_s": summary["mean_step_s"],
     }
     del model
     free_engine()
-    line["parity_f32"] = _train_parity(cfg, opt_cfg, spec)
+    if gates:
+        line["parity_f32"] = _train_parity(cfg, opt_cfg, spec)
     return line
+
+
+SERVE_LAUNCH = ["--arch", "llama3.2-1b", "--requests", "6",
+                "--max-new", "16"]
+
+
+def serve_launch_phase():
+    """9. The serving entry point: ``repro_torch.launch.serve.main`` on
+    the card with SERVE_LAUNCH (llama3.2-1b at its published widths,
+    the launcher's f32 runtime, 4 slots x 256 ctx, page 16, 6 seeded
+    prompts of 8..47 tokens, 16 new tokens each), counts zeroed just
+    before and read just after. Gates: its JSON parses, completed ==
+    requests, generated_tokens == requests x max_new, and fmmu_commit,
+    paged_attention and flash_attention each launched. Returns the
+    phase's line."""
+    import contextlib
+    import io
+    from repro_torch.core.counters import COUNTERS
+    from repro_torch.launch import serve
+    free_engine()
+    buf = io.StringIO()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(SERVE_LAUNCH)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = COUNTERS.launches()
+    text = buf.getvalue()
+    head, _, tail = text.partition("\nreq ")
+    try:
+        out = json.loads(head)
+    except json.JSONDecodeError as e:
+        fail(f"serve launch: its output is not JSON ({e}): {head[:200]}")
+    args = serve.parse_args(SERVE_LAUNCH)
+    if out["completed"] != args.requests or \
+            out["generated_tokens"] != args.requests * args.max_new:
+        fail(f"serve launch: completed {out['completed']}, generated "
+             f"{out['generated_tokens']} of {args.requests} x "
+             f"{args.max_new}")
+    for name in ATTENTION_PATH["single"]:
+        if launches.get(name, 0) <= 0:
+            fail(f"serve launch: {name} was not launched")
+    free_engine()
+    return {"argv": SERVE_LAUNCH, "output": out, "run_s": run_s,
+            "launches": launches,
+            "first_requests": ("req " + tail).strip().splitlines()}
 
 
 def train_phase():
@@ -5313,10 +5575,9 @@ def main() -> int:
     # segment ids in the flash kernel: the encoder-decoder's cross- and
     # encoder attention, packed segments at head_dim 128; llava's prefill
     rows["flash_attention"].update(check_flash_segments(timer))
-    # the flash forward at the training shapes (packed ids, lse), and its
-    # backward
-    rows["flash_attention"].update(check_flash_fwd_train(timer))
-    rows["flash_attention_bwd"] = check_flash_attention_bwd(timer)
+    # the flash forward (with lse) and backward at the training shapes
+    fwd_train, rows["flash_attention_bwd"] = check_flash_train(timer)
+    rows["flash_attention"].update(fwd_train)
     # the scan's backward (mamba2 training)
     rows["mamba_chunk_scan_bwd"] = check_mamba_chunk_scan_bwd(timer, logs)
     # the registers of each tensor-core instantiation the kernels ran
@@ -5499,6 +5760,31 @@ def main() -> int:
         rows[name]["launches_train_gemma"] = \
             train_gemma["launches"].get(name, 0)
 
+    # 8d / 8e. llava-next-mistral-7b (depth and batch cut) and
+    # seamless-m4t-large-v2 training at published widths, with their
+    # seeded embeddings (the flash forward and backward at head_dim 128
+    # over 3,904 causal positions; at head_dim 64 bidirectional in the
+    # encoder, causal in the decoder and across to the source frames)
+    train_fam = {}
+    for key, spec in (("train_llava", TRAIN_LLAVA),
+                      ("train_seamless", TRAIN_SEAMLESS)):
+        t0 = time.perf_counter()
+        train_fam[key] = train_run(spec)
+        train_fam[key]["phase_s"] = time.perf_counter() - t0
+        print(f"{key}: {train_fam[key]['phase_s']:.1f} s", file=sys.stderr)
+        for name in spec["kernels"]:
+            rows[name][f"launches_{key}"] = \
+                train_fam[key]["launches"].get(name, 0)
+
+    # 9. the serving launcher (launch/serve.py) on the card
+    t0 = time.perf_counter()
+    serve_launch = serve_launch_phase()
+    serve_launch["phase_s"] = time.perf_counter() - t0
+    print(f"serve launch: {serve_launch['phase_s']:.1f} s", file=sys.stderr)
+    for name in ATTENTION_PATH["single"]:
+        rows[name]["launches_serve_launch"] = \
+            serve_launch["launches"].get(name, 0)
+
     # report -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "launches_single_step", "launches_serve_swap",
@@ -5537,19 +5823,22 @@ def main() -> int:
          "launches_serve_prefix", "launches_ssd", "shape_d256",
          "replaces_what", "launches_train", "launches_train_gemma",
          "shape_fwd_train") + tuple(
-             f"{k}_{t}" for t in FWD_TRAIN_TAGS
-             for k in ("max_abs_err", "lse_err", "max_abs_err_f16",
-                       "max_abs_err_f32", "ms", "ms_nolse", "plain_ms",
-                       "bound_ms", "bound_by", "library_ms", "pairs")) + tuple(
-             f"{k}_{t}" for t, *_ in BWD_SHAPES
+             f"{k}_fwd_{t}" for t in TRAIN_TAGS
+             for k in ("ms", "ms_nolse", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "turns", "pairs")) + tuple(
+             f"{k}_fwd_{t}_{d}" for t in TRAIN_TAGS
+             for d in ("f32", "f16", "bf16")
+             for k in ("max_abs_err", "lse_err")) + tuple(
+             f"{k}_{t}" for t in TRAIN_TAGS
              for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms", "pairs")) + tuple(
+                       "library_ms", "turns", "pairs", "drop_tail_err",
+                       "drop_tail_grad_err")) + tuple(
              f"{k}_{t}_{d}" for t, *_, dts, _ in SCAN_BWD_SHAPES
              for d in dts for k in ("tol_share", "max_abs_err")) + (
              "launches_per_call",) + tuple(
-             f"{k}_{t}_{d}" for t, *_ in BWD_SHAPES
-             for d in ("f32", "bf16", "f16")
-             for k in ("err", "max_abs_err", "lse_err")) + tuple(
+             f"{k}_{t}_{d}" for t in TRAIN_TAGS
+             for d in ("f32", "f16", "bf16")
+             for k in ("err", "tile_err", "max_abs_err", "lse_err")) + tuple(
              f"{k}_d256{t}" for t in ("", "_bf16", "_f32")
              for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms")) + tuple(
@@ -5562,7 +5851,9 @@ def main() -> int:
               for k in ("ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms", "pairs")) + \
         tuple(f"max_abs_err_{t}_{d}" for t in SEG_TAGS
-              for d in ("f32", "bf16")) + ("shape_segments",)
+              for d in ("f32", "bf16")) + ("shape_segments",) + \
+        ("launches_train_llava", "launches_train_seamless",
+         "launches_serve_launch")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows.values()]}))
     print(json.dumps({"serve": serve}))
@@ -5585,6 +5876,9 @@ def main() -> int:
     print(json.dumps({"train": dict(train_line, card=smi)}))
     print(json.dumps({"train_ssm": dict(train_ssm, card=smi)}))
     print(json.dumps({"train_gemma": dict(train_gemma, card=smi)}))
+    for key, line in train_fam.items():
+        print(json.dumps({key: dict(line, card=smi)}))
+    print(json.dumps({"serve_launch": dict(serve_launch, card=smi)}))
     print(f"total: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -106,6 +106,14 @@ def _apply_layer_full(lp, x, cfg, rt: Runtime, j: int, *, positions,
     return x, aux, col
 
 
+def _any_requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_any_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_any_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def stack_forward(params, x, cfg, rt: Runtime, *, positions,
                   segment_ids=None, bidirectional=False, enc_out=None,
                   src_valid=None, collect_caches=False):
@@ -122,7 +130,9 @@ def stack_forward(params, x, cfg, rt: Runtime, *, positions,
 
     Under autograd each period's body runs rematerialised by
     ``rt.remat`` (``common.remat``), as the reference checkpoints its
-    scanned body; serving (no input requiring grad) runs it as it is."""
+    scanned body: where ``x`` or a weight requires grad (an encoder's
+    input, the source frames, does not, but its weights do); serving
+    (nothing requiring grad) runs it as it is."""
     period = cfg.period
     n_periods = cfg.n_layers // period
     cols: List[List[Dict[str, Any]]] = [[] for _ in range(period)]
@@ -140,7 +150,8 @@ def stack_forward(params, x, cfg, rt: Runtime, *, positions,
                 cols[j].append(col)
         return x, aux
 
-    if not collect_caches and torch.is_grad_enabled() and x.requires_grad:
+    if not collect_caches and torch.is_grad_enabled() and (
+            x.requires_grad or _any_requires_grad(params)):
         body = common.remat(body, rt.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(n_periods):

@@ -140,7 +140,7 @@ from repro_torch.models import transformer
 from repro_torch.models.model import Model, _src_len
 from repro_torch.paging.kv_manager import KVPageManager
 from repro_torch.paging.pool import OutOfBlocks
-from repro_torch.serving import macro
+from repro_torch.serving import macro, sampling
 from repro_torch.serving.config import ServeConfig
 
 # one bump per blocking device->host readback (prefill's first token,
@@ -928,7 +928,7 @@ class ServeEngine:
         else:
             self._register_prompt(req)
             HOST_SYNCS[0] += 1
-            req.out.append(int(torch.argmax(logits[0])))
+            req.out.append(int(sampling.greedy(logits[0])))
             req.t_first = time.perf_counter()
             self.metrics["generated"] += 1
         self.metrics["prefills"] += 1
@@ -979,7 +979,7 @@ class ServeEngine:
         logits, _ = self.m.decode_step(
             params, tokens, caches, ctx_lens=torch.where(live, ctx_lens, 0),
             block_table=tables, src_valid=src_valid)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sampling.greedy(logits)
 
     def _grow_pages(self, residents) -> List[Request]:
         """Allocate pages for every resident crossing a page boundary:

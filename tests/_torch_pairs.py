@@ -28,6 +28,13 @@ from repro_torch.models import Runtime, build_model
 from repro_torch.training.train_loop import to_device, trainable
 from repro_torch.training.tree import leaves
 
+# The port's CPU tests run small tensors, where torch's intra-op threads
+# only add their spin-waits; under the parallel runner (several workers
+# on the same cores) those threads oversubscribe the cores and slow the
+# port's tests several times over. Every worker imports this module when
+# it collects the tests, so one thread a process holds there.
+torch.set_num_threads(1)
+
 TOL = 2e-5
 PAGE = 8
 # training, float32 on both sides: the loss and every gradient leaf

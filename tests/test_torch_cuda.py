@@ -2477,6 +2477,57 @@ def test_train_step_gemma2_on_card(cuda):
     torch.cuda.empty_cache()
 
 
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_embedding_family_kernel_vs_ref(cuda, arch):
+    """One smoke-size f32 training step's loss and gradients of the
+    embedding families on the card, with the kernels against
+    kernel_impl="ref" from one seeded state (remat 'dots', 2 unpacked
+    rows of 128 tokens): llava with 8 seeded prefix embeddings before
+    each row, seamless with 24 source frames, the second row's first 9
+    valid. The loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest magnitude; the flash backward launched once a
+    mixer site (seamless: encoder self-, decoder self- and
+    cross-attention) and the forward twice."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import Runtime, build_model
+    from repro_torch.training.train_loop import to_device, trainable
+    from repro_torch.training.tree import leaves
+    cfg = smoke_config(get_arch(arch))
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                  global_batch=2, pack=False), 0)
+    rng = np.random.default_rng(0)
+    if cfg.prefix_len:
+        del batch["positions"]
+        batch["prefix_emb"] = (0.02 * rng.standard_normal(
+            (2, 8, cfg.d_model))).astype(np.float32)
+    if cfg.n_enc_layers:
+        batch["src_emb"] = (0.02 * rng.standard_normal(
+            (2, 24, cfg.d_model))).astype(np.float32)
+        batch["src_valid"] = (np.arange(24)[None, :]
+                              < np.array([[24], [9]])).astype(np.int32)
+    runs = {}
+    for impl in (None, "ref"):
+        m = build_model(cfg, Runtime(compute_dtype=torch.float32,
+                                     param_dtype=torch.float32,
+                                     remat="dots", kernel_impl=impl),
+                        device=cuda)
+        params = trainable(m.init(torch.Generator(device=cuda).manual_seed(0)))
+        COUNTERS.reset()
+        loss, _ = m.loss_fn(params, to_device(batch, m.device))
+        grads = torch.autograd.grad(loss, leaves(params))
+        runs[impl] = (float(loss.detach()), [g.cpu() for g in grads],
+                      COUNTERS.launches())
+    sites = cfg.n_enc_layers + cfg.n_layers * (2 if cfg.n_enc_layers else 1)
+    (l_k, g_k, n_k), (l_r, g_r, _) = runs[None], runs["ref"]
+    assert n_k["flash_attention_bwd"] == sites
+    assert n_k["flash_attention"] == 2 * sites
+    assert abs(l_k - l_r) <= 1e-5 * abs(l_r)
+    for i, (a, b) in enumerate(zip(g_k, g_r)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max(), i
+
+
 def test_scan_and_paged_refuse_grad(cuda):
     """The raw kernel wrappers without a backward raise under autograd
     on the card instead of returning a result that carries no gradient

@@ -12,7 +12,7 @@ that rounding ("bf16": one operand; "pair": a bf16 hi + lo pair, two
 products) it prints the worst |error| / max(1, |ref|) of dq, dk and dv,
 each rounded to bf16 as the kernel writes them, against the f32
 arithmetic rounded alike: the metric and gate (2e-2) of
-chip_smoke.check_flash_attention_bwd. The shape is a training check's
+chip_smoke.check_flash_train. The shape is a training check's
 at ``--batch`` of its 8 rows, one head at a time, causal with the packed
 segment ids of make_batch's step 0: ``--shape llama`` (S 1024, H 32, KV
 8, D 64; the head_dim 16-128 bodies) or ``--shape gemma2`` (S 1024, H

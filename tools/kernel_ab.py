@@ -5,9 +5,9 @@ on one card, for a before/after comparison inside one call:
     python3 tools/kernel_ab.py OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels mamba_chunk_scan OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels flash_attention,attention_served,\
-flash_segments,flash_attention_bwd OLD NEW NEW OLD
+flash_segments,flash_train:1 OLD NEW NEW OLD
     python3 tools/kernel_ab.py --kernels fmmu_fsm OLD NEW NEW OLD
-    python3 tools/kernel_ab.py --harness NEW --kernels flash_fwd_train,\
+    python3 tools/kernel_ab.py --harness NEW --kernels flash_train,\
 attention_d256 OLD NEW NEW OLD
     python3 tools/kernel_ab.py --harness NEW --kernels paged_attention,\
 attention_served:1,attention_d256:1 OLD NEW NEW OLD
@@ -24,7 +24,7 @@ times it (given, by its parameters' names, the timer, a seeded numpy
 generator and nvcc's build logs). A check that returns a tuple (the
 attention shapes': the flash row, then the paged row) gives its first
 element, or element N when named ``<name>:N`` (``attention_served:1``
-is the paged rows); a checkout without a check prints it under
+is the paged rows, ``flash_train:1`` the flash backward's); a checkout without a check prints it under
 ``missing``. Each run is a
 process of its own: it builds the kernels those checks run from that
 checkout's csrc/ into the checkout's build/ and prints one JSON line:
@@ -58,8 +58,7 @@ sources = {"mamba_chunk_scan": ["mamba_scan"],
            "attention_served": ["flash_attention", "paged_attention"],
            "attention_d256": ["flash_attention", "paged_attention"],
            "flash_segments": ["flash_attention"],
-           "flash_fwd_train": ["flash_attention"],
-           "flash_attention_bwd": ["flash_attention", "flash_attention_bwd"],
+           "flash_train": ["flash_attention", "flash_attention_bwd"],
            "mamba_chunk_scan_bwd": ["mamba_scan_bwd"]}
 specs = [(n.split(":")[0], int(n.split(":")[1]) if ":" in n else 0, n)
          for n in names]
